@@ -1,0 +1,94 @@
+"""The port stands without JAX, refuses what it does not carry, and never
+falls back to the CPU when asked for a CUDA device."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import voidin_tpu_torch as pt
+from voidin_tpu_torch.framework.renderer import Renderer, build_world
+from voidin_tpu_torch.ops import fine_raster as t_fr
+from voidin_tpu_torch.ops import lut_fetch as t_lut
+from voidin_tpu_torch.passes.raster import RasterConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_renders_with_jax_and_flax_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        import voidin_tpu_torch as pt
+        from voidin_tpu_torch.framework.renderer import Renderer, build_world
+        from voidin_tpu_torch.passes.raster import RasterConfig
+        world, moving = build_world(60, seed=1)
+        cfg = RasterConfig(width=64, height=32, tri_capacity=1 << 13,
+                           pair_capacity=1 << 13)
+        r = Renderer(world.device("cpu"), cfg, moving_ids=moving)
+        img = r.render(pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                                 aspect=2.0)).numpy()
+        assert img.shape == (32, 64, 3) and np.isfinite(img).all()
+        assert img.std() > 0 and int(r.aux["overflow"]) == 0
+        assert not any(m == "voidin_tpu" or m.startswith("voidin_tpu.")
+                       for m in sys.modules)
+        print("OK", img.mean())
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("OK")
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    world, _ = build_world(20, seed=0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        world.device("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_fr.fine_raster_pairs(torch.zeros(384, 16, device="cuda"),
+                               torch.zeros(8, dtype=torch.int32),
+                               torch.zeros(8, dtype=torch.int32))
+
+
+def test_wrappers_take_no_other_device():
+    rec = torch.zeros(384, 16, device="meta")
+    st = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        t_fr.fine_raster_pairs(rec, st, st)
+    with pytest.raises(ValueError):
+        t_lut.lut_fetch([torch.zeros(64, 64, device="meta")],
+                        torch.zeros(4, 2, device="meta"))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(enable_rt_shadows=True),
+    dict(area_light_scale=2),
+    dict(mesh="rows"),
+    dict(skins=("skin",)),
+    dict(slim_rec=True),
+    dict(taa_quad_history=True),
+])
+def test_renderer_refuses_what_is_not_ported(kwargs):
+    scene = pt.World().device("cpu")
+    with pytest.raises(NotImplementedError):
+        Renderer(scene, RasterConfig(width=32, height=16), **kwargs)
+
+
+def test_renderer_refuses_alpha_masked_scene():
+    w = pt.World()
+    tex = w.textures.add(np.zeros((4, 4, 4), np.uint8))
+    w.materials.add(albedo=tex)
+    scene = w.device("cpu")
+    assert scene.alpha_masked
+    with pytest.raises(NotImplementedError):
+        Renderer(scene, RasterConfig(width=32, height=16))

@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
+         -shared -Xcompiler -fPIC -o _build/libvoidin_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``voidin_tpu_torch/_build/`` (git-ignored), named by a
+hash of the sources and flags, so an edited kernel rebuilds and an
+unchanged one loads as is. ``-fmad=false`` keeps every multiply and add
+separately rounded, as the plain PyTorch twins compute them: the kernels
+are then bit-comparable with their twins.
+
+Nothing here runs at import time; the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libvoidin_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels if the hashed library is missing; returns its
+    path. `verbose` adds -Xptxas -v (registers/shared memory per kernel)
+    and prints the compiler's output."""
+    out = library_path()
+    if os.path.exists(out) and not verbose:
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *_sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            "nvcc failed (%d):\n%s\n%s" % (proc.returncode, proc.stdout,
+                                           proc.stderr)
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call, with its C signatures."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.voidin_fine_raster_pairs.restype = i
+        lib.voidin_fine_raster_pairs.argtypes = [p, p, p, p, p, i, i, p]
+        lib.voidin_lut_fetch.restype = i
+        lib.voidin_lut_fetch.argtypes = [p, p, i, i64, p, p]
+        lib.voidin_error_string.restype = ctypes.c_char_p
+        lib.voidin_error_string.argtypes = [i]
+        _lib = lib
+        return lib
+
+
+def check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what}: CUDA error {rc}: "
+            f"{lib.voidin_error_string(rc).decode(errors='replace')}"
+        )

@@ -1,0 +1,34 @@
+"""G-buffer and visibility-buffer containers.
+
+Counterpart of ``voidin_tpu/passes/gbuffer.py``; layout contract mirrors
+the reference GBuffer (app/gbuffer.rs:5-17):
+* ``normal_uv``: (H, W, 2) u32 bits (int32) — x = 32-bit octahedral normal,
+  y = pack2x16float(uv)
+* ``material``: (H, W) int32 material id
+* ``depth``: (H, W) float32 reverse-Z (1 near .. 0 far), cleared to 0
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class GBuffer:
+    normal_uv: torch.Tensor  # (H, W, 2) u32 bits as int32
+    material: torch.Tensor  # (H, W) i32
+    depth: torch.Tensor  # (H, W) f32
+
+
+@dataclasses.dataclass
+class VisBuffer:
+    """Per-pixel winning work-item id + depth, plus the per-work-item
+    resolve record: [original clip x/y/w per vertex (9), instance id,
+    idx_start, pad] as (T, 12) f32."""
+
+    tri_id: torch.Tensor  # (H, W) i32, -1 = background
+    depth: torch.Tensor  # (H, W) f32 reverse-Z
+    resolve_rec: torch.Tensor  # (T, 12) f32
+    overflow: torch.Tensor  # () i64 count of binning/setup overflows

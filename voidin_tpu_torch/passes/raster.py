@@ -1,0 +1,471 @@
+"""Tile-binned software visibility-buffer rasterizer.
+
+Counterpart of ``voidin_tpu/passes/raster.py`` on its default path:
+1. setup: expand the compact draw stream into triangle work items, fetch
+   one de-indexed corner row + one per-draw record per triangle,
+   transform, near-clip (<= 2 triangles, extras into a capacity tail),
+   reduce each triangle to an affine coefficient record (edge planes +
+   depth plane in a per-triangle anchor frame) plus a 48 B resolve record;
+2. binning: two-stream (triangle, tile) pairs — every triangle's first
+   tile is a 1:1 slot, multi-tile extras expand at pair_capacity/4 —
+   stably sorted by tile, records gathered into tile order and their b
+   coefficients baked to each pair's tile origin;
+3. fine raster: kernel K1 (ops/fine_raster.py), the per-tile reverse-Z
+   depth/id competition.
+
+Every sort here is stable: the record order inside a tile decides ties in
+K1. Depth semantics: reverse-Z max with ndc.z affine in screen space.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import fine_raster as fr
+from ..scene.instance import InstanceData
+from ..scene.mesh import MeshPoolData
+from ..core import fastmath
+from .cull import DrawList
+from .gbuffer import VisBuffer
+
+NEAR_EPS = 1e-8
+
+# RasterConfig options of the JAX package that exist to save TPU gather
+# rows or serve other features; the port carries the default path only.
+UNSUPPORTED_OPTIONS = (
+    "alpha_mask", "sort_payload", "fused_resolve_rec", "inst_rec_f16",
+    "planar_resolve", "fused_inst_rec", "slim_rec", "quad_rate_resolve",
+    "taa_quad_history", "taa_inwindow", "taa_quad_where", "kernel_payload",
+    "tap_block", "slot_resolve", "debug_bounds",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterConfig:
+    width: int = 1920
+    height: int = 1080
+    tri_capacity: int = 1 << 20  # max live triangle work items per frame
+    pair_capacity: int = 1 << 22  # max (triangle, tile) pairs
+    # K1's tile shape; the tile count pads to a multiple of 8 like the JAX
+    # layout's grid step, so both packages bin to the same tile table
+    tile_h = fr.TILE_H
+    tile_w = fr.TILE_W
+    tile_pad = 8
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.width // self.tile_w)
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.height // self.tile_h)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+    @property
+    def n_tiles_padded(self) -> int:
+        return -(-self.n_tiles // self.tile_pad) * self.tile_pad
+
+
+_SAT = 1 << 29
+
+
+def saturating_cumsum(counts: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum clamped at 2^29 — identical to the JAX package's
+    saturating int32 scan for non-negative counts."""
+    return torch.clamp(torch.cumsum(counts.to(torch.int64), 0), max=_SAT)
+
+
+def segment_ids_from_counts(counts: torch.Tensor, cap: int,
+                            need_local: bool = True):
+    """Variable-rate expansion: for each stream position e in [0, cap),
+    (segment id, position-within-segment, valid), via a scatter of segment
+    starts and a running max."""
+    dev = counts.device
+    cum = saturating_cumsum(counts)
+    total = torch.clamp(cum[-1], max=cap)
+    starts = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev), cum[:-1]])
+    seg_of_start = torch.arange(counts.shape[0], device=dev)
+    marks = torch.zeros(cap, dtype=torch.int64, device=dev)
+    # Empty segments share a start position; max keeps the last one.
+    # Starts at or beyond cap are dropped.
+    keep = starts < cap
+    marks.scatter_reduce_(0, starts[keep], seg_of_start[keep], "amax")
+    seg = torch.cummax(marks, 0).values
+    e = torch.arange(cap, device=dev)
+    if not need_local:
+        return seg, None, e < total
+    local = e - starts[seg]
+    return seg, local, e < total
+
+
+# ---------------------------------------------------------------------------
+# 1. Triangle setup
+# ---------------------------------------------------------------------------
+
+
+def _project(clip, config: RasterConfig):
+    """Clip-space (..., 4) -> pixel coords + ndc z (y down)."""
+    w = clip[..., 3]
+    inv_w = 1.0 / torch.where(w.abs() > NEAR_EPS, w, NEAR_EPS)
+    ndc = clip[..., :3] * inv_w[..., None]
+    sx = (ndc[..., 0] * 0.5 + 0.5) * config.width
+    sy = (0.5 - ndc[..., 1] * 0.5) * config.height
+    return sx, sy, ndc[..., 2]
+
+
+def _front_face(sx, sy):
+    """wgpu culls clockwise given front_face=Ccw (pass/visibility.rs:124)."""
+    area2 = (sx[..., 1] - sx[..., 0]) * (sy[..., 2] - sy[..., 0]) - (
+        sy[..., 1] - sy[..., 0]
+    ) * (sx[..., 2] - sx[..., 0])
+    return area2 < 0.0
+
+
+def _sum3(a):
+    return (a[..., 0] + a[..., 1]) + a[..., 2]
+
+
+def setup_draw_records(meshes: MeshPoolData, instances: InstanceData,
+                       draws: DrawList, camera, config: RasterConfig,
+                       materials=None):
+    """Per-draw record (mvp + offsets + instance id, 24 f32), triangle
+    counts and their running sum."""
+    dev = instances.transform.device
+    inst_ids = draws.instance.to(torch.int64)
+    safe_inst = torch.clamp(inst_ids, min=0)
+    if draws.mesh is not None:
+        mesh_ids = torch.clamp(draws.mesh.to(torch.int64), min=0)
+    else:
+        mesh_ids = instances.mesh_id.to(torch.int64)[safe_inst]
+    n_draws = inst_ids.shape[0]
+    n_tris = torch.where(
+        torch.arange(n_draws, device=dev) < draws.count,
+        meshes.index_count.to(torch.int64)[mesh_ids] // 3,
+        0,
+    )
+    view_proj = fastmath.matmul_fma(
+        torch.as_tensor(camera.projection, device=dev),
+        torch.as_tensor(camera.view, device=dev),
+    )
+    mvp = fastmath.compose_mat4(view_proj, instances.transform)
+    if materials is not None:
+        bc_w = materials.base_color[
+            instances.material_id.to(torch.int64)[safe_inst], 3]
+    else:
+        bc_w = torch.ones(n_draws, dtype=torch.float32, device=dev)
+    cum_draws = saturating_cumsum(n_tris)
+    draw_start = torch.cat(
+        [torch.zeros(1, dtype=torch.float32, device=dev),
+         cum_draws[:-1].to(torch.float32)]
+    )
+    base_index = meshes.base_index.to(torch.int64)[mesh_ids]
+    draw_rec = torch.cat(
+        [
+            mvp.reshape(-1, 16)[safe_inst],
+            (base_index // 3).to(torch.float32)[:, None],
+            base_index.to(torch.float32)[:, None],
+            safe_inst.to(torch.float32)[:, None],
+            bc_w[:, None],
+            draw_start[:, None],
+            torch.zeros(n_draws, 3, dtype=torch.float32, device=dev),
+        ],
+        dim=-1,
+    )  # (N, 24)
+    return draw_rec, n_tris, cum_draws
+
+
+def setup_work_slice(tri_pos, draw_rec, n_tris, config: RasterConfig):
+    """Per-work-item transform, near clip, projection and packing over all
+    tri_capacity slots."""
+    cap = config.tri_capacity
+    dev = tri_pos.device
+    draw_slot, _, valid = segment_ids_from_counts(n_tris, cap,
+                                                  need_local=False)
+    slot_ids = torch.arange(cap, device=dev)
+    rec = draw_rec[draw_slot]  # (cap, 24)
+    inst = torch.where(valid, rec[:, 18].to(torch.int64), 0)
+    bc_cut = rec[:, 19] < 0.5  # base_color.w cutoff: drop the triangle
+    local_tri = slot_ids - rec[:, 20].to(torch.int64)
+    tri_pool = rec[:, 16].to(torch.int64) + local_tri
+    idx_start = rec[:, 17].to(torch.int64) + 3 * local_tri
+
+    pos = tri_pos[torch.where(valid, tri_pool, 0)].reshape(cap, 3, 3)
+    m = rec[:, :16].reshape(cap, 4, 4)
+    clip = fastmath.mat4_point4(m[:, None, :, :], pos)  # (cap, 3, 4)
+
+    # --- near-plane clipping (s = w - z > 0) ----------------------------
+    s_dist = clip[..., 3] - clip[..., 2]
+    is_in = s_dist > 0.0
+    n_in = is_in.to(torch.int64).sum(dim=-1)
+    r1 = torch.argmax(is_in.to(torch.uint8), dim=-1)
+    r2 = (torch.argmax((~is_in).to(torch.uint8), dim=-1) + 1) % 3
+    r = torch.where(n_in == 1, r1, torch.where(n_in == 2, r2, 0))
+    rot1 = clip[:, [1, 2, 0]]
+    rot2 = clip[:, [2, 0, 1]]
+    rsel = r[:, None, None]
+    rclip = torch.where(rsel == 1, rot1, torch.where(rsel == 2, rot2, clip))
+    a, b, c = rclip[:, 0], rclip[:, 1], rclip[:, 2]
+
+    def lerp_to_plane(p, q):
+        sp = p[..., 3] - p[..., 2]
+        sq = q[..., 3] - q[..., 2]
+        den = sp - sq
+        t = sp / torch.where(den.abs() > 1e-20, den, 1e-20)
+        return p + (q - p) * t[..., None]
+
+    i_ab = lerp_to_plane(a, b)
+    i_ac = lerp_to_plane(a, c)
+    i_bc = lerp_to_plane(b, c)
+
+    tri1 = torch.where(
+        (n_in == 3)[:, None, None],
+        clip,
+        torch.where(
+            (n_in == 2)[:, None, None],
+            torch.stack([a, b, i_bc], dim=1),
+            torch.stack([a, i_ab, i_ac], dim=1),
+        ),
+    )
+    tri2 = torch.stack([a, i_bc, i_ac], dim=1)  # only when n_in == 2
+
+    sx1, sy1, z1 = _project(tri1, config)
+    sx2, sy2, z2 = _project(tri2, config)
+    alive1 = valid & (n_in >= 1) & _front_face(sx1, sy1) & ~bc_cut
+    needs2 = valid & (n_in == 2) & ~bc_cut
+    alive2 = needs2 & _front_face(sx2, sy2)
+
+    rec1 = _pack_raster(sx1, sy1, z1, alive1, slot_ids)
+    # Resolve record: original clip x/y/w per vertex + instance + idx_start
+    # (clip z == znear under the infinite reverse-Z projection).
+    resolve1 = torch.cat(
+        [
+            clip[:, :, [0, 1, 3]].reshape(cap, 9),
+            inst.to(torch.float32)[:, None],
+            idx_start.to(torch.float32)[:, None],
+            torch.zeros(cap, 1, dtype=torch.float32, device=dev),
+        ],
+        dim=-1,
+    )
+    extra_geom = torch.cat(
+        [sx2, sy2, z2, alive2[:, None].to(torch.float32)], dim=-1
+    )  # (cap, 10)
+    return dict(rec1=rec1, resolve1=resolve1, sx1=sx1, sy1=sy1, z1=z1,
+                needs2=needs2, extra_geom=extra_geom)
+
+
+def _pack_raster(sxv, syv, zv, alivev, ids):
+    """Affine coefficient record: e_k(p) = ax_k*px + ay_k*py + b_k and the
+    depth plane, in a per-triangle anchor frame (bbox corner). Dead
+    records zero out with bd = -1 and id -1."""
+    idf = torch.where(alivev, ids.to(torch.float32), -1.0)
+    n = sxv.shape[0]
+    anchor_x = torch.floor(torch.amin(sxv, dim=-1))
+    anchor_y = torch.floor(torch.amin(syv, dim=-1))
+    rx = sxv - anchor_x[:, None]
+    ry = syv - anchor_y[:, None]
+    nxt = [1, 2, 0]
+    dx = rx[:, nxt] - rx
+    dy = ry[:, nxt] - ry
+    ax = dy
+    ay = -dx
+    b = ry * dx - rx * dy
+    area2 = dy[:, 0] * dx[:, 1] - dx[:, 0] * dy[:, 1]  # = e0+e1+e2
+    inv = 1.0 / torch.where(area2.abs() > 1e-20, area2, 1e-20)
+    zrot = zv[:, [2, 0, 1]]  # weight of edge k is z[(k+2)%3]
+    axd = _sum3(ax * zrot) * inv
+    ayd = _sum3(ay * zrot) * inv
+    bd = _sum3(b * zrot) * inv
+    # zmax bounds the affine depth in K1 (sliver guard)
+    zmax = torch.amax(zv, dim=-1)
+    rec = torch.stack(
+        [ax[:, 0], ay[:, 0], b[:, 0], ax[:, 1], ay[:, 1], b[:, 1],
+         ax[:, 2], ay[:, 2], b[:, 2], axd, ayd, bd, idf, anchor_x, anchor_y,
+         zmax],
+        dim=-1,
+    )
+    dead_row = torch.zeros(16, dtype=torch.float32, device=rec.device)
+    dead_row[fr.F_D + 2] = -1.0
+    dead_row[fr.F_ID] = -1.0
+    return torch.where((~alivev)[:, None], dead_row.expand(n, 16), rec)
+
+
+def setup_finalize(parts: dict, cum_draws, config: RasterConfig):
+    """Compact the clipped second triangles into the extras region
+    (tri_capacity / 8 slots) and emit the final packed streams."""
+    cap = config.tri_capacity
+    dev = cum_draws.device
+    ecap = cap // 8
+    needs2 = parts["needs2"]
+    n_extras = needs2.to(torch.int64).sum()
+    overflow = torch.clamp(cum_draws[-1] - cap, min=0) + torch.clamp(
+        n_extras - ecap, min=0
+    )
+    extra_src = fastmath.compact_indices(needs2, ecap)
+    valid_extra = torch.arange(ecap, device=dev) < torch.clamp(n_extras,
+                                                               max=ecap)
+    extra_ids = cap + torch.arange(ecap, device=dev)
+    extra_geom = parts["extra_geom"][extra_src]
+    sx2e, sy2e, z2e = extra_geom[:, 0:3], extra_geom[:, 3:6], \
+        extra_geom[:, 6:9]
+    alive2e = extra_geom[:, 9] > 0.5
+    rec2 = _pack_raster(sx2e, sy2e, z2e, alive2e & valid_extra, extra_ids)
+    raster_rec = torch.cat([parts["rec1"], rec2])  # (cap + ecap, 16)
+    resolve_rec = torch.cat([parts["resolve1"], parts["resolve1"][extra_src]])
+    return dict(
+        sx=torch.cat([parts["sx1"], sx2e]),
+        sy=torch.cat([parts["sy1"], sy2e]),
+        sz=torch.cat([parts["z1"], z2e]),
+        alive=raster_rec[:, fr.F_ID] >= 0.0,
+        raster_rec=raster_rec,
+        resolve_rec=resolve_rec,
+        setup_overflow=overflow,
+    )
+
+
+def triangle_setup(meshes: MeshPoolData, instances: InstanceData,
+                   draws: DrawList, camera, config: RasterConfig,
+                   materials=None):
+    """Per-work-item screen data and packed records, capacity padded.
+    `materials`: triangles whose base_color.w < 0.5 are dropped here (every
+    fragment of them discards, visibility.wgsl:79)."""
+    draw_rec, n_tris, cum_draws = setup_draw_records(
+        meshes, instances, draws, camera, config, materials=materials
+    )
+    parts = setup_work_slice(meshes.tri_pos, draw_rec, n_tris, config)
+    return setup_finalize(parts, cum_draws, config)
+
+
+# ---------------------------------------------------------------------------
+# 2. Binning
+# ---------------------------------------------------------------------------
+
+
+def bake_tile_origin(rec, tiles, config: RasterConfig):
+    """Re-base the b coefficients from the per-triangle anchor frame to
+    each pair's tile origin: b' = b + (ax*(tx0 - anchor_x) +
+    ay*(ty0 - anchor_y))."""
+    tx0 = ((tiles % config.tiles_x) * config.tile_w).to(torch.float32)
+    ty0 = ((tiles // config.tiles_x) * config.tile_h).to(torch.float32)
+    offx = tx0 - rec[..., fr.F_ANCHOR]
+    offy = ty0 - rec[..., fr.F_ANCHOR + 1]
+    out = rec.clone()
+    for q in range(4):  # e0, e1, e2, depth
+        out[..., 3 * q + 2] = rec[..., 3 * q + 2] + (
+            rec[..., 3 * q] * offx + rec[..., 3 * q + 1] * offy
+        )
+    return out
+
+
+def _to_index(x):
+    """Float pixel bound -> int64 the way a saturating f32->i32 cast does
+    (the bounds only feed tile clamps, so +-2^30 is as good as +-inf)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=2.0 ** 30, neginf=-2.0 ** 30)
+    return torch.clamp(x, -2.0 ** 30, 2.0 ** 30).to(torch.int64)
+
+
+def bin_triangles_pairs(setup: dict, config: RasterConfig):
+    """Pair-centric two-stream binning: tile-sorted baked records plus
+    per-tile ranges, padded for K1. Returns (rec_sorted, starts, counts,
+    overflow) with starts/counts int32."""
+    TX, TY = config.tiles_x, config.tiles_y
+    NT = config.n_tiles_padded
+    EB = config.pair_capacity // 4  # extra-pair stream capacity
+    sx, sy, alive = setup["sx"], setup["sy"], setup["alive"]
+    dev = sx.device
+    x0 = torch.floor(torch.amin(sx, dim=-1))
+    x1 = torch.ceil(torch.amax(sx, dim=-1))
+    y0 = torch.floor(torch.amin(sy, dim=-1))
+    y1 = torch.ceil(torch.amax(sy, dim=-1))
+    on_screen = (x1 >= 0) & (y1 >= 0) & (x0 < config.width) & (
+        y0 < config.height)
+    alive = alive & on_screen
+
+    tx0 = torch.clamp(_to_index(x0) // config.tile_w, 0, TX - 1)
+    tx1 = torch.clamp(_to_index(x1) // config.tile_w, 0, TX - 1)
+    ty0 = torch.clamp(_to_index(y0) // config.tile_h, 0, TY - 1)
+    ty1 = torch.clamp(_to_index(y1) // config.tile_h, 0, TY - 1)
+    bw = tx1 - tx0 + 1
+    n_pairs = torch.where(alive, bw * (ty1 - ty0 + 1), 0)
+    bbox_rec = torch.stack([tx0, ty0, bw], dim=-1)
+    EA = n_pairs.shape[0]
+
+    # Stream A: first tile per alive triangle, slot i <-> triangle i.
+    tile_a = torch.where(alive, ty0 * TX + tx0, NT)
+    tri_a = torch.arange(EA, device=dev)
+    # Stream B: remaining tiles of multi-tile triangles, compacted.
+    n_extra = torch.clamp(n_pairs - 1, min=0)
+    has_extra = n_extra > 0
+    parents = torch.argsort((~has_extra).to(torch.uint8), stable=True)[:EB]
+    counts_b = torch.where(has_extra[parents], n_extra[parents], 0)
+    seg_b, local_b, valid_b = segment_ids_from_counts(counts_b, EB)
+    tri_b = parents[seg_b]
+    br = bbox_rec[tri_b]
+    k = local_b + 1  # tile within the parent bbox, skipping (0, 0)
+    tile_b = (br[:, 1] + k // br[:, 2]) * TX + (br[:, 0] + k % br[:, 2])
+    tile_b = torch.where(valid_b, tile_b, NT)
+    # pairs not placed in B (exact integer form of the JAX f32 count)
+    total_extra = n_extra.sum()
+    placed_b = torch.clamp(counts_b.sum(), max=EB)
+    overflow = torch.clamp(total_extra - placed_b, min=0)
+
+    tile = torch.cat([tile_a, tile_b])
+    tri = torch.cat([tri_a, tri_b])
+    tile_sorted, order = torch.sort(tile, stable=True)
+    tri_sorted = tri[order]
+    rec_sorted = setup["raster_rec"][tri_sorted]
+    rec_sorted = bake_tile_origin(rec_sorted, tile_sorted, config)
+    bounds = torch.searchsorted(
+        tile_sorted, torch.arange(NT + 1, device=dev), right=False
+    )
+    starts = bounds[:-1].to(torch.int32)
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+
+    # pad: one chunk for round-down + up to a chunk of capacity remainder
+    C = fr.CHUNK
+    e_total = rec_sorted.shape[0]
+    pad = 2 * C - (e_total % C if e_total % C else C) + C
+    rec_sorted = torch.cat(
+        [rec_sorted,
+         torch.zeros(pad, fr.RECORD_F, dtype=torch.float32, device=dev)]
+    )
+    return rec_sorted, starts, counts, overflow
+
+
+# ---------------------------------------------------------------------------
+# 3. Fine raster + assembly
+# ---------------------------------------------------------------------------
+
+
+def _untile(depth, trif, config: RasterConfig):
+    NT = config.n_tiles
+    TY, TX = config.tiles_y, config.tiles_x
+    th, tw = config.tile_h, config.tile_w
+
+    def untile(a):
+        return (
+            a[:NT].reshape(TY, TX, th, tw).permute(0, 2, 1, 3)
+            .reshape(TY * th, TX * tw)
+        )
+
+    return untile(depth), untile(trif).to(torch.int32)
+
+
+def rasterize(meshes: MeshPoolData, instances: InstanceData, draws: DrawList,
+              camera, config: RasterConfig, materials=None) -> VisBuffer:
+    setup = triangle_setup(meshes, instances, draws, camera, config,
+                           materials=materials)
+    rec_sorted, starts, counts, overflow = bin_triangles_pairs(setup, config)
+    depth, trif = fr.fine_raster_pairs(rec_sorted, starts, counts)
+    depth, tri_id = _untile(depth, trif, config)
+    H, W = config.height, config.width
+    return VisBuffer(
+        tri_id=tri_id[:H, :W],
+        depth=depth[:H, :W],
+        resolve_rec=setup["resolve_rec"],
+        overflow=overflow + setup["setup_overflow"],
+    )
