@@ -6,16 +6,34 @@ Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then:
   1. prints torch's version and the card's name and power limit;
   2. K1 (fine raster) against its PyTorch twin on the records of the
      north-star frame itself: depth and id must be identical;
-  3. K3 (LTC LUT fetch) against its twin on 5 random 64x64 tables at
-     1920x1080 random uvs plus the corner uvs: max abs diff <= 1e-6;
-  4. the golden deferred scene at 160x96 on the card against the checked-in
+  3. K3 (LTC LUT fetch) and its bf16 variant against their twins on 5
+     random 64x64 tables at 1920x1080 random uvs plus the corner uvs: max
+     abs diff <= 1e-6; torch's grid_sample times the same fetch as a
+     yardstick (the port never calls it);
+  4. K1's track2 variant against its twin on the records of the masked
+     1080p frame (below): all four outputs identical; timed beside K1's
+     base variant on the same records;
+  5. the golden deferred scene at 160x96 on the card against the checked-in
      golden image (tests/golden/deferred.png, mean abs diff < 5e-3, the
      golden tests' budget) and against the port's CPU render;
-  5. the north-star frame: build_world(10_000, seed=0) at 1920x1080 with
+  6. the masked scene (build_world(1000) + 300 foliage cards, 320x184, 3
+     TAA frames) on the card against the port's CPU render (mean 5e-3);
+  7. the north-star frame: build_world(10_000, seed=0) at 1920x1080 with
      raster capacities 2^19, moving instances and TAA, for 12 frames
      through Renderer.render; overflow 0 on every frame, a finite image
-     with variance, and K1 / K3 launched 1 / 5 times per frame. Prints the
-     median ms/frame of frames 3-12 (CUDA events).
+     with variance, and K1 / K3 launched 1 / 5 times per frame;
+  8. the masked frame: the north star plus add_foliage(world, 3000, seed=1)
+     (alpha-tested cut-out cards with normal, metallic-roughness and
+     emissive maps), the same camera and 12 frames, pair capacity 2^20;
+     overflow 0 (the alpha-fallback capacity included), per frame the
+     cut-winner and fallback pixel counts, K1 track2 / K1 base / K3
+     launched 12 / 0 / 60;
+  9. shading.LTC_LUT_BF16 on against off, one frame each (TAA off): the
+     golden scene within tests/test_ltc.py's budgets (max abs diff < 1e-2,
+     mean < 2e-4), then the masked 1080p frame: 5 K3 bf16 launches, mean
+     < 2e-4, its max abs diff printed.
+Phases 7 and 8 print the median ms/frame of frames 3-12 (CUDA events) and
+the peak device memory of the 12 frames.
 Prints the kernel table as one JSON line, then the card line, then the
 result line {"ok": true, "device": {...}}. Exits non-zero on any failure
 and when no CUDA device is available.
@@ -34,8 +52,19 @@ import numpy as np
 FRAMES = 12
 WIDTH, HEIGHT = 1920, 1080
 CAP = 1 << 19
+N_FOLIAGE = 3000
+# The foliage cards near the camera span ~1,000 tiles each: their extra
+# (triangle, tile) pairs overflow the 2^19 / 4 extras stream of the north
+# star's capacities, so the masked frame bins with 2^20 pairs.
+MASKED_PAIR_CAP = 1 << 20
 K3_TOL = 1e-6
 GOLDEN_BUDGET = 5e-3
+BF16_BUDGET = 1e-2  # max abs sRGB diff, tests/test_ltc.py:431
+BF16_MEAN_BUDGET = 2e-4  # mean abs sRGB diff, tests/test_ltc.py:432
+# Peak rates of one H100 SXM (NVIDIA data sheet) for the bound_ms column:
+# HBM bytes/s and FP32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg):
@@ -121,6 +150,96 @@ def north_star_camera(pt):
                      aspect=WIDTH / HEIGHT)
 
 
+def bound_ms(n_bytes, n_ops):
+    """(least time in ms, what bounds it): the larger of the bytes over the
+    card's memory rate and the FP32 operations over its FP32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k1_bound(counts, n_out):
+    """K1 must read each of the frame's valid (triangle, tile) records once
+    (64 B), the per-tile start/count (8 B), and write n_out f32 per pixel;
+    every record-pixel test evaluates three edge planes (12 FP32 ops)."""
+    pairs = int(counts.sum())
+    nt = counts.shape[0]
+    return bound_ms(pairs * 64 + nt * 8 + nt * 128 * 4 * n_out,
+                    pairs * 128 * 12)
+
+
+def k3_bound(n_chan, n_px):
+    """K3 must read each pixel's uv (8 B) and the tables (16 KB each) once
+    and write 4 B per pixel and table; per pixel and table two row lerps
+    and one column lerp (9 FP32 ops)."""
+    return bound_ms(n_px * (8 + 4 * n_chan) + n_chan * 64 * 64 * 4,
+                    n_px * n_chan * 9)
+
+
+def frame_records(scene, cfg):
+    """Tile-sorted pair records of the first frame of `scene` at the
+    north-star camera, as the main path's binning produces them."""
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.passes import cull, raster
+
+    uniform = north_star_camera(pt).uniform()
+    draws = cull.emit_draws(scene.meshes, scene.instances, uniform)
+    setup = raster.triangle_setup(scene.meshes, scene.instances, draws,
+                                  uniform, cfg, materials=scene.materials)
+    rec, starts, counts, ovf = raster.bin_triangles_pairs(setup, cfg)
+    ovf = int(ovf) + int(setup["setup_overflow"])
+    print(f"  records: draws {int(draws.count)} pair slots {rec.shape[0]} "
+          f"valid pairs {int(counts.sum())} tiles {starts.shape[0]} "
+          f"overflow {ovf}", flush=True)
+    if ovf:
+        fail("binning overflowed")
+    return rec, starts, counts
+
+
+def run_frames(renderer, cam, label):
+    """FRAMES frames through Renderer.render, each timed with CUDA events
+    and checked: overflow 0, something visible. Returns (last image,
+    per-frame ms, the peak device memory over the frames and the part of
+    it above what was resident before, as text)."""
+    import torch
+
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, img = [], None
+    for i in range(FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = renderer.render(cam)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        aux = {k: int(v) for k, v in renderer.aux.items() if v.numel() == 1}
+        line = (f"{label} frame {i}: {times[-1]:.3f} ms draws "
+                f"{aux['draw_count']} overflow {aux['overflow']} coverage "
+                f"{aux['vis_coverage']}")
+        if "alpha_cut" in aux:
+            line += (f" cut winners {aux['alpha_cut']} "
+                     f"({100.0 * aux['alpha_cut'] / (WIDTH * HEIGHT):.2f}%) "
+                     f"fallback resolved {aux['alpha_fallback']}")
+        print(line, flush=True)
+        if aux["overflow"] != 0:
+            fail(f"{label} frame {i} overflowed")
+        if aux["vis_coverage"] <= 0:
+            fail(f"{label} frame {i} has no visible pixel")
+    out = img.cpu().numpy()
+    if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all():
+        fail(f"{label} image bad: shape {out.shape}")
+    if not out.std() > 0:
+        fail(f"{label} image has no variance")
+    peak = torch.cuda.max_memory_allocated()
+    mem = (f"peak device memory {peak / 2**30:.3f} GiB "
+           f"({(peak - before) / 2**30:.3f} above the resident "
+           f"{before / 2**30:.3f})")
+    return out, times, mem
+
+
 def main():
     import torch
 
@@ -130,12 +249,14 @@ def main():
         sys.exit(2)
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    import torch.nn.functional as F
+
     import voidin_tpu_torch as pt
     from voidin_tpu_torch.framework.renderer import Renderer, build_world
     from voidin_tpu_torch.ops import _build
     from voidin_tpu_torch.ops import fine_raster as fr
     from voidin_tpu_torch.ops import lut_fetch as lf
-    from voidin_tpu_torch.passes import cull, raster
+    from voidin_tpu_torch.passes import shading
     from voidin_tpu_torch.passes.raster import RasterConfig
 
     if "jax" in sys.modules or "voidin_tpu" in sys.modules:
@@ -145,65 +266,128 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(f"card: {card}", flush=True)
 
+    def launches():
+        return dict(k1=fr.LAUNCHES, k1_track2=fr.LAUNCHES_TRACK2,
+                    k3=lf.LAUNCHES, k3_bf16=lf.LAUNCHES_BF16)
+
+    def reset_launches():
+        fr.LAUNCHES = fr.LAUNCHES_TRACK2 = 0
+        lf.LAUNCHES = lf.LAUNCHES_BF16 = 0
+
+    def expect_launches(label, want):
+        got = launches()
+        print(f"{label} launches: {got}", flush=True)
+        if got != want:
+            fail(f"{label}: kernel launches {got}, expected {want}")
+        return got
+
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # --- north-star scene and its first frame's binned records ----------
-    t0 = time.perf_counter()
-    world, moving = build_world(10_000, seed=0)
-    scene = world.device(dev)
-    print(f"north-star scene built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
     cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
                        pair_capacity=CAP)
-    cam = north_star_camera(pt)
-    uniform = cam.uniform()
-    draws = cull.emit_draws(scene.meshes, scene.instances, uniform)
-    setup = raster.triangle_setup(scene.meshes, scene.instances, draws,
-                                  uniform, cfg, materials=scene.materials)
-    rec_sorted, starts, counts, ovf = raster.bin_triangles_pairs(setup, cfg)
-    print(f"north-star records: draws {int(draws.count)} pair slots "
-          f"{rec_sorted.shape[0]} tiles {starts.shape[0]} overflow "
-          f"{int(ovf) + int(setup['setup_overflow'])}", flush=True)
+    masked_cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
+                              pair_capacity=MASKED_PAIR_CAP)
+    rows = {}
 
-    # --- K1 vs twin -----------------------------------------------------
-    kd, ki = fr.fine_raster_pairs(rec_sorted, starts, counts)
-    rd, ri = fr.fine_raster_pairs_reference(rec_sorted, starts, counts)
+    # --- K1 vs twin on the north-star records ----------------------------
+    t0 = time.perf_counter()
+    world, moving = build_world(10_000, seed=0)
+    print(f"north-star scene built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rec, starts, counts = frame_records(world.device(dev), cfg)
+    kd, ki = fr.fine_raster_pairs(rec, starts, counts)
+    rd, ri = fr.fine_raster_pairs_reference(rec, starts, counts)
     torch.cuda.synchronize()
     k1_mismatch = int(((kd != rd) | (ki != ri)).sum())
-    k1_err = float((kd - rd).abs().max())
-    k1_ms = time_cuda(lambda: fr.fine_raster_pairs(rec_sorted, starts,
-                                                   counts), 20)
+    k1_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts), 20)
     k1_plain_ms = time_cuda(lambda: fr.fine_raster_pairs_reference(
-        rec_sorted, starts, counts), 3)
+        rec, starts, counts), 3)
+    b_ms, b_by = k1_bound(counts, 2)
+    rows["fine_raster_pairs"] = dict(
+        max_abs_err=float((kd - rd).abs().max()), ms=k1_ms,
+        plain_ms=k1_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     print(f"K1 fine_raster_pairs: mismatched pixels {k1_mismatch} of "
-          f"{kd.numel()}, max |depth diff| {k1_err}, kernel {k1_ms:.4f} ms, "
-          f"twin {k1_plain_ms:.4f} ms ({card})", flush=True)
+          f"{kd.numel()}, kernel {k1_ms:.4f} ms, twin {k1_plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
     if k1_mismatch:
         fail("K1 disagrees with its twin")
+    del rec, starts, counts, kd, ki, rd, ri
 
-    # --- K3 vs twin -----------------------------------------------------
+    # --- K3 and its bf16 variant vs their twins, grid_sample beside ------
     g = torch.Generator(device="cpu").manual_seed(0)
     tables = [torch.randn(64, 64, generator=g).to(dev) for _ in range(5)]
     uv = torch.rand(HEIGHT, WIDTH, 2, generator=g).to(dev)
     uv = uv * (63.0 / 64.0) + 0.5 / 64.0
     corners = torch.tensor([[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]],
                            device=dev) * (63.0 / 64.0) + 0.5 / 64.0
-    k3_err = 0.0
-    for u in (uv, corners):
-        got = lf.lut_fetch(tables, u)
-        want = lf.lut_fetch_reference(tables, u)
-        for a, b in zip(got, want):
-            k3_err = max(k3_err, float((a - b).abs().max()))
-    k3_ms = time_cuda(lambda: lf.lut_fetch(tables, uv), 50)
-    k3_plain_ms = time_cuda(lambda: lf.lut_fetch_reference(tables, uv), 10)
-    print(f"K3 lut_fetch (5 tables, {HEIGHT}x{WIDTH}): max abs diff "
-          f"{k3_err}, kernel {k3_ms:.4f} ms, twin {k3_plain_ms:.4f} ms "
-          f"({card})", flush=True)
-    if not k3_err <= K3_TOL:
-        fail(f"K3 disagrees with its twin beyond {K3_TOL}")
+    lib_in = torch.stack(tables)[None]  # (1, 5, 64, 64)
+    lib_grid = (uv * 2.0 - 1.0)[None]  # (1, H, W, 2), x = u indexes columns
+
+    def library():
+        return F.grid_sample(lib_in, lib_grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    lib_diff = float((library()[0] - torch.stack(lf.lut_fetch(tables, uv)))
+                     .abs().max())
+    lib_ms = time_cuda(library, 50)
+    b_ms, b_by = k3_bound(5, HEIGHT * WIDTH)
+    for name, bf16 in (("lut_fetch", False), ("lut_fetch_bf16", True)):
+        err = 0.0
+        for u in (uv, corners):
+            got = lf.lut_fetch(tables, u, bf16=bf16)
+            want = lf.lut_fetch_reference(tables, u, bf16=bf16)
+            for a, b in zip(got, want):
+                err = max(err, float((a - b).abs().max()))
+        ms = time_cuda(lambda: lf.lut_fetch(tables, uv, bf16=bf16), 50)
+        plain_ms = time_cuda(
+            lambda: lf.lut_fetch_reference(tables, uv, bf16=bf16), 10)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        print(f"K3 {name} (5 tables, {HEIGHT}x{WIDTH}): max abs diff {err}, "
+              f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, grid_sample "
+              f"{lib_ms:.4f} ms (max abs diff to the f32 kernel {lib_diff:.2e})"
+              f", bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+        if not err <= K3_TOL:
+            fail(f"K3 {name} disagrees with its twin beyond {K3_TOL}")
+    del tables, uv, lib_in, lib_grid
+
+    # --- K1 track2 vs twin on the masked frame's records -----------------
+    t0 = time.perf_counter()
+    masked_world, masked_moving = build_world(10_000, seed=0)
+    add_foliage(masked_world, N_FOLIAGE, seed=1)
+    masked_scene = masked_world.device(dev)
+    if not masked_scene.alpha_masked:
+        fail("the foliage scene is not alpha-masked")
+    print(f"masked scene built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rec, starts, counts = frame_records(masked_scene, masked_cfg)
+    outs = fr.fine_raster_pairs(rec, starts, counts, track2=True)
+    refs = fr.fine_raster_pairs_reference(rec, starts, counts, track2=True)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
+    t2_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts,
+                                                   track2=True), 20)
+    t2_plain_ms = time_cuda(lambda: fr.fine_raster_pairs_reference(
+        rec, starts, counts, track2=True), 3)
+    base_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts),
+                        20)
+    b_ms, b_by = k1_bound(counts, 4)
+    rows["fine_raster_pairs_track2"] = dict(
+        max_abs_err=max(float((outs[0] - refs[0]).abs().max()),
+                        float((outs[2] - refs[2]).abs().max())),
+        ms=t2_ms, plain_ms=t2_plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    print(f"K1 fine_raster_pairs_track2: mismatched (depth, id, depth2, id2) "
+          f"{mismatch} of {outs[0].numel()} each; runner-up pixels "
+          f"{int((outs[3] >= 0).sum())}; kernel {t2_ms:.4f} ms, twin "
+          f"{t2_plain_ms:.4f} ms, base variant on the same records "
+          f"{base_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
+          flush=True)
+    if any(mismatch):
+        fail("K1 track2 disagrees with its twin")
+    del rec, starts, counts, outs, refs
 
     # --- golden scene: card vs golden image and vs the CPU twins --------
     gw, gh = 160, 96
@@ -211,72 +395,136 @@ def main():
                         pair_capacity=1 << 17)
     gcam = dict(position=[0, 2, 0], pitch=-18.0, aspect=gw / gh)
     imgs = {}
-    for d in (dev, torch.device("cpu")):
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         r = Renderer(golden_scene(pt).device(d), gcfg, enable_taa=False)
-        imgs[d.type] = r.render(pt.Camera(**gcam)).cpu().numpy()
+        imgs[where] = r.render(pt.Camera(**gcam)).cpu().numpy()
         if int(r.aux["overflow"]):
             fail("golden scene overflowed")
     want = read_png_rgb(os.path.join(root, "tests", "golden",
                                      "deferred.png")) / 255.0
-    gold_diff = float(np.abs(np.clip(imgs["cuda"], 0, 1) - want).mean())
-    cpu_diff = float(np.abs(imgs["cuda"] - imgs["cpu"]).mean())
+    gold_diff = float(np.abs(np.clip(imgs["card"], 0, 1) - want).mean())
+    cpu_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
     print(f"golden deferred 160x96 on the card: mean abs diff vs "
           f"tests/golden/deferred.png {gold_diff:.6f} (budget "
           f"{GOLDEN_BUDGET}), vs the CPU twins {cpu_diff:.3e}", flush=True)
-    if not (np.isfinite(imgs["cuda"]).all() and gold_diff < GOLDEN_BUDGET
+    if not (np.isfinite(imgs["card"]).all() and gold_diff < GOLDEN_BUDGET
             and cpu_diff < GOLDEN_BUDGET):
         fail("golden scene render disagrees")
 
-    # --- the north-star frame through the Renderer ----------------------
-    del setup, rec_sorted, starts, counts, kd, ki, rd, ri
-    scene = world.device(dev)  # fresh instance transforms
-    r = Renderer(scene, cfg, moving_ids=moving)
-    cam = north_star_camera(pt)
-    fr.LAUNCHES = 0
-    lf.LAUNCHES = 0
-    times, img = [], None
-    for i in range(FRAMES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        img = r.render(cam)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-        aux = {k: int(v) for k, v in r.aux.items() if v.numel() == 1}
-        print(f"frame {i}: {times[-1]:.3f} ms draws {aux['draw_count']} "
-              f"overflow {aux['overflow']} coverage {aux['vis_coverage']}",
-              flush=True)
-        if aux["overflow"] != 0:
-            fail(f"frame {i} overflowed")
-        if aux["vis_coverage"] <= 0:
-            fail(f"frame {i} has no visible pixel")
-    k1_launches, k3_launches = fr.LAUNCHES, lf.LAUNCHES
-    out = img.cpu().numpy()
-    if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all():
-        fail(f"frame image bad: shape {out.shape}")
-    if not out.std() > 0:
-        fail("frame image has no variance")
-    if k1_launches != FRAMES or k3_launches != 5 * FRAMES:
-        fail(f"kernel launches K1 {k1_launches} K3 {k3_launches}, expected "
-             f"{FRAMES} and {5 * FRAMES}")
-    ms = float(np.median(times[2:]))
-    print(f"north-star frame 1920x1080: median {ms:.3f} ms/frame over "
-          f"frames 3-{FRAMES} ({card}); image mean {out.mean():.4f} std "
-          f"{out.std():.4f}; launches K1 {k1_launches} K3 {k3_launches}",
-          flush=True)
+    # --- the masked scene, small: card vs the CPU twins ------------------
+    sw, sh = 320, 184
+    scfg = RasterConfig(width=sw, height=sh, tri_capacity=1 << 15,
+                        pair_capacity=1 << 15)
+    small, small_moving = build_world(1000, seed=0)
+    add_foliage(small, 300, seed=1)
+    imgs, cuts = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        r = Renderer(small.device(d), scfg, moving_ids=small_moving)
+        for _ in range(3):
+            img = r.render(pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                                     aspect=sw / sh))
+            if int(r.aux["overflow"]):
+                fail(f"small masked scene overflowed on the {where}")
+        imgs[where] = img.cpu().numpy()
+        cuts[where] = int(r.aux["alpha_cut"])
+    small_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
+    print(f"masked scene 320x184 (build_world(1000) + 300 cards, 3 TAA "
+          f"frames) on the card: mean abs diff vs the CPU twins "
+          f"{small_diff:.3e} (budget {GOLDEN_BUDGET}); cut winners card "
+          f"{cuts['card']} CPU {cuts['cpu']}", flush=True)
+    if not (np.isfinite(imgs["card"]).all() and small_diff < GOLDEN_BUDGET
+            and cuts["card"] > 0):
+        fail("small masked scene on the card disagrees with the CPU")
 
+    # --- the north-star frame through the Renderer ----------------------
+    r = Renderer(world.device(dev), cfg, moving_ids=moving)
+    reset_launches()
+    out, times, mem = run_frames(r, north_star_camera(pt), "north-star")
+    ns_launches = expect_launches("north-star", dict(
+        k1=FRAMES, k1_track2=0, k3=5 * FRAMES, k3_bf16=0))
+    ns_ms = float(np.median(times[2:]))
+    print(f"north-star frame {WIDTH}x{HEIGHT}: median {ns_ms:.3f} ms/frame "
+          f"over frames 3-{FRAMES} ({card}); {mem}; image mean "
+          f"{out.mean():.4f} std {out.std():.4f}", flush=True)
+    del r, world
+
+    # --- the masked frame through the Renderer ---------------------------
+    r = Renderer(masked_scene, masked_cfg, moving_ids=masked_moving)
+    if not r.config.alpha_mask:
+        fail("the Renderer did not switch the alpha mask on")
+    reset_launches()
+    out, times, mem = run_frames(r, north_star_camera(pt), "masked")
+    masked_launches = expect_launches("masked", dict(
+        k1=0, k1_track2=FRAMES, k3=5 * FRAMES, k3_bf16=0))
+    masked_ms = float(np.median(times[2:]))
+    print(f"masked frame {WIDTH}x{HEIGHT} (north star + {N_FOLIAGE} foliage "
+          f"cards): "
+          f"median {masked_ms:.3f} ms/frame over frames 3-{FRAMES} ({card}) "
+          f"vs north star {ns_ms:.3f}; {mem}; image mean {out.mean():.4f} "
+          f"std {out.std():.4f}", flush=True)
+    del r, masked_scene
+
+    # --- the bf16 LUT fetch against f32, frame by frame ------------------
+    # tests/test_ltc.py:429-432 holds a bf16 frame of its golden scene
+    # (TAA off) within max 1e-2 and mean 2e-4 of the f32 frame: that pair
+    # on that scene, then the masked 1080p frame (where the K3 bf16
+    # launches are counted) within the mean budget, its max printed.
+    def bf16_pair(make_scene, rcfg, cam):
+        frames = {}
+        for bf16 in (False, True):
+            shading.LTC_LUT_BF16 = bf16
+            try:
+                r = Renderer(make_scene(), rcfg, enable_taa=False)
+                reset_launches()
+                frames[bf16] = r.render(cam).cpu().numpy()
+            finally:
+                shading.LTC_LUT_BF16 = False
+            if int(r.aux["overflow"]):
+                fail("bf16 comparison frame overflowed")
+        diff = np.abs(frames[True].astype(np.float64) - frames[False])
+        if not np.isfinite(frames[True]).all():
+            fail("the bf16 LUT frame is not finite")
+        return diff
+
+    diff = bf16_pair(lambda: golden_scene(pt).device(dev), gcfg,
+                     pt.Camera(**gcam))
+    print(f"golden 160x96 with LTC_LUT_BF16: max abs diff to the f32 frame "
+          f"{diff.max():.3e} (budget {BF16_BUDGET}), mean {diff.mean():.3e} "
+          f"(budget {BF16_MEAN_BUDGET})", flush=True)
+    if not (diff.max() < BF16_BUDGET and diff.mean() < BF16_MEAN_BUDGET):
+        fail("the bf16 LUT golden frame strays from the f32 frame")
+    diff = bf16_pair(lambda: masked_world.device(dev), masked_cfg,
+                     north_star_camera(pt))
+    bf16_launches = expect_launches("masked bf16 frame", dict(
+        k1=0, k1_track2=1, k3=0, k3_bf16=5))
+    worst = np.unravel_index(np.argmax(diff), diff.shape)
+    print(f"masked {WIDTH}x{HEIGHT} with LTC_LUT_BF16: max abs diff to the "
+          f"f32 frame {diff.max():.3e} at {tuple(int(i) for i in worst)}, "
+          f"{int((diff >= BF16_BUDGET).sum())} values >= {BF16_BUDGET}, "
+          f"mean {diff.mean():.3e} (budget {BF16_MEAN_BUDGET})", flush=True)
+    if not diff.mean() < BF16_MEAN_BUDGET:
+        fail("the bf16 LUT masked frame strays from the f32 frame")
+
+    path_launches = dict(
+        fine_raster_pairs=ns_launches["k1"],
+        fine_raster_pairs_track2=masked_launches["k1_track2"],
+        lut_fetch=ns_launches["k3"],
+        lut_fetch_bf16=bf16_launches["k3_bf16"],
+    )
+    meta = dict(
+        fine_raster_pairs=("voidin_tpu_torch/csrc/fine_raster.cu",
+                           "voidin_tpu/ops/fine_raster.py:113"),
+        fine_raster_pairs_track2=("voidin_tpu_torch/csrc/fine_raster.cu",
+                                  "voidin_tpu/ops/fine_raster.py:214"),
+        lut_fetch=("voidin_tpu_torch/csrc/lut_fetch.cu",
+                   "voidin_tpu/ops/lut_fetch.py:43"),
+        lut_fetch_bf16=("voidin_tpu_torch/csrc/lut_fetch.cu",
+                        "voidin_tpu/ops/lut_fetch.py:59"),
+    )
     kernels = [
-        dict(name="fine_raster_pairs", route="cuda",
-             source="voidin_tpu_torch/csrc/fine_raster.cu",
-             replaces="voidin_tpu/ops/fine_raster.py:113",
-             launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms),
-        dict(name="lut_fetch", route="cuda",
-             source="voidin_tpu_torch/csrc/lut_fetch.cu",
-             replaces="voidin_tpu/ops/lut_fetch.py:43",
-             launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
-             plain_ms=k3_plain_ms),
+        dict(name=name, route="cuda", source=src, replaces=rep,
+             launches=path_launches[name], **rows[name])
+        for name, (src, rep) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
@@ -309,6 +557,74 @@ def golden_scene(pt):
         np.asarray(mathx.from_translation([0, -1, -6])
                    @ mathx.from_scale(30.0)), 0, grey)
     return w
+
+
+VERTICAL_PLANE_MESH = 1  # a 1x1 quad in XY facing -Z, in both packages
+GROUND_Y = -3.0  # the north-star field's ground plane (build_world)
+NEAR_CARDS = 4
+
+
+def foliage_textures(seed):
+    """The four texture kinds of an alpha-tested foliage material: a 256^2
+    RGBA cut-out albedo (a leaf lattice, round holes of alpha 0 in 32-texel
+    cells: 34% of its texels cut), a 256^2 tangent-space normal map, a
+    256^2 metallic-roughness map and a 64^2 emissive map, as uint8."""
+    rng = np.random.default_rng(seed)
+    n = 256
+    yy, xx = np.meshgrid(np.arange(n) + 0.5, np.arange(n) + 0.5,
+                         indexing="ij")
+    hole = (yy % 32 - 16) ** 2 + (xx % 32 - 16) ** 2 < 10.5 ** 2
+    vein = rng.integers(0, 48, (n, n))
+    albedo = np.stack([40 + vein, 100 + vein + 40 * ((xx // 64) % 2),
+                       30 + vein // 2, np.where(hole, 0, 255)], -1)
+    nx = 0.4 * np.sin(2 * np.pi * xx / 32)
+    ny = 0.4 * np.cos(2 * np.pi * yy / 64)
+    nz = np.sqrt(1.0 - nx ** 2 - ny ** 2)
+    normal = (np.stack([nx, ny, nz], -1) * 0.5 + 0.5) * 255 + 0.5
+    mr = np.stack([60 + 160 * (yy / n), rng.integers(0, 255, (n, n)),
+                   255 * ((xx // 16 + yy // 16) % 2), np.full((n, n), 255)],
+                  -1)
+    ey, ex = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    glow = ((ex // 8 + ey // 8) % 3 == 0)[..., None]
+    emissive = np.where(glow, [[[70, 120, 30]]], [[[0, 0, 0]]])
+    return dict(albedo=albedo.astype(np.uint8),
+                normal=normal.astype(np.uint8), mr=mr.astype(np.uint8),
+                emissive=emissive.astype(np.uint8))
+
+
+def add_foliage(world, n_cards, seed):
+    """Alpha-masked foliage over the north-star field, on either package's
+    World: two materials with a cut-out albedo, a normal map, a
+    metallic-roughness map and (the first) an emissive map, and `n_cards`
+    vertical cards (scale 1-4, random yaw, standing on the ground) spread
+    over the 400 x 400 field; the first NEAR_CARDS of them stand 6-16 m
+    in front of the north-star camera. Cards face +Z (toward that camera)
+    within +-60 degrees: the quad is one-sided. Returns the albedo's
+    texture id."""
+    rng = np.random.default_rng(seed)
+    tex = foliage_textures(seed)
+    albedo = world.textures.add(tex["albedo"], srgb=True)
+    normal = world.textures.add(tex["normal"])
+    mr = world.textures.add(tex["mr"])
+    emissive = world.textures.add(tex["emissive"], srgb=True)
+    leaf = world.materials.add(albedo=albedo, normal=normal,
+                               metallic_roughness=mr, emissive=emissive)
+    leaf_dark = world.materials.add(base_color=(0.6, 0.7, 0.6, 1.0),
+                                    albedo=albedo, normal=normal,
+                                    metallic_roughness=mr)
+    for i in range(n_cards):
+        if i < NEAR_CARDS:
+            x, z = rng.uniform(-6, 6), 30.0 - rng.uniform(6, 16)
+        else:
+            x, z = rng.uniform(-200, 200), rng.uniform(-200, 200)
+        s = rng.uniform(1.0, 4.0)
+        yaw = np.pi + rng.uniform(-np.pi / 3, np.pi / 3)
+        c, sn = np.cos(yaw) * s, np.sin(yaw) * s
+        t = np.array([[c, 0, sn, x], [0, s, 0, GROUND_Y + s / 2],
+                      [-sn, 0, c, z], [0, 0, 0, 1]], np.float32)
+        world.instances.add(t, VERTICAL_PLANE_MESH,
+                            leaf if i % 2 == 0 else leaf_dark)
+    return albedo
 
 
 if __name__ == "__main__":

@@ -19,6 +19,8 @@ from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.passes import cull, raster
 from voidin_tpu_torch.passes.raster import RasterConfig
 
+from chip_smoke import add_foliage
+
 pytestmark = pytest.mark.cuda
 
 CFG = RasterConfig(width=320, height=184, tri_capacity=1 << 15,
@@ -32,8 +34,14 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _records(device):
-    world, _ = build_world(1000, seed=0)
+def _foliage_world():
+    world, moving = build_world(1000, seed=0)
+    add_foliage(world, 300, seed=1)
+    return world, moving
+
+
+def _records(device, world=None):
+    world = world or build_world(1000, seed=0)[0]
     scene = world.device(device)
     cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
                     aspect=CFG.width / CFG.height).uniform()
@@ -54,23 +62,40 @@ def test_fine_raster_kernel_matches_twin(cuda):
     assert (ki >= 0).any()
 
 
-def test_lut_fetch_kernel_matches_twin(cuda):
+def test_fine_raster_track2_kernel_matches_twin(cuda):
+    rec, starts, counts = _records(cuda, _foliage_world()[0])
+    n, n2 = t_fr.LAUNCHES, t_fr.LAUNCHES_TRACK2
+    outs = t_fr.fine_raster_pairs(rec, starts, counts, track2=True)
+    refs = t_fr.fine_raster_pairs_reference(rec, starts, counts, track2=True)
+    torch.cuda.synchronize()
+    assert (t_fr.LAUNCHES, t_fr.LAUNCHES_TRACK2) == (n, n2 + 1)
+    for a, b in zip(outs, refs):
+        assert torch.equal(a, b)
+    assert (outs[3] >= 0).any()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_lut_fetch_kernel_matches_twin(cuda, bf16):
     g = torch.Generator().manual_seed(0)
     for n_chan in (1, 5, 8):
         tables = [torch.randn(64, 64, generator=g).to(cuda)
                   for _ in range(n_chan)]
         uv = (torch.rand(37, 53, 2, generator=g) * (63 / 64)
               + 0.5 / 64).to(cuda)
-        for a, b in zip(t_lut.lut_fetch(tables, uv),
-                        t_lut.lut_fetch_reference(tables, uv)):
+        uv[0, :2] = torch.tensor([[0.0, 0.0], [1.0, 1.0]]) * (63 / 64) \
+            + 0.5 / 64
+        for a, b in zip(t_lut.lut_fetch(tables, uv, bf16=bf16),
+                        t_lut.lut_fetch_reference(tables, uv, bf16=bf16)):
             assert (a - b).abs().max().item() <= 1e-6
 
 
-def test_frame_on_card_matches_cpu(cuda):
-    world, moving = build_world(1000, seed=0)
+@pytest.mark.parametrize("masked", [False, True])
+def test_frame_on_card_matches_cpu(cuda, masked):
+    world, moving = _foliage_world() if masked else build_world(1000, seed=0)
     imgs = []
     for device in (cuda, torch.device("cpu")):
         r = Renderer(world.device(device), CFG, moving_ids=moving)
+        assert r.config.alpha_mask == masked
         cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
                         aspect=CFG.width / CFG.height)
         for _ in range(3):

@@ -1,5 +1,5 @@
 """The port stands without JAX, refuses what it does not carry, and never
-falls back to the CPU when asked for a CUDA device."""
+falls back to the CPU when asked for (or defaulting to) a CUDA device."""
 
 import os
 import subprocess
@@ -84,11 +84,29 @@ def test_renderer_refuses_what_is_not_ported(kwargs):
         Renderer(scene, RasterConfig(width=32, height=16), **kwargs)
 
 
-def test_renderer_refuses_alpha_masked_scene():
+def test_renderer_renders_alpha_masked_scene():
+    """The scene the port once refused: a fully cut-out material. The
+    Renderer switches the runner-up raster on and renders it; the cut quad
+    in front of the camera leaves the background."""
     w = pt.World()
     tex = w.textures.add(np.zeros((4, 4, 4), np.uint8))
-    w.materials.add(albedo=tex)
+    mat = w.materials.add(albedo=tex)
+    w.instances.add(np.eye(4, dtype=np.float32), 1, mat)
     scene = w.device("cpu")
     assert scene.alpha_masked
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, RasterConfig(width=32, height=16))
+    r = Renderer(scene, RasterConfig(width=32, height=16, tri_capacity=1 << 8,
+                                     pair_capacity=1 << 10))
+    assert r.config.alpha_mask
+    img = r.render(pt.Camera(position=[0.0, 0.0, -3.0], yaw=180.0,
+                             aspect=2.0)).numpy()
+    assert img.shape == (16, 32, 3) and np.isfinite(img).all()
+    assert int(r.aux["overflow"]) == 0
+    assert int(r.aux["vis_coverage"]) > 0  # the quad rasterized ...
+    assert int((r.aux["depth"] > 0).sum()) == 0  # ... and was cut
+
+
+def test_world_device_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    with pytest.raises((RuntimeError, AssertionError)):
+        pt.World().device()

@@ -38,6 +38,7 @@ from voidin_tpu_torch.passes import shading as t_shading
 from voidin_tpu_torch.passes.gbuffer import VisBuffer
 
 from tests.test_golden import CFG, H, W
+from tests.test_torch_raster import T_CFG
 from tests.test_torch_scene import deferred_scene, port_scene
 
 torch.set_num_threads(2)
@@ -65,7 +66,7 @@ def resolved():
             overflow=torch.tensor(int(vis.overflow)),
         )
         jg, ja = j_resolve.resolve_gbuffer(js, vis, cam, CFG)
-        tg, ta = t_resolve.resolve_gbuffer(ts, tvis)
+        tg, ta = t_resolve.resolve_gbuffer(ts, tvis, T_CFG)
         jh = np.asarray(j_shading.shade(js, jg, cam, aux=ja))
         th = t_shading.shade(ts, tg, cam, ta).numpy()
     return dict(vis=vis, jg=jg, ja=ja, tg=tg, ta=ta, jh=jh, th=th)

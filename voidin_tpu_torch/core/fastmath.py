@@ -19,6 +19,19 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+def cross(a, b):
+    """(..., 3) x (..., 3) with jnp.cross's rounding: jnp.cross runs
+    jitted, and XLA contracts each component a_j*b_k - a_k*b_j into
+    fma(a_j, b_k, -rnd(a_k*b_j)). Emulated in f64, where the first product
+    is exact, so one rounding to f32 remains."""
+    def comp(j, k):
+        sub = (a[..., k] * b[..., j]).to(torch.float64)
+        return (a[..., j].to(torch.float64) * b[..., k].to(torch.float64)
+                - sub).to(torch.float32)
+
+    return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], dim=-1)
+
+
 def mat3_vec(m, v):
     """(..., 3, 3) @ (..., 3) -> (..., 3), elementwise."""
     return torch.stack(

@@ -34,6 +34,19 @@
 // coalesced 16-byte loads, then every thread reads the records as
 // shared-memory broadcasts. A simple first kernel: no double buffering of
 // chunks yet.
+//
+// The track2 variant (fine_raster_pairs_kernel<true>, C entry
+// voidin_fine_raster_pairs_track2) replaces the TPU kernel's track2 path,
+// voidin_tpu/ops/fine_raster.py:214-276: besides the winner it keeps the
+// runner-up (depth2, id2) among DISTINCT depths, which the alpha-masked
+// resolve falls back to where the winner's texel is cut. The TPU kernel
+// gets the within-chunk second place from a second full masked max over
+// the (128 records x 128 pixels) candidate block; here each thread streams
+// its pixel's records once, keeping two (depth, id) pairs in registers, so
+// the variant adds a few compares per record-pixel test and 8 B of output
+// per pixel, and nothing to shared memory or the record traffic. Its bound
+// is the base kernel's: FP32 issue rate of the plane evaluations and the
+// serial chunk loop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,12 +64,25 @@ __device__ __forceinline__ float plane(const float* r, float px, float py) {
   return __fadd_rn(__fadd_rn(__fmul_rn(r[0], px), __fmul_rn(r[1], py)), r[2]);
 }
 
+// Per thread, a chunk is one pass over its records keeping (m1, i1) =
+// the largest candidate and the highest id at it and, for kTrack2,
+// (m2, i2) = the largest candidate strictly below m1 and the highest id at
+// it. That is the TPU kernel's masked max (every record at the chunk's max
+// masked out, then max again): a new maximum demotes (m1, i1) to (m2, i2),
+// a tie of m1 only raises i1, anything below m1 competes for m2. Only
+// candidates > 0 can change the outputs (the running best and runner-up
+// start at depth 0 and move only on a strict >), so the -1 of non-inside
+// records and negative depths need no separate handling. The chunk result
+// is then merged as the TPU kernel merges it (fine_raster.py:253-276).
+template <bool kTrack2>
 __global__ void __launch_bounds__(kTilePx)
 fine_raster_pairs_kernel(const float* __restrict__ rec,
                          const int* __restrict__ starts,
                          const int* __restrict__ counts,
                          float* __restrict__ depth_out,
                          float* __restrict__ id_out,
+                         float* __restrict__ depth2_out,
+                         float* __restrict__ id2_out,
                          int n_chunks_total) {
   __shared__ __align__(16) float srec[kChunk * kRecF];
   const int tile = blockIdx.x;
@@ -67,6 +93,8 @@ fine_raster_pairs_kernel(const float* __restrict__ rec,
   const float py = (float)(lane / kTileW) + 0.5f;
   float bd = 0.0f;
   float bi = -1.0f;
+  float bd2 = 0.0f;
+  float bi2 = -1.0f;
   if (count > 0) {
     const int chunk0 = start / kChunk;
     const int offset = start - chunk0 * kChunk;
@@ -84,8 +112,7 @@ fine_raster_pairs_kernel(const float* __restrict__ rec,
       const int hi = span - c * kChunk;
       const int r0 = lo > 0 ? lo : 0;
       const int r1 = hi < kChunk ? hi : kChunk;
-      float gmax = -1.0f;
-      float gid = -1.0f;
+      float m1 = -1.0f, i1 = -1.0f, m2 = -1.0f, i2 = -1.0f;
       bool poisoned = false;
       for (int r = r0; r < r1; ++r) {
         const float* q = srec + r * kRecF;
@@ -98,21 +125,59 @@ fine_raster_pairs_kernel(const float* __restrict__ rec,
         if (isnan(d) || isnan(zmax)) { poisoned = true; continue; }
         const float cand = d < zmax ? d : zmax;
         const float id = q[kFId];
-        if (cand > gmax) {
-          gmax = cand;
-          gid = id;
-        } else if (cand == gmax) {
-          gid = fmaxf(gid, id);
+        if (cand > m1) {
+          if (kTrack2) {
+            m2 = m1;
+            i2 = i1;
+          }
+          m1 = cand;
+          i1 = id;
+        } else if (cand == m1) {
+          i1 = fmaxf(i1, id);
+        } else if (kTrack2) {
+          if (cand > m2) {
+            m2 = cand;
+            i2 = id;
+          } else if (cand == m2) {
+            i2 = fmaxf(i2, id);
+          }
         }
       }
-      if (!poisoned && gmax > bd) {
-        bd = gmax;
-        bi = gid;
+      // A NaN poisons the chunk's max (jnp.max): it changes neither the
+      // best nor the runner-up.
+      if (poisoned) continue;
+      const bool take = m1 > bd;
+      if (kTrack2) {
+        const float g2id = m2 > 0.0f ? i2 : -1.0f;
+        // demoted best; a bit-equal tie of the running best collapses
+        const float lv = take ? bd : (m1 == bd ? -1.0f : m1);
+        const float li = take ? bi : i1;
+        float m2v = bd2, m2i = bi2;
+        if (m2 > bd2) {
+          m2v = m2;
+          m2i = g2id;
+        }
+        if (lv > m2v) {
+          bd2 = lv;
+          bi2 = li;
+        } else {
+          bd2 = m2v;
+          bi2 = m2i;
+        }
+      }
+      if (take) {
+        bd = m1;
+        bi = i1;
       }
     }
   }
-  depth_out[(size_t)tile * kTilePx + lane] = bd;
-  id_out[(size_t)tile * kTilePx + lane] = bi;
+  const size_t o = (size_t)tile * kTilePx + lane;
+  depth_out[o] = bd;
+  id_out[o] = bi;
+  if (kTrack2) {
+    depth2_out[o] = bd2;
+    id2_out[o] = bi2;
+  }
 }
 
 }  // namespace
@@ -122,9 +187,22 @@ extern "C" int voidin_fine_raster_pairs(const void* rec, const void* starts,
                                         void* id, int nt, int n_chunks_total,
                                         void* stream) {
   if (nt > 0) {
-    fine_raster_pairs_kernel<<<nt, kTilePx, 0, (cudaStream_t)stream>>>(
+    fine_raster_pairs_kernel<false><<<nt, kTilePx, 0, (cudaStream_t)stream>>>(
         (const float*)rec, (const int*)starts, (const int*)counts,
-        (float*)depth, (float*)id, n_chunks_total);
+        (float*)depth, (float*)id, nullptr, nullptr, n_chunks_total);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int voidin_fine_raster_pairs_track2(
+    const void* rec, const void* starts, const void* counts, void* depth,
+    void* id, void* depth2, void* id2, int nt, int n_chunks_total,
+    void* stream) {
+  if (nt > 0) {
+    fine_raster_pairs_kernel<true><<<nt, kTilePx, 0, (cudaStream_t)stream>>>(
+        (const float*)rec, (const int*)starts, (const int*)counts,
+        (float*)depth, (float*)id, (float*)depth2, (float*)id2,
+        n_chunks_total);
   }
   return (int)cudaGetLastError();
 }

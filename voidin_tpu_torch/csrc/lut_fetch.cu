@@ -26,7 +26,19 @@
 // resident in each SM's L1/texture cache, and the kernel needs no shared
 // memory and no block-wide synchronisation. One thread per pixel, channel
 // loop inside, so the four tap addresses are computed once.
+//
+// The bf16 variant (lut_fetch_kernel<true>, C entry voidin_lut_fetch_bf16)
+// replaces the TPU kernel's bf16 path, voidin_tpu/ops/lut_fetch.py:59-61
+// (the LTC_LUT_BF16 semantics): the row weights, after the clamp-edge
+// merge, and every table entry are rounded to bf16 (round to nearest even,
+// __float2bfloat16_rn); the bf16 x bf16 row products are exact in f32 and
+// are summed in f32; the column weights stay f32. On the TPU the point was
+// halving the weight matrices' bytes; here the weights live in registers
+// and the tables stay f32 in memory, so the variant moves the same bytes
+// as the f32 kernel and adds six conversions per pixel and channel. Same
+// bound, same design.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -51,6 +63,11 @@ __device__ __forceinline__ void taps(float f, int& i0, int& i1, float& w0,
   }
 }
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool kBf16>
 __global__ void lut_fetch_kernel(const float* __restrict__ uv,
                                  const float* __restrict__ tables, int n_chan,
                                  long long p, float* __restrict__ out) {
@@ -64,12 +81,22 @@ __global__ void lut_fetch_kernel(const float* __restrict__ uv,
   float wx0, wx1, wy0, wy1;
   taps(fx, x0, x1, wx0, wx1);
   taps(fy, y0, y1, wy0, wy1);
+  if (kBf16) {
+    wy0 = round_bf16(wy0);
+    wy1 = round_bf16(wy1);
+  }
   for (int c = 0; c < n_chan; ++c) {
     const float* t = tables + (size_t)c * kT * kT;
-    const float a00 = __ldg(t + y0 * kT + x0);
-    const float a10 = __ldg(t + y1 * kT + x0);
-    const float a01 = __ldg(t + y0 * kT + x1);
-    const float a11 = __ldg(t + y1 * kT + x1);
+    float a00 = __ldg(t + y0 * kT + x0);
+    float a10 = __ldg(t + y1 * kT + x0);
+    float a01 = __ldg(t + y0 * kT + x1);
+    float a11 = __ldg(t + y1 * kT + x1);
+    if (kBf16) {
+      a00 = round_bf16(a00);
+      a10 = round_bf16(a10);
+      a01 = round_bf16(a01);
+      a11 = round_bf16(a11);
+    }
     const float r0 = __fadd_rn(__fmul_rn(wy0, a00), __fmul_rn(wy1, a10));
     const float r1 = __fadd_rn(__fmul_rn(wy0, a01), __fmul_rn(wy1, a11));
     out[(size_t)c * p + i] =
@@ -77,16 +104,29 @@ __global__ void lut_fetch_kernel(const float* __restrict__ uv,
   }
 }
 
+template <bool kBf16>
+int launch(const void* uv, const void* tables, int n_chan, long long p,
+           void* out, void* stream) {
+  if (p > 0) {
+    const int threads = 256;
+    const long long blocks = (p + threads - 1) / threads;
+    lut_fetch_kernel<kBf16>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const float*)uv, (const float*)tables, n_chan, p, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int voidin_lut_fetch(const void* uv, const void* tables,
                                 int n_chan, long long p, void* out,
                                 void* stream) {
-  if (p > 0) {
-    const int threads = 256;
-    const long long blocks = (p + threads - 1) / threads;
-    lut_fetch_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)uv, (const float*)tables, n_chan, p, (float*)out);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(uv, tables, n_chan, p, out, stream);
+}
+
+extern "C" int voidin_lut_fetch_bf16(const void* uv, const void* tables,
+                                     int n_chan, long long p, void* out,
+                                     void* stream) {
+  return launch<true>(uv, tables, n_chan, p, out, stream);
 }

@@ -8,10 +8,11 @@ kernel K3), TAA, postprocess, sRGB — eagerly; ``Renderer`` owns the
 per-frame host state (jitter schedule, previous camera uniform, TAA
 history) around it.
 
-The port carries the default path only. The Renderer raises
-NotImplementedError for what it does not carry: alpha-masked scenes,
-ray-traced shadows, skins, area_light_scale > 1, a device mesh and the
-JAX package's gather-economy RasterConfig options.
+The Renderer switches the runner-up raster and the alpha fallback on for
+an alpha-masked scene (RasterConfig.alpha_mask, from
+SceneData.alpha_masked). It raises NotImplementedError for what the port
+does not carry: ray-traced shadows, skins, area_light_scale > 1, a device
+mesh and the JAX package's gather-economy RasterConfig options.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ class FrameState:
     history_valid: bool = False  # False on the first frame
 
     @classmethod
-    def initial(cls, width, height, device="cpu"):
+    def initial(cls, width, height, device):
         return cls(
             history=torch.zeros(height, width, 3, dtype=torch.float32,
                                 device=device),
@@ -102,7 +103,7 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     # 3. visibility raster + G-buffer resolve
     vis = raster_pass.rasterize(scene.meshes, scene.instances, draws, camera,
                                 config, materials=scene.materials)
-    gbuffer, aux_r = resolve_pass.resolve_gbuffer(scene, vis)
+    gbuffer, aux_r = resolve_pass.resolve_gbuffer(scene, vis, config)
     # 4. deferred shading (HDR)
     hdr = shading_pass.shade(scene, gbuffer, camera, aux_r)
     # 5. TAA (reproject + resolve into history)
@@ -110,12 +111,17 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
         hdr, state = taa_pass.taa(hdr, gbuffer, camera, state)
     # 6. postprocess (sharpen + tonemap) + sRGB encode
     srgb = linear_to_srgb(post_pass.postprocess(hdr))
+    overflow = vis.overflow
+    if aux_r.overflow is not None:
+        overflow = overflow + aux_r.overflow  # alpha-fallback capacity
     aux = dict(
         draw_count=draws.count,
-        overflow=vis.overflow,
+        overflow=overflow,
         depth=gbuffer.depth,
         vis_coverage=(vis.tri_id >= 0).sum(),
     )
+    if aux_r.cut is not None:
+        aux.update(alpha_cut=aux_r.cut, alpha_fallback=aux_r.fallback)
     return srgb, state, scene, aux
 
 
@@ -137,8 +143,6 @@ class Renderer:
         **options,
     ):
         unsupported = []
-        if scene.alpha_masked:
-            unsupported.append("an alpha-masked scene")
         if enable_rt_shadows:
             unsupported.append("enable_rt_shadows")
         if skins:
@@ -157,7 +161,10 @@ class Renderer:
                 "not ported to voidin_tpu_torch: " + ", ".join(unsupported)
             )
         self.scene = scene
-        self.config = config or RasterConfig()
+        # runner-up tracking only when the scene has per-texel alpha-masked
+        # materials (visibility.wgsl:79-81 semantics)
+        self.config = dataclasses.replace(config or RasterConfig(),
+                                          alpha_mask=scene.alpha_masked)
         self.enable_cull = enable_cull
         self.enable_taa = enable_taa
         self.device = scene.device

@@ -97,8 +97,13 @@ def load() -> ctypes.CDLL:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.voidin_fine_raster_pairs.restype = i
         lib.voidin_fine_raster_pairs.argtypes = [p, p, p, p, p, i, i, p]
+        lib.voidin_fine_raster_pairs_track2.restype = i
+        lib.voidin_fine_raster_pairs_track2.argtypes = [p, p, p, p, p, p, p,
+                                                        i, i, p]
         lib.voidin_lut_fetch.restype = i
         lib.voidin_lut_fetch.argtypes = [p, p, i, i64, p, p]
+        lib.voidin_lut_fetch_bf16.restype = i
+        lib.voidin_lut_fetch_bf16.argtypes = [p, p, i, i64, p, p]
         lib.voidin_error_string.restype = ctypes.c_char_p
         lib.voidin_error_string.argtypes = [i]
         _lib = lib

@@ -6,7 +6,9 @@ CUDA tensor it launches the hand-written Hopper kernel in
 ``csrc/fine_raster.cu`` (see its header for what bounds it on an H100 and
 how the design answers that); on a CPU tensor it runs the plain PyTorch
 twin ``fine_raster_pairs_reference``. There is no other path: a CUDA
-tensor goes to the kernel or raises.
+tensor goes to the kernel or raises. ``track2=True`` is the TPU kernel's
+runner-up variant (alpha-masked scenes): it also returns the best depth
+and id among depths below the winner's.
 
 Record fields (RECORD_F = 16, f32), b coefficients baked to each pair's
 tile origin by binning:
@@ -32,21 +34,26 @@ TILE_W = 16
 TILE_PX = TILE_H * TILE_W  # 128 pixels, one thread each on the card
 CHUNK = 128  # records per chunk, aligned to global 128-slot boundaries
 
-LAUNCHES = 0  # kernel launches (CUDA path only)
+LAUNCHES = 0  # base-variant kernel launches (CUDA path only)
+LAUNCHES_TRACK2 = 0  # track2-variant kernel launches (CUDA path only)
 
 # Tiles the twin evaluates at once: bounds its (tiles, CHUNK, TILE_PX)
 # intermediates to ~64 MB each at any resolution.
 _TWIN_TILES = 1024
 
 
-def fine_raster_pairs_reference(records_sorted, starts, counts):
+def fine_raster_pairs_reference(records_sorted, starts, counts,
+                                track2=False):
     """Plain PyTorch twin of K1 with the TPU kernel's grouping.
 
     `records_sorted` (E_pad, 16) f32 tile-sorted records, E_pad a multiple
     of CHUNK padded so a tile's last chunk is in range; `starts`, `counts`
-    (NT,) int. Returns (depth, id), each (NT, TILE_PX) f32. Loops over the
-    chunk index and batches over tiles; planes are ((ax*px) + (ay*py)) + b
-    in separately rounded operations, like the kernel."""
+    (NT,) int. Returns (depth, id), each (NT, TILE_PX) f32, and with
+    `track2` also the runner-up (depth2, id2) among distinct depths. Loops
+    over the chunk index and batches over tiles; planes are
+    ((ax*px) + (ay*py)) + b in separately rounded operations, like the
+    kernel. The runner-up merge is a line-by-line translation of the TPU
+    kernel's (voidin_tpu/ops/fine_raster.py:239-276)."""
     dev = records_sorted.device
     nt = starts.shape[0]
     chunks = records_sorted.reshape(-1, CHUNK, RECORD_F)
@@ -62,6 +69,9 @@ def fine_raster_pairs_reference(records_sorted, starts, counts):
     slot = torch.arange(CHUNK, device=dev)
     best_d = torch.zeros(nt, TILE_PX, dtype=torch.float32, device=dev)
     best_i = torch.full((nt, TILE_PX), -1.0, dtype=torch.float32, device=dev)
+    if track2:
+        best_d2 = torch.zeros_like(best_d)
+        best_i2 = torch.full_like(best_i, -1.0)
     max_chunks = int(n_chunks.max()) if nt else 0
     for c in range(max_chunks):
         active = torch.nonzero(n_chunks > c)[:, 0]
@@ -86,22 +96,46 @@ def fine_raster_pairs_reference(records_sorted, starts, counts):
             cand = torch.where(inside, d, -1.0)
             gmax = torch.amax(cand, dim=1)  # (T, TILE_PX)
             idt = blk[:, :, F_ID, None].expand_as(cand)
-            gid = torch.amax(
-                torch.where(cand == gmax[:, None, :], idt, -1.0), dim=1
-            )
-            bd = best_d[t]
+            at_max = cand == gmax[:, None, :]
+            gid = torch.amax(torch.where(at_max, idt, -1.0), dim=1)
+            bd, bi = best_d[t], best_i[t]
             take = gmax > bd
             best_d[t] = torch.where(take, gmax, bd)
-            best_i[t] = torch.where(take, gid, best_i[t])
+            best_i[t] = torch.where(take, gid, bi)
+            if not track2:
+                continue
+            # within-chunk second place: every record at the chunk's max
+            # depth is masked (ties collapse, not just the winner's id)
+            c2 = torch.where(at_max, -1.0, cand)
+            g2 = torch.amax(c2, dim=1)
+            g2id = torch.amax(torch.where(c2 == g2[:, None, :], idt, -1.0),
+                              dim=1)
+            g2id = torch.where(g2 > 0.0, g2id, -1.0)
+            # demoted best; a cross-chunk bit-equal tie of the running best
+            # collapses like the within-chunk ties
+            lv = torch.where(take, bd, torch.where(gmax == bd, -1.0, gmax))
+            li = torch.where(take, bi, gid)
+            bd2, bi2 = best_d2[t], best_i2[t]
+            t2 = g2 > bd2
+            m2v = torch.where(t2, g2, bd2)
+            m2i = torch.where(t2, g2id, bi2)
+            t3 = lv > m2v
+            best_d2[t] = torch.where(t3, lv, m2v)
+            best_i2[t] = torch.where(t3, li, m2i)
+    if track2:
+        return best_d, best_i, best_d2, best_i2
     return best_d, best_i
 
 
-def fine_raster_pairs(records_sorted, starts, counts):
-    """Returns (depth, id), each (NT, TILE_PX) f32. CPU tensors run the
-    twin; CUDA tensors launch kernel K1."""
+def fine_raster_pairs(records_sorted, starts, counts, track2=False):
+    """Returns (depth, id), each (NT, TILE_PX) f32, and with `track2` also
+    the runner-up (depth2, id2) for the alpha-cutoff fallback. CPU tensors
+    run the twin; CUDA tensors launch kernel K1 (its track2 variant when
+    asked)."""
     if records_sorted.device.type == "cpu":
-        return fine_raster_pairs_reference(records_sorted, starts, counts)
-    global LAUNCHES
+        return fine_raster_pairs_reference(records_sorted, starts, counts,
+                                           track2=track2)
+    global LAUNCHES, LAUNCHES_TRACK2
     from . import _build
 
     if records_sorted.device.type != "cuda":
@@ -123,16 +157,19 @@ def fine_raster_pairs(records_sorted, starts, counts):
     rec = records_sorted.contiguous()
     starts = starts.contiguous()
     counts = counts.contiguous()
-    depth = torch.empty(nt, TILE_PX, dtype=torch.float32, device=rec.device)
-    ids = torch.empty(nt, TILE_PX, dtype=torch.float32, device=rec.device)
+    outs = [torch.empty(nt, TILE_PX, dtype=torch.float32, device=rec.device)
+            for _ in range(4 if track2 else 2)]
     lib = _build.load()
+    fn = (lib.voidin_fine_raster_pairs_track2 if track2
+          else lib.voidin_fine_raster_pairs)
     with torch.cuda.device(rec.device):
         stream = torch.cuda.current_stream(rec.device).cuda_stream
-        rc = lib.voidin_fine_raster_pairs(
-            rec.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            depth.data_ptr(), ids.data_ptr(), nt, rec.shape[0] // CHUNK,
-            stream,
-        )
+        rc = fn(rec.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                *[o.data_ptr() for o in outs], nt, rec.shape[0] // CHUNK,
+                stream)
     _build.check(lib, rc, "fine_raster_pairs")
-    LAUNCHES += 1
-    return depth, ids
+    if track2:
+        LAUNCHES_TRACK2 += 1
+    else:
+        LAUNCHES += 1
+    return tuple(outs)

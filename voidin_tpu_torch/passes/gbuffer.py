@@ -11,6 +11,7 @@ the reference GBuffer (app/gbuffer.rs:5-17):
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -26,9 +27,12 @@ class GBuffer:
 class VisBuffer:
     """Per-pixel winning work-item id + depth, plus the per-work-item
     resolve record: [original clip x/y/w per vertex (9), instance id,
-    idx_start, pad] as (T, 12) f32."""
+    idx_start, pad] as (T, 12) f32. Alpha-masked scenes also carry the
+    runner-up among distinct depths (RasterConfig.alpha_mask)."""
 
     tri_id: torch.Tensor  # (H, W) i32, -1 = background
     depth: torch.Tensor  # (H, W) f32 reverse-Z
     resolve_rec: torch.Tensor  # (T, 12) f32
     overflow: torch.Tensor  # () i64 count of binning/setup overflows
+    tri_id2: Optional[torch.Tensor] = None  # (H, W) i32 runner-up id
+    depth2: Optional[torch.Tensor] = None  # (H, W) f32 runner-up depth

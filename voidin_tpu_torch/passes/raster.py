@@ -11,7 +11,8 @@ Counterpart of ``voidin_tpu/passes/raster.py`` on its default path:
    stably sorted by tile, records gathered into tile order and their b
    coefficients baked to each pair's tile origin;
 3. fine raster: kernel K1 (ops/fine_raster.py), the per-tile reverse-Z
-   depth/id competition.
+   depth/id competition; its track2 variant adds the runner-up among
+   distinct depths for alpha-masked scenes (RasterConfig.alpha_mask).
 
 Every sort here is stable: the record order inside a tile decides ties in
 K1. Depth semantics: reverse-Z max with ndc.z affine in screen space.
@@ -35,7 +36,7 @@ NEAR_EPS = 1e-8
 # RasterConfig options of the JAX package that exist to save TPU gather
 # rows or serve other features; the port carries the default path only.
 UNSUPPORTED_OPTIONS = (
-    "alpha_mask", "sort_payload", "fused_resolve_rec", "inst_rec_f16",
+    "sort_payload", "fused_resolve_rec", "inst_rec_f16",
     "planar_resolve", "fused_inst_rec", "slim_rec", "quad_rate_resolve",
     "taa_quad_history", "taa_inwindow", "taa_quad_where", "kernel_payload",
     "tap_block", "slot_resolve", "debug_bounds",
@@ -48,6 +49,16 @@ class RasterConfig:
     height: int = 1080
     tri_capacity: int = 1 << 20  # max live triangle work items per frame
     pair_capacity: int = 1 << 22  # max (triangle, tile) pairs
+    # Track the runner-up depth candidate per pixel (K1's track2 variant)
+    # so resolve can apply the per-texel alpha cutoff inside the depth
+    # competition (visibility.wgsl:79-81 discard). The Renderer sets it
+    # from SceneData.alpha_masked.
+    alpha_mask: bool = False
+    # Alpha-mask fallback: resolve the runner-up only on a compacted list
+    # of cut pixels (capacity alpha_fallback_capacity; 0 = max(H*W // 16,
+    # 1024)) instead of re-resolving every pixel densely.
+    lazy_alpha_resolve: bool = True
+    alpha_fallback_capacity: int = 0
     # K1's tile shape; the tile count pads to a multiple of 8 like the JAX
     # layout's grid step, so both packages bin to the same tile table
     tile_h = fr.TILE_H
@@ -460,12 +471,18 @@ def rasterize(meshes: MeshPoolData, instances: InstanceData, draws: DrawList,
     setup = triangle_setup(meshes, instances, draws, camera, config,
                            materials=materials)
     rec_sorted, starts, counts, overflow = bin_triangles_pairs(setup, config)
-    depth, trif = fr.fine_raster_pairs(rec_sorted, starts, counts)
-    depth, tri_id = _untile(depth, trif, config)
+    outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
+                                track2=config.alpha_mask)
+    depth, tri_id = _untile(outs[0], outs[1], config)
     H, W = config.height, config.width
-    return VisBuffer(
+    vis = VisBuffer(
         tri_id=tri_id[:H, :W],
         depth=depth[:H, :W],
         resolve_rec=setup["resolve_rec"],
         overflow=overflow + setup["setup_overflow"],
     )
+    if config.alpha_mask:
+        depth2, tri_id2 = _untile(outs[2], outs[3], config)
+        vis.tri_id2 = tri_id2[:H, :W]
+        vis.depth2 = depth2[:H, :W]
+    return vis

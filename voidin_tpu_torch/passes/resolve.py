@@ -1,7 +1,8 @@
-"""Visibility-buffer -> G-buffer resolve, default dense path.
+"""Visibility-buffer -> G-buffer resolve.
 
-Counterpart of ``voidin_tpu/passes/resolve.py`` ``resolve_gbuffer`` for a
-scene without alpha masking (no runner-up candidate). Per winning pixel it
+Counterpart of ``voidin_tpu/passes/resolve.py`` ``resolve_gbuffer``: the
+dense per-pixel path and, for alpha-masked scenes, the runner-up fallback
+(lazy compacted batch by default, dense two-pass twin). Per winning pixel it
 recomputes perspective-correct barycentrics from the resolve record and
 evaluates the reference's attribute math (visibility.wgsl:66-97):
 * normal matrix = upper-left 3x3 of the instance transform (not inverse
@@ -17,6 +18,8 @@ It also produces the per-pixel material fields the shading pass consumes
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
 from ..core import encoding, fastmath
@@ -33,21 +36,16 @@ class ResolveAux:
     albedo: torch.Tensor  # (H, W, 4) filtered albedo (shading.wgsl:58)
     emissive: torch.Tensor  # (H, W, 3)
     mr: torch.Tensor  # (H, W, 4) metallic-roughness texel
+    # () alpha-fallback pixels beyond capacity (lazy path), else None
+    overflow: Optional[torch.Tensor] = None
+    # () pixels whose winner was alpha-cut, and those of them resolved to
+    # the runner-up (alpha-masked scenes), else None
+    cut: Optional[torch.Tensor] = None
+    fallback: Optional[torch.Tensor] = None
 
 
 def _normalize(v, eps=1e-20):
     return v / fastmath.sqrt(torch.clamp(_sum_last(v * v), min=eps))[..., None]
-
-
-def _cross(a, b):
-    return torch.stack(
-        [
-            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
-        ],
-        dim=-1,
-    )
 
 
 def _sum_last(a):
@@ -114,8 +112,12 @@ def _decode_channels(rows, tangents: bool = True):
 
 
 def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
-                  y_ndc):
-    """Per-pixel resolve over the (H, W) image: unmasked fields + masks."""
+                  y_ndc, want_aux: bool = True, lod_probe=None):
+    """Per-pixel resolve for any pixel-set shape S: unmasked fields plus
+    the keep/cut masks. x_ndc / y_ndc broadcast to S. `lod_probe`: None
+    takes the mip lod from image-space finite differences (S = (H, W));
+    (dx, dy) NDC steps take it from analytic within-triangle barycentric
+    probes (any S), as the flat fallback batch does."""
     S = tri_id.shape
     hit = tri_id >= 0
     # tangents feed only the normal-map TBN transform
@@ -124,17 +126,22 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     cl = channels["cl"].reshape(S + (3, 3))
 
     # Perspective-correct barycentrics via 2D homogeneous coordinates.
-    u = cl[..., 0] - x_ndc[..., None] * cl[..., 2]
-    v = cl[..., 1] - y_ndc[..., None] * cl[..., 2]
-    bc = _cross(u, v)
-    bsum = _sum_last(bc)[..., None]
-    sign = torch.where(bsum < 0, -1.0, 1.0)
-    lam_p = bc * sign / torch.clamp(bsum * sign, min=1e-20)
+    def bary(xn, yn):
+        u = cl[..., 0] - xn[..., None] * cl[..., 2]
+        v = cl[..., 1] - yn[..., None] * cl[..., 2]
+        bc = fastmath.cross(u, v)
+        bsum = _sum_last(bc)[..., None]
+        sign = torch.where(bsum < 0, -1.0, 1.0)
+        return bc * sign / torch.clamp(bsum * sign, min=1e-20)
 
+    def interp(corners, lam):  # (*S, 3, C) corners -> (*S, C)
+        return _sum_last((corners * lam[..., None]).movedim(-2, -1))
+
+    lam_p = bary(x_ndc, y_ndc)
     uv_c = channels["uv_c"].reshape(S + (3, 2))
     n_c = channels["n_c"].reshape(S + (3, 3))
-    normal_raw = _sum_last((n_c * lam_p[..., None]).movedim(-2, -1))
-    uv = _sum_last((uv_c * lam_p[..., None]).movedim(-2, -1))
+    normal_raw = interp(n_c, lam_p)
+    uv = interp(uv_c, lam_p)
 
     irec = channels["irec"]
     basis = irec[..., :9].reshape(S + (3, 3))
@@ -146,7 +153,17 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     n_ws = fastmath.mat3_vec(basis, normal_raw)
     tex_w = irec[..., 15]
     tex_h = irec[..., 16]
-    lod = uv_lod(uv, tex_w, tex_h)
+    if lod_probe is None:
+        lod = uv_lod(uv, tex_w, tex_h)
+    else:
+        dxn, dyn = lod_probe
+        du = interp(uv_c, bary(x_ndc + dxn, y_ndc)) - uv
+        dv = interp(uv_c, bary(x_ndc, y_ndc - dyn)) - uv
+        rho = torch.maximum(
+            du[..., 0].abs() * tex_w + du[..., 1].abs() * tex_h,
+            dv[..., 0].abs() * tex_w + dv[..., 1].abs() * tex_h,
+        )
+        lod = torch.clamp(torch.log2(torch.clamp(rho, min=1e-8)), 0.0, 16.0)
 
     albedo = sample_trilinear(scene.textures, mat_albedo, uv, lod,
                               wh=(tex_w, tex_h), srgb=scene.albedo_srgb)
@@ -155,10 +172,10 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
         normal = n_geo
     else:
         t_c = channels["t_c"].reshape(S + (3, 3))
-        tangent_raw = _sum_last((t_c * lam_p[..., None]).movedim(-2, -1))
+        tangent_raw = interp(t_c, lam_p)
         tangent_w = _sum_last(channels["t_sign"] * lam_p)
         t_ws = fastmath.mat3_vec(basis, tangent_raw)
-        b_ws = _cross(n_ws, t_ws) * tangent_w[..., None]
+        b_ws = fastmath.cross(n_ws, t_ws) * tangent_w[..., None]
         normal_tex = sample_trilinear(scene.textures, mat_normal, uv, lod,
                                       srgb=scene.normal_srgb)
         tbn_t = _normalize(t_ws)
@@ -181,7 +198,10 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
         material=torch.where(keep, material_id, zero),
         depth=torch.where(keep, depth, 0.0),
         keep=keep,
+        cut=cut,
     )
+    if not want_aux:
+        return out
 
     # Shading-pass material fields: background / cut pixels revert to the
     # material-0 lookup the reference makes from its cleared G-buffer;
@@ -194,8 +214,11 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     mat_mr = irec[..., 14].to(torch.int64)
     if not (scene.emissive_const and scene.mr_const):
         uv_s = encoding.unpack2x16float(out["packed_uv"])
-        lod_s = uv_lod(uv_s, torch.where(keep, tex_w, 1.0),
-                       torch.where(keep, tex_h, 1.0))
+        if lod_probe is None:
+            lod_s = uv_lod(uv_s, torch.where(keep, tex_w, 1.0),
+                           torch.where(keep, tex_h, 1.0))
+        else:
+            lod_s = lod  # flat batch: reuse the analytic lod
     if scene.emissive_const:
         out["emissive"] = torch.where(keep[..., None], irec[..., 17:20],
                                       mats.emissive_rgba[0, :3])
@@ -218,25 +241,119 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     return out
 
 
-def resolve_gbuffer(scene: SceneData, vis: VisBuffer):
+def _assemble(fields, **counts):
+    gbuffer = GBuffer(
+        normal_uv=torch.stack([fields["packed_n"], fields["packed_uv"]],
+                              dim=-1),
+        material=fields["material"],
+        depth=fields["depth"],
+    )
+    aux = ResolveAux(albedo=fields["albedo"], emissive=fields["emissive"],
+                     mr=fields["mr"], **counts)
+    return gbuffer, aux
+
+
+# Packed fallback row: the flat batch's fields return to the image through
+# ONE row scatter. u32 bits held as int32 (the port's convention):
+# [n, uv, material, depth, albedo*4, emissive*3, mr*4, processed flag].
+_FB_F = 16
+
+
+def _pack_fallback_rows(fields):
+    def bits(x):
+        return x.to(torch.float32).view(torch.int32)
+
+    cols = [fields["packed_n"], fields["packed_uv"],
+            fields["material"].to(torch.int32), bits(fields["depth"])]
+    cols += [bits(fields["albedo"][..., c]) for c in range(4)]
+    cols += [bits(fields["emissive"][..., c]) for c in range(3)]
+    cols += [bits(fields["mr"][..., c]) for c in range(4)]
+    cols.append(torch.ones_like(fields["packed_n"]))
+    return torch.stack(cols, dim=-1)  # (F, 16) int32
+
+
+def _unpack_fallback(img):
+    def f32(x):
+        return x.contiguous().view(torch.float32)
+
+    return dict(
+        packed_n=img[..., 0],
+        packed_uv=img[..., 1],
+        material=img[..., 2],
+        depth=f32(img[..., 3]),
+        albedo=f32(img[..., 4:8]),
+        emissive=f32(img[..., 8:11]),
+        mr=f32(img[..., 11:15]),
+        flag=img[..., 15] > 0,
+    )
+
+
+def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
     """Resolve the winning candidate per pixel. Returns (GBuffer,
-    ResolveAux). Alpha-masked scenes (runner-up fallback) are not part of
-    the port yet."""
-    if scene.alpha_masked:
-        raise NotImplementedError(
-            "alpha-masked scenes need the runner-up fallback, not ported"
-        )
+    ResolveAux). With a runner-up in `vis` (RasterConfig.alpha_mask),
+    pixels whose winner is alpha-cut fall back to the runner-up —
+    visibility.wgsl:79-81 `discard`, where a cut fragment writes no depth
+    and the triangle behind it stays visible. One level of fallback: a
+    cutout behind a cutout resolves to background. `lazy_alpha_resolve`
+    resolves the fallback on a compacted flat batch of the cut pixels
+    (capacity alpha_fallback_capacity, overflow counted in
+    ResolveAux.overflow); otherwise every pixel is resolved twice."""
     H, W = vis.depth.shape
     dev = vis.depth.device
     x_ndc = ((torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
              * 2.0 - 1.0)[None, :].expand(H, W)
     y_ndc = (1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)
              / H * 2.0)[:, None].expand(H, W)
-    f = _pixel_fields(scene, vis, vis.tri_id, vis.depth, x_ndc, y_ndc)
-    gbuffer = GBuffer(
-        normal_uv=torch.stack([f["packed_n"], f["packed_uv"]], dim=-1),
-        material=f["material"],
-        depth=f["depth"],
-    )
-    return gbuffer, ResolveAux(albedo=f["albedo"], emissive=f["emissive"],
-                               mr=f["mr"])
+
+    def dense_fields(tri_id, depth, want_aux=True):
+        return _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
+                             want_aux=want_aux)
+
+    if vis.tri_id2 is None:
+        return _assemble(dense_fields(vis.tri_id, vis.depth))
+
+    if not config.lazy_alpha_resolve:
+        # Dense two-pass fallback (the lazy path's oracle twin): pass 1
+        # finds cut winners, pass 2 re-resolves every pixel with the
+        # runner-up substituted.
+        f1 = dense_fields(vis.tri_id, vis.depth, want_aux=False)
+        fall = (vis.tri_id >= 0) & f1["cut"]
+        tid = torch.where(fall, vis.tri_id2, vis.tri_id)
+        dep = torch.where(fall, vis.depth2, vis.depth)
+        n_fall = fall.sum()
+        return _assemble(dense_fields(tid, dep), cut=n_fall, fallback=n_fall)
+
+    # Lazy fallback: full resolve of the winners (the final result for
+    # every non-cut pixel), then a compacted flat batch over the cut
+    # pixels only, scattered back as packed rows.
+    f1 = dense_fields(vis.tri_id, vis.depth)
+    fall = (vis.tri_id >= 0) & f1["cut"]
+    F = config.alpha_fallback_capacity or max((H * W) // 16, 1024)
+
+    flat = fall.reshape(-1)
+    count = flat.sum()
+    idx = fastmath.compact_indices(flat, F)  # (F,) pixel indices
+    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+    tid2 = torch.where(valid, vis.tri_id2.reshape(-1)[idx], -1)
+    dep2 = vis.depth2.reshape(-1)[idx]
+    fx = (idx % W).to(torch.float32)
+    fy = (idx // W).to(torch.float32)
+    xb = (fx + 0.5) / W * 2.0 - 1.0
+    yb = 1.0 - (fy + 0.5) / H * 2.0
+    fb = _pixel_fields(scene, vis, tid2, dep2, xb, yb,
+                       lod_probe=(2.0 / W, 2.0 / H))
+    rows = _pack_fallback_rows(fb)
+
+    # invalid slots write the extra row H*W, which is dropped
+    buf = torch.zeros(H * W + 1, _FB_F, dtype=torch.int32, device=dev)
+    buf[torch.where(valid, idx, H * W)] = rows
+    fbimg = _unpack_fallback(buf[: H * W].reshape(H, W, _FB_F))
+    use = fall & fbimg["flag"]
+
+    merged = dict(f1)
+    for k in ("packed_n", "packed_uv", "material", "depth"):
+        merged[k] = torch.where(use, fbimg[k], f1[k])
+    for k in ("albedo", "emissive", "mr"):
+        merged[k] = torch.where(use[..., None], fbimg[k], f1[k])
+    return _assemble(merged, overflow=torch.clamp(count - F, min=0),
+                     cut=count, fallback=use.sum())

@@ -32,6 +32,11 @@ LUT_SIZE = 64.0
 LUT_SCALE = (LUT_SIZE - 1.0) / LUT_SIZE
 LUT_BIAS = 0.5 / LUT_SIZE
 
+# Fetch the LTC tables through K3's bf16 variant (bf16 row weights and
+# table entries, f32 sums): the JAX package's switch of the same name,
+# read at each fetch. Costs ~1e-3 absolute on the LUT values.
+LTC_LUT_BF16 = False
+
 
 def _sum3(a):
     return (a[..., 0] + a[..., 1]) + a[..., 2]
@@ -106,8 +111,8 @@ def uv_lod(uv: torch.Tensor, tex_w, tex_h) -> torch.Tensor:
 def sample_lut_bilinear_multi(tables, uv: torch.Tensor):
     """Bilinear samples of several (64, 64) tables at `uv` (..., 2),
     pre-scaled by LUT_SCALE/BIAS: kernel K3 on the card, its twin on the
-    CPU."""
-    return lut_fetch(tables, uv)
+    CPU; its bf16 variant when LTC_LUT_BF16 is set."""
+    return lut_fetch(tables, uv, bf16=LTC_LUT_BF16)
 
 
 def integrate_edge(v1, v2):

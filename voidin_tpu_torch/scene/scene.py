@@ -1,8 +1,8 @@
 """Scene container: the World-equivalent.
 
 Counterpart of ``voidin_tpu/scene/scene.py``. The host-side :class:`World`
-owns the pools; ``World.device(device)`` freezes them into
-:class:`SceneData`, a dataclass of tensors on one device plus the static
+owns the pools; ``World.device(device)`` (the card unless asked otherwise)
+freezes them into :class:`SceneData`, a dataclass of tensors on one device plus the static
 flags the frame specializes on.
 
 ``scene_from_numpy`` is the one constructor of SceneData: it takes the
@@ -175,5 +175,8 @@ class World:
             mr_srgb=self._slot_srgb_static(mats.metallic_roughness),
         )
 
-    def device(self, device="cpu") -> SceneData:
+    def device(self, device="cuda") -> SceneData:
+        """The scene on `device`: the card unless the caller asks for
+        another (the CPU tests pass "cpu"). Raises where there is no
+        card."""
         return scene_from_numpy(self.host_leaves(), self.statics(), device)
