@@ -32,13 +32,33 @@ Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then:
      golden scene within tests/test_ltc.py's budgets (max abs diff < 1e-2,
      mean < 2e-4), then the masked 1080p frame: 5 K3 bf16 launches, mean
      < 2e-4, its max abs diff printed.
-Phases 7 and 8 print the median ms/frame of frames 3-12 (CUDA events) and
-the peak device memory of the 12 frames.
+ 10. K1's payload variant against its twin on the north-star records with
+     slim_rec (the 24-word slim resolve record as payload): all outputs
+     identical, the payload image equal to resolve_rec[max(tri_id, 0)]
+     bit for bit; timed beside K1's base variant on the same records;
+ 11. K2 (block raster) against its twin on the north-star frame's block
+     records, K (tile_tri_capacity) the smallest multiple of 128 above its
+     fullest tile; K2's track2 variant against its twin on the masked
+     frame's block records (K likewise), timed beside K2 base;
+ 12. the masked 320x184 scene on the block path (backend "xla"), card
+     against CPU (mean 5e-3), K2 track2 launched once per frame;
+ 13. the block-path north-star frame: one VisBuffer of each path at the
+     first frame's camera (depth bit-identical; the pixels whose id
+     differs, which only depth ties allow, are printed), then 12 frames
+     with backend "xla": overflow 0, K2 / K1 launched 12 / 0;
+ 14. the slim north-star frames: 12 frames with slim_rec (K1 12 launches)
+     and 12 with slim_rec + kernel_payload (K1 payload 12, K1 0): the two
+     last images identical, and within mean 5e-3 of the default
+     north-star frame.
+Phases 7, 8, 13 and 14 print the median ms/frame of frames 3-12 (CUDA
+events) and the peak device memory of the 12 frames. Every path run sets
+the launch counts to 0 just before it and checks them just after.
 Prints the kernel table as one JSON line, then the card line, then the
 result line {"ok": true, "device": {...}}. Exits non-zero on any failure
 and when no CUDA device is available.
 """
 
+import dataclasses
 import json
 import os
 import struct
@@ -159,14 +179,23 @@ def bound_ms(n_bytes, n_ops):
                                        else "operations")
 
 
-def k1_bound(counts, n_out):
+def k1_bound(counts, n_out, tile_bytes=8, px_bytes=0):
     """K1 must read each of the frame's valid (triangle, tile) records once
-    (64 B), the per-tile start/count (8 B), and write n_out f32 per pixel;
-    every record-pixel test evaluates three edge planes (12 FP32 ops)."""
+    (64 B), the per-tile start/count (8 B), and write n_out f32 per pixel
+    (plus px_bytes more per pixel, the payload variant's 96 B row); every
+    record-pixel test evaluates three edge planes (12 FP32 ops). K2 the
+    same over its blocks' valid records, with a 4 B count per tile."""
     pairs = int(counts.sum())
     nt = counts.shape[0]
-    return bound_ms(pairs * 64 + nt * 8 + nt * 128 * 4 * n_out,
-                    pairs * 128 * 12)
+    return bound_ms(pairs * 64 + nt * tile_bytes
+                    + nt * 128 * (4 * n_out + px_bytes), pairs * 128 * 12)
+
+
+def block_capacity(counts):
+    """The block path's tile_tri_capacity: the smallest multiple of 128 at
+    or above the fullest tile of the frame's pair binning (the same
+    (triangle, tile) pairs the block binning makes)."""
+    return max(128, -(-int(counts.max()) // 128) * 128)
 
 
 def k3_bound(n_chan, n_px):
@@ -177,24 +206,56 @@ def k3_bound(n_chan, n_px):
                     n_px * n_chan * 9)
 
 
-def frame_records(scene, cfg):
-    """Tile-sorted pair records of the first frame of `scene` at the
-    north-star camera, as the main path's binning produces them."""
+def frame_setup(scene, cfg, cam=None):
+    """Triangle setup of the first frame of `scene` at `cam` (default the
+    north-star camera), with the f16 instance record when cfg.slim_rec."""
     import voidin_tpu_torch as pt
-    from voidin_tpu_torch.passes import cull, raster
+    from voidin_tpu_torch.passes import cull, raster, resolve
 
-    uniform = north_star_camera(pt).uniform()
+    uniform = (cam or north_star_camera(pt)).uniform()
     draws = cull.emit_draws(scene.meshes, scene.instances, uniform)
+    inst_rec = resolve._inst_rec_f16(scene) if cfg.slim_rec else None
     setup = raster.triangle_setup(scene.meshes, scene.instances, draws,
-                                  uniform, cfg, materials=scene.materials)
+                                  uniform, cfg, materials=scene.materials,
+                                  inst_rec=inst_rec)
+    setup["draw_count"] = int(draws.count)
+    return setup
+
+
+def frame_records(scene, cfg, setup=None, cam=None):
+    """Tile-sorted pair records of the first frame of `scene` at `cam`
+    (default the north-star camera), as the main path's binning produces
+    them; `setup` given, its records."""
+    from voidin_tpu_torch.passes import raster
+
+    setup = setup or frame_setup(scene, cfg, cam)
     rec, starts, counts, ovf = raster.bin_triangles_pairs(setup, cfg)
     ovf = int(ovf) + int(setup["setup_overflow"])
-    print(f"  records: draws {int(draws.count)} pair slots {rec.shape[0]} "
-          f"valid pairs {int(counts.sum())} tiles {starts.shape[0]} "
-          f"overflow {ovf}", flush=True)
+    print(f"  records: draws {setup['draw_count']} pair slots "
+          f"{rec.shape[0]} valid pairs {int(counts.sum())} tiles "
+          f"{starts.shape[0]} max per tile {int(counts.max())} overflow "
+          f"{ovf}", flush=True)
     if ovf:
         fail("binning overflowed")
     return rec, starts, counts
+
+
+def frame_blocks(scene, cfg):
+    """Per-tile record blocks of the first frame of `scene` at the
+    north-star camera, as the block path's binning produces them."""
+    from voidin_tpu_torch.passes import raster
+
+    setup = frame_setup(scene, cfg)
+    blocks, counts, ovf = raster.bin_triangles(setup, cfg)
+    ovf = int(ovf) + int(setup["setup_overflow"])
+    print(f"  blocks: K {cfg.tile_tri_capacity}, max per-tile count "
+          f"{int(counts.max())}, valid records {int(counts.sum())}, tiles "
+          f"{blocks.shape[0]}, block bytes {blocks.numel() * 4:,} "
+          f"({blocks.numel() * 4 / 1e9:.3f} GB), overflow {ovf}",
+          flush=True)
+    if ovf:
+        fail("block binning overflowed")
+    return blocks, counts
 
 
 def run_frames(renderer, cam, label):
@@ -243,6 +304,7 @@ def run_frames(renderer, cam, label):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)",
               flush=True)
@@ -256,7 +318,7 @@ def main():
     from voidin_tpu_torch.ops import _build
     from voidin_tpu_torch.ops import fine_raster as fr
     from voidin_tpu_torch.ops import lut_fetch as lf
-    from voidin_tpu_torch.passes import shading
+    from voidin_tpu_torch.passes import cull, raster, shading
     from voidin_tpu_torch.passes.raster import RasterConfig
 
     if "jax" in sys.modules or "voidin_tpu" in sys.modules:
@@ -266,15 +328,22 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(f"card: {card}", flush=True)
 
+    counters = dict(k1=(fr, "LAUNCHES"), k1_track2=(fr, "LAUNCHES_TRACK2"),
+                    k1_payload=(fr, "LAUNCHES_PAYLOAD"),
+                    k2=(fr, "LAUNCHES_BLOCKS"),
+                    k2_track2=(fr, "LAUNCHES_BLOCKS_TRACK2"),
+                    k3=(lf, "LAUNCHES"), k3_bf16=(lf, "LAUNCHES_BF16"))
+
     def launches():
-        return dict(k1=fr.LAUNCHES, k1_track2=fr.LAUNCHES_TRACK2,
-                    k3=lf.LAUNCHES, k3_bf16=lf.LAUNCHES_BF16)
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
 
     def reset_launches():
-        fr.LAUNCHES = fr.LAUNCHES_TRACK2 = 0
-        lf.LAUNCHES = lf.LAUNCHES_BF16 = 0
+        for m, a in counters.values():
+            setattr(m, a, 0)
 
     def expect_launches(label, want):
+        """The counts since the last reset: `want`, every other zero."""
+        want = {k: want.get(k, 0) for k in counters}
         got = launches()
         print(f"{label} launches: {got}", flush=True)
         if got != want:
@@ -313,7 +382,71 @@ def main():
           f"bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
     if k1_mismatch:
         fail("K1 disagrees with its twin")
+    ns_k = block_capacity(counts)
     del rec, starts, counts, kd, ki, rd, ri
+
+    # --- K1 payload vs twin on the north-star records with slim_rec -----
+    slim_cfg = dataclasses.replace(cfg, slim_rec=True)
+    setup = frame_setup(world.device(dev), slim_cfg)
+    rec, starts, counts = frame_records(None, slim_cfg, setup)
+    payload = raster._pair_payload_stream(rec, setup["resolve_rec"])
+    outs = fr.fine_raster_pairs(rec, starts, counts, payload=payload)
+    refs = fr.fine_raster_pairs_reference(rec, starts, counts,
+                                          payload=payload)
+    torch.cuda.synchronize()
+    mismatch = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                for a, b in zip(outs, refs)]
+    _, tri_id = raster._untile(outs[0], outs[1], cfg)
+    tri_id = tri_id[:HEIGHT, :WIDTH]
+    img = raster._untile_payload(outs[2], tri_id, setup["resolve_rec"], cfg)
+    want = setup["resolve_rec"][torch.clamp(tri_id.long(), min=0)]
+    gather_mismatch = int((img.view(torch.int32)
+                           != want.view(torch.int32)).sum())
+    pay_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts,
+                                                    payload=payload), 20)
+    pay_plain_ms = time_cuda(lambda: fr.fine_raster_pairs_reference(
+        rec, starts, counts, payload=payload), 3)
+    base_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts),
+                        20)
+    b_ms, b_by = k1_bound(counts, 2, px_bytes=4 * payload.shape[1])
+    rows["fine_raster_pairs_payload"] = dict(
+        max_abs_err=float((outs[0] - refs[0]).abs().max()), ms=pay_ms,
+        plain_ms=pay_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"K1 fine_raster_pairs_payload ({payload.shape[1]} words): "
+          f"mismatched words (depth, id, payload) {mismatch} of "
+          f"({outs[0].numel()}, {outs[1].numel()}, {outs[2].numel()}); "
+          f"payload image vs resolve_rec[max(tri_id, 0)]: "
+          f"{gather_mismatch} of {img.numel()} words differ; kernel "
+          f"{pay_ms:.4f} ms, twin {pay_plain_ms:.4f} ms, base variant on "
+          f"the same records {base_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}) ({card})", flush=True)
+    if any(mismatch) or gather_mismatch:
+        fail("K1 payload disagrees with its twin or the record gather")
+    del setup, rec, starts, counts, payload, outs, refs, img, want
+
+    # --- K2 vs twin on the north-star block records ----------------------
+    block_cfg = dataclasses.replace(cfg, backend="xla",
+                                    tile_tri_capacity=ns_k)
+    blocks, counts = frame_blocks(world.device(dev), block_cfg)
+    outs = fr.fine_raster_blocks(blocks, counts)
+    refs = fr.fine_raster_blocks_reference(blocks, counts)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
+    k2_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts), 20)
+    k2_plain_ms = time_cuda(lambda: fr.fine_raster_blocks_reference(
+        blocks, counts), 3)
+    b_ms, b_by = k1_bound(counts, 2, tile_bytes=4)
+    rows["fine_raster_blocks"] = dict(
+        max_abs_err=float((outs[0] - refs[0]).abs().max()), ms=k2_ms,
+        plain_ms=k2_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"K2 fine_raster_blocks (K {ns_k}): mismatched (depth, id) "
+          f"{mismatch} of {outs[0].numel()} each; kernel {k2_ms:.4f} ms, "
+          f"twin {k2_plain_ms:.4f} ms, K1 on the pair records of the same "
+          f"frame {k1_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
+          flush=True)
+    if any(mismatch):
+        fail("K2 disagrees with its twin")
+    del blocks, counts, outs, refs
 
     # --- K3 and its bf16 variant vs their twins, grid_sample beside ------
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -387,7 +520,37 @@ def main():
           flush=True)
     if any(mismatch):
         fail("K1 track2 disagrees with its twin")
+    masked_k = block_capacity(counts)
     del rec, starts, counts, outs, refs
+
+    # --- K2 track2 vs twin on the masked frame's block records ----------
+    masked_block_cfg = dataclasses.replace(masked_cfg, backend="xla",
+                                           tile_tri_capacity=masked_k)
+    blocks, counts = frame_blocks(masked_scene, masked_block_cfg)
+    outs = fr.fine_raster_blocks(blocks, counts, track2=True)
+    refs = fr.fine_raster_blocks_reference(blocks, counts, track2=True)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
+    t2_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts,
+                                                    track2=True), 20)
+    t2_plain_ms = time_cuda(lambda: fr.fine_raster_blocks_reference(
+        blocks, counts, track2=True), 3)
+    base_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts), 20)
+    b_ms, b_by = k1_bound(counts, 4, tile_bytes=4)
+    rows["fine_raster_blocks_track2"] = dict(
+        max_abs_err=max(float((outs[0] - refs[0]).abs().max()),
+                        float((outs[2] - refs[2]).abs().max())),
+        ms=t2_ms, plain_ms=t2_plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    print(f"K2 fine_raster_blocks_track2 (K {masked_k}): mismatched "
+          f"(depth, id, depth2, id2) {mismatch} of {outs[0].numel()} each; "
+          f"runner-up pixels {int((outs[3] >= 0).sum())}; kernel "
+          f"{t2_ms:.4f} ms, twin {t2_plain_ms:.4f} ms, K2 base on the same "
+          f"blocks {base_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
+          flush=True)
+    if any(mismatch):
+        fail("K2 track2 disagrees with its twin")
+    del blocks, counts, outs, refs
 
     # --- golden scene: card vs golden image and vs the CPU twins --------
     gw, gh = 160, 96
@@ -436,6 +599,36 @@ def main():
             and cuts["card"] > 0):
         fail("small masked scene on the card disagrees with the CPU")
 
+    # --- the masked scene, small, on the block path: card vs CPU ---------
+    small_cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                          aspect=sw / sh)
+    rec, starts, counts = frame_records(small.device(dev), scfg,
+                                        cam=small_cam)
+    sbcfg = dataclasses.replace(scfg, backend="xla", pair_capacity=1 << 16,
+                                tile_tri_capacity=block_capacity(counts))
+    del rec, starts, counts
+    imgs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        r = Renderer(small.device(d), sbcfg, moving_ids=small_moving)
+        reset_launches()
+        for _ in range(3):
+            img = r.render(small_cam)
+            if int(r.aux["overflow"]):
+                fail(f"small masked block-path scene overflowed on the "
+                     f"{where}")
+        if where == "card":
+            small_block_launches = expect_launches(
+                "small masked block path", dict(k2_track2=3, k3=15))
+        imgs[where] = img.cpu().numpy()
+    small_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
+    print(f"masked scene 320x184 on the block path (K "
+          f"{sbcfg.tile_tri_capacity}, 3 TAA frames) on the card: mean abs "
+          f"diff vs the CPU twins {small_diff:.3e} (budget "
+          f"{GOLDEN_BUDGET})", flush=True)
+    if not (np.isfinite(imgs["card"]).all() and small_diff < GOLDEN_BUDGET):
+        fail("small masked block-path scene on the card disagrees with the "
+             "CPU")
+
     # --- the north-star frame through the Renderer ----------------------
     r = Renderer(world.device(dev), cfg, moving_ids=moving)
     reset_launches()
@@ -446,7 +639,69 @@ def main():
     print(f"north-star frame {WIDTH}x{HEIGHT}: median {ns_ms:.3f} ms/frame "
           f"over frames 3-{FRAMES} ({card}); {mem}; image mean "
           f"{out.mean():.4f} std {out.std():.4f}", flush=True)
-    del r, world
+    ns_img = out
+    del r
+
+    # --- the block-path north-star frame ---------------------------------
+    # One VisBuffer of each path at the first frame's camera: both take
+    # the max of the same baked planes, so depth is bit-identical; ids may
+    # differ only where depths tie.
+    scene = world.device(dev)
+    uniform = north_star_camera(pt).uniform()
+    draws = cull.emit_draws(scene.meshes, scene.instances, uniform)
+    vis = {c.backend: raster.rasterize(scene.meshes, scene.instances, draws,
+                                       uniform, c, materials=scene.materials)
+           for c in (cfg, block_cfg)}
+    same_depth = torch.equal(vis["pallas"].depth, vis["xla"].depth)
+    id_differ = int((vis["pallas"].tri_id != vis["xla"].tri_id).sum())
+    print(f"block path vs pair path, one VisBuffer: depth bit-identical "
+          f"{same_depth}, ids differ at {id_differ} of {WIDTH * HEIGHT} "
+          f"pixels (depth ties); overflow {int(vis['pallas'].overflow)} / "
+          f"{int(vis['xla'].overflow)}", flush=True)
+    if not same_depth or int(vis["xla"].overflow):
+        fail("the block path's depth differs from the pair path's")
+    del scene, vis
+    r = Renderer(world.device(dev), block_cfg, moving_ids=moving)
+    reset_launches()
+    out, times, mem = run_frames(r, north_star_camera(pt), "block-path")
+    block_launches = expect_launches("block-path", dict(
+        k2=FRAMES, k3=5 * FRAMES))
+    block_ms = float(np.median(times[2:]))
+    print(f"block-path north-star frame {WIDTH}x{HEIGHT} (backend xla, K "
+          f"{ns_k}): median {block_ms:.3f} ms/frame over frames 3-{FRAMES} "
+          f"({card}) vs pair path {ns_ms:.3f}; {mem}; image mean "
+          f"{out.mean():.4f} std {out.std():.4f}", flush=True)
+    del r
+
+    # --- the slim north-star frames, without and with the payload --------
+    slim_imgs, slim_ms = {}, {}
+    for payload in (False, True):
+        label = "slim + payload" if payload else "slim"
+        r = Renderer(world.device(dev), dataclasses.replace(
+            slim_cfg, kernel_payload=payload), moving_ids=moving)
+        reset_launches()
+        slim_imgs[payload], times, mem = run_frames(
+            r, north_star_camera(pt), label)
+        got = expect_launches(label, dict(
+            k1_payload=FRAMES if payload else 0,
+            k1=0 if payload else FRAMES, k3=5 * FRAMES))
+        if payload:
+            payload_launches = got
+        slim_ms[payload] = float(np.median(times[2:]))
+        print(f"{label} north-star frame {WIDTH}x{HEIGHT}: median "
+              f"{slim_ms[payload]:.3f} ms/frame over frames 3-{FRAMES} "
+              f"({card}); {mem}", flush=True)
+        del r
+    same = np.array_equal(slim_imgs[False], slim_imgs[True])
+    slim_diff = float(np.abs(slim_imgs[True] - ns_img).mean())
+    print(f"slim + payload frame identical to the slim frame: {same}; mean "
+          f"abs diff to the default north-star frame {slim_diff:.3e} "
+          f"(budget {GOLDEN_BUDGET}); ms/frame default {ns_ms:.3f}, slim "
+          f"{slim_ms[False]:.3f}, slim + payload {slim_ms[True]:.3f}",
+          flush=True)
+    if not same or not slim_diff < GOLDEN_BUDGET:
+        fail("the slim + payload frame strays")
+    del world
 
     # --- the masked frame through the Renderer ---------------------------
     r = Renderer(masked_scene, masked_cfg, moving_ids=masked_moving)
@@ -508,6 +763,9 @@ def main():
     path_launches = dict(
         fine_raster_pairs=ns_launches["k1"],
         fine_raster_pairs_track2=masked_launches["k1_track2"],
+        fine_raster_pairs_payload=payload_launches["k1_payload"],
+        fine_raster_blocks=block_launches["k2"],
+        fine_raster_blocks_track2=small_block_launches["k2_track2"],
         lut_fetch=ns_launches["k3"],
         lut_fetch_bf16=bf16_launches["k3_bf16"],
     )
@@ -516,6 +774,12 @@ def main():
                            "voidin_tpu/ops/fine_raster.py:113"),
         fine_raster_pairs_track2=("voidin_tpu_torch/csrc/fine_raster.cu",
                                   "voidin_tpu/ops/fine_raster.py:214"),
+        fine_raster_pairs_payload=("voidin_tpu_torch/csrc/fine_raster.cu",
+                                   "voidin_tpu/ops/fine_raster.py:222"),
+        fine_raster_blocks=("voidin_tpu_torch/csrc/fine_raster.cu",
+                            "voidin_tpu/ops/fine_raster.py:390"),
+        fine_raster_blocks_track2=("voidin_tpu_torch/csrc/fine_raster.cu",
+                                   "voidin_tpu/passes/raster.py:957"),
         lut_fetch=("voidin_tpu_torch/csrc/lut_fetch.cu",
                    "voidin_tpu/ops/lut_fetch.py:43"),
         lut_fetch_bf16=("voidin_tpu_torch/csrc/lut_fetch.cu",
@@ -526,6 +790,8 @@ def main():
              launches=path_launches[name], **rows[name])
         for name, (src, rep) in meta.items()
     ]
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the "
+          f"kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

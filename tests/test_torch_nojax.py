@@ -58,6 +58,9 @@ def test_cuda_device_without_a_card_raises():
         t_fr.fine_raster_pairs(torch.zeros(384, 16, device="cuda"),
                                torch.zeros(8, dtype=torch.int32),
                                torch.zeros(8, dtype=torch.int32))
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_fr.fine_raster_blocks(torch.zeros(8, 64, 16, device="cuda"),
+                                torch.zeros(8, dtype=torch.int32))
 
 
 def test_wrappers_take_no_other_device():
@@ -65,6 +68,8 @@ def test_wrappers_take_no_other_device():
     st = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         t_fr.fine_raster_pairs(rec, st, st)
+    with pytest.raises(ValueError):
+        t_fr.fine_raster_blocks(torch.zeros(8, 64, 16, device="meta"), st)
     with pytest.raises(ValueError):
         t_lut.lut_fetch([torch.zeros(64, 64, device="meta")],
                         torch.zeros(4, 2, device="meta"))
@@ -75,7 +80,7 @@ def test_wrappers_take_no_other_device():
     dict(area_light_scale=2),
     dict(mesh="rows"),
     dict(skins=("skin",)),
-    dict(slim_rec=True),
+    dict(planar_resolve=True),
     dict(taa_quad_history=True),
 ])
 def test_renderer_refuses_what_is_not_ported(kwargs):

@@ -3,9 +3,12 @@
     python3 tools/torch_stage_split.py [--frames 10]
 
 Renders the north-star frame (build_world(10_000, seed=0), 1920x1080,
-capacities 2^19, moving instances, TAA) and the masked frame (the same plus
-chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20) through
-Renderer.render, overflow 0 on every frame, with CUDA events around each
+capacities 2^19, moving instances, TAA), the same frame on the block path
+(backend "xla", K the smallest multiple of 128 above its fullest tile)
+and with slim_rec + kernel_payload, and the masked frame (the north star
+plus chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20)
+through Renderer.render, overflow 0 on every frame, with CUDA events
+around each
 pass of render_frame and around the resolve's per-pixel field evaluations
 (the dense (H, W) pass and the flat fallback batch). Prints, per scene, the median ms of each stage over the frames
 after the first two, and the host-clock ms/frame. Then times the resolve
@@ -40,7 +43,11 @@ STAGES = [
     (raster, "rasterize", "raster"),
     (raster, "triangle_setup", "  triangle setup"),
     (raster, "bin_triangles_pairs", "  binning"),
+    (raster, "bin_triangles", "  block binning"),
+    (raster, "_pair_payload_stream", "  payload stream"),
     (fr, "fine_raster_pairs", "  fine raster K1"),
+    (fr, "fine_raster_blocks", "  fine raster K2"),
+    (raster, "_untile_payload", "  payload untile"),
     (resolve, "resolve_gbuffer", "resolve"),
     (resolve, "_pixel_fields", "  resolve fields"),
     (renderer_mod.shading_pass, "shade", "shade + K3"),
@@ -143,8 +150,16 @@ def main():
     masked, masked_moving = renderer_mod.build_world(10_000, seed=0)
     chip_smoke.add_foliage(masked, chip_smoke.N_FOLIAGE, seed=1)
     resolve_variants(masked, masked_cfg, card, reps=10)
+    _, _, counts = chip_smoke.frame_records(world.device("cuda"), cfg)
+    block_cfg = dataclasses.replace(
+        cfg, backend="xla", tile_tri_capacity=chip_smoke.block_capacity(
+            counts))
+    slim_cfg = dataclasses.replace(cfg, slim_rec=True, kernel_payload=True)
     instrument()
     for label, w, mv, c in (("north star", world, moving, cfg),
+                            (f"block path (K {block_cfg.tile_tri_capacity})",
+                             world, moving, block_cfg),
+                            ("slim + payload", world, moving, slim_cfg),
                             ("masked", masked, masked_moving, masked_cfg)):
         split(label, w, mv, c, args.frames, card)
 

@@ -3,8 +3,8 @@
 Counterpart of ``voidin_tpu/framework/renderer.py`` (reference App + frame
 loop, crates/app/src/app.rs:292-358). ``render_frame`` runs the frame's
 passes in order on the scene's device — update, cull + LOD select,
-raster (setup, binning, fine raster kernel K1), resolve, shade (LTC fetch
-kernel K3), TAA, postprocess, sRGB — eagerly; ``Renderer`` owns the
+raster (setup, binning, fine raster kernel K1 or K2), resolve, shade (LTC
+fetch kernel K3), TAA, postprocess, sRGB — eagerly; ``Renderer`` owns the
 per-frame host state (jitter schedule, previous camera uniform, TAA
 history) around it.
 
@@ -12,7 +12,9 @@ The Renderer switches the runner-up raster and the alpha fallback on for
 an alpha-masked scene (RasterConfig.alpha_mask, from
 SceneData.alpha_masked). It raises NotImplementedError for what the port
 does not carry: ray-traced shadows, skins, area_light_scale > 1, a device
-mesh and the JAX package's gather-economy RasterConfig options.
+mesh, the JAX package's gather-economy RasterConfig options, and slim_rec
+on a scene outside its envelope (where the JAX package falls back to
+fused_resolve_rec + inst_rec_f16).
 """
 
 from __future__ import annotations
@@ -100,9 +102,12 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
             instance=torch.arange(n, dtype=torch.int32, device=scene.device),
             count=torch.tensor(n, device=scene.device),
         )
-    # 3. visibility raster + G-buffer resolve
+    # 3. visibility raster + G-buffer resolve; slim_rec threads the f16
+    # instance record through setup into the slim resolve record
+    inst_rec = resolve_pass._inst_rec_f16(scene) if config.slim_rec else None
     vis = raster_pass.rasterize(scene.meshes, scene.instances, draws, camera,
-                                config, materials=scene.materials)
+                                config, materials=scene.materials,
+                                inst_rec=inst_rec)
     gbuffer, aux_r = resolve_pass.resolve_gbuffer(scene, vis, config)
     # 4. deferred shading (HDR)
     hdr = shading_pass.shade(scene, gbuffer, camera, aux_r)
@@ -156,6 +161,12 @@ class Renderer:
                 raise TypeError(f"unknown Renderer option {k!r}")
             if v:
                 unsupported.append(k)
+        if config is not None and config.slim_rec and not _slim_fits(scene):
+            # the JAX package switches to fused_resolve_rec + inst_rec_f16
+            # here; the port carries neither
+            unsupported.append(
+                "slim_rec outside its envelope (the fallback "
+                "fused_resolve_rec + inst_rec_f16)")
         if unsupported:
             raise NotImplementedError(
                 "not ported to voidin_tpu_torch: " + ", ".join(unsupported)
@@ -198,6 +209,16 @@ class Renderer:
         self.frame_count += 1
         self.time += dt
         return img
+
+
+def _slim_fits(scene: SceneData) -> bool:
+    """RasterConfig.slim_rec's envelope: no normal maps, const-folded 1x1
+    emissive and metallic-roughness textures, no alpha masking, and
+    material and texture ids exact in f16."""
+    return (scene.no_normal_maps and scene.emissive_const and scene.mr_const
+            and not scene.alpha_masked
+            and scene.materials.albedo.shape[0] <= 2048
+            and scene.textures.size.shape[0] <= 2048)
 
 
 def build_world(n_instances=10_000, seed=0):

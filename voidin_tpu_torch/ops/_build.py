@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes:
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, loaded
+with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o _build/libvoidin_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu   # per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libvoidin_kernels_<hash>.so _build/*.o
 
 The library lands in ``voidin_tpu_torch/_build/`` (git-ignored), named by a
 hash of the sources and flags, so an edited kernel rebuilds and an
@@ -30,8 +33,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared",
-              "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -60,6 +62,21 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libvoidin_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _check_run(procs):
+    """Waits for every (process, command) and raises on the first failure
+    with its output; returns the concatenated output."""
+    text = ""
+    failed = None
+    for proc, cmd in procs:
+        out, err = proc.communicate()
+        text += out + err
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, " ".join(cmd), out, err)
+    if failed:
+        raise RuntimeError("nvcc failed (%d): %s\n%s\n%s" % failed)
+    return text
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the hashed library is missing; returns its
     path. `verbose` adds -Xptxas -v (registers/shared memory per kernel)
@@ -68,22 +85,27 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out) and not verbose:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "nvcc failed (%d):\n%s\n%s" % (proc.returncode, proc.stdout,
-                                           proc.stderr)
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        compiles, objs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", obj, src]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            compiles.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE,
+                                              text=True), cmd))
+            objs.append(obj)
+        text = _check_run(compiles)
+        lib = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]
+        text += _check_run([(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE,
+                                              text=True), cmd)])
+        if verbose:
+            print(text)
+        os.replace(lib, out)
     return out
 
 
@@ -100,6 +122,17 @@ def load() -> ctypes.CDLL:
         lib.voidin_fine_raster_pairs_track2.restype = i
         lib.voidin_fine_raster_pairs_track2.argtypes = [p, p, p, p, p, p, p,
                                                         i, i, p]
+        lib.voidin_fine_raster_pairs_payload.restype = i
+        lib.voidin_fine_raster_pairs_payload.argtypes = [p, p, p, p, i, p, p,
+                                                         p, i, i, p]
+        lib.voidin_fine_raster_pairs_payload_track2.restype = i
+        lib.voidin_fine_raster_pairs_payload_track2.argtypes = [
+            p, p, p, p, i, p, p, p, p, p, i, i, p]
+        lib.voidin_fine_raster_blocks.restype = i
+        lib.voidin_fine_raster_blocks.argtypes = [p, p, p, p, i, i, p]
+        lib.voidin_fine_raster_blocks_track2.restype = i
+        lib.voidin_fine_raster_blocks_track2.argtypes = [p, p, p, p, p, p, i,
+                                                         i, p]
         lib.voidin_lut_fetch.restype = i
         lib.voidin_lut_fetch.argtypes = [p, p, i, i64, p, p]
         lib.voidin_lut_fetch_bf16.restype = i

@@ -27,12 +27,16 @@ class GBuffer:
 class VisBuffer:
     """Per-pixel winning work-item id + depth, plus the per-work-item
     resolve record: [original clip x/y/w per vertex (9), instance id,
-    idx_start, pad] as (T, 12) f32. Alpha-masked scenes also carry the
-    runner-up among distinct depths (RasterConfig.alpha_mask)."""
+    idx_start, pad] as (T, 12) f32, or with RasterConfig.slim_rec the
+    (T, 24) slim record. Alpha-masked scenes also carry the
+    runner-up among distinct depths (RasterConfig.alpha_mask). With
+    RasterConfig.kernel_payload the fine raster also hands over each
+    pixel's slim resolve record, resolve_rec[max(tri_id, 0)]."""
 
     tri_id: torch.Tensor  # (H, W) i32, -1 = background
     depth: torch.Tensor  # (H, W) f32 reverse-Z
-    resolve_rec: torch.Tensor  # (T, 12) f32
+    resolve_rec: torch.Tensor  # (T, 12 | 24) f32
     overflow: torch.Tensor  # () i64 count of binning/setup overflows
     tri_id2: Optional[torch.Tensor] = None  # (H, W) i32 runner-up id
     depth2: Optional[torch.Tensor] = None  # (H, W) f32 runner-up depth
+    payload_img: Optional[torch.Tensor] = None  # (H, W, 24) f32 words

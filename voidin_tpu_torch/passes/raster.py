@@ -1,21 +1,34 @@
 """Tile-binned software visibility-buffer rasterizer.
 
-Counterpart of ``voidin_tpu/passes/raster.py`` on its default path:
+Counterpart of ``voidin_tpu/passes/raster.py``:
 1. setup: expand the compact draw stream into triangle work items, fetch
    one de-indexed corner row + one per-draw record per triangle,
    transform, near-clip (<= 2 triangles, extras into a capacity tail),
    reduce each triangle to an affine coefficient record (edge planes +
-   depth plane in a per-triangle anchor frame) plus a 48 B resolve record;
-2. binning: two-stream (triangle, tile) pairs — every triangle's first
-   tile is a 1:1 slot, multi-tile extras expand at pair_capacity/4 —
-   stably sorted by tile, records gathered into tile order and their b
-   coefficients baked to each pair's tile origin;
-3. fine raster: kernel K1 (ops/fine_raster.py), the per-tile reverse-Z
-   depth/id competition; its track2 variant adds the runner-up among
-   distinct depths for alpha-masked scenes (RasterConfig.alpha_mask).
+   depth plane in a per-triangle anchor frame) plus a resolve record
+   (48 B, or with RasterConfig.slim_rec the 96 B slim record);
+2. binning, by RasterConfig.backend:
+   "pallas" (default), the pair path: two-stream (triangle, tile) pairs —
+   every triangle's first tile is a 1:1 slot, multi-tile extras expand at
+   pair_capacity/4 — stably sorted by tile, records gathered into tile
+   order and their b coefficients baked to each pair's tile origin;
+   "xla", the block path: one (triangle, tile) stream expanded at
+   pair_capacity, stably sorted by tile, each tile's first
+   tile_tri_capacity records gathered into a (tiles, K, 16) block;
+3. fine raster: on the pair path kernel K1 (ops/fine_raster.py), the
+   per-tile reverse-Z depth/id competition, with its track2 variant (the
+   runner-up among distinct depths, alpha-masked scenes) and its payload
+   variant (the winner's slim resolve record per pixel,
+   RasterConfig.kernel_payload); on the block path kernel K2, the same
+   competition over the blocks, and its track2 variant.
+
+The backend names are the JAX package's, so one dict of options builds
+both packages' configs. The port has no XLA: on the card "xla" launches
+K2, and the block path's plain twin runs only for CPU tensors.
 
 Every sort here is stable: the record order inside a tile decides ties in
-K1. Depth semantics: reverse-Z max with ndc.z affine in screen space.
+the kernels. Depth semantics: reverse-Z max with ndc.z affine in screen
+space.
 """
 
 from __future__ import annotations
@@ -24,10 +37,10 @@ import dataclasses
 
 import torch
 
+from ..core import encoding, fastmath
 from ..ops import fine_raster as fr
 from ..scene.instance import InstanceData
 from ..scene.mesh import MeshPoolData
-from ..core import fastmath
 from .cull import DrawList
 from .gbuffer import VisBuffer
 
@@ -37,9 +50,9 @@ NEAR_EPS = 1e-8
 # rows or serve other features; the port carries the default path only.
 UNSUPPORTED_OPTIONS = (
     "sort_payload", "fused_resolve_rec", "inst_rec_f16",
-    "planar_resolve", "fused_inst_rec", "slim_rec", "quad_rate_resolve",
-    "taa_quad_history", "taa_inwindow", "taa_quad_where", "kernel_payload",
-    "tap_block", "slot_resolve", "debug_bounds",
+    "planar_resolve", "fused_inst_rec", "quad_rate_resolve",
+    "taa_quad_history", "taa_inwindow", "taa_quad_where", "tap_block",
+    "slot_resolve", "debug_bounds",
 )
 
 
@@ -49,6 +62,9 @@ class RasterConfig:
     height: int = 1080
     tri_capacity: int = 1 << 20  # max live triangle work items per frame
     pair_capacity: int = 1 << 22  # max (triangle, tile) pairs
+    tile_tri_capacity: int = 128  # block path: max records per tile (K)
+    # "pallas": the pair path (K1); "xla": the block path (K2)
+    backend: str = "pallas"
     # Track the runner-up depth candidate per pixel (K1's track2 variant)
     # so resolve can apply the per-texel alpha cutoff inside the depth
     # competition (visibility.wgsl:79-81 discard). The Renderer sets it
@@ -59,6 +75,18 @@ class RasterConfig:
     # 1024)) instead of re-resolving every pixel densely.
     lazy_alpha_resolve: bool = True
     alpha_fallback_capacity: int = 0
+    # The slim 96 B resolve record (24 columns): clip x/y/w (9 f32), corner
+    # uv (6 f32), WORLD-space octahedral corner normals (3 u32, through the
+    # instance basis at setup) and a 12 x f16 material payload; resolve
+    # then fetches one row per pixel. An image-budget variant: normals pay
+    # a second octahedral quantization. Needs a scene with no normal maps,
+    # const-folded emissive / metallic-roughness, no alpha mask and
+    # f16-exact material and texture ids (the Renderer checks).
+    slim_rec: bool = False
+    # K1 hands resolve the winner's slim record per pixel
+    # (VisBuffer.payload_img), so resolve skips its per-pixel record
+    # gather; bit-identical to it. Needs slim_rec and the pair path.
+    kernel_payload: bool = False
     # K1's tile shape; the tile count pads to a multiple of 8 like the JAX
     # layout's grid step, so both packages bin to the same tile table
     tile_h = fr.TILE_H
@@ -143,9 +171,11 @@ def _sum3(a):
 
 def setup_draw_records(meshes: MeshPoolData, instances: InstanceData,
                        draws: DrawList, camera, config: RasterConfig,
-                       materials=None):
+                       materials=None, inst_rec=None):
     """Per-draw record (mvp + offsets + instance id, 24 f32), triangle
-    counts and their running sum."""
+    counts and their running sum. `inst_rec` (instances, 12) int32, the
+    f16 instance record of resolve._inst_rec_f16 (slim_rec), rides as 12
+    more columns of u32 bits (36 f32)."""
     dev = instances.transform.device
     inst_ids = draws.instance.to(torch.int64)
     safe_inst = torch.clamp(inst_ids, min=0)
@@ -175,24 +205,49 @@ def setup_draw_records(meshes: MeshPoolData, instances: InstanceData,
          cum_draws[:-1].to(torch.float32)]
     )
     base_index = meshes.base_index.to(torch.int64)[mesh_ids]
-    draw_rec = torch.cat(
-        [
-            mvp.reshape(-1, 16)[safe_inst],
-            (base_index // 3).to(torch.float32)[:, None],
-            base_index.to(torch.float32)[:, None],
-            safe_inst.to(torch.float32)[:, None],
-            bc_w[:, None],
-            draw_start[:, None],
-            torch.zeros(n_draws, 3, dtype=torch.float32, device=dev),
-        ],
-        dim=-1,
-    )  # (N, 24)
+    cols = [
+        mvp.reshape(-1, 16)[safe_inst],
+        (base_index // 3).to(torch.float32)[:, None],
+        base_index.to(torch.float32)[:, None],
+        safe_inst.to(torch.float32)[:, None],
+        bc_w[:, None],
+        draw_start[:, None],
+        torch.zeros(n_draws, 3, dtype=torch.float32, device=dev),
+    ]
+    if inst_rec is not None:
+        cols.append(inst_rec.contiguous().view(torch.float32)[safe_inst])
+    draw_rec = torch.cat(cols, dim=-1)  # (N, 24 | 36)
     return draw_rec, n_tris, cum_draws
 
 
-def setup_work_slice(tri_pos, draw_rec, n_tris, config: RasterConfig):
+def _slim_resolve_rec(clip, attr, rec, num):
+    """The slim 24-column resolve record (RasterConfig.slim_rec) of `num`
+    work items: clip x/y/w (9 f32), corner uv (6 f32 from the packed
+    corner-attribute row `attr`, (num, 12) int32), the corner normals in
+    world space through the instance basis of the f16 instance record in
+    draw-record columns 24:36, re-encoded as oct32 (3 words), and 12 f16
+    material scalars (6 words). u32 and f16 words travel as f32 bits."""
+    irec = rec[:, 24:36].contiguous().view(torch.float16).to(torch.float32)
+    basis = irec[:, :9].reshape(num, 1, 3, 3)
+    n_c = encoding.decode_octahedral_32(attr[:, 6:9])  # (num, 3, 3)
+    n_ws = fastmath.mat3_vec(basis, n_c)
+    n_enc = encoding.encode_octahedral_32(n_ws)  # (num, 3) int32
+    pay = irec[:, [9, 10, 15, 16, 17, 18, 19, 20, 21, 22, 23, 12]]
+    return torch.cat(
+        [
+            clip[:, :, [0, 1, 3]].reshape(num, 9),
+            attr[:, 0:6].contiguous().view(torch.float32),
+            n_enc.view(torch.float32),
+            pay.to(torch.float16).contiguous().view(torch.float32),
+        ],
+        dim=-1,
+    )  # (num, 24)
+
+
+def setup_work_slice(tri_pos, tri_attr_packed, draw_rec, n_tris,
+                     config: RasterConfig):
     """Per-work-item transform, near clip, projection and packing over all
-    tri_capacity slots."""
+    tri_capacity slots. `tri_attr_packed` is read only for slim_rec."""
     cap = config.tri_capacity
     dev = tri_pos.device
     draw_slot, _, valid = segment_ids_from_counts(n_tris, cap,
@@ -253,15 +308,23 @@ def setup_work_slice(tri_pos, draw_rec, n_tris, config: RasterConfig):
     rec1 = _pack_raster(sx1, sy1, z1, alive1, slot_ids)
     # Resolve record: original clip x/y/w per vertex + instance + idx_start
     # (clip z == znear under the infinite reverse-Z projection).
-    resolve1 = torch.cat(
-        [
-            clip[:, :, [0, 1, 3]].reshape(cap, 9),
-            inst.to(torch.float32)[:, None],
-            idx_start.to(torch.float32)[:, None],
-            torch.zeros(cap, 1, dtype=torch.float32, device=dev),
-        ],
-        dim=-1,
-    )
+    if config.slim_rec:
+        if draw_rec.shape[-1] < 36:
+            raise ValueError(
+                "slim_rec needs the f16 instance record threaded through "
+                "the draw record (rasterize(inst_rec=...))")
+        attr = tri_attr_packed[torch.where(valid, tri_pool, 0)]
+        resolve1 = _slim_resolve_rec(clip, attr, rec, cap)
+    else:
+        resolve1 = torch.cat(
+            [
+                clip[:, :, [0, 1, 3]].reshape(cap, 9),
+                inst.to(torch.float32)[:, None],
+                idx_start.to(torch.float32)[:, None],
+                torch.zeros(cap, 1, dtype=torch.float32, device=dev),
+            ],
+            dim=-1,
+        )
     extra_geom = torch.cat(
         [sx2, sy2, z2, alive2[:, None].to(torch.float32)], dim=-1
     )  # (cap, 10)
@@ -340,14 +403,17 @@ def setup_finalize(parts: dict, cum_draws, config: RasterConfig):
 
 def triangle_setup(meshes: MeshPoolData, instances: InstanceData,
                    draws: DrawList, camera, config: RasterConfig,
-                   materials=None):
+                   materials=None, inst_rec=None):
     """Per-work-item screen data and packed records, capacity padded.
     `materials`: triangles whose base_color.w < 0.5 are dropped here (every
-    fragment of them discards, visibility.wgsl:79)."""
+    fragment of them discards, visibility.wgsl:79). `inst_rec`: the f16
+    instance record, needed by slim_rec."""
     draw_rec, n_tris, cum_draws = setup_draw_records(
-        meshes, instances, draws, camera, config, materials=materials
+        meshes, instances, draws, camera, config, materials=materials,
+        inst_rec=inst_rec,
     )
-    parts = setup_work_slice(meshes.tri_pos, draw_rec, n_tris, config)
+    parts = setup_work_slice(meshes.tri_pos, meshes.tri_attr_packed,
+                             draw_rec, n_tris, config)
     return setup_finalize(parts, cum_draws, config)
 
 
@@ -379,27 +445,87 @@ def _to_index(x):
     return torch.clamp(x, -2.0 ** 30, 2.0 ** 30).to(torch.int64)
 
 
-def bin_triangles_pairs(setup: dict, config: RasterConfig):
-    """Pair-centric two-stream binning: tile-sorted baked records plus
-    per-tile ranges, padded for K1. Returns (rec_sorted, starts, counts,
-    overflow) with starts/counts int32."""
+def _tile_bounds(setup: dict, config: RasterConfig):
+    """Per work item: (alive and on screen, first tile column, first tile
+    row, last tile column, last tile row) of its screen bounding box."""
     TX, TY = config.tiles_x, config.tiles_y
-    NT = config.n_tiles_padded
-    EB = config.pair_capacity // 4  # extra-pair stream capacity
     sx, sy, alive = setup["sx"], setup["sy"], setup["alive"]
-    dev = sx.device
     x0 = torch.floor(torch.amin(sx, dim=-1))
     x1 = torch.ceil(torch.amax(sx, dim=-1))
     y0 = torch.floor(torch.amin(sy, dim=-1))
     y1 = torch.ceil(torch.amax(sy, dim=-1))
     on_screen = (x1 >= 0) & (y1 >= 0) & (x0 < config.width) & (
         y0 < config.height)
-    alive = alive & on_screen
-
     tx0 = torch.clamp(_to_index(x0) // config.tile_w, 0, TX - 1)
     tx1 = torch.clamp(_to_index(x1) // config.tile_w, 0, TX - 1)
     ty0 = torch.clamp(_to_index(y0) // config.tile_h, 0, TY - 1)
     ty1 = torch.clamp(_to_index(y1) // config.tile_h, 0, TY - 1)
+    return alive & on_screen, tx0, ty0, tx1, ty1
+
+
+def bin_triangles(setup: dict, config: RasterConfig):
+    """Block binning: (triangle, tile) pairs -> per-tile record blocks.
+
+    One stream of pair_capacity slots (segment expansion of each alive
+    triangle's bounding-box tiles), stably sorted by tile, so a tile's
+    records keep the triangle order; the first tile_tri_capacity (K) of
+    each tile land in a (NT, K) table (the rest are dropped and counted),
+    are gathered into (NT, K, 16) blocks and baked to the tile's origin.
+    Empty slots carry record 0's coefficients with id -1. Returns (blocks,
+    counts (NT,) int32 capped at K, overflow): overflow counts the pairs
+    beyond pair_capacity plus the records ranked at K or above."""
+    TX = config.tiles_x
+    NT = config.n_tiles_padded
+    K = config.tile_tri_capacity
+    E = config.pair_capacity
+    dev = setup["sx"].device
+    alive, tx0, ty0, tx1, ty1 = _tile_bounds(setup, config)
+    bw = tx1 - tx0 + 1
+    n_pairs = torch.where(alive, bw * (ty1 - ty0 + 1), 0)
+    bbox_rec = torch.stack([tx0, ty0, bw], dim=-1)
+
+    tri, local, pair_valid = segment_ids_from_counts(n_pairs, E)
+    overflow = torch.clamp(saturating_cumsum(n_pairs)[-1] - E, min=0)
+    br = bbox_rec[tri]
+    tile = (br[:, 1] + local // br[:, 2]) * TX + (br[:, 0] + local % br[:, 2])
+    tile = torch.where(pair_valid, tile, NT)
+    tile_sorted, order = torch.sort(tile, stable=True)
+    tri_sorted = tri[order]
+
+    # rank within the tile: distance to the segment start (cummax)
+    e = torch.arange(E, device=dev)
+    is_start = torch.ones(E, dtype=torch.bool, device=dev)
+    is_start[1:] = tile_sorted[1:] != tile_sorted[:-1]
+    rank = e - torch.cummax(torch.where(is_start, e, 0), 0).values
+    binned = tile_sorted < NT
+    in_cap = (rank < K) & binned
+    overflow = overflow + ((rank >= K) & binned).sum()
+    # out-of-cap pairs write a spare slot NT*K, which is dropped
+    tile_tris = torch.full((NT * K + 1,), -1, dtype=torch.int64, device=dev)
+    tile_tris[torch.where(in_cap, tile_sorted * K + rank, NT * K)] = \
+        tri_sorted
+    tile_tris = tile_tris[:NT * K].reshape(NT, K)
+
+    tiles = torch.arange(NT + 1, device=dev)
+    bounds = torch.searchsorted(tile_sorted, tiles)
+    counts = torch.clamp(bounds[1:] - bounds[:-1], max=K).to(torch.int32)
+
+    blocks = setup["raster_rec"][torch.clamp(tile_tris, min=0)]
+    blocks = bake_tile_origin(blocks, tiles[:NT, None], config)
+    blocks[:, :, fr.F_ID] = torch.where(tile_tris >= 0,
+                                        blocks[:, :, fr.F_ID], -1.0)
+    return blocks, counts, overflow
+
+
+def bin_triangles_pairs(setup: dict, config: RasterConfig):
+    """Pair-centric two-stream binning: tile-sorted baked records plus
+    per-tile ranges, padded for K1. Returns (rec_sorted, starts, counts,
+    overflow) with starts/counts int32."""
+    TX = config.tiles_x
+    NT = config.n_tiles_padded
+    EB = config.pair_capacity // 4  # extra-pair stream capacity
+    dev = setup["sx"].device
+    alive, tx0, ty0, tx1, ty1 = _tile_bounds(setup, config)
     bw = tx1 - tx0 + 1
     n_pairs = torch.where(alive, bw * (ty1 - ty0 + 1), 0)
     bbox_rec = torch.stack([tx0, ty0, bw], dim=-1)
@@ -466,22 +592,87 @@ def _untile(depth, trif, config: RasterConfig):
     return untile(depth), untile(trif).to(torch.int32)
 
 
-def rasterize(meshes: MeshPoolData, instances: InstanceData, draws: DrawList,
-              camera, config: RasterConfig, materials=None) -> VisBuffer:
-    setup = triangle_setup(meshes, instances, draws, camera, config,
-                           materials=materials)
-    rec_sorted, starts, counts, overflow = bin_triangles_pairs(setup, config)
-    outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
-                                track2=config.alpha_mask)
-    depth, tri_id = _untile(outs[0], outs[1], config)
+def fine_raster(records, counts, config: RasterConfig):
+    """The block path's fine raster: kernel K2 on the card, its twin on
+    the CPU (ops/fine_raster.fine_raster_blocks). Returns the untiled
+    (depth, tri_id) images."""
+    depth, trif = fr.fine_raster_blocks(records, counts)
+    return _untile(depth, trif, config)
+
+
+def _pair_payload_stream(rec_sorted, resolve_rec):
+    """(E_pad, 24) per-pair payload rows for K1's payload variant
+    (RasterConfig.kernel_payload): the slim resolve record gathered in
+    pair order. The kernel copies the winner's row as raw 32-bit words,
+    so the bitcast u32 / f16 columns ride as they are."""
+    if resolve_rec.shape[1] != 24:
+        raise ValueError(
+            "kernel_payload requires the 24-column slim resolve record "
+            "(RasterConfig.slim_rec)")
+    ids = rec_sorted[:, fr.F_ID].to(torch.int64)
+    return resolve_rec[torch.clamp(ids, 0, resolve_rec.shape[0] - 1)]
+
+
+def _untile_payload(pay, tri_id, resolve_rec, config: RasterConfig):
+    """(NT, 24, TILE_PX) kernel payload -> (H, W, 24) rows, bit-identical
+    to resolve_rec[max(tri_id, 0)]: misses get the row-0 record, as the
+    gather's clamped index does."""
+    NT = config.n_tiles
+    TY, TX = config.tiles_y, config.tiles_x
+    th, tw = config.tile_h, config.tile_w
     H, W = config.height, config.width
+    img = (
+        pay[:NT].view(torch.int32).permute(0, 2, 1)
+        .reshape(TY, TX, th, tw, -1).permute(0, 2, 1, 3, 4)
+        .reshape(TY * th, TX * tw, -1)[:H, :W]
+    )
+    row0 = resolve_rec[0].view(torch.int32)
+    return torch.where(tri_id[..., None] >= 0, img, row0).view(torch.float32)
+
+
+def rasterize(meshes: MeshPoolData, instances: InstanceData, draws: DrawList,
+              camera, config: RasterConfig, materials=None,
+              inst_rec=None) -> VisBuffer:
+    """Setup, binning and fine raster of one frame. `inst_rec`: the f16
+    instance record (resolve._inst_rec_f16), needed by slim_rec."""
+    if config.kernel_payload and (config.backend != "pallas"
+                                  or not config.slim_rec):
+        raise ValueError("kernel_payload requires slim_rec and the pair "
+                         "path (backend='pallas')")
+    track2 = config.alpha_mask
+    setup = triangle_setup(meshes, instances, draws, camera, config,
+                           materials=materials, inst_rec=inst_rec)
+    H, W = config.height, config.width
+    payload_img = None
+    if config.backend == "pallas":
+        rec_sorted, starts, counts, overflow = bin_triangles_pairs(setup,
+                                                                   config)
+        payload = None
+        if config.kernel_payload:
+            payload = _pair_payload_stream(rec_sorted, setup["resolve_rec"])
+        outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
+                                    track2=track2, payload=payload)
+        depth, tri_id = _untile(outs[0], outs[1], config)
+        if payload is not None:
+            payload_img = _untile_payload(outs[-1], tri_id[:H, :W],
+                                          setup["resolve_rec"], config)
+    elif config.backend == "xla":
+        records, counts, overflow = bin_triangles(setup, config)
+        if track2:
+            outs = fr.fine_raster_blocks(records, counts, track2=True)
+            depth, tri_id = _untile(outs[0], outs[1], config)
+        else:
+            depth, tri_id = fine_raster(records, counts, config)
+    else:
+        raise ValueError(f"unknown raster backend {config.backend!r}")
     vis = VisBuffer(
         tri_id=tri_id[:H, :W],
         depth=depth[:H, :W],
         resolve_rec=setup["resolve_rec"],
         overflow=overflow + setup["setup_overflow"],
+        payload_img=payload_img,
     )
-    if config.alpha_mask:
+    if track2:
         depth2, tri_id2 = _untile(outs[2], outs[3], config)
         vis.tri_id2 = tri_id2[:H, :W]
         vis.depth2 = depth2[:H, :W]

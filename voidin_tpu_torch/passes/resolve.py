@@ -12,7 +12,11 @@ evaluates the reference's attribute math (visibility.wgsl:66-97):
 * alpha cutoff: base_color.w < 0.5 || albedo.a < 0.5 -> background;
 * G-buffer = (octahedral normal u32, pack2x16float uv, material id, depth).
 It also produces the per-pixel material fields the shading pass consumes
-(ResolveAux), so shading reads no material table.
+(ResolveAux), so shading reads no material table. With
+RasterConfig.slim_rec the resolve record is the slim 96 B row (world-space
+normals and the material scalars ride in it) and resolve fetches one row
+per pixel, or none where K1 handed over the winner's record
+(RasterConfig.kernel_payload, VisBuffer.payload_img).
 """
 
 from __future__ import annotations
@@ -82,16 +86,53 @@ def _inst_rec(scene: SceneData):
     )  # (N, 24)
 
 
-def _fetch_rows(scene: SceneData, vis: VisBuffer, tri_id):
+def _inst_rec_f16(scene: SceneData):
+    """The fused instance record as f16 pairs in 12 u32 columns (int32
+    bits), (instances, 12): what RasterConfig.slim_rec threads through the
+    draw record. f16 keeps ids exact only below 2048, so larger material
+    or texture pools raise."""
+    n_mats = scene.materials.albedo.shape[0]
+    n_tex = scene.textures.size.shape[0]
+    if n_mats > 2048 or n_tex > 2048:
+        raise ValueError(
+            f"inst_rec_f16 requires material/texture ids < 2048 (f16 "
+            f"integer exactness); scene has {n_mats} materials / "
+            f"{n_tex} textures")
+    rec = _inst_rec(scene).to(torch.float16)  # (N, 24)
+    return rec.contiguous().view(torch.int32)  # (N, 12)
+
+
+def _fetch_rows(scene: SceneData, vis: VisBuffer, tri_id,
+                slim: bool = False):
     """The per-pixel row fetches: resolve record, packed corner-attribute
-    row (u32 bits as int32), fused instance+material record."""
+    row (u32 bits as int32), fused instance+material record. With `slim`
+    the slim record alone: K1's payload image where it covers these
+    pixels (RasterConfig.kernel_payload), else the record gather."""
+    if (slim and vis.payload_img is not None
+            and tri_id.shape == vis.payload_img.shape[:-1]):
+        return dict(rec=vis.payload_img)
     tid = torch.clamp(tri_id.to(torch.int64), min=0)
-    rec = vis.resolve_rec[tid]  # (*S, 12)
+    rec = vis.resolve_rec[tid]  # (*S, 12 | 24)
+    if slim:
+        return dict(rec=rec)
     tri_pool = (rec[..., 10] / 3.0).to(torch.int64)  # idx_start / 3
     pk = scene.meshes.tri_attr_packed[tri_pool]  # (*S, 12)
     inst = rec[..., 9].to(torch.int64)
     irec = _inst_rec(scene)[inst]  # (*S, 24)
     return dict(rec=rec, pk=pk, irec=irec)
+
+
+def _decode_slim_channels(rows):
+    """Slim-record decode (RasterConfig.slim_rec): clip and uv straight
+    off the f32 columns, corner normals already in world space (oct32,
+    columns 15:18), and the 12 f16 material scalars (columns 18:24)."""
+    rec = rows["rec"]
+    S = rec.shape[:-1]
+    n_c = encoding.decode_octahedral_32(
+        rec[..., 15:18].contiguous().view(torch.int32))
+    pay = rec[..., 18:24].contiguous().view(torch.float16)
+    return dict(cl=rec[..., :9], uv_c=rec[..., 9:15],
+                n_c=n_c.reshape(S + (9,)), pay=pay.to(torch.float32))
 
 
 def _decode_channels(rows, tangents: bool = True):
@@ -112,17 +153,26 @@ def _decode_channels(rows, tangents: bool = True):
 
 
 def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
-                  y_ndc, want_aux: bool = True, lod_probe=None):
+                  y_ndc, want_aux: bool = True, lod_probe=None,
+                  slim: bool = False):
     """Per-pixel resolve for any pixel-set shape S: unmasked fields plus
     the keep/cut masks. x_ndc / y_ndc broadcast to S. `lod_probe`: None
     takes the mip lod from image-space finite differences (S = (H, W));
     (dx, dy) NDC steps take it from analytic within-triangle barycentric
-    probes (any S), as the flat fallback batch does."""
+    probes (any S), as the flat fallback batch does. `slim`: the rows are
+    slim records (RasterConfig.slim_rec)."""
     S = tri_id.shape
     hit = tri_id >= 0
-    # tangents feed only the normal-map TBN transform
-    tangents = not scene.no_normal_maps
-    channels = _decode_channels(_fetch_rows(scene, vis, tri_id), tangents)
+    # the fetched rows die with the decode (the packed attribute rows are
+    # not needed past it); tangents feed only the normal-map TBN transform
+    if slim:
+        if not scene.no_normal_maps:
+            raise ValueError("slim_rec requires a scene with no normal maps")
+        channels = _decode_slim_channels(
+            _fetch_rows(scene, vis, tri_id, slim=True))
+    else:
+        channels = _decode_channels(_fetch_rows(scene, vis, tri_id),
+                                    not scene.no_normal_maps)
     cl = channels["cl"].reshape(S + (3, 3))
 
     # Perspective-correct barycentrics via 2D homogeneous coordinates.
@@ -143,16 +193,27 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     normal_raw = interp(n_c, lam_p)
     uv = interp(uv_c, lam_p)
 
-    irec = channels["irec"]
-    basis = irec[..., :9].reshape(S + (3, 3))
-    material_id = irec[..., 9].to(torch.int32)
-    mat_albedo = irec[..., 10].to(torch.int64)
-    mat_normal = irec[..., 11].to(torch.int64)
-    base_color_a = irec[..., 12]
-    # Object -> world with the plain upper 3x3 (reference parity).
-    n_ws = fastmath.mat3_vec(basis, normal_raw)
-    tex_w = irec[..., 15]
-    tex_h = irec[..., 16]
+    if slim:
+        # corner normals went to world space at setup; the f16 payload
+        # carries the material scalars
+        pay = channels["pay"]
+        material_id = pay[..., 0].to(torch.int32)
+        mat_albedo = pay[..., 1].to(torch.int64)
+        base_color_a = pay[..., 11]
+        n_ws = normal_raw
+        tex_w = pay[..., 2]
+        tex_h = pay[..., 3]
+    else:
+        irec = channels["irec"]
+        basis = irec[..., :9].reshape(S + (3, 3))
+        material_id = irec[..., 9].to(torch.int32)
+        mat_albedo = irec[..., 10].to(torch.int64)
+        mat_normal = irec[..., 11].to(torch.int64)
+        base_color_a = irec[..., 12]
+        # Object -> world with the plain upper 3x3 (reference parity).
+        n_ws = fastmath.mat3_vec(basis, normal_raw)
+        tex_w = irec[..., 15]
+        tex_h = irec[..., 16]
     if lod_probe is None:
         lod = uv_lod(uv, tex_w, tex_h)
     else:
@@ -210,6 +271,15 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     mats = scene.materials
     out["albedo"] = torch.where(keep[..., None], albedo,
                                 torch.ones_like(albedo))
+    if slim:
+        if not (scene.emissive_const and scene.mr_const):
+            raise ValueError(
+                "slim_rec requires const-folded emissive/metallic-roughness")
+        out["emissive"] = torch.where(keep[..., None], pay[..., 4:7],
+                                      mats.emissive_rgba[0, :3])
+        out["mr"] = torch.where(keep[..., None], pay[..., 7:11],
+                                mats.mr_rgba[0])
+        return out
     mat_emissive = irec[..., 13].to(torch.int64)
     mat_mr = irec[..., 14].to(torch.int64)
     if not (scene.emissive_const and scene.mr_const):
@@ -305,9 +375,11 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
     y_ndc = (1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)
              / H * 2.0)[:, None].expand(H, W)
 
+    slim = config.slim_rec
+
     def dense_fields(tri_id, depth, want_aux=True):
         return _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
-                             want_aux=want_aux)
+                             want_aux=want_aux, slim=slim)
 
     if vis.tri_id2 is None:
         return _assemble(dense_fields(vis.tri_id, vis.depth))
@@ -341,7 +413,7 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
     xb = (fx + 0.5) / W * 2.0 - 1.0
     yb = 1.0 - (fy + 0.5) / H * 2.0
     fb = _pixel_fields(scene, vis, tid2, dep2, xb, yb,
-                       lod_probe=(2.0 / W, 2.0 / H))
+                       lod_probe=(2.0 / W, 2.0 / H), slim=slim)
     rows = _pack_fallback_rows(fb)
 
     # invalid slots write the extra row H*W, which is dropped
