@@ -4,58 +4,58 @@
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then:
   1. prints torch's version and the card's name and power limit;
-  2. K1 (fine raster) against its PyTorch twin on the records of the
-     north-star frame itself: depth and id must be identical;
-  3. K3 (LTC LUT fetch) and its bf16 variant against their twins on 5
-     random 64x64 tables at 1920x1080 random uvs plus the corner uvs: max
-     abs diff <= 1e-6; torch's grid_sample times the same fetch as a
-     yardstick (the port never calls it);
-  4. K1's track2 variant against its twin on the records of the masked
-     1080p frame (below): all four outputs identical; timed beside K1's
-     base variant on the same records;
-  5. the golden deferred scene at 160x96 on the card against the checked-in
+  2. every kernel against its PyTorch twin on its 1080p inputs, each timed
+     by call (CUDA events over back-to-back calls, the host wrapper
+     included) and on the device (torch.profiler: the kernel's own CUDA
+     time per call), beside its bound (kernel_phases): K1 on the records
+     of the north-star frame itself (depth and id identical); K1's payload
+     variant on them with slim_rec (all outputs identical, the payload
+     image equal to resolve_rec[max(tri_id, 0)] bit for bit); K2 on the
+     north-star block records, K (tile_tri_capacity) the smallest multiple
+     of 128 above its fullest tile; K3 and its bf16 variant on 5 and on 1
+     random 64x64 tables at 1920x1080 random uvs plus the corner uvs (max
+     abs diff <= 1e-6), torch's grid_sample timing the same fetches as a
+     yardstick (the port never calls it); K1 track2 and K2 track2 on the
+     masked frame's records and blocks (all four outputs identical); the
+     fused LTC kernel and its bf16 variant on the north-star and masked
+     frames' own shade fields (0 differing words) (ltc_rect_phases);
+  3. the golden deferred scene at 160x96 on the card against the checked-in
      golden image (tests/golden/deferred.png, mean abs diff < 5e-3, the
      golden tests' budget) and against the port's CPU render;
-  6. the masked scene (build_world(1000) + 300 foliage cards, 320x184, 3
-     TAA frames) on the card against the port's CPU render (mean 5e-3);
-  7. the north-star frame: build_world(10_000, seed=0) at 1920x1080 with
+  4. the masked scene (build_world(1000) + 300 foliage cards, 320x184, 3
+     TAA frames) on the card against the port's CPU render (mean 5e-3),
+     then on the block path (backend "xla"): K2 track2 and the fused LTC
+     kernel launched once per frame;
+  5. the north-star frame: build_world(10_000, seed=0) at 1920x1080 with
      raster capacities 2^19, moving instances and TAA, for 12 frames
      through Renderer.render; overflow 0 on every frame, a finite image
-     with variance, and K1 / K3 launched 1 / 5 times per frame;
+     with variance, K1 and the fused LTC kernel launched once per frame,
+     K3 never;
+  6. the block-path north-star frame: one VisBuffer of each path at the
+     first frame's camera (depth bit-identical; the pixels whose id
+     differs, which only depth ties allow, are printed), then 12 frames
+     with backend "xla": overflow 0, K2 / K1 launched 12 / 0;
+  7. the slim north-star frames: 12 frames with slim_rec (K1 12 launches)
+     and 12 with slim_rec + kernel_payload (K1 payload 12, K1 0): the two
+     last images identical, and within mean 5e-3 of the default
+     north-star frame;
   8. the masked frame: the north star plus add_foliage(world, 3000, seed=1)
      (alpha-tested cut-out cards with normal, metallic-roughness and
      emissive maps), the same camera and 12 frames, pair capacity 2^20;
      overflow 0 (the alpha-fallback capacity included), per frame the
-     cut-winner and fallback pixel counts, K1 track2 / K1 base / K3
-     launched 12 / 0 / 60;
+     cut-winner and fallback pixel counts, K1 track2 / K1 base launched
+     12 / 0;
   9. shading.LTC_LUT_BF16 on against off, one frame each (TAA off): the
      golden scene within tests/test_ltc.py's budgets (max abs diff < 1e-2,
-     mean < 2e-4), then the masked 1080p frame: 5 K3 bf16 launches, mean
-     < 2e-4, its max abs diff printed.
- 10. K1's payload variant against its twin on the north-star records with
-     slim_rec (the 24-word slim resolve record as payload): all outputs
-     identical, the payload image equal to resolve_rec[max(tri_id, 0)]
-     bit for bit; timed beside K1's base variant on the same records;
- 11. K2 (block raster) against its twin on the north-star frame's block
-     records, K (tile_tri_capacity) the smallest multiple of 128 above its
-     fullest tile; K2's track2 variant against its twin on the masked
-     frame's block records (K likewise), timed beside K2 base;
- 12. the masked 320x184 scene on the block path (backend "xla"), card
-     against CPU (mean 5e-3), K2 track2 launched once per frame;
- 13. the block-path north-star frame: one VisBuffer of each path at the
-     first frame's camera (depth bit-identical; the pixels whose id
-     differs, which only depth ties allow, are printed), then 12 frames
-     with backend "xla": overflow 0, K2 / K1 launched 12 / 0;
- 14. the slim north-star frames: 12 frames with slim_rec (K1 12 launches)
-     and 12 with slim_rec + kernel_payload (K1 payload 12, K1 0): the two
-     last images identical, and within mean 5e-3 of the default
-     north-star frame.
-Phases 7, 8, 13 and 14 print the median ms/frame of frames 3-12 (CUDA
-events) and the peak device memory of the 12 frames. Every path run sets
-the launch counts to 0 just before it and checks them just after.
-Prints the kernel table as one JSON line, then the card line, then the
-result line {"ok": true, "device": {...}}. Exits non-zero on any failure
-and when no CUDA device is available.
+     mean < 2e-4), then the masked 1080p frame: one launch of the fused
+     kernel's bf16 variant, mean < 2e-4, its max abs diff printed.
+Phases 5-8 print the median ms/frame of frames 3-12 (CUDA events) and the
+peak device memory of the 12 frames. Every path run sets the launch
+counts to 0 just before it and checks them just after. Prints the kernel
+table as one JSON line (each row also with device_ms, and K3's with its
+1-table shape under one_table), then the card line, then the result line
+{"ok": true, "device": {...}}. Exits non-zero on any failure and when no
+CUDA device is available.
 """
 
 import dataclasses
@@ -151,6 +151,9 @@ def read_png_rgb(path):
 
 
 def time_cuda(fn, reps):
+    """Call time in ms: CUDA events around `reps` back-to-back calls of
+    `fn`, host wrapper included (where the wrapper is slower than its
+    kernel, this measures the host)."""
     import torch
 
     fn()
@@ -163,6 +166,38 @@ def time_cuda(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, kernel, attempts=3):
+    """Kernel-only device time in ms per call: the mean duration of the CUDA
+    kernels whose name contains `kernel` in a torch.profiler trace (CUDA
+    activity, read from the profiler's kineto results) of `reps` calls of
+    `fn`, each of which launches one such kernel. A trace that holds
+    another number of them is reported and taken again, up to `attempts`
+    traces; then the phase fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name()]
+        if len(spans) == reps:
+            return sum(spans) / reps / 1e6
+        print(f"  (the profiler trace holds {len(spans)} of {reps} {kernel} "
+              f"kernels; tracing again)", flush=True)
+    fail(f"{attempts} profiler traces of {reps} calls did not hold {reps} "
+         f"{kernel} kernels")
+
+
+def fmt_ms(ms):
+    return f"{ms:.4f} ms"
 
 
 def north_star_camera(pt):
@@ -301,6 +336,306 @@ def run_frames(renderer, cam, label):
     return out, times, mem
 
 
+def ltc_rect_bound(n_px, n_lights):
+    """The fused LTC kernel must read each pixel's nor, rd, pos (12 B each)
+    and roughness (4 B) and the two (64, 64, 4) tables once, and write 4 B
+    per pixel, light and output (diff, spec). Its FP32 operations, counted
+    from csrc/ltc_rect.cu with add, sub, mul, div, sqrt, rcp, floor, min
+    and max one each: per pixel 192 (n . v and its clamp 7, the matrix
+    uv 6, the 5-channel fetch 59, the basis 30, the two mat3_mat3 90), per
+    light 32 (corners, light normal, side test) plus two evaluations of
+    251 (4 x (mat3_vec 15 + normalize 10), 4 edge integrals of 26, the sum
+    9, the norm 6, z 2, the uv 6, the 1-channel fetch 23, the product 1)
+    and the t2.x product. An edge integral whose cosine is <= 0 costs 7
+    more; counted at its cheaper branch, the bound stays a lower bound."""
+    return bound_ms(n_px * (40 + 8 * n_lights) + 2 * 64 * 64 * 4 * 4,
+                    n_px * (192 + n_lights * (32 + 2 * 251 + 1)))
+
+
+def frame_ltc_inputs(pt, scene, cfg):
+    """The fused LTC kernel's arguments as shade hands them over, in the
+    first frame of `scene` at the north-star camera (TAA off)."""
+    from voidin_tpu_torch.framework.renderer import Renderer
+    from voidin_tpu_torch.ops import ltc_rect as lr
+
+    seen = []
+    real = lr.ltc_rect_terms
+
+    def capture(*args, **kwargs):
+        seen.append(args)
+        return real(*args, **kwargs)
+
+    lr.ltc_rect_terms = capture
+    try:
+        Renderer(scene, cfg, enable_taa=False).render(north_star_camera(pt))
+    finally:
+        lr.ltc_rect_terms = real
+    return seen[0]
+
+
+def words_differ(a, b):
+    import torch
+
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def timed_row(fn, kernel, reps, plain, plain_reps, bound, err):
+    """A kernel's row: `fn` timed by call and on the device, its twin
+    `plain` by call, beside its bound and its max abs error."""
+    b_ms, b_by = bound
+    return dict(max_abs_err=err, ms=time_cuda(fn, reps),
+                device_ms=device_ms(fn, reps, kernel),
+                plain_ms=time_cuda(plain, plain_reps), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def timing(r):
+    return (f"call {fmt_ms(r['ms'])}, device {fmt_ms(r['device_ms'])}, "
+            f"twin {fmt_ms(r['plain_ms'])}, bound {fmt_ms(r['bound_ms'])}"
+            f" ({r['bound_by']})")
+
+
+def kernel_phases(dev, card, world, masked_world, cfg, masked_cfg):
+    """K1, K2 and K3, every variant, against their twins on their 1080p
+    inputs, timed by call (CUDA events, wrapper included) and on the
+    device (torch.profiler, the kernel alone). Returns (kernel rows, the
+    north star's and the masked frame's block capacity, the masked scene
+    on the card)."""
+    import torch
+    import torch.nn.functional as F
+
+    from voidin_tpu_torch.ops import fine_raster as fr
+    from voidin_tpu_torch.ops import lut_fetch as lf
+    from voidin_tpu_torch.passes import raster
+
+    rows = {}
+
+    def row(name, *args):
+        rows[name] = timed_row(*args)
+        return rows[name]
+
+    # --- K1 vs twin on the north-star records ----------------------------
+    rec, starts, counts = frame_records(world.device(dev), cfg)
+    kd, ki = fr.fine_raster_pairs(rec, starts, counts)
+    rd, ri = fr.fine_raster_pairs_reference(rec, starts, counts)
+    torch.cuda.synchronize()
+    k1_mismatch = int(((kd != rd) | (ki != ri)).sum())
+    k1 = row("fine_raster_pairs",
+             lambda: fr.fine_raster_pairs(rec, starts, counts),
+             "fine_raster_pairs_kernel", 20,
+             lambda: fr.fine_raster_pairs_reference(rec, starts, counts), 3,
+             k1_bound(counts, 2), float((kd - rd).abs().max()))
+    print(f"K1 fine_raster_pairs: mismatched pixels {k1_mismatch} of "
+          f"{kd.numel()}; {timing(k1)} ({card})", flush=True)
+    if k1_mismatch:
+        fail("K1 disagrees with its twin")
+    ns_k = block_capacity(counts)
+    del rec, starts, counts, kd, ki, rd, ri
+
+    # --- K1 payload vs twin on the north-star records with slim_rec -----
+    slim_cfg = dataclasses.replace(cfg, slim_rec=True)
+    setup = frame_setup(world.device(dev), slim_cfg)
+    rec, starts, counts = frame_records(None, slim_cfg, setup)
+    payload = raster._pair_payload_stream(rec, setup["resolve_rec"])
+    outs = fr.fine_raster_pairs(rec, starts, counts, payload=payload)
+    refs = fr.fine_raster_pairs_reference(rec, starts, counts,
+                                          payload=payload)
+    torch.cuda.synchronize()
+    mismatch = [words_differ(a, b) for a, b in zip(outs, refs)]
+    _, tri_id = raster._untile(outs[0], outs[1], cfg)
+    tri_id = tri_id[:HEIGHT, :WIDTH]
+    img = raster._untile_payload(outs[2], tri_id, setup["resolve_rec"], cfg)
+    want = setup["resolve_rec"][torch.clamp(tri_id.long(), min=0)]
+    gather_mismatch = words_differ(img, want)
+    pay = row("fine_raster_pairs_payload",
+              lambda: fr.fine_raster_pairs(rec, starts, counts,
+                                           payload=payload),
+              "fine_raster_pairs_kernel", 20,
+              lambda: fr.fine_raster_pairs_reference(rec, starts, counts,
+                                                     payload=payload), 3,
+              k1_bound(counts, 2, px_bytes=4 * payload.shape[1]),
+              float((outs[0] - refs[0]).abs().max()))
+    base_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts),
+                        20)
+    print(f"K1 fine_raster_pairs_payload ({payload.shape[1]} words): "
+          f"mismatched words (depth, id, payload) {mismatch} of "
+          f"({outs[0].numel()}, {outs[1].numel()}, {outs[2].numel()}); "
+          f"payload image vs resolve_rec[max(tri_id, 0)]: "
+          f"{gather_mismatch} of {img.numel()} words differ; {timing(pay)}; "
+          f"base variant on the same records call {base_ms:.4f} ms "
+          f"({card})", flush=True)
+    if any(mismatch) or gather_mismatch:
+        fail("K1 payload disagrees with its twin or the record gather")
+    del setup, rec, starts, counts, payload, outs, refs, img, want
+
+    # --- K2 vs twin on the north-star block records ----------------------
+    block_cfg = dataclasses.replace(cfg, backend="xla",
+                                    tile_tri_capacity=ns_k)
+    blocks, counts = frame_blocks(world.device(dev), block_cfg)
+    outs = fr.fine_raster_blocks(blocks, counts)
+    refs = fr.fine_raster_blocks_reference(blocks, counts)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
+    k2 = row("fine_raster_blocks",
+             lambda: fr.fine_raster_blocks(blocks, counts),
+             "fine_raster_blocks_kernel", 20,
+             lambda: fr.fine_raster_blocks_reference(blocks, counts), 3,
+             k1_bound(counts, 2, tile_bytes=4),
+             float((outs[0] - refs[0]).abs().max()))
+    print(f"K2 fine_raster_blocks (K {ns_k}): mismatched (depth, id) "
+          f"{mismatch} of {outs[0].numel()} each; {timing(k2)}; K1 on the "
+          f"pair records of the same frame call {k1['ms']:.4f} ms ({card})",
+          flush=True)
+    if any(mismatch):
+        fail("K2 disagrees with its twin")
+    del blocks, counts, outs, refs
+
+    # --- K3 and its bf16 variant vs their twins, grid_sample beside ------
+    # Two shapes: the 5-table fetch of ltc_matrix and the 1-table fetch of
+    # each ltc_evaluate_rect call (4 of the 5 fetches a frame made before
+    # the fused kernel took them over).
+    g = torch.Generator(device="cpu").manual_seed(0)
+    tables = [torch.randn(64, 64, generator=g).to(dev) for _ in range(5)]
+    uv = torch.rand(HEIGHT, WIDTH, 2, generator=g).to(dev)
+    uv = uv * (63.0 / 64.0) + 0.5 / 64.0
+    corners = torch.tensor([[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]],
+                           device=dev) * (63.0 / 64.0) + 0.5 / 64.0
+    lib_grid = (uv * 2.0 - 1.0)[None]  # (1, H, W, 2), x = u indexes columns
+    libs = {}
+    for n in (5, 1):
+        lib_in = torch.stack(tables[:n])[None]  # (1, n, 64, 64)
+
+        def library(lib_in=lib_in):
+            return F.grid_sample(lib_in, lib_grid, mode="bilinear",
+                                 padding_mode="border", align_corners=False)
+
+        lib_diff = float((library()[0] - torch.stack(
+            lf.lut_fetch(tables[:n], uv))).abs().max())
+        libs[n] = (time_cuda(library, 50),
+                   device_ms(library, 50, "grid_sampler"), lib_diff)
+    for name, bf16 in (("lut_fetch", False), ("lut_fetch_bf16", True)):
+        err = 0.0
+        for u in (uv, corners):
+            got = lf.lut_fetch(tables, u, bf16=bf16)
+            want = lf.lut_fetch_reference(tables, u, bf16=bf16)
+            for a, b in zip(got, want):
+                err = max(err, float((a - b).abs().max()))
+        shapes = {}
+        for n in (5, 1):
+            shapes[n] = dict(
+                ms=time_cuda(lambda: lf.lut_fetch(tables[:n], uv, bf16=bf16),
+                             50),
+                device_ms=device_ms(
+                    lambda: lf.lut_fetch(tables[:n], uv, bf16=bf16), 50,
+                    "lut_fetch_kernel"),
+                plain_ms=time_cuda(lambda: lf.lut_fetch_reference(
+                    tables[:n], uv, bf16=bf16), 10),
+                library_ms=libs[n][0])
+            b_ms, b_by = k3_bound(n, HEIGHT * WIDTH)
+            shapes[n].update(bound_ms=b_ms, bound_by=b_by)
+            print(f"K3 {name} ({n} table{'s' if n > 1 else ''}, "
+                  f"{HEIGHT}x{WIDTH}): max abs diff {err}, call "
+                  f"{fmt_ms(shapes[n]['ms'])}, device "
+                  f"{fmt_ms(shapes[n]['device_ms'])}, twin "
+                  f"{fmt_ms(shapes[n]['plain_ms'])}, grid_sample call "
+                  f"{fmt_ms(libs[n][0])} device {fmt_ms(libs[n][1])} (max "
+                  f"abs diff to the f32 kernel {libs[n][2]:.2e}), bound "
+                  f"{b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+        rows[name] = dict(max_abs_err=err, **shapes[5], one_table=shapes[1])
+        if not err <= K3_TOL:
+            fail(f"K3 {name} disagrees with its twin beyond {K3_TOL}")
+    del tables, uv, lib_grid
+
+    # --- K1 track2 vs twin on the masked frame's records -----------------
+    masked_scene = masked_world.device(dev)
+    if not masked_scene.alpha_masked:
+        fail("the foliage scene is not alpha-masked")
+    rec, starts, counts = frame_records(masked_scene, masked_cfg)
+    outs = fr.fine_raster_pairs(rec, starts, counts, track2=True)
+    refs = fr.fine_raster_pairs_reference(rec, starts, counts, track2=True)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
+    t2 = row("fine_raster_pairs_track2",
+             lambda: fr.fine_raster_pairs(rec, starts, counts, track2=True),
+             "fine_raster_pairs_kernel", 20,
+             lambda: fr.fine_raster_pairs_reference(rec, starts, counts,
+                                                    track2=True), 3,
+             k1_bound(counts, 4),
+             max(float((outs[0] - refs[0]).abs().max()),
+                 float((outs[2] - refs[2]).abs().max())))
+    base_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts),
+                        20)
+    print(f"K1 fine_raster_pairs_track2: mismatched (depth, id, depth2, id2) "
+          f"{mismatch} of {outs[0].numel()} each; runner-up pixels "
+          f"{int((outs[3] >= 0).sum())}; {timing(t2)}; base variant on the "
+          f"same records call {base_ms:.4f} ms ({card})", flush=True)
+    if any(mismatch):
+        fail("K1 track2 disagrees with its twin")
+    masked_k = block_capacity(counts)
+    del rec, starts, counts, outs, refs
+
+    # --- K2 track2 vs twin on the masked frame's block records ----------
+    masked_block_cfg = dataclasses.replace(masked_cfg, backend="xla",
+                                           tile_tri_capacity=masked_k)
+    blocks, counts = frame_blocks(masked_scene, masked_block_cfg)
+    outs = fr.fine_raster_blocks(blocks, counts, track2=True)
+    refs = fr.fine_raster_blocks_reference(blocks, counts, track2=True)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
+    t2 = row("fine_raster_blocks_track2",
+             lambda: fr.fine_raster_blocks(blocks, counts, track2=True),
+             "fine_raster_blocks_kernel", 20,
+             lambda: fr.fine_raster_blocks_reference(blocks, counts,
+                                                     track2=True), 3,
+             k1_bound(counts, 4, tile_bytes=4),
+             max(float((outs[0] - refs[0]).abs().max()),
+                 float((outs[2] - refs[2]).abs().max())))
+    base_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts), 20)
+    print(f"K2 fine_raster_blocks_track2 (K {masked_k}): mismatched "
+          f"(depth, id, depth2, id2) {mismatch} of {outs[0].numel()} each; "
+          f"runner-up pixels {int((outs[3] >= 0).sum())}; {timing(t2)}; K2 "
+          f"base on the same blocks call {base_ms:.4f} ms ({card})",
+          flush=True)
+    if any(mismatch):
+        fail("K2 track2 disagrees with its twin")
+    del blocks, counts, outs, refs
+
+    return rows, ns_k, masked_k, masked_scene
+
+
+def ltc_rect_phases(dev, card, rows, world, masked_scene, cfg, masked_cfg):
+    """The fused LTC kernel and its bf16 variant against their twin on the
+    north-star and masked frames' own shade fields (0 differing words),
+    timed as kernel_phases times the others; adds their rows to `rows`."""
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.ops import ltc_rect as lr
+
+    fields = {"north star": frame_ltc_inputs(pt, world.device(dev), cfg),
+              "masked": frame_ltc_inputs(pt, masked_scene, masked_cfg)}
+    for name, bf16 in (("ltc_rect", False), ("ltc_rect_bf16", True)):
+        err, differ = 0.0, {}
+        for label, args in fields.items():
+            want = lr.ltc_rect_terms_reference(*args, bf16=bf16)
+            got = lr.ltc_rect_terms(*args, bf16=bf16)
+            torch.cuda.synchronize()
+            differ[label] = [words_differ(a, b) for a, b in zip(got, want)]
+            err = max(err, *[float((a - b).abs().max())
+                             for a, b in zip(got, want)])
+        args = fields["north star"]
+        n_px, n_lights = args[3].numel(), args[4].shape[0]
+        r = rows[name] = timed_row(
+            lambda: lr.ltc_rect_terms(*args, bf16=bf16), "ltc_rect", 50,
+            lambda: lr.ltc_rect_terms_reference(*args, bf16=bf16), 3,
+            ltc_rect_bound(n_px, n_lights), err)
+        print(f"fused LTC {name} ({n_lights} lights, {HEIGHT}x{WIDTH}): "
+              f"differing words (diff, spec) by frame {differ}; max abs "
+              f"diff {err}; {timing(r)} ({card})", flush=True)
+        if any(any(d) for d in differ.values()):
+            fail(f"fused LTC {name} disagrees with its twin")
+
+
 def main():
     import torch
 
@@ -311,12 +646,12 @@ def main():
         sys.exit(2)
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    import torch.nn.functional as F
 
     import voidin_tpu_torch as pt
     from voidin_tpu_torch.framework.renderer import Renderer, build_world
     from voidin_tpu_torch.ops import _build
     from voidin_tpu_torch.ops import fine_raster as fr
+    from voidin_tpu_torch.ops import ltc_rect as lr
     from voidin_tpu_torch.ops import lut_fetch as lf
     from voidin_tpu_torch.passes import cull, raster, shading
     from voidin_tpu_torch.passes.raster import RasterConfig
@@ -332,7 +667,9 @@ def main():
                     k1_payload=(fr, "LAUNCHES_PAYLOAD"),
                     k2=(fr, "LAUNCHES_BLOCKS"),
                     k2_track2=(fr, "LAUNCHES_BLOCKS_TRACK2"),
-                    k3=(lf, "LAUNCHES"), k3_bf16=(lf, "LAUNCHES_BF16"))
+                    k3=(lf, "LAUNCHES"), k3_bf16=(lf, "LAUNCHES_BF16"),
+                    ltc_rect=(lr, "LAUNCHES"),
+                    ltc_rect_bf16=(lr, "LAUNCHES_BF16"))
 
     def launches():
         return {k: getattr(m, a) for k, (m, a) in counters.items()}
@@ -358,199 +695,15 @@ def main():
                        pair_capacity=CAP)
     masked_cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
                               pair_capacity=MASKED_PAIR_CAP)
-    rows = {}
-
-    # --- K1 vs twin on the north-star records ----------------------------
-    t0 = time.perf_counter()
     world, moving = build_world(10_000, seed=0)
-    print(f"north-star scene built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    rec, starts, counts = frame_records(world.device(dev), cfg)
-    kd, ki = fr.fine_raster_pairs(rec, starts, counts)
-    rd, ri = fr.fine_raster_pairs_reference(rec, starts, counts)
-    torch.cuda.synchronize()
-    k1_mismatch = int(((kd != rd) | (ki != ri)).sum())
-    k1_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts), 20)
-    k1_plain_ms = time_cuda(lambda: fr.fine_raster_pairs_reference(
-        rec, starts, counts), 3)
-    b_ms, b_by = k1_bound(counts, 2)
-    rows["fine_raster_pairs"] = dict(
-        max_abs_err=float((kd - rd).abs().max()), ms=k1_ms,
-        plain_ms=k1_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"K1 fine_raster_pairs: mismatched pixels {k1_mismatch} of "
-          f"{kd.numel()}, kernel {k1_ms:.4f} ms, twin {k1_plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
-    if k1_mismatch:
-        fail("K1 disagrees with its twin")
-    ns_k = block_capacity(counts)
-    del rec, starts, counts, kd, ki, rd, ri
-
-    # --- K1 payload vs twin on the north-star records with slim_rec -----
-    slim_cfg = dataclasses.replace(cfg, slim_rec=True)
-    setup = frame_setup(world.device(dev), slim_cfg)
-    rec, starts, counts = frame_records(None, slim_cfg, setup)
-    payload = raster._pair_payload_stream(rec, setup["resolve_rec"])
-    outs = fr.fine_raster_pairs(rec, starts, counts, payload=payload)
-    refs = fr.fine_raster_pairs_reference(rec, starts, counts,
-                                          payload=payload)
-    torch.cuda.synchronize()
-    mismatch = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
-                for a, b in zip(outs, refs)]
-    _, tri_id = raster._untile(outs[0], outs[1], cfg)
-    tri_id = tri_id[:HEIGHT, :WIDTH]
-    img = raster._untile_payload(outs[2], tri_id, setup["resolve_rec"], cfg)
-    want = setup["resolve_rec"][torch.clamp(tri_id.long(), min=0)]
-    gather_mismatch = int((img.view(torch.int32)
-                           != want.view(torch.int32)).sum())
-    pay_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts,
-                                                    payload=payload), 20)
-    pay_plain_ms = time_cuda(lambda: fr.fine_raster_pairs_reference(
-        rec, starts, counts, payload=payload), 3)
-    base_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts),
-                        20)
-    b_ms, b_by = k1_bound(counts, 2, px_bytes=4 * payload.shape[1])
-    rows["fine_raster_pairs_payload"] = dict(
-        max_abs_err=float((outs[0] - refs[0]).abs().max()), ms=pay_ms,
-        plain_ms=pay_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"K1 fine_raster_pairs_payload ({payload.shape[1]} words): "
-          f"mismatched words (depth, id, payload) {mismatch} of "
-          f"({outs[0].numel()}, {outs[1].numel()}, {outs[2].numel()}); "
-          f"payload image vs resolve_rec[max(tri_id, 0)]: "
-          f"{gather_mismatch} of {img.numel()} words differ; kernel "
-          f"{pay_ms:.4f} ms, twin {pay_plain_ms:.4f} ms, base variant on "
-          f"the same records {base_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}) ({card})", flush=True)
-    if any(mismatch) or gather_mismatch:
-        fail("K1 payload disagrees with its twin or the record gather")
-    del setup, rec, starts, counts, payload, outs, refs, img, want
-
-    # --- K2 vs twin on the north-star block records ----------------------
-    block_cfg = dataclasses.replace(cfg, backend="xla",
-                                    tile_tri_capacity=ns_k)
-    blocks, counts = frame_blocks(world.device(dev), block_cfg)
-    outs = fr.fine_raster_blocks(blocks, counts)
-    refs = fr.fine_raster_blocks_reference(blocks, counts)
-    torch.cuda.synchronize()
-    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
-    k2_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts), 20)
-    k2_plain_ms = time_cuda(lambda: fr.fine_raster_blocks_reference(
-        blocks, counts), 3)
-    b_ms, b_by = k1_bound(counts, 2, tile_bytes=4)
-    rows["fine_raster_blocks"] = dict(
-        max_abs_err=float((outs[0] - refs[0]).abs().max()), ms=k2_ms,
-        plain_ms=k2_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"K2 fine_raster_blocks (K {ns_k}): mismatched (depth, id) "
-          f"{mismatch} of {outs[0].numel()} each; kernel {k2_ms:.4f} ms, "
-          f"twin {k2_plain_ms:.4f} ms, K1 on the pair records of the same "
-          f"frame {k1_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
-          flush=True)
-    if any(mismatch):
-        fail("K2 disagrees with its twin")
-    del blocks, counts, outs, refs
-
-    # --- K3 and its bf16 variant vs their twins, grid_sample beside ------
-    g = torch.Generator(device="cpu").manual_seed(0)
-    tables = [torch.randn(64, 64, generator=g).to(dev) for _ in range(5)]
-    uv = torch.rand(HEIGHT, WIDTH, 2, generator=g).to(dev)
-    uv = uv * (63.0 / 64.0) + 0.5 / 64.0
-    corners = torch.tensor([[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]],
-                           device=dev) * (63.0 / 64.0) + 0.5 / 64.0
-    lib_in = torch.stack(tables)[None]  # (1, 5, 64, 64)
-    lib_grid = (uv * 2.0 - 1.0)[None]  # (1, H, W, 2), x = u indexes columns
-
-    def library():
-        return F.grid_sample(lib_in, lib_grid, mode="bilinear",
-                             padding_mode="border", align_corners=False)
-
-    lib_diff = float((library()[0] - torch.stack(lf.lut_fetch(tables, uv)))
-                     .abs().max())
-    lib_ms = time_cuda(library, 50)
-    b_ms, b_by = k3_bound(5, HEIGHT * WIDTH)
-    for name, bf16 in (("lut_fetch", False), ("lut_fetch_bf16", True)):
-        err = 0.0
-        for u in (uv, corners):
-            got = lf.lut_fetch(tables, u, bf16=bf16)
-            want = lf.lut_fetch_reference(tables, u, bf16=bf16)
-            for a, b in zip(got, want):
-                err = max(err, float((a - b).abs().max()))
-        ms = time_cuda(lambda: lf.lut_fetch(tables, uv, bf16=bf16), 50)
-        plain_ms = time_cuda(
-            lambda: lf.lut_fetch_reference(tables, uv, bf16=bf16), 10)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        print(f"K3 {name} (5 tables, {HEIGHT}x{WIDTH}): max abs diff {err}, "
-              f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, grid_sample "
-              f"{lib_ms:.4f} ms (max abs diff to the f32 kernel {lib_diff:.2e})"
-              f", bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
-        if not err <= K3_TOL:
-            fail(f"K3 {name} disagrees with its twin beyond {K3_TOL}")
-    del tables, uv, lib_in, lib_grid
-
-    # --- K1 track2 vs twin on the masked frame's records -----------------
-    t0 = time.perf_counter()
     masked_world, masked_moving = build_world(10_000, seed=0)
     add_foliage(masked_world, N_FOLIAGE, seed=1)
-    masked_scene = masked_world.device(dev)
-    if not masked_scene.alpha_masked:
-        fail("the foliage scene is not alpha-masked")
-    print(f"masked scene built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    rec, starts, counts = frame_records(masked_scene, masked_cfg)
-    outs = fr.fine_raster_pairs(rec, starts, counts, track2=True)
-    refs = fr.fine_raster_pairs_reference(rec, starts, counts, track2=True)
-    torch.cuda.synchronize()
-    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
-    t2_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts,
-                                                   track2=True), 20)
-    t2_plain_ms = time_cuda(lambda: fr.fine_raster_pairs_reference(
-        rec, starts, counts, track2=True), 3)
-    base_ms = time_cuda(lambda: fr.fine_raster_pairs(rec, starts, counts),
-                        20)
-    b_ms, b_by = k1_bound(counts, 4)
-    rows["fine_raster_pairs_track2"] = dict(
-        max_abs_err=max(float((outs[0] - refs[0]).abs().max()),
-                        float((outs[2] - refs[2]).abs().max())),
-        ms=t2_ms, plain_ms=t2_plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
-    print(f"K1 fine_raster_pairs_track2: mismatched (depth, id, depth2, id2) "
-          f"{mismatch} of {outs[0].numel()} each; runner-up pixels "
-          f"{int((outs[3] >= 0).sum())}; kernel {t2_ms:.4f} ms, twin "
-          f"{t2_plain_ms:.4f} ms, base variant on the same records "
-          f"{base_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
-          flush=True)
-    if any(mismatch):
-        fail("K1 track2 disagrees with its twin")
-    masked_k = block_capacity(counts)
-    del rec, starts, counts, outs, refs
-
-    # --- K2 track2 vs twin on the masked frame's block records ----------
-    masked_block_cfg = dataclasses.replace(masked_cfg, backend="xla",
-                                           tile_tri_capacity=masked_k)
-    blocks, counts = frame_blocks(masked_scene, masked_block_cfg)
-    outs = fr.fine_raster_blocks(blocks, counts, track2=True)
-    refs = fr.fine_raster_blocks_reference(blocks, counts, track2=True)
-    torch.cuda.synchronize()
-    mismatch = [int((a != b).sum()) for a, b in zip(outs, refs)]
-    t2_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts,
-                                                    track2=True), 20)
-    t2_plain_ms = time_cuda(lambda: fr.fine_raster_blocks_reference(
-        blocks, counts, track2=True), 3)
-    base_ms = time_cuda(lambda: fr.fine_raster_blocks(blocks, counts), 20)
-    b_ms, b_by = k1_bound(counts, 4, tile_bytes=4)
-    rows["fine_raster_blocks_track2"] = dict(
-        max_abs_err=max(float((outs[0] - refs[0]).abs().max()),
-                        float((outs[2] - refs[2]).abs().max())),
-        ms=t2_ms, plain_ms=t2_plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
-    print(f"K2 fine_raster_blocks_track2 (K {masked_k}): mismatched "
-          f"(depth, id, depth2, id2) {mismatch} of {outs[0].numel()} each; "
-          f"runner-up pixels {int((outs[3] >= 0).sum())}; kernel "
-          f"{t2_ms:.4f} ms, twin {t2_plain_ms:.4f} ms, K2 base on the same "
-          f"blocks {base_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
-          flush=True)
-    if any(mismatch):
-        fail("K2 track2 disagrees with its twin")
-    del blocks, counts, outs, refs
+    rows, ns_k, masked_k, masked_scene = kernel_phases(
+        dev, card, world, masked_world, cfg, masked_cfg)
+    ltc_rect_phases(dev, card, rows, world, masked_scene, cfg, masked_cfg)
+    block_cfg = dataclasses.replace(cfg, backend="xla",
+                                    tile_tri_capacity=ns_k)
+    slim_cfg = dataclasses.replace(cfg, slim_rec=True)
 
     # --- golden scene: card vs golden image and vs the CPU twins --------
     gw, gh = 160, 96
@@ -618,7 +771,7 @@ def main():
                      f"{where}")
         if where == "card":
             small_block_launches = expect_launches(
-                "small masked block path", dict(k2_track2=3, k3=15))
+                "small masked block path", dict(k2_track2=3, ltc_rect=3))
         imgs[where] = img.cpu().numpy()
     small_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
     print(f"masked scene 320x184 on the block path (K "
@@ -634,7 +787,7 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "north-star")
     ns_launches = expect_launches("north-star", dict(
-        k1=FRAMES, k1_track2=0, k3=5 * FRAMES, k3_bf16=0))
+        k1=FRAMES, ltc_rect=FRAMES))
     ns_ms = float(np.median(times[2:]))
     print(f"north-star frame {WIDTH}x{HEIGHT}: median {ns_ms:.3f} ms/frame "
           f"over frames 3-{FRAMES} ({card}); {mem}; image mean "
@@ -665,7 +818,7 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "block-path")
     block_launches = expect_launches("block-path", dict(
-        k2=FRAMES, k3=5 * FRAMES))
+        k2=FRAMES, ltc_rect=FRAMES))
     block_ms = float(np.median(times[2:]))
     print(f"block-path north-star frame {WIDTH}x{HEIGHT} (backend xla, K "
           f"{ns_k}): median {block_ms:.3f} ms/frame over frames 3-{FRAMES} "
@@ -684,7 +837,7 @@ def main():
             r, north_star_camera(pt), label)
         got = expect_launches(label, dict(
             k1_payload=FRAMES if payload else 0,
-            k1=0 if payload else FRAMES, k3=5 * FRAMES))
+            k1=0 if payload else FRAMES, ltc_rect=FRAMES))
         if payload:
             payload_launches = got
         slim_ms[payload] = float(np.median(times[2:]))
@@ -710,7 +863,7 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "masked")
     masked_launches = expect_launches("masked", dict(
-        k1=0, k1_track2=FRAMES, k3=5 * FRAMES, k3_bf16=0))
+        k1_track2=FRAMES, ltc_rect=FRAMES))
     masked_ms = float(np.median(times[2:]))
     print(f"masked frame {WIDTH}x{HEIGHT} (north star + {N_FOLIAGE} foliage "
           f"cards): "
@@ -751,7 +904,7 @@ def main():
     diff = bf16_pair(lambda: masked_world.device(dev), masked_cfg,
                      north_star_camera(pt))
     bf16_launches = expect_launches("masked bf16 frame", dict(
-        k1=0, k1_track2=1, k3=0, k3_bf16=5))
+        k1_track2=1, ltc_rect_bf16=1))
     worst = np.unravel_index(np.argmax(diff), diff.shape)
     print(f"masked {WIDTH}x{HEIGHT} with LTC_LUT_BF16: max abs diff to the "
           f"f32 frame {diff.max():.3e} at {tuple(int(i) for i in worst)}, "
@@ -768,6 +921,8 @@ def main():
         fine_raster_blocks_track2=small_block_launches["k2_track2"],
         lut_fetch=ns_launches["k3"],
         lut_fetch_bf16=bf16_launches["k3_bf16"],
+        ltc_rect=ns_launches["ltc_rect"],
+        ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
     )
     meta = dict(
         fine_raster_pairs=("voidin_tpu_torch/csrc/fine_raster.cu",
@@ -784,6 +939,10 @@ def main():
                    "voidin_tpu/ops/lut_fetch.py:43"),
         lut_fetch_bf16=("voidin_tpu_torch/csrc/lut_fetch.cu",
                         "voidin_tpu/ops/lut_fetch.py:59"),
+        ltc_rect=("voidin_tpu_torch/csrc/ltc_rect.cu",
+                  "voidin_tpu/ops/lut_fetch.py:43"),
+        ltc_rect_bf16=("voidin_tpu_torch/csrc/ltc_rect.cu",
+                       "voidin_tpu/ops/lut_fetch.py:59"),
     )
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -1,7 +1,10 @@
 """Card-only checks of the port's hand-written CUDA kernels (K1 base,
-track2 and payload; K2 base and track2; K3 f32 and bf16) against their
-PyTorch twins, and of the frame on the card against the CPU path, on the
-pair and block paths and with slim_rec + kernel_payload. Marked
+track2 and payload, also on hand-built record streams at each staging
+edge; K2 base and track2; K3 f32 and bf16; the fused LTC rect kernel f32
+and bf16, and that it launches nothing on empty inputs) against their
+PyTorch twins, and of the
+frame on the card against the CPU path, on the pair and block paths and
+with slim_rec + kernel_payload. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -19,9 +22,11 @@ import torch
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.framework.renderer import Renderer, build_world
 from voidin_tpu_torch.ops import fine_raster as t_fr
+from voidin_tpu_torch.ops import ltc_rect as t_ltc
 from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.passes import cull, raster, resolve
 from voidin_tpu_torch.passes.raster import RasterConfig
+from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
 from chip_smoke import add_foliage
 
@@ -146,6 +151,131 @@ def test_lut_fetch_kernel_matches_twin(cuda, bf16):
         for a, b in zip(t_lut.lut_fetch(tables, uv, bf16=bf16),
                         t_lut.lut_fetch_reference(tables, uv, bf16=bf16)):
             assert (a - b).abs().max().item() <= 1e-6
+
+
+# Tile ranges (start, count) of a hand-built pair stream, one per staging
+# edge of K1: inside one chunk, from mid-chunk to mid-chunk, count 0, over
+# three chunks, a 650-record tile (the fullest 1080p north-star tile) over
+# seven, ending on a chunk boundary, and one whole aligned chunk.
+EDGE_RANGES = [(40, 60), (100, 80), (180, 0), (180, 330), (510, 650),
+               (1160, 120), (1280, 128)]
+
+
+def _edge_stream(device, seed=0):
+    """(records, starts, counts, payload) of EDGE_RANGES: random edge planes
+    (about a third of each tile's pixels inside a record), depth planes on
+    a 1/64 grid so records tie within and across chunks, a few records
+    clamped by zmax, one NaN depth in the 650-record tile, unique ids, and
+    a random 24-word payload per slot."""
+    rng = np.random.default_rng(seed)
+    e_pad = 1408
+    rec = np.zeros((e_pad, t_fr.RECORD_F), np.float32)
+    rec[:, 0:9] = rng.uniform(-1.0, 1.0, (e_pad, 9))
+    rec[:, [2, 5, 8]] = rng.uniform(-2.0, 12.0, (e_pad, 3))
+    flat = rng.uniform(size=e_pad) < 0.5
+    rec[:, 9:11] = np.where(flat[:, None], 0.0,
+                            rng.uniform(-0.01, 0.01, (e_pad, 2)))
+    rec[:, 11] = rng.integers(8, 64, e_pad) / 64.0
+    rec[:, t_fr.F_ID] = np.arange(e_pad)
+    rec[:, t_fr.F_ZMAX] = np.where(rng.uniform(size=e_pad) < 0.1, 0.5, 2.0)
+    rec[700, 11] = np.nan
+    payload = rng.integers(-2**31, 2**31, (e_pad, 24)).astype(np.int32)
+    starts, counts = zip(*EDGE_RANGES)
+    return (torch.from_numpy(rec).to(device),
+            torch.tensor(starts, dtype=torch.int32, device=device),
+            torch.tensor(counts, dtype=torch.int32, device=device),
+            torch.from_numpy(payload.view(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("track2,with_payload", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_fine_raster_pairs_staging_edges(cuda, track2, with_payload):
+    """K1 stages only each chunk's slice of the tile's range: every variant
+    equals its twin word for word on the edge-case stream."""
+    rec, starts, counts, payload = _edge_stream(cuda)
+    pay = payload if with_payload else None
+    outs = t_fr.fine_raster_pairs(rec, starts, counts, track2=track2,
+                                  payload=pay)
+    refs = t_fr.fine_raster_pairs_reference(rec, starts, counts,
+                                            track2=track2, payload=pay)
+    torch.cuda.synchronize()
+    assert len(outs) == len(refs) == 2 + 2 * track2 + with_payload
+    for a, b in zip(outs, refs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ids = outs[1]
+    assert (ids[2] == -1).all()  # the empty tile
+    assert ((ids[4] >= 510 + 128) & (ids[4] != 700)).any()  # later chunks
+
+
+def _ltc_fields(device, seed=0, h=96, w=160):
+    """(nor, rd, pos, roughness, area_points, ltc1, ltc2) from a seed:
+    unit normals and view vectors, positions around two rect lights (both
+    sides of each), a background row at +-1e12, roughness 0 and 1 rows
+    (test_torch_ltc_rect's fields, rebuilt here: that module imports jax,
+    which the card's host lacks)."""
+    rng = np.random.default_rng(seed)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    nor = unit(rng.standard_normal((h, w, 3)))
+    rd = unit(rng.standard_normal((h, w, 3)))
+    pos = rng.uniform(-8.0, 8.0, (h, w, 3))
+    pos[2] = np.where(rng.uniform(size=(w, 3)) < 0.5, -1e12, 1e12)
+    rough = rng.uniform(0.0, 1.0, (h, w))
+    rough[0], rough[1] = 0.0, 1.0
+    quad = np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]])
+    points = np.stack([quad + [0.0, 6.0, 0.0], quad[:, [1, 0, 2]] + 1.0])
+    ltc1, ltc2 = load_ltc_tables()
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+            for a in (nor, rd, pos, rough, points, ltc1, ltc2)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ltc_rect_kernel_matches_twin(cuda, bf16):
+    """The fused kernel equals the eager chain on the card with 0 differing
+    words."""
+    fields = _ltc_fields(cuda)
+    names = ("LAUNCHES", "LAUNCHES_BF16")
+    before = [getattr(t_ltc, n) for n in names]
+    got = t_ltc.ltc_rect_terms(*fields, bf16=bf16)
+    want = t_ltc.ltc_rect_terms_reference(*fields, bf16=bf16)
+    torch.cuda.synchronize()
+    assert [getattr(t_ltc, n) for n in names] == [before[0] + (not bf16),
+                                                  before[1] + bf16]
+    for a, b in zip(got, want):
+        assert a.shape == (2, 96, 160)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (got[0] != 0).any() and (got[0] == 0).any()
+
+
+def test_ltc_rect_kernel_non_finite_pixels(cuda):
+    """Non-finite fields (an infinite normal, a NaN roughness) reach the
+    same words, NaN where the twin has NaN: the identity's 0 * x terms
+    are kept."""
+    nor, rd, pos, rough, points, ltc1, ltc2 = _ltc_fields(cuda, seed=1)
+    nor[5, :4] = float("inf")
+    rough[6, :4] = float("nan")
+    got = t_ltc.ltc_rect_terms(nor, rd, pos, rough, points, ltc1, ltc2)
+    want = t_ltc.ltc_rect_terms_reference(nor, rd, pos, rough, points, ltc1,
+                                          ltc2)
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        fin = ~torch.isnan(a)
+        assert torch.equal(a[fin].view(torch.int32), b[fin].view(torch.int32))
+    assert torch.isnan(want[0]).any() and torch.isnan(want[1]).any()
+
+
+@pytest.mark.parametrize("n_lights,h", [(0, 96), (2, 0)])
+def test_ltc_rect_kernel_empty_launches_nothing(cuda, n_lights, h):
+    """No light or no pixel: empty outputs of the right shape, no launch
+    and no count."""
+    nor, rd, pos, rough, points, ltc1, ltc2 = _ltc_fields(cuda)
+    before = (t_ltc.LAUNCHES, t_ltc.LAUNCHES_BF16)
+    got = t_ltc.ltc_rect_terms(nor[:h], rd[:h], pos[:h], rough[:h],
+                               points[:n_lights], ltc1, ltc2)
+    assert [tuple(a.shape) for a in got] == [(n_lights, h, 160)] * 2
+    assert (t_ltc.LAUNCHES, t_ltc.LAUNCHES_BF16) == before
 
 
 @pytest.mark.parametrize("masked,options", [

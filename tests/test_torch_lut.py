@@ -1,7 +1,9 @@
 """Port parity: kernel K3's twin (voidin_tpu_torch.ops.lut_fetch) against
 the JAX package's Pallas LUT-fetch kernel (interpret mode) and its XLA
 formulation, sample_lut_bilinear_mxu_multi; and the twin of its bf16
-variant against the Pallas kernel's bf16 path.
+variant against the Pallas kernel's bf16 path; and that shade reaches the
+LTC tables through the fused LTC wrapper (ops/ltc_rect.py), which carries
+K3's fetch, following the bf16 switch.
 
 Tolerance 1e-6 absolute on standard-normal tables: the JAX forms contract
 the same two taps per axis as one-hot weight products (their sums may fuse
@@ -17,8 +19,12 @@ import torch
 from voidin_tpu.ops.lut_fetch import lut_fetch_pallas
 from voidin_tpu.passes import shading as j_shading
 
+import voidin_tpu_torch as pt
+from voidin_tpu_torch.framework.renderer import Renderer, build_world
 from voidin_tpu_torch.ops import lut_fetch as t_lut
+from voidin_tpu_torch.ops import ltc_rect as t_ltc
 from voidin_tpu_torch.passes import shading as t_shading
+from voidin_tpu_torch.passes.raster import RasterConfig
 
 torch.set_num_threads(2)
 TOL = 1e-6
@@ -49,7 +55,7 @@ def _check(tables, uv):
 def test_twin_matches_pallas_and_xla(n_chan):
     rng = np.random.default_rng(3 + n_chan)
     uv = (rng.uniform(0, 1, (17, 29, 2)).astype(np.float32)
-          * np.float32(t_shading.LUT_SCALE) + np.float32(t_shading.LUT_BIAS))
+          * np.float32(t_ltc.LUT_SCALE) + np.float32(t_ltc.LUT_BIAS))
     _check(_tables(rng, n_chan), uv)
 
 
@@ -57,8 +63,8 @@ def test_twin_corner_uvs():
     """Corner uvs exercise the clamped second tap (y1 == y0 merge)."""
     rng = np.random.default_rng(11)
     uv = (np.array([[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]],
-                   np.float32) * np.float32(t_shading.LUT_SCALE)
-          + np.float32(t_shading.LUT_BIAS))
+                   np.float32) * np.float32(t_ltc.LUT_SCALE)
+          + np.float32(t_ltc.LUT_BIAS))
     _check(_tables(rng, 5), uv)
 
 
@@ -83,26 +89,58 @@ def test_bf16_twin_matches_pallas(n_chan):
     rng = np.random.default_rng(13 + n_chan)
     uv = rng.uniform(0, 1, (23, 19, 2)).astype(np.float32)
     uv[0, :4] = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]]
-    uv = uv * np.float32(t_shading.LUT_SCALE) + np.float32(t_shading.LUT_BIAS)
+    uv = uv * np.float32(t_ltc.LUT_SCALE) + np.float32(t_ltc.LUT_BIAS)
     _check_bf16(_tables(rng, n_chan), uv)
 
 
+def _shade_calls(monkeypatch, bf16):
+    """One frame of a small area-lit scene on the CPU with the shading
+    module's LTC_LUT_BF16 switch at `bf16`, every call of the fused
+    wrapper recorded; returns (calls, scene, image)."""
+    calls = []
+    real = t_ltc.ltc_rect_terms
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(t_ltc, "ltc_rect_terms", record)
+    monkeypatch.setattr(t_shading, "LTC_LUT_BF16", bf16)
+    world, moving = build_world(40, seed=2)
+    scene = world.device("cpu")
+    r = Renderer(scene, RasterConfig(width=48, height=32,
+                                     tri_capacity=1 << 12,
+                                     pair_capacity=1 << 13),
+                 moving_ids=moving, enable_taa=False)
+    img = r.render(pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                             aspect=1.5))
+    return calls, scene, img
+
+
 def test_shading_fetch_follows_the_bf16_switch(monkeypatch):
-    tables = [torch.full((64, 64), 1.0 / 3.0)]
-    uv = torch.full((3, 2), 0.5)
-    (f32,) = t_shading.sample_lut_bilinear_multi(tables, uv)
-    monkeypatch.setattr(t_shading, "LTC_LUT_BF16", True)
-    (bf,) = t_shading.sample_lut_bilinear_multi(tables, uv)
-    np.testing.assert_array_equal(f32.numpy(), np.float32(1.0 / 3.0))
-    assert float(bf[0]) == float(torch.tensor(1.0 / 3.0).bfloat16())
+    """shade passes LTC_LUT_BF16 to the fused wrapper at each call, and
+    the bf16 fetch really rounds."""
+    terms = {}
+    for bf16 in (False, True):
+        calls, _, _ = _shade_calls(monkeypatch, bf16)
+        assert len(calls) == 1 and calls[0][1]["bf16"] is bf16
+        terms[bf16] = calls[0][2]
+    assert not torch.equal(terms[False][1], terms[True][1])
 
 
-def test_shading_fetch_goes_through_the_wrapper():
-    assert t_shading.sample_lut_bilinear_multi.__module__ == t_shading.__name__
-    tables = [torch.ones(64, 64)]
-    uv = torch.full((3, 2), 0.5)
-    (out,) = t_shading.sample_lut_bilinear_multi(tables, uv)
-    np.testing.assert_array_equal(out.numpy(), np.ones(3, np.float32))
+def test_shading_fetch_goes_through_the_wrapper(monkeypatch):
+    """shade reaches the LTC tables through one call of the fused wrapper
+    a frame, with the scene's tables as stored and every area light."""
+    calls, scene, img = _shade_calls(monkeypatch, False)
+    assert len(calls) == 1
+    args = calls[0][0]
+    assert args[5] is scene.ltc1 and args[6] is scene.ltc2
+    assert torch.equal(args[4], scene.lights.area_points)
+    diff, spec = calls[0][2]
+    n_lights = scene.lights.area_points.shape[0]
+    assert n_lights > 0 and tuple(diff.shape) == (n_lights,) + img.shape[:2]
+    assert (diff > 0).any() and torch.isfinite(spec).all()
 
 
 def test_rejects_bad_table_count():

@@ -13,6 +13,7 @@ import torch
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.framework.renderer import Renderer, build_world
 from voidin_tpu_torch.ops import fine_raster as t_fr
+from voidin_tpu_torch.ops import ltc_rect as t_ltc
 from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.passes.raster import RasterConfig
 
@@ -61,6 +62,18 @@ def test_cuda_device_without_a_card_raises():
     with pytest.raises((RuntimeError, AssertionError)):
         t_fr.fine_raster_blocks(torch.zeros(8, 64, 16, device="cuda"),
                                 torch.zeros(8, dtype=torch.int32))
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_ltc.ltc_rect_terms(*_ltc_inputs("cuda"))
+
+
+def _ltc_inputs(device):
+    """(nor, rd, pos, roughness, area_points, ltc1, ltc2) of 4x6 pixels
+    and one light on `device`."""
+    def z(*shape):
+        return torch.zeros(*shape, device=device)
+
+    return (z(4, 6, 3), z(4, 6, 3), z(4, 6, 3), z(4, 6), z(1, 4, 3),
+            z(64, 64, 4), z(64, 64, 4))
 
 
 def test_wrappers_take_no_other_device():
@@ -73,6 +86,8 @@ def test_wrappers_take_no_other_device():
     with pytest.raises(ValueError):
         t_lut.lut_fetch([torch.zeros(64, 64, device="meta")],
                         torch.zeros(4, 2, device="meta"))
+    with pytest.raises(ValueError):
+        t_ltc.ltc_rect_terms(*_ltc_inputs("meta"))
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -8,11 +8,11 @@ capacities 2^19, moving instances, TAA), the same frame on the block path
 and with slim_rec + kernel_payload, and the masked frame (the north star
 plus chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20)
 through Renderer.render, overflow 0 on every frame, with CUDA events
-around each
-pass of render_frame and around the resolve's per-pixel field evaluations
-(the dense (H, W) pass and the flat fallback batch). Prints, per scene, the median ms of each stage over the frames
-after the first two, and the host-clock ms/frame. Then times the resolve
-pass alone on one masked visibility buffer, three ways: as an unmasked
+around each pass of render_frame, around the resolve's per-pixel field
+evaluations (the dense (H, W) pass and the flat fallback batch) and
+around the fused LTC kernel's call inside shade. Prints, per scene, the
+median ms of each stage over the frames after the first two, and the
+host-clock ms/frame. Then times the resolve pass alone on one masked visibility buffer, three ways: as an unmasked
 scene would (winner only), the lazy compacted fallback (the default) and
 the dense two-pass fallback. Every number is printed with the card's name
 and power limit. Needs a CUDA device.
@@ -35,6 +35,7 @@ import chip_smoke  # noqa: E402
 import voidin_tpu_torch as pt  # noqa: E402
 from voidin_tpu_torch.framework import renderer as renderer_mod  # noqa: E402
 from voidin_tpu_torch.ops import fine_raster as fr  # noqa: E402
+from voidin_tpu_torch.ops import ltc_rect  # noqa: E402
 from voidin_tpu_torch.passes import raster, resolve  # noqa: E402
 
 STAGES = [
@@ -50,7 +51,8 @@ STAGES = [
     (raster, "_untile_payload", "  payload untile"),
     (resolve, "resolve_gbuffer", "resolve"),
     (resolve, "_pixel_fields", "  resolve fields"),
-    (renderer_mod.shading_pass, "shade", "shade + K3"),
+    (renderer_mod.shading_pass, "shade", "shade"),
+    (ltc_rect, "ltc_rect_terms", "  LTC rect, fused kernel"),
     (renderer_mod.taa_pass, "taa", "taa"),
     (renderer_mod.post_pass, "postprocess", "postprocess"),
 ]

@@ -19,6 +19,19 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+def sum3(a):
+    """(..., 3) -> (...,) as (a0 + a1) + a2, jnp.sum's order."""
+    return (a[..., 0] + a[..., 1]) + a[..., 2]
+
+
+def norm3(v):
+    return sqrt(sum3(v * v))
+
+
+def normalize(v, eps=1e-20):
+    return v / sqrt(torch.clamp(sum3(v * v), min=eps))[..., None]
+
+
 def cross(a, b):
     """(..., 3) x (..., 3) with jnp.cross's rounding: jnp.cross runs
     jitted, and XLA contracts each component a_j*b_k - a_k*b_j into

@@ -137,6 +137,9 @@ def load() -> ctypes.CDLL:
         lib.voidin_lut_fetch.argtypes = [p, p, i, i64, p, p]
         lib.voidin_lut_fetch_bf16.restype = i
         lib.voidin_lut_fetch_bf16.argtypes = [p, p, i, i64, p, p]
+        for fn in (lib.voidin_ltc_rect, lib.voidin_ltc_rect_bf16):
+            fn.restype = i
+            fn.argtypes = [p, p, p, p, p, i, p, p, i64, p, p, p]
         lib.voidin_error_string.restype = ctypes.c_char_p
         lib.voidin_error_string.argtypes = [i]
         _lib = lib

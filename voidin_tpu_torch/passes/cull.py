@@ -27,11 +27,6 @@ class DrawList:
     mesh: Optional[torch.Tensor] = None  # (N,) i32 LOD mesh per draw
 
 
-def _norm3(v):
-    sq = v * v
-    return fastmath.sqrt((sq[..., 0] + sq[..., 1]) + sq[..., 2])
-
-
 def view_sphere(meshes: MeshPoolData, instances: InstanceData, camera):
     """Per-instance view-space bounding sphere: ((N,3) center, (N,) radius)."""
     transform = instances.transform
@@ -47,7 +42,7 @@ def view_sphere(meshes: MeshPoolData, instances: InstanceData, camera):
     scale = fastmath.sqrt((sq[..., 0, :] + sq[..., 1, :]) + sq[..., 2, :])
     max_scale = torch.amax(scale.abs(), dim=-1)
     half = (mx - mn) * 0.5
-    radius = _norm3(half) * max_scale
+    radius = fastmath.norm3(half) * max_scale
     return center, radius
 
 
@@ -87,7 +82,7 @@ def select_lod(meshes: MeshPoolData, instances: InstanceData,
     """(N,) i32 per-instance LOD mesh: level k engages when view distance /
     world radius reaches lod_thresh[m, k]."""
     center, radius = view_sphere(meshes, instances, camera)
-    dist = _norm3(center)
+    dist = fastmath.norm3(center)
     ratio = dist / torch.clamp(radius, min=1e-6)
     mesh_id = instances.mesh_id.to(torch.int64)
     table = meshes.lod_table[mesh_id]

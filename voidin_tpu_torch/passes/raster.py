@@ -165,10 +165,6 @@ def _front_face(sx, sy):
     return area2 < 0.0
 
 
-def _sum3(a):
-    return (a[..., 0] + a[..., 1]) + a[..., 2]
-
-
 def setup_draw_records(meshes: MeshPoolData, instances: InstanceData,
                        draws: DrawList, camera, config: RasterConfig,
                        materials=None, inst_rec=None):
@@ -351,9 +347,9 @@ def _pack_raster(sxv, syv, zv, alivev, ids):
     area2 = dy[:, 0] * dx[:, 1] - dx[:, 0] * dy[:, 1]  # = e0+e1+e2
     inv = 1.0 / torch.where(area2.abs() > 1e-20, area2, 1e-20)
     zrot = zv[:, [2, 0, 1]]  # weight of edge k is z[(k+2)%3]
-    axd = _sum3(ax * zrot) * inv
-    ayd = _sum3(ay * zrot) * inv
-    bd = _sum3(b * zrot) * inv
+    axd = fastmath.sum3(ax * zrot) * inv
+    ayd = fastmath.sum3(ay * zrot) * inv
+    bd = fastmath.sum3(b * zrot) * inv
     # zmax bounds the affine depth in K1 (sliver guard)
     zmax = torch.amax(zv, dim=-1)
     rec = torch.stack(
