@@ -12,7 +12,9 @@ Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), then:
      variant on them with slim_rec (all outputs identical, the payload
      image equal to resolve_rec[max(tri_id, 0)] bit for bit); K2 on the
      north-star block records, K (tile_tri_capacity) the smallest multiple
-     of 128 above its fullest tile; K3 and its bf16 variant on 5 and on 1
+     of 128 above its fullest tile, with the histogram of its per-tile
+     counts, then K2 and K2 track2 on the adversarial block sets of
+     block_edge_set (every output word equal); K3 and its bf16 variant on 5 and on 1
      random 64x64 tables at 1920x1080 random uvs plus the corner uvs (max
      abs diff <= 1e-6), torch's grid_sample timing the same fetches as a
      yardstick (the port never calls it); K1 track2 and K2 track2 on the
@@ -233,6 +235,107 @@ def block_capacity(counts):
     return max(128, -(-int(counts.max()) // 128) * 128)
 
 
+COUNT_BINS = (0, 1, 9, 17, 33, 65, 129, 257, 513)
+
+
+def count_histogram(counts):
+    """The per-tile record counts as text: for each bin of COUNT_BINS the
+    tiles in it and their share of all records (what decides how K2 hands
+    tiles to its blocks)."""
+    c = counts.to("cpu").numpy().astype(np.int64)
+    total = max(int(c.sum()), 1)
+    edges = list(COUNT_BINS) + [int(c.max()) + 1]
+    parts = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        if hi <= lo:
+            continue
+        sel = (c >= lo) & (c < hi)
+        name = str(lo) if hi == lo + 1 else f"{lo}-{hi - 1}"
+        parts.append(f"{name}: {int(sel.sum())} tiles "
+                     f"{100.0 * c[sel].sum() / total:.1f}%")
+    return "; ".join(parts)
+
+
+# Hand-built block sets at every edge of K2's tile walk (block_edge_set):
+# K and the tile count in the name, the per-tile counts below.
+EDGE_COUNTS = (0, 1, 7, 8, 9, 127, 128, 129, -1, 0, 5, 31, 32, 33, 64, 65)
+BLOCK_EDGE_SETS = ("k8", "k16", "k128", "k136", "k768", "nt1_k8", "nt1_k128",
+                   "nt8_k16", "nt2309_k72")
+# More than 64 tiles per resident block of K2 on an H100, so that a block
+# refills its window of tile counts twice: too large for the CPU twin's
+# intermediates, so the card alone runs it.
+BIG_BLOCK_EDGE_SET = "nt100001_k8"
+
+
+def block_edge_set(name, seed=0):
+    """(blocks (NT, K, 16) f32, counts (NT,) i32, not capped at K) of the
+    named adversarial block set, as numpy arrays. "k<K>": 16 tiles with
+    counts 0, 1, 7, 8, 9, 127, 128, 129, K - 1, K, K + 5, 31, 32, 33, 64,
+    65; "nt<NT>_k<K>": 1 or 8 tiles, or random counts 0 .. K + 4.
+
+    Every coefficient lies on a dyadic grid (edges 1/8, depth slopes 1/1024,
+    depths 1/64), so each plane is exact in f32 whether its multiply-adds
+    are fused or not, and many depths tie. A tenth of the records have id
+    -1 and would win every pixel; the slots at or past min(count, K) hold
+    live records that would win every pixel if read. On tiles that hold
+    them, equal-depth records covering the whole tile sit at slots (7, 8),
+    (31, 32) and (127, 128), on either side of a group, a 32-record and a
+    128-record boundary, the later one with the higher id (tiles 1, 2 mod
+    3); a NaN depth sits at slots 3, 121 and 130, in the last group of a
+    128-record slice and the first group of the next (tiles 0 mod 3); on
+    odd tiles the last valid slot wins every pixel."""
+    rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+    head, _, tail = name.partition("_")
+    k = int((tail or head)[1:])
+    if not tail:
+        counts = [k - 1 if c < 0 else c + k if i in (9, 10) else c
+                  for i, c in enumerate(EDGE_COUNTS)]
+    elif name == "nt1_k8":
+        counts = [8]
+    elif name == "nt1_k128":
+        counts = [100]
+    elif name == "nt8_k16":
+        counts = [0, 1, 7, 8, 9, 15, 16, 20]
+    else:
+        counts = rng.integers(0, k + 5, int(head[2:]))
+    counts = np.asarray(counts, np.int32)
+    nt = counts.shape[0]
+
+    def cover(depth, tid):
+        r = np.zeros(16, np.float32)
+        r[[2, 5, 8]] = 1.0
+        r[11], r[12], r[15] = depth, tid, 2.0
+        return r
+
+    blocks = np.zeros((nt, k, 16), np.float32)
+    blocks[:, :, 0:9] = rng.integers(-8, 9, (nt, k, 9)) / 8.0
+    blocks[:, :, [2, 5, 8]] = rng.integers(-16, 97, (nt, k, 3)) / 8.0
+    flat = rng.uniform(size=(nt, k, 1)) < 0.5
+    blocks[:, :, 9:11] = np.where(flat, 0.0,
+                                  rng.integers(-2, 3, (nt, k, 2)) / 1024.0)
+    blocks[:, :, 11] = rng.integers(8, 56, (nt, k)) / 64.0  # planes < 0.91
+    blocks[:, :, 12] = (rng.permuted(np.tile(np.arange(k), (nt, 1)), axis=1)
+                        + np.arange(nt)[:, None] * k)
+    blocks[:, :, 15] = np.where(rng.uniform(size=(nt, k)) < 0.1, 0.5, 2.0)
+    blocks[rng.uniform(size=(nt, k)) < 0.1] = cover(0.995, -1.0)
+    past = np.arange(k)[None, :] >= np.minimum(counts, k)[:, None]
+    ids = blocks[:, :, 12].copy()
+    blocks[past] = cover(0.999, 0.0)
+    blocks[:, :, 12] = np.where(past, np.maximum(ids, 0.0), blocks[:, :, 12])
+    for t in range(nt):
+        c = min(int(counts[t]), k)
+        for lo in (7, 31, 127):
+            if c >= lo + 2 and t % 3 != 0:
+                blocks[t, lo] = cover(0.985, 2.0 * (t * k + lo))
+                blocks[t, lo + 1] = cover(0.985, 2.0 * (t * k + lo) + 1.0)
+        for slot in (3, 121, 130):
+            if c >= slot + 6 and t % 3 == 0:
+                blocks[t, slot] = cover(np.nan, blocks[t, slot, 12])
+        if c >= 1 and t % 2 == 1:
+            blocks[t, c - 1] = cover(0.99, max(blocks[t, c - 1, 12], 0.0))
+    return blocks, counts
+
+
 def k3_bound(n_chan, n_px):
     """K3 must read each pixel's uv (8 B) and the tables (16 KB each) once
     and write 4 B per pixel and table; per pixel and table two row lerps
@@ -395,6 +498,33 @@ def timing(r):
             f" ({r['bound_by']})")
 
 
+def k2_edge_phase(dev, card):
+    """K2 and its track2 variant against their twin on every adversarial
+    block set (block_edge_set), the large one included: every output word
+    equal."""
+    import torch
+
+    from voidin_tpu_torch.ops import fine_raster as fr
+
+    worst = {}
+    for name in BLOCK_EDGE_SETS + (BIG_BLOCK_EDGE_SET,):
+        blocks, counts = (torch.from_numpy(a).to(dev)
+                          for a in block_edge_set(name))
+        for track2 in (False, True):
+            outs = fr.fine_raster_blocks(blocks, counts, track2=track2)
+            torch.cuda.synchronize()
+            refs = fr.fine_raster_blocks_reference(blocks, counts,
+                                                   track2=track2)
+            worst[name, track2] = sum(words_differ(a, b)
+                                      for a, b in zip(outs, refs))
+    print(f"K2 edge sets {', '.join(n for n, t in worst if not t)} (base and "
+          f"track2): differing words {sum(worst.values())} ({card})",
+          flush=True)
+    if any(worst.values()):
+        fail(f"K2 disagrees with its twin on edge sets "
+             f"{[k for k, v in worst.items() if v]}")
+
+
 def kernel_phases(dev, card, world, masked_world, cfg, masked_cfg):
     """K1, K2 and K3, every variant, against their twins on their 1080p
     inputs, timed by call (CUDA events, wrapper included) and on the
@@ -488,7 +618,10 @@ def kernel_phases(dev, card, world, masked_world, cfg, masked_cfg):
           flush=True)
     if any(mismatch):
         fail("K2 disagrees with its twin")
+    print(f"K2 per-tile counts (north star): {count_histogram(counts)}",
+          flush=True)
     del blocks, counts, outs, refs
+    k2_edge_phase(dev, card)
 
     # --- K3 and its bf16 variant vs their twins, grid_sample beside ------
     # Two shapes: the 5-table fetch of ltc_matrix and the 1-table fetch of
@@ -598,6 +731,8 @@ def kernel_phases(dev, card, world, masked_world, cfg, masked_cfg):
           flush=True)
     if any(mismatch):
         fail("K2 track2 disagrees with its twin")
+    print(f"K2 per-tile counts (masked): {count_histogram(counts)}",
+          flush=True)
     del blocks, counts, outs, refs
 
     return rows, ns_k, masked_k, masked_scene

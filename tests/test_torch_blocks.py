@@ -3,6 +3,12 @@
 its track2 variant, rasterize and the whole frame on that path, against
 the JAX package.
 
+Edge cases: chip_smoke.block_edge_set's adversarial block sets (K 8 to
+768, counts around every group, round and slice boundary and above K, 1 to
+2,309 tiles, depth ties across those boundaries, NaN depths, ids -1 inside
+the count, a winner in the last valid slot); the card tests and
+chip_smoke.py hold the CUDA kernel to the twin on the same sets.
+
 Scenes: tests/test_raster.py's `_scene` (three spheres on a plane, 128x64,
 K = 64, the JAX block-path tests' scene; and at K = 16, where tiles
 overflow), test_raster.py's `_alpha_scene` (a cut-out quad with a hole
@@ -43,6 +49,7 @@ from voidin_tpu_torch.passes import cull as t_cull
 from voidin_tpu_torch.passes import raster as t_raster
 from voidin_tpu_torch.passes import resolve as t_resolve
 
+from chip_smoke import BLOCK_EDGE_SETS, block_edge_set
 from tests import test_raster
 from tests.test_golden import CFG as GOLDEN_CFG
 from tests.test_golden import H, W
@@ -322,3 +329,76 @@ def test_block_path_frame_matches_jax(monkeypatch):
     diff = np.abs(got - want).mean()
     print(f"block-path golden frame: mean abs diff vs JAX {diff:.3e}")
     assert diff < BUDGET
+
+
+def _edge_outputs(name, track2):
+    blocks, counts = block_edge_set(name)
+    outs = t_fr.fine_raster_blocks(torch.from_numpy(blocks),
+                                   torch.from_numpy(counts), track2=track2)
+    return blocks, counts, [o.numpy() for o in outs]
+
+
+@pytest.mark.parametrize("track2", [False, True])
+@pytest.mark.parametrize("name", BLOCK_EDGE_SETS)
+def test_blocks_twin_edge_sets_match_xla(name, track2):
+    """The twin on the adversarial block sets against fine_raster_xla run
+    op by op: every output word equal."""
+    blocks, counts, got = _edge_outputs(name, track2)
+    with jax.disable_jit():
+        want = j_raster.fine_raster_xla(
+            jnp.asarray(blocks),
+            jnp.asarray(np.minimum(counts, blocks.shape[1])),
+            test_raster.CFG, track2=track2)
+    assert len(got) == len(want) == (4 if track2 else 2)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                      b.view(np.int32))
+
+
+@pytest.mark.parametrize("name", [n for n in BLOCK_EDGE_SETS
+                                  if n[0] == "k" or n == "nt8_k16"])
+def test_blocks_twin_edge_sets_vs_pallas(name):
+    """The sets whose tile count the Pallas kernel takes (a multiple of its
+    8 tiles a step), in interpret mode: ids exact, depths within
+    DEPTH_ATOL (every plane of these sets is exact in f32, fused or
+    not)."""
+    blocks, counts, (td, ti) = _edge_outputs(name, False)
+    assert blocks.shape[0] % 8 == 0
+    jd, ji = j_fr.fine_raster_pallas(jnp.asarray(blocks), jnp.asarray(counts),
+                                     tiles_x=8, tiles_per_step=8,
+                                     interpret=True)
+    np.testing.assert_array_equal(np.asarray(ji), ti)
+    np.testing.assert_allclose(td, np.asarray(jd), rtol=0, atol=DEPTH_ATOL)
+
+
+def test_block_edge_sets_hold_their_cases():
+    """What the adversarial sets are built to show, read off the twin's
+    outputs on the K = 136 set: the slots past the count never win, a tie
+    across a group, round or slice boundary keeps the earlier record, a
+    NaN poisons its own group and no other, and a last valid slot can win."""
+    blocks, counts, (d, ids, d2, ids2) = _edge_outputs("k136", True)
+    k = blocks.shape[1]
+    assert counts.max() > k and (counts == 0).any()
+    short = np.minimum(counts, k) < k
+    assert (d[short] < 0.999).all() and (d2[short] < 0.999).all()
+    # tile 8 (135 records, ties at slots (7, 8), (31, 32), (127, 128)): the
+    # earliest of the equal records keeps every pixel, and the runner-up
+    # is none of the tied ones
+    tied = blocks[8, [7, 8, 31, 32, 127, 128], 12]
+    assert blocks[8, 8, 12] > blocks[8, 7, 12]
+    assert (ids[8] == tied[0]).all() and (d[8] == np.float32(0.985)).all()
+    assert not np.isin(ids2[8], tied).any() and (d2[8] < d[8]).all()
+    # tile 2 (7 records) and tile 4 (9 records): only tile 4 holds slot 8
+    assert (ids[4] == blocks[4, 7, 12]).all()
+    # tile 9 (136 records): NaN depths at slots 3, 121 and 130 take groups
+    # 0, 15 and 16 out, the winning last slot in group 16 with them
+    poisoned = np.r_[0:8, 120:136]
+    assert np.isnan(blocks[9, [3, 121, 130], 11]).all()
+    assert blocks[9, k - 1, 11] == np.float32(0.99)
+    assert not np.isin(ids[9][ids[9] >= 0], blocks[9, poisoned, 12]).any()
+    assert (ids[9] >= 0).any() and (d[9] < 0.95).all()
+    # tile 7 (129 records): its last valid slot wins every pixel
+    assert (ids[7] == blocks[7, 128, 12]).all()
+    assert (d[7] == np.float32(0.99)).all()
+    # tile 0 has no record
+    assert (ids[0] == -1).all() and (d[0] == 0).all()

@@ -1,6 +1,7 @@
 """Card-only checks of the port's hand-written CUDA kernels (K1 base,
 track2 and payload, also on hand-built record streams at each staging
-edge; K2 base and track2; K3 f32 and bf16; the fused LTC rect kernel f32
+edge; K2 base and track2, also on the adversarial block sets of
+chip_smoke.block_edge_set; K3 f32 and bf16; the fused LTC rect kernel f32
 and bf16, and that it launches nothing on empty inputs) against their
 PyTorch twins, and of the
 frame on the card against the CPU path, on the pair and block paths and
@@ -28,7 +29,8 @@ from voidin_tpu_torch.passes import cull, raster, resolve
 from voidin_tpu_torch.passes.raster import RasterConfig
 from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
-from chip_smoke import add_foliage
+from chip_smoke import BIG_BLOCK_EDGE_SET, BLOCK_EDGE_SETS, add_foliage, \
+    block_edge_set
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +111,23 @@ def test_fine_raster_blocks_kernel_matches_twin(cuda, masked):
     for a, b in zip(outs, refs):
         assert torch.equal(a, b)
     assert (outs[-1] >= 0).any()
+
+
+@pytest.mark.parametrize("track2", [False, True])
+@pytest.mark.parametrize("name", BLOCK_EDGE_SETS + (BIG_BLOCK_EDGE_SET,))
+def test_fine_raster_blocks_kernel_edge_sets(cuda, name, track2):
+    """K2 on the adversarial block sets (every K, count, tile number, tie,
+    NaN and dead record chip_smoke.block_edge_set builds, and the set with
+    more than 64 tiles a resident block): every output word equals the
+    twin's."""
+    blocks, counts = (torch.from_numpy(a).to(cuda)
+                      for a in block_edge_set(name))
+    outs = t_fr.fine_raster_blocks(blocks, counts, track2=track2)
+    torch.cuda.synchronize()
+    refs = t_fr.fine_raster_blocks_reference(blocks, counts, track2=track2)
+    assert len(outs) == len(refs) == (4 if track2 else 2)
+    for a, b in zip(outs, refs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("track2", [False, True])
