@@ -15,7 +15,6 @@ and test_torch_frame.py: K1 ids agree with the Pallas kernel (interpret) on
 op gives a bit-identical GBuffer and material fields within 1e-6.
 """
 
-import contextlib
 import dataclasses
 import functools
 
@@ -28,12 +27,10 @@ import torch
 import bench
 import chip_smoke
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu.ops import fine_raster as j_fr
 from voidin_tpu.passes import cull as j_cull
 from voidin_tpu.passes import raster as j_raster
 from voidin_tpu.passes import resolve as j_resolve
-from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.core.encoding import as_u32_np
@@ -45,7 +42,7 @@ from voidin_tpu_torch.passes.gbuffer import VisBuffer
 
 from tests import test_raster
 from tests.test_torch_raster import DEPTH_ATOL, MIN_ID_AGREEMENT
-from tests.test_torch_scene import port_scene
+from tests.test_torch_scene import port_scene, unpermuted_worlds
 
 torch.set_num_threads(2)
 FW, FH = 160, 96  # the foliage scene's frame
@@ -62,16 +59,6 @@ def _port_cfg(jcfg, **kw):
 J_ALPHA = dataclasses.replace(test_raster.CFG, alpha_mask=True)
 J_FOLIAGE = j_raster.RasterConfig(width=FW, height=FH, tri_capacity=1 << 15,
                                   pair_capacity=1 << 16, interpret=True)
-
-
-@contextlib.contextmanager
-def _jax_world_unpermuted():
-    """JAX Worlds in the port's layout (tests/test_torch_scene.py)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vt, "World",
-                   functools.partial(jax_scene_mod.World, build_bvh=False))
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
-        yield
 
 
 def _foliage_camera(pkg):
@@ -97,7 +84,7 @@ def _all_draws(n):
 def _jax_case(name):
     """JAX scene, camera, draws and config of one test scene, rasterized
     with the runner-up (jitted) and binned."""
-    with _jax_world_unpermuted():
+    with unpermuted_worlds():
         if name == "alpha":
             w, _, _ = test_raster._alpha_scene()
             cfg = J_ALPHA
@@ -273,7 +260,8 @@ def test_resolve_fallback_matches_jax(cases, name, lazy, capacity):
 def port_alpha():
     """_alpha_scene built with the port's World."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vt, "World", pt.World)
+        mp.setattr(vt, "World", functools.partial(pt.World,
+                                                  build_bvh=False))
         w, mat_mask, mat_solid = test_raster._alpha_scene()
     scene = w.device("cpu")
     assert scene.alpha_masked

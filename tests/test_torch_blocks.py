@@ -26,7 +26,6 @@ the jitted JAX frame (tests/test_torch_frame.py's budget).
 """
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,12 +34,10 @@ import pytest
 import torch
 
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu.framework.renderer import Renderer as JaxRenderer
 from voidin_tpu.ops import fine_raster as j_fr
 from voidin_tpu.passes import cull as j_cull
 from voidin_tpu.passes import raster as j_raster
-from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.framework.renderer import Renderer
@@ -55,7 +52,8 @@ from tests.test_golden import CFG as GOLDEN_CFG
 from tests.test_golden import H, W
 from tests.test_torch_raster import DEPTH_ATOL, _synthetic_records, \
     _ulp_diff
-from tests.test_torch_scene import deferred_scene, port_scene
+from tests.test_torch_scene import (deferred_scene, port_scene,
+                                    unpermuted_worlds)
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
@@ -80,10 +78,7 @@ def _all_draws(pkg_cull, n, tensor):
 def cases():
     """JAX and port block binning of the block-path scene at its K = 64
     and at K = 16, where tiles overflow; setup and binning run op by op."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vt, "World",
-                   functools.partial(jax_scene_mod.World, build_bvh=False))
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+    with unpermuted_worlds():
         js = test_raster._scene().device(tap_blocks=False)
     ts = port_scene(js)
     jcfg = test_raster.CFG
@@ -237,10 +232,7 @@ def test_blocks_twin_synthetic(track2):
 def _alpha_case(backend, alpha_mask):
     """tests/test_raster.py's alpha scene through both packages' rasterize
     (JAX op by op) on `backend`."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vt, "World",
-                   functools.partial(jax_scene_mod.World, build_bvh=False))
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+    with unpermuted_worlds():
         w, mat_mask, mat_solid = test_raster._alpha_scene()
         js = w.device(tap_blocks=False)
     ts = port_scene(js)
@@ -309,14 +301,11 @@ def test_block_path_depth_equals_pair_path():
     assert (vis["xla"].depth[differ] > 0).all()
 
 
-def test_block_path_frame_matches_jax(monkeypatch):
+def test_block_path_frame_matches_jax():
     """The golden deferred scene through both Renderers on the block path
     (the JAX frame jitted, Pallas-free), one frame without TAA."""
-    monkeypatch.setattr(
-        vt, "World", functools.partial(jax_scene_mod.World, build_bvh=False))
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
-    js = deferred_scene(vt).device(tap_blocks=False)
+    with unpermuted_worlds():
+        js = deferred_scene(vt).device(tap_blocks=False)
     jcfg = dataclasses.replace(GOLDEN_CFG, backend="xla",
                                tile_tri_capacity=GOLDEN_K)
     want = np.asarray(JaxRenderer(js, jcfg, enable_taa=False).render(

@@ -2,10 +2,12 @@
 track2 and payload, also on hand-built record streams at each staging
 edge; K2 base and track2, also on the adversarial block sets of
 chip_smoke.block_edge_set; K3 f32 and bf16; the fused LTC rect kernel f32
-and bf16, and that it launches nothing on empty inputs) against their
-PyTorch twins, and of the
-frame on the card against the CPU path, on the pair and block paths and
-with slim_rec + kernel_payload. Marked
+and bf16, and that it launches nothing on empty inputs; the shadow-ray
+kernel on the golden rt_shadows frame's rays at both scales and on the
+adversarial ray sets of chip_smoke.shadow_edge_case) against their
+PyTorch twins, and of the frame on the card against the CPU path, on the
+pair and block paths, with slim_rec + kernel_payload and with raytraced
+shadows. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -29,8 +31,11 @@ from voidin_tpu_torch.passes import cull, raster, resolve
 from voidin_tpu_torch.passes.raster import RasterConfig
 from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
-from chip_smoke import BIG_BLOCK_EDGE_SET, BLOCK_EDGE_SETS, add_foliage, \
-    block_edge_set
+from chip_smoke import BIG_BLOCK_EDGE_SET, BLOCK_EDGE_SETS, \
+    SHADOW_EDGE_CASES, add_foliage, block_edge_set, frame_shadow_rays, \
+    golden_scene, shadow_edge_case, shadow_trace_check
+from voidin_tpu_torch.ops import shadow_trace as t_st
+from voidin_tpu_torch.rt import traverse as t_trav
 
 pytestmark = pytest.mark.cuda
 
@@ -316,4 +321,51 @@ def test_frame_on_card_matches_cpu(cuda, masked, options):
             img = r.render(cam)
         assert int(r.aux["overflow"]) == 0
         imgs.append(img.cpu().numpy())
+    assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+GOLDEN_RT = RasterConfig(width=160, height=96, tri_capacity=1 << 16,
+                         pair_capacity=1 << 17)
+
+
+def _golden_rt_camera():
+    return pt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=160 / 96)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_shadow_trace_kernel_matches_twin(cuda, scale):
+    scene = golden_scene(pt).device(cuda, with_tlas=True)
+    args, kwargs = frame_shadow_rays(pt, scene, GOLDEN_RT,
+                                     _golden_rt_camera(), scale)
+    got, want, counts, differ = shadow_trace_check(args, kwargs)
+    assert differ == 0 and int(got.exhausted) == int(want.exhausted) == 0
+    assert got.hit.any() and counts.node_visits > 0
+
+
+@pytest.mark.parametrize("kind", SHADOW_EDGE_CASES)
+def test_shadow_trace_kernel_edge_sets(cuda, kind):
+    world, o, d, act = shadow_edge_case(pt, kind)
+    scene = world.device(cuda, with_tlas=True)
+    args = t_trav.scene_rays_threaded(scene) + (
+        torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda))
+    kwargs = dict(active=torch.from_numpy(act).to(cuda),
+                  max_leaf=scene.meshes.bvh_max_leaf)
+    before = t_st.LAUNCHES
+    got, want, _counts, differ = shadow_trace_check(args, kwargs)
+    assert differ == 0 and int(got.exhausted) == int(want.exhausted) == 0
+    assert t_st.LAUNCHES == before + (1 if len(o) else 0)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_rt_frame_on_card_matches_cpu(cuda, scale):
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        before = t_st.LAUNCHES
+        r = Renderer(golden_scene(pt).device(device, with_tlas=True),
+                     GOLDEN_RT, enable_taa=False, enable_rt_shadows=True,
+                     rt_shadow_scale=scale)
+        imgs.append(r.render(_golden_rt_camera()).cpu().numpy())
+        assert int(r.aux["overflow"]) == 0
+        assert int(r.aux["rt_exhausted"]) == 0
+        assert t_st.LAUNCHES == before + (device.type == "cuda")
     assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3

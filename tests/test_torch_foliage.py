@@ -23,9 +23,8 @@ from voidin_tpu_torch.passes import raster as t_raster
 from voidin_tpu_torch.passes import shading as t_shading
 
 from tests.test_torch_alpha import (FH, FW, J_FOLIAGE, _foliage_camera,
-                                    _jax_world_unpermuted, _port_cfg,
-                                    foliage_world)
-from tests.test_torch_scene import port_scene
+                                    _port_cfg, foliage_world)
+from tests.test_torch_scene import port_scene, unpermuted_worlds
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
@@ -37,7 +36,7 @@ BUDGET = 5e-3
 def test_foliage_frame_matches_jax(taa, frames, bf16, monkeypatch):
     monkeypatch.setattr(j_shading, "LTC_LUT_BF16", bf16)
     monkeypatch.setattr(t_shading, "LTC_LUT_BF16", bf16)
-    with _jax_world_unpermuted():
+    with unpermuted_worlds():
         jw, moving = foliage_world(bench.build_world)
         js = jw.device(tap_blocks=False)
     jr = JaxRenderer(js, J_FOLIAGE, enable_taa=taa, moving_ids=moving)
@@ -61,7 +60,7 @@ def test_port_world_builds_the_foliage_scene(monkeypatch):
     JAX World, and the textured statics are live."""
     from tests.test_torch_scene import _assert_scene_equal
 
-    with _jax_world_unpermuted():
+    with unpermuted_worlds():
         jw, _ = foliage_world(bench.build_world)
         pw, _ = foliage_world(port_build_world)
         _assert_scene_equal(jw, pw)

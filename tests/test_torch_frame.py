@@ -8,7 +8,6 @@ program whose multiply-adds XLA fuses into FMAs, so the port agrees with it
 to rounding, not bit for bit.
 """
 
-import functools
 import os
 
 import numpy as np
@@ -16,10 +15,8 @@ import pytest
 import torch
 
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu.framework.renderer import Renderer as JaxRenderer
 from voidin_tpu.io.image import load_image
-from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.framework.renderer import Renderer
@@ -27,7 +24,8 @@ from voidin_tpu_torch.passes.raster import RasterConfig
 
 from tests.test_golden import CFG, GOLDEN_DIR, H, W
 from tests.test_torch_raster import T_CFG
-from tests.test_torch_scene import deferred_scene, port_scene
+from tests.test_torch_scene import (deferred_scene, port_scene,
+                                    unpermuted_worlds)
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
@@ -35,12 +33,9 @@ BUDGET = 5e-3
 
 @pytest.mark.parametrize("golden,taa,frames", [("deferred", False, 1),
                                                ("taa3", True, 3)])
-def test_frame_matches_jax_and_golden(golden, taa, frames, monkeypatch):
-    monkeypatch.setattr(
-        vt, "World", functools.partial(jax_scene_mod.World, build_bvh=False))
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
-    js = deferred_scene(vt).device(tap_blocks=False)
+def test_frame_matches_jax_and_golden(golden, taa, frames):
+    with unpermuted_worlds():
+        js = deferred_scene(vt).device(tap_blocks=False)
     jr = JaxRenderer(js, CFG, enable_taa=taa)
     r = Renderer(port_scene(js), T_CFG, enable_taa=taa)
     jcam = vt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H)
@@ -61,14 +56,33 @@ def test_frame_matches_jax_and_golden(golden, taa, frames, monkeypatch):
     assert vs_golden < BUDGET
 
 
-def test_port_world_renders_like_bridged_scene(monkeypatch):
+def test_frame_without_post_matches_jax():
+    """enable_post=False (the frame is the sRGB of the HDR, no sharpen and
+    no tonemap) in both Renderers on the golden deferred scene, TAA off;
+    post-processing does change the frame."""
+    with unpermuted_worlds():
+        js = deferred_scene(vt).device(tap_blocks=False)
+    want = np.asarray(JaxRenderer(js, CFG, enable_taa=False,
+                                  enable_post=False).render(
+        vt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H)))
+    cam = pt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H)
+    r = Renderer(port_scene(js), T_CFG, enable_taa=False, enable_post=False)
+    got = r.render(cam).numpy()
+    post = Renderer(port_scene(js), T_CFG, enable_taa=False).render(
+        cam).numpy()
+    assert got.shape == (H, W, 3) and np.isfinite(got).all()
+    assert int(r.aux["overflow"]) == 0
+    vs_jax = np.abs(got - want).mean()
+    print(f"no post: mean abs diff vs JAX {vs_jax:.3e}")
+    assert vs_jax < BUDGET
+    assert np.abs(got - post).mean() > BUDGET
+
+
+def test_port_world_renders_like_bridged_scene():
     """The port's own World gives the frame the bridged JAX state gives."""
-    monkeypatch.setattr(
-        vt, "World", functools.partial(jax_scene_mod.World, build_bvh=False))
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
-    bridged = port_scene(deferred_scene(vt).device(tap_blocks=False))
-    own = deferred_scene(pt).device("cpu")
+    with unpermuted_worlds():
+        bridged = port_scene(deferred_scene(vt).device(tap_blocks=False))
+        own = deferred_scene(pt).device("cpu")
     cam = pt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H)
     a = Renderer(bridged, T_CFG, enable_taa=False).render(cam)
     b = Renderer(own, T_CFG, enable_taa=False).render(cam)

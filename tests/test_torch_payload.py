@@ -25,7 +25,6 @@ import pytest
 import torch
 
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu.core import mathx
 from voidin_tpu.framework.renderer import FrameState as JaxFrameState
 from voidin_tpu.framework.renderer import Globals as JaxGlobals
@@ -33,7 +32,6 @@ from voidin_tpu.framework.renderer import render_frame as jax_render_frame
 from voidin_tpu.passes import cull as j_cull
 from voidin_tpu.passes import raster as j_raster
 from voidin_tpu.passes import resolve as j_resolve
-from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.core.encoding import as_u32_np
@@ -45,7 +43,7 @@ from voidin_tpu_torch.passes.gbuffer import VisBuffer
 
 from tests import test_kernel_payload as tkp
 from tests.test_torch_raster import MIN_ID_AGREEMENT
-from tests.test_torch_scene import port_scene
+from tests.test_torch_scene import port_scene, unpermuted_worlds
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
@@ -84,10 +82,7 @@ def _case(name, **options):
     """JAX and port scenes, configs (slim_rec + `options`), camera and
     draws of one scene."""
     build, size, cam = SCENES[name]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vt, "World",
-                   functools.partial(jax_scene_mod.World, build_bvh=False))
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+    with unpermuted_worlds():
         js = build().device(tap_blocks=False)
     ts = port_scene(js)
     jcfg = j_raster.RasterConfig(**size, slim_rec=True, interpret=True,

@@ -30,7 +30,8 @@ from voidin_tpu_torch.passes import raster as t_raster
 
 from tests.test_golden import CFG, H, W
 from tests.test_torch_scene import (deferred_scene,  # noqa: F401
-                                    jax_world_unpermuted, port_scene)
+                                    jax_world_unpermuted, port_scene,
+                                    unpermuted_worlds)
 
 torch.set_num_threads(2)
 
@@ -51,15 +52,7 @@ def _ulp_diff(a, b):
 
 def _golden_setup(jax_cfg, port_cfg):
     """Run cull + setup + binning of the golden scene in both packages."""
-    with pytest.MonkeyPatch.context() as mp:
-        import functools
-
-        import voidin_tpu.native
-        from voidin_tpu.scene import scene as jax_scene_mod
-
-        mp.setattr(vt, "World",
-                   functools.partial(jax_scene_mod.World, build_bvh=False))
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+    with unpermuted_worlds():
         js = deferred_scene(vt).device(tap_blocks=False)
     ts = port_scene(js)
     cam = vt.Camera(position=[0, 2, 0], pitch=-18.0, aspect=W / H).uniform()

@@ -1,14 +1,17 @@
 """Port parity: host scene assembly (voidin_tpu_torch.scene) against the
 JAX package's World, plus the helpers the other port tests share.
 
-The JAX pool permutes each mesh's triangles while building its BLAS; the
-port keeps them in input order, so the JAX scenes here are built with
-``World(build_bvh=False)``. The JAX texture pool may pack through its
-native C++ packer, whose deepest mips differ from the numpy packer by a
-few u8 steps; the port packs with numpy, so these tests pin the JAX pool
-to numpy too. Exact equality is asserted for every leaf the port carries.
+Both packages' pools permute each mesh's triangles while building its
+BLAS (tests/test_torch_bvh.py holds those trees against each other); the
+raster, resolve and shade parity tests compare stages in input order, so
+``unpermuted_worlds`` builds both packages' Worlds with
+``build_bvh=False``. The JAX texture pool may pack through its native C++
+packer, whose deepest mips differ from the numpy packer by a few u8
+steps; the port packs with numpy, so these tests pin the JAX pool to
+numpy too. Exact equality is asserted for every leaf the port carries.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -23,8 +26,10 @@ from voidin_tpu.core import mathx
 from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
+from voidin_tpu_torch.framework import renderer as pt_renderer
 from voidin_tpu_torch.framework.renderer import build_world as port_build_world
 from voidin_tpu_torch.scene import mesh as pt_mesh
+from voidin_tpu_torch.scene import scene as pt_scene_mod
 from voidin_tpu_torch.scene.scene import STATIC_FLAGS, scene_from_numpy
 
 torch.set_num_threads(2)
@@ -44,15 +49,27 @@ def port_scene(jax_scene, device="cpu"):
     return scene_from_numpy(jax_leaves(jax_scene), statics, device)
 
 
+@contextlib.contextmanager
+def unpermuted_worlds():
+    """Both packages' Worlds (vt.World, pt.World and the one the port's
+    build_world makes) without the BLAS triangle permutation
+    (build_bvh=False), and the JAX texture pool on the numpy packer.
+    Yields the MonkeyPatch for more patches of the same extent."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vt, "World",
+                   functools.partial(jax_scene_mod.World, build_bvh=False))
+        port_world = functools.partial(pt_scene_mod.World, build_bvh=False)
+        mp.setattr(pt, "World", port_world)
+        mp.setattr(pt_renderer, "World", port_world)
+        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+        yield mp
+
+
 @pytest.fixture
-def jax_world_unpermuted(monkeypatch):
-    """JAX worlds without the BLAS triangle permutation and with the numpy
-    texture packer — the port's scene layout."""
-    monkeypatch.setattr(
-        vt, "World", functools.partial(jax_scene_mod.World, build_bvh=False)
-    )
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
+def jax_world_unpermuted():
+    """Both packages' Worlds in input order (unpermuted_worlds)."""
+    with unpermuted_worlds():
+        yield
 
 
 def deferred_scene(pkg):

@@ -20,14 +20,12 @@ import pytest
 import torch
 
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu.passes import cull as j_cull
 from voidin_tpu.passes import raster as j_raster
 from voidin_tpu.passes import resolve as j_resolve
 from voidin_tpu.passes import shading as j_shading
 from voidin_tpu.passes import taa as j_taa
 from voidin_tpu.framework.renderer import FrameState as JaxFrameState
-from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.core.encoding import as_u32_np
@@ -39,17 +37,15 @@ from voidin_tpu_torch.passes.gbuffer import VisBuffer
 
 from tests.test_golden import CFG, H, W
 from tests.test_torch_raster import T_CFG
-from tests.test_torch_scene import deferred_scene, port_scene
+from tests.test_torch_scene import (deferred_scene, port_scene,
+                                    unpermuted_worlds)
 
 torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
 def resolved():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vt, "World",
-                   functools.partial(jax_scene_mod.World, build_bvh=False))
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+    with unpermuted_worlds() as mp:
         js = deferred_scene(vt).device(tap_blocks=False)
         mp.setattr(j_shading, "LTC_FETCH_PALLAS", "interpret")
         ts = port_scene(js)

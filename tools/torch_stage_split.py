@@ -5,12 +5,15 @@
 Renders the north-star frame (build_world(10_000, seed=0), 1920x1080,
 capacities 2^19, moving instances, TAA), the same frame on the block path
 (backend "xla", K the smallest multiple of 128 above its fullest tile)
-and with slim_rec + kernel_payload, and the masked frame (the north star
-plus chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20)
-through Renderer.render, overflow 0 on every frame, with CUDA events
-around each pass of render_frame, around the resolve's per-pixel field
-evaluations (the dense (H, W) pass and the flat fallback batch) and
-around the fused LTC kernel's call inside shade. Prints, per scene, the
+and with slim_rec + kernel_payload, the masked frame (the north star
+plus chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20) and
+the raytraced-shadow frame of config 5 (chip_smoke.config5_world, TLAS,
+no TAA) at rt_shadow_scale 1 and 2 through Renderer.render, overflow 0 on
+every frame, with CUDA events around each pass of render_frame, around
+the resolve's per-pixel field evaluations (the dense (H, W) pass and the
+flat fallback batch), around the fused LTC kernel's call inside shade and
+around the shadow-ray kernel's call inside shade_raytraced (the ray
+setup and the per-light shading are the rest of that pass). Prints, per scene, the
 median ms of each stage over the frames after the first two, and the
 host-clock ms/frame. Then times the resolve pass alone on one masked visibility buffer, three ways: as an unmasked
 scene would (winner only), the lazy compacted fallback (the default) and
@@ -36,6 +39,7 @@ import voidin_tpu_torch as pt  # noqa: E402
 from voidin_tpu_torch.framework import renderer as renderer_mod  # noqa: E402
 from voidin_tpu_torch.ops import fine_raster as fr  # noqa: E402
 from voidin_tpu_torch.ops import ltc_rect  # noqa: E402
+from voidin_tpu_torch.ops import shadow_trace  # noqa: E402
 from voidin_tpu_torch.passes import raster, resolve  # noqa: E402
 
 STAGES = [
@@ -53,6 +57,8 @@ STAGES = [
     (resolve, "_pixel_fields", "  resolve fields"),
     (renderer_mod.shading_pass, "shade", "shade"),
     (ltc_rect, "ltc_rect_terms", "  LTC rect, fused kernel"),
+    (renderer_mod.shading_pass, "shade_raytraced", "shade, raytraced"),
+    (shadow_trace, "occluded", "  shadow rays, kernel"),
     (renderer_mod.taa_pass, "taa", "taa"),
     (renderer_mod.post_pass, "postprocess", "postprocess"),
 ]
@@ -81,10 +87,14 @@ def instrument():
         setattr(mod, fn_name, timed)
 
 
-def split(label, world, moving, cfg, frames, card):
+def split(label, world, moving, cfg, frames, card, cam=None, **options):
+    """Renders `frames` frames with Renderer(**options) at `cam` (default
+    the north-star camera) and prints each stage's median."""
     EVENTS.clear()
-    r = renderer_mod.Renderer(world.device("cuda"), cfg, moving_ids=moving)
-    cam = chip_smoke.north_star_camera(pt)
+    scene = world.device("cuda",
+                         with_tlas=options.get("enable_rt_shadows", False))
+    r = renderer_mod.Renderer(scene, cfg, moving_ids=moving, **options)
+    cam = cam or chip_smoke.north_star_camera(pt)
     walls = []
     for i in range(frames):
         if i == 2:  # frames 1-2 warm up: drop their events
@@ -164,6 +174,13 @@ def main():
                             ("slim + payload", world, moving, slim_cfg),
                             ("masked", masked, masked_moving, masked_cfg)):
         split(label, w, mv, c, args.frames, card)
+    rt_cfg = dataclasses.replace(cfg, tri_capacity=1 << 17)
+    rt_cam = pt.Camera(**chip_smoke.CONFIG5_CAMERA,
+                       aspect=cfg.width / cfg.height)
+    for scale in (1, 2):
+        split(f"config 5, rt_shadow_scale {scale}", chip_smoke.config5_world(
+            pt), None, rt_cfg, args.frames, card, cam=rt_cam,
+            enable_taa=False, enable_rt_shadows=True, rt_shadow_scale=scale)
 
 
 if __name__ == "__main__":

@@ -3,18 +3,20 @@
 Counterpart of ``voidin_tpu/framework/renderer.py`` (reference App + frame
 loop, crates/app/src/app.rs:292-358). ``render_frame`` runs the frame's
 passes in order on the scene's device — update, cull + LOD select,
-raster (setup, binning, fine raster kernel K1 or K2), resolve, shade (LTC
-fetch kernel K3), TAA, postprocess, sRGB — eagerly; ``Renderer`` owns the
+raster (setup, binning, fine raster kernel K1 or K2), resolve, shade (the
+fused LTC kernel; with enable_rt_shadows the raytraced variant and its
+shadow-ray kernel), TAA, postprocess, sRGB — eagerly; ``Renderer`` owns the
 per-frame host state (jitter schedule, previous camera uniform, TAA
 history) around it.
 
 The Renderer switches the runner-up raster and the alpha fallback on for
 an alpha-masked scene (RasterConfig.alpha_mask, from
 SceneData.alpha_masked). It raises NotImplementedError for what the port
-does not carry: ray-traced shadows, skins, area_light_scale > 1, a device
-mesh, the JAX package's gather-economy RasterConfig options, and slim_rec
-on a scene outside its envelope (where the JAX package falls back to
-fused_resolve_rec + inst_rec_f16).
+does not carry: skins, area_light_scale > 1, a device mesh, the JAX
+package's gather-economy RasterConfig options, and slim_rec on a scene
+outside its envelope (where the JAX package falls back to
+fused_resolve_rec + inst_rec_f16). A frame with raytraced shadows on a
+scene without a TLAS raises ValueError.
 """
 
 from __future__ import annotations
@@ -87,9 +89,13 @@ def frame_state_from_numpy(history, history_valid, device) -> FrameState:
 def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
                  state: FrameState, moving_ids: torch.Tensor,
                  config: RasterConfig, enable_cull: bool = True,
-                 enable_taa: bool = True):
+                 enable_taa: bool = True, enable_post: bool = True,
+                 enable_rt_shadows: bool = False, rt_shadow_scale: int = 1):
     """Full frame. Returns (srgb_image, state, scene, aux). The moving
-    instances' transforms and the TAA history update in place."""
+    instances' transforms and the TAA history update in place. Without
+    post the frame is the sRGB of the HDR (no sharpen, no tonemap). With
+    raytraced shadows aux also holds rt_exhausted (shadow rays still
+    walking at the step limit) and rt_rays (shadow rays traced)."""
     # 1. compute_update: animate moving instances
     update_pass.compute_update(scene.instances, moving_ids, globals_.time,
                                globals_.dt)
@@ -109,13 +115,19 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
                                 config, materials=scene.materials,
                                 inst_rec=inst_rec)
     gbuffer, aux_r = resolve_pass.resolve_gbuffer(scene, vis, config)
-    # 4. deferred shading (HDR)
-    hdr = shading_pass.shade(scene, gbuffer, camera, aux_r)
+    # 4. deferred shading (HDR); optionally with TLAS-traced shadows
+    rt = None
+    if enable_rt_shadows:
+        hdr, rt = shading_pass.shade_raytraced(
+            scene, gbuffer, camera, aux_r, shadow_scale=rt_shadow_scale)
+    else:
+        hdr = shading_pass.shade(scene, gbuffer, camera, aux_r)
     # 5. TAA (reproject + resolve into history)
     if enable_taa:
         hdr, state = taa_pass.taa(hdr, gbuffer, camera, state)
     # 6. postprocess (sharpen + tonemap) + sRGB encode
-    srgb = linear_to_srgb(post_pass.postprocess(hdr))
+    srgb = linear_to_srgb(post_pass.postprocess(hdr) if enable_post
+                          else hdr)
     overflow = vis.overflow
     if aux_r.overflow is not None:
         overflow = overflow + aux_r.overflow  # alpha-fallback capacity
@@ -127,6 +139,8 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     )
     if aux_r.cut is not None:
         aux.update(alpha_cut=aux_r.cut, alpha_fallback=aux_r.fallback)
+    if rt is not None:
+        aux.update(rt_exhausted=rt["exhausted"], rt_rays=rt["rays"])
     return srgb, state, scene, aux
 
 
@@ -140,7 +154,9 @@ class Renderer:
         config: Optional[RasterConfig] = None,
         enable_cull: bool = True,
         enable_taa: bool = True,
+        enable_post: bool = True,
         enable_rt_shadows: bool = False,
+        rt_shadow_scale: int = 1,
         area_light_scale: int = 1,
         moving_ids: Optional[np.ndarray] = None,
         mesh=None,
@@ -148,8 +164,6 @@ class Renderer:
         **options,
     ):
         unsupported = []
-        if enable_rt_shadows:
-            unsupported.append("enable_rt_shadows")
         if skins:
             unsupported.append("skins")
         if area_light_scale != 1:
@@ -178,6 +192,9 @@ class Renderer:
                                           alpha_mask=scene.alpha_masked)
         self.enable_cull = enable_cull
         self.enable_taa = enable_taa
+        self.enable_post = enable_post
+        self.enable_rt_shadows = enable_rt_shadows
+        self.rt_shadow_scale = rt_shadow_scale
         self.device = scene.device
         self.state = FrameState.initial(self.config.width, self.config.height,
                                         self.device)
@@ -204,7 +221,9 @@ class Renderer:
         img, self.state, self.scene, self.aux = render_frame(
             self.scene, uniform, globals_, self.state, self.moving_ids,
             self.config, enable_cull=self.enable_cull,
-            enable_taa=self.enable_taa,
+            enable_taa=self.enable_taa, enable_post=self.enable_post,
+            enable_rt_shadows=self.enable_rt_shadows,
+            rt_shadow_scale=self.rt_shadow_scale,
         )
         self.frame_count += 1
         self.time += dt

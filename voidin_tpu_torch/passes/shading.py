@@ -18,6 +18,11 @@ The area-light terms of every light (ltc_matrix, ltc_evaluate_rect and the
 LUT fetches of both) come from one launch of the fused LTC kernel
 (ops/ltc_rect.py); the per-light combine stays here, in the JAX package's
 order.
+
+``shade_raytraced`` is the raytraced-shadows variant (JAX ``shade_raytraced``,
+src/bin/raytraced_shadows.wgsl:58-119): point lights only, each pixel's
+shadow ray walked through the TLAS by the traversal kernel
+(ops/shadow_trace.py), one launch per point light.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from ..core import encoding, fastmath
-from ..ops import ltc_rect
+from ..ops import ltc_rect, shadow_trace
+from ..rt import traverse
 from ..scene.material import LIGHT_MATERIAL
 from ..scene.scene import SceneData
 
@@ -78,6 +84,14 @@ def uv_lod(uv: torch.Tensor, tex_w, tex_h) -> torch.Tensor:
     return torch.clamp(torch.log2(torch.clamp(rho, min=1e-8)), 0.0, 16.0)
 
 
+def _pow16(x):
+    """x**16 as jnp's integer_pow computes it: four squarings."""
+    x2 = x * x
+    x4 = x2 * x2
+    x8 = x4 * x4
+    return x8 * x8
+
+
 def shade(scene: SceneData, gbuffer, camera, aux) -> torch.Tensor:
     """G-buffer + the resolve pass's material fields -> (H, W, 3) HDR."""
     depth = gbuffer.depth
@@ -104,10 +118,7 @@ def shade(scene: SceneData, gbuffer, camera, aux) -> torch.Tensor:
         shade_t = torch.clamp(fastmath.sum3(nor * light_dir), min=0.0)
         diff = lcol * albedo[..., :3] * (shade_t * atten)[..., None]
         covr = torch.clamp(fastmath.sum3(-rd * nor), min=0.0)
-        c2 = covr * covr
-        c4 = c2 * c2
-        c8 = c4 * c4
-        spec = lcol * (mr[..., 2] * (c8 * c8) * atten)[..., None]
+        spec = lcol * (mr[..., 2] * _pow16(covr) * atten)[..., None]
         contrib = torch.where((dist - lrad > 0.0)[..., None], 0.0,
                               diff + spec)
         color = color + torch.where(is_light, 0.0, contrib)
@@ -131,3 +142,93 @@ def shade(scene: SceneData, gbuffer, camera, aux) -> torch.Tensor:
             color = color + torch.where(is_light, 0.0, contrib)
 
     return torch.clamp(color, min=0.0)
+
+
+def _trace_shadow_rays(tables, max_leaf, pos, nor, lpos, needs_ray):
+    """Occlusion of the shadow rays from pos + 1e-4 nor toward `lpos`
+    (t_max = 1 in light-vector units), in one kernel launch over every
+    pixel with `needs_ray` as the active mask (JAX's active=needs_ray):
+    the other pixels walk nothing and hit nothing. Returns ((h, w) bool
+    hits, exhausted)."""
+    h, w = needs_ray.shape
+    res = shadow_trace.occluded(
+        *tables, (pos + nor * 1e-4).reshape(-1, 3),
+        (lpos - pos).reshape(-1, 3), t_max=1.0,
+        active=needs_ray.reshape(-1), max_leaf=max_leaf)
+    return res.hit.reshape(h, w), res.exhausted
+
+
+def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
+                    shadow_scale: int = 1):
+    """Deferred shading with TLAS-traced point-light shadows (JAX
+    shading.py shade_raytraced, :555-710): ambient 0.3 * albedo +
+    emissive; per point light a shadow ray from pos + 1e-4 * normal toward
+    the light (t_max = 1), occlusion 0.5 on a hit, times attenuation on
+    (diff + spec); magenta for material 0 where geometry was hit. Needs
+    scene.tlas (World.device(with_tlas=True)).
+
+    Exact ray skip: occlusion only scales (diff + spec) * atten, so the
+    pixels where that is zero whatever the ray finds (backfacing with the
+    pow-16 "spec" base <= 0, or out of the light's range) trace no ray.
+    `shadow_scale=s` (the JAX package's documented deviation) traces the
+    top-left sample of each s x s block and repeats its occlusion.
+
+    Returns (hdr, rt) with rt = dict(exhausted=rays still walking at the
+    step limit, rays=the rays traced), () tensors summed over lights."""
+    depth = gbuffer.depth
+    material_id = gbuffer.material
+    nor = encoding.decode_octahedral_32(gbuffer.normal_uv[..., 0])
+    H, W = depth.shape
+    albedo, emissive, mr = aux.albedo, aux.emissive, aux.mr
+    pos = world_position_from_depth(depth, camera.clip_to_world)
+    cam_pos = torch.as_tensor(np.asarray(camera.position, np.float32)[:3],
+                              device=depth.device)
+    rd = fastmath.normalize(cam_pos - pos)
+
+    is_light = material_id == LIGHT_MATERIAL
+    color = albedo[..., :3] * 0.3 + emissive
+    color = torch.where(is_light[..., None], albedo[..., :3] + emissive,
+                        color)
+
+    tables = traverse.scene_rays_threaded(scene)
+    max_leaf = scene.meshes.bvh_max_leaf
+    lights = scene.lights
+    shadable = (depth > 0.0) & ~is_light
+    exhausted = torch.zeros((), dtype=torch.int32, device=depth.device)
+    rays = torch.zeros((), dtype=torch.int64, device=depth.device)
+    s = shadow_scale
+    for i in range(lights.point_radius.shape[0]):
+        lpos = lights.point_position[i]
+        lrad = lights.point_radius[i]
+        lcol = lights.point_color[i]
+        light_vec = lpos - pos
+        dist = fastmath.norm3(light_vec)
+        ndl = fastmath.sum3(nor * fastmath.normalize(light_vec))
+        cov = fastmath.sum3(-rd * nor)
+        needs_ray = shadable & (dist < lrad) & ((ndl > 0.0) | (cov > 0.0))
+        traced = needs_ray[::s, ::s]
+        occ, ex = _trace_shadow_rays(tables, max_leaf, pos[::s, ::s],
+                                     nor[::s, ::s], lpos, traced)
+        if s > 1:
+            occ = occ.repeat_interleave(s, 0).repeat_interleave(s, 1)
+            occ = occ[:H, :W]
+        exhausted = exhausted + ex
+        rays = rays + traced.sum()
+        occlusion = torch.where(occ, 0.5, 1.0)
+
+        atten = attenuation(1.0, 1.0, dist, lrad)
+        light_dir = fastmath.normalize(light_vec)
+        shade_t = torch.clamp(fastmath.sum3(nor * light_dir), min=0.0)
+        diff = lcol * albedo[..., :3] * shade_t[..., None]
+        covr = torch.clamp(fastmath.sum3(-rd * nor), min=0.0)
+        spec = lcol * (mr[..., 2] * _pow16(covr))[..., None]
+        contrib = (diff + spec) * (occlusion * atten)[..., None]
+        color = color + torch.where(shadable[..., None], contrib, 0.0)
+
+    # the reference renders material 0 as magenta (debug,
+    # raytraced_shadows.wgsl:83-85); background pixels resolve to material
+    # 0 too, so only where geometry was hit
+    magenta = torch.tensor([1.0, 0.0, 1.0], device=depth.device)
+    color = torch.where(((material_id == 0) & (depth > 0.0))[..., None],
+                        magenta, color)
+    return torch.clamp(color, min=0.0), dict(exhausted=exhausted, rays=rays)

@@ -1,9 +1,13 @@
 """Pooled SoA mesh storage + procedural meshes.
 
-Counterpart of ``voidin_tpu/scene/mesh.py`` for the raster path. The pool
-keeps every mesh's triangles in their ORIGINAL order: the JAX pool permutes
-index ranges while it builds each BLAS, which only the ray tracer needs, so
-the port matches the JAX package built with ``World(build_bvh=False)``.
+Counterpart of ``voidin_tpu/scene/mesh.py``. Adding a mesh builds its
+BLAS (``rt/bvh.py build_blas``) and permutes its index range so that every
+BVH leaf covers contiguous triangles (mesh/mod.rs:320-325), as the JAX
+pool does; ``tri_pos`` and the attribute rows follow the permuted order.
+``MeshPool(build_bvh=False)`` keeps the input order and gives every mesh
+one leaf holding all its triangles, as the JAX package's
+``World(build_bvh=False)`` does (the ray tracer refuses such leaves above
+``rt/traverse.py MAX_LEAF``).
 
 Builtin meshes (ids 0-3, mesh/mod.rs:267-274):
   0 = horizontal unit plane, 1 = vertical unit plane,
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.encoding import encode_octahedral_32_np
+from ..rt import bvh as bvh_mod
 
 HORIZONTAL_PLANE_MESH = 0
 VERTICAL_PLANE_MESH = 1
@@ -133,7 +138,8 @@ def make_cube_mesh(size: float = 1.0) -> Mesh:
 
 @dataclasses.dataclass
 class MeshPoolData:
-    """Device mesh pool: the streams the raster path reads."""
+    """Device mesh pool: the streams the raster path and the ray tracer
+    read."""
 
     tri_pos: torch.Tensor  # (T_pool, 9) f32 de-indexed corner positions
     # (T_pool, 12) u32 bits as int32: [uv0.xy uv1.xy uv2.xy as f32 bits |
@@ -146,24 +152,42 @@ class MeshPoolData:
     base_index: torch.Tensor  # (M,) i32
     lod_table: torch.Tensor  # (M, 4) i32, -1 = no level
     lod_thresh: torch.Tensor  # (M, 4) f32
+    # Pooled BLAS nodes (bvh/blas.rs BvhNode layout as SoA); a mesh's nodes
+    # start at bvh_index[mesh] and their child / exit links are mesh-local
+    bvh_index: torch.Tensor  # (M,) i32
+    bvh_min: torch.Tensor  # (B, 3) f32
+    bvh_max: torch.Tensor  # (B, 3) f32
+    bvh_left_first: torch.Tensor  # (B,) i32
+    bvh_count: torch.Tensor  # (B,) i32, leaf iff > 0
+    # Mesh-local stackless exit links, encoded e+1 (0 = subtree done):
+    # rt/bvh.py exit_links
+    bvh_exit: torch.Tensor  # (B,) i32
     has_lods: bool = False
+    # The most triangles in any BLAS leaf (the builders stop at 3)
+    bvh_max_leaf: int = 8
 
 
 MESH_LEAVES = ("tri_pos", "tri_attr_packed", "mesh_min", "mesh_max",
-               "index_count", "base_index", "lod_table", "lod_thresh")
+               "index_count", "base_index", "lod_table", "lod_thresh",
+               "bvh_index", "bvh_min", "bvh_max", "bvh_left_first",
+               "bvh_count", "bvh_exit")
 
 
 class MeshPool:
-    """Host-side pooled mesh accumulation (triangles kept in input order)."""
+    """Host-side pooled mesh accumulation, a BLAS per mesh."""
 
-    def __init__(self, with_builtins: bool = True):
+    def __init__(self, with_builtins: bool = True, build_bvh: bool = True):
+        self.build_bvh = build_bvh
         self.positions: List[np.ndarray] = []
         self.normals: List[np.ndarray] = []
         self.tangents: List[np.ndarray] = []
         self.uvs: List[np.ndarray] = []
         self.indices: List[np.ndarray] = []
+        self.bvh_nodes: List[np.ndarray] = []  # structured per-mesh nodes
         self.mesh_info: List[dict] = []
+        self._vertex_count = 0
         self._index_count = 0
+        self._bvh_count = 0
         if with_builtins:
             self.add(make_plane_mesh(1.0, 1.0))
             self.add(make_vertical_plane_mesh(1.0, 1.0))
@@ -174,7 +198,12 @@ class MeshPool:
         return len(self.mesh_info)
 
     def add(self, mesh: Mesh) -> int:
+        """Append a mesh; builds its BLAS and permutes its indices."""
         indices = mesh.indices.copy()
+        if self.build_bvh:
+            nodes, indices = bvh_mod.build_blas(mesh.vertices, indices)
+        else:
+            nodes = bvh_mod.single_leaf_nodes(mesh.vertices, indices)
         mesh_id = len(self.mesh_info)
         self.mesh_info.append(
             dict(
@@ -182,6 +211,8 @@ class MeshPool:
                 max=mesh.vertices.max(axis=0),
                 index_count=indices.size,
                 base_index=self._index_count,
+                vertex_offset=self._vertex_count,
+                bvh_index=self._bvh_count,
             )
         )
         self.positions.append(mesh.vertices)
@@ -189,7 +220,10 @@ class MeshPool:
         self.tangents.append(mesh.tangents)
         self.uvs.append(mesh.uvs)
         self.indices.append(indices)
+        self.bvh_nodes.append(nodes)
+        self._vertex_count += len(mesh.vertices)
         self._index_count += indices.size
+        self._bvh_count += len(nodes)
         return mesh_id
 
     def set_lods(self, base_id: int, lods) -> None:
@@ -202,15 +236,37 @@ class MeshPool:
             assert 0 <= m < len(self.mesh_info)
         self.mesh_info[base_id]["lods"] = list(lods)
 
-    def host_arrays(self) -> dict:
+    def bounds(self) -> dict:
+        """Each mesh's object-space AABB: mesh_min, mesh_max (M, 3) f32."""
         info = self.mesh_info
         return dict(
-            mesh_min=np.array([i["min"] for i in info], np.float32).reshape(
-                -1, 3),
-            mesh_max=np.array([i["max"] for i in info], np.float32).reshape(
-                -1, 3),
+            mesh_min=np.array([i["min"] for i in info],
+                              np.float32).reshape(-1, 3),
+            mesh_max=np.array([i["max"] for i in info],
+                              np.float32).reshape(-1, 3),
+        )
+
+    def host_arrays(self) -> dict:
+        """The pool's arrays, named and typed as the JAX pool's leaves."""
+        info = self.mesh_info
+        nodes = (np.concatenate(self.bvh_nodes) if self.bvh_nodes
+                 else np.zeros((0,), bvh_mod.NODE_DTYPE))
+        return dict(
+            indices=(np.concatenate(self.indices) if info
+                     else np.zeros((0,), np.int32)),
+            **self.bounds(),
             index_count=np.array([i["index_count"] for i in info], np.int32),
             base_index=np.array([i["base_index"] for i in info], np.int32),
+            vertex_offset=np.array([i["vertex_offset"] for i in info],
+                                   np.int32),
+            bvh_index=np.array([i["bvh_index"] for i in info], np.int32),
+            bvh_min=np.ascontiguousarray(nodes["min"]),
+            bvh_max=np.ascontiguousarray(nodes["max"]),
+            bvh_left_first=np.ascontiguousarray(nodes["left_first"]),
+            bvh_count=np.ascontiguousarray(nodes["count"]),
+            bvh_exit=(np.concatenate([bvh_mod.blas_exit_links(n)
+                                      for n in self.bvh_nodes])
+                      if self.bvh_nodes else np.zeros((0,), np.int32)),
             tri_pos=self._tri_pos(),
             **self._tri_attrs(),
             **self._lod_arrays(),
@@ -267,7 +323,8 @@ class MeshPool:
 
 
 def pool_from_numpy(h: dict, device) -> MeshPoolData:
-    """Device pool from host arrays (uint32 words travel as int32 bits)."""
+    """Device pool from host arrays (uint32 words travel as int32 bits;
+    the BLAS node fields are below 2^31, so their values are kept)."""
     def t(name):
         a = np.array(h[name])
         if a.dtype == np.uint32:
@@ -275,7 +332,63 @@ def pool_from_numpy(h: dict, device) -> MeshPoolData:
         return torch.as_tensor(a, device=device)
 
     lod_table = np.asarray(h["lod_table"])
+    count = np.asarray(h["bvh_count"])
     return MeshPoolData(
         **{k: t(k) for k in MESH_LEAVES},
         has_lods=bool((lod_table[:, 1:] >= 0).any()),
+        bvh_max_leaf=int(count.max()) if count.size else 1,
     )
+
+
+def make_torus_knot(
+    p: int = 2,
+    q: int = 3,
+    segments: int = 256,
+    sides: int = 32,
+    radius: float = 1.0,
+    tube: float = 0.3,
+) -> Mesh:
+    """(p,q) torus knot tube — a dense procedural stand-in for the classic
+    bunny/dragon scan meshes. ~segments*sides*2 triangles."""
+    t = np.linspace(0, 2 * np.pi, segments, endpoint=False, dtype=np.float32)
+    r = radius * (2 + np.cos(q * t)) * 0.5
+    center = np.stack(
+        [r * np.cos(p * t), radius * np.sin(q * t) * 0.5, r * np.sin(p * t)],
+        -1,
+    )
+    # Frenet-ish frame
+    nxt = np.roll(center, -1, axis=0)
+    tang = nxt - center
+    tang /= np.maximum(np.linalg.norm(tang, axis=-1, keepdims=True), 1e-9)
+    up = np.array([0, 1, 0], np.float32)
+    side = np.cross(tang, up)
+    side /= np.maximum(np.linalg.norm(side, axis=-1, keepdims=True), 1e-9)
+    up2 = np.cross(side, tang)
+
+    a = np.linspace(0, 2 * np.pi, sides, endpoint=False, dtype=np.float32)
+    circ = (
+        np.cos(a)[None, :, None] * side[:, None, :]
+        + np.sin(a)[None, :, None] * up2[:, None, :]
+    )  # (seg, sides, 3)
+    verts = (center[:, None, :] + tube * circ).reshape(-1, 3)
+    normals = circ.reshape(-1, 3)
+    uvs = np.stack(
+        np.meshgrid(np.arange(sides) / sides,
+                    np.arange(segments) / segments),
+        -1,
+    ).reshape(-1, 2).astype(np.float32)
+    tangents = np.concatenate(
+        [np.repeat(tang, sides, axis=0),
+         -np.ones((len(verts), 1), np.float32)],
+        axis=-1,
+    )
+    idx = []
+    for i in range(segments):
+        for j in range(sides):
+            a0 = i * sides + j
+            a1 = i * sides + (j + 1) % sides
+            b0 = ((i + 1) % segments) * sides + j
+            b1 = ((i + 1) % segments) * sides + (j + 1) % sides
+            idx += [a0, b0, a1, a1, b0, b1]
+    return Mesh(verts, normals, tangents.astype(np.float32), uvs,
+                np.array(idx, np.int32))

@@ -7,9 +7,12 @@ flags the frame specializes on.
 
 ``scene_from_numpy`` is the one constructor of SceneData: it takes the
 scene's leaves as numpy arrays keyed by dotted path (``"meshes.tri_pos"``,
-``"ltc1"``, ...) and its static flags. ``World.device`` feeds it the port's
-own host arrays; the parity tests feed it the leaves of a JAX SceneData,
-so both packages render the very same state.
+``"tlas.tlas_min"``, ``"ltc1"``, ...) and its static flags. ``World.device``
+feeds it the port's own host arrays; the parity tests feed it the leaves of
+a JAX SceneData, so both packages render the very same state.
+
+``World.device(with_tlas=True)`` also builds the TLAS over the instances'
+world AABBs (``TlasData``), which the raytraced shadows walk.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..rt import bvh as bvh_mod
 from . import mesh as mesh_mod
 from . import texture as tex_mod
 from .instance import INSTANCE_LEAVES, InstanceData, InstancePool
@@ -35,6 +39,47 @@ STATIC_FLAGS = ("alpha_masked", "emissive_const", "mr_const",
 
 
 @dataclasses.dataclass
+class TlasData:
+    tlas_min: torch.Tensor  # (B, 3) f32
+    tlas_max: torch.Tensor  # (B, 3) f32
+    # (B,) u32 bits as int32 (lo16 left, hi16 right; 0 = leaf)
+    tlas_left_right: torch.Tensor
+    tlas_instance: torch.Tensor  # (B,) i32
+    # Stackless exit links (rt/bvh.py tlas_exit_links), encoded e+1 with
+    # 0 = traversal done. Topology-only; refits never touch it.
+    tlas_exit: torch.Tensor  # (B,) i32
+    # Refit plan (rt/bvh.py tlas_refit_plan): level-ordered node ids
+    # (deepest first), children (-1 = leaf), leaf instance ids, and the
+    # (start, end) slices of each level, for re-fitting instance world
+    # AABBs bottom-up without rebuilding the topology.
+    refit_order: torch.Tensor  # (B,) i32
+    refit_child: torch.Tensor  # (B, 2) i32
+    refit_instance: torch.Tensor  # (B,) i32
+    refit_levels: tuple = ()
+
+
+TLAS_LEAVES = ("tlas_min", "tlas_max", "tlas_left_right", "tlas_instance",
+               "tlas_exit", "refit_order", "refit_child", "refit_instance")
+
+
+def tlas_from_numpy(h: dict, device) -> TlasData:
+    """TlasData on `device` from host arrays keyed as TLAS_LEAVES; the
+    refit levels are recomputed from the topology."""
+    nodes = np.zeros(len(h["tlas_left_right"]), bvh_mod.TLAS_DTYPE)
+    nodes["left_right"] = np.asarray(h["tlas_left_right"])
+    nodes["instance_idx"] = np.asarray(h["tlas_instance"]).astype(np.uint32)
+
+    def t(name):
+        a = np.array(h[name])
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.as_tensor(a, device=device)
+
+    return TlasData(**{k: t(k) for k in TLAS_LEAVES},
+                    refit_levels=bvh_mod.tlas_refit_plan(nodes)["levels"])
+
+
+@dataclasses.dataclass
 class SceneData:
     meshes: MeshPoolData
     instances: InstanceData
@@ -43,6 +88,7 @@ class SceneData:
     textures: TexturePoolData
     ltc1: torch.Tensor  # (64, 64, 4) f32
     ltc2: torch.Tensor  # (64, 64, 4) f32
+    tlas: Optional[TlasData] = None
     # Static: some material cuts fragments per texel (visibility.wgsl:79-81)
     alpha_masked: bool = False
     # Static: every material's emissive / metallic-roughness texture is
@@ -64,8 +110,9 @@ class SceneData:
 
 def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
     """SceneData on `device` from numpy leaves keyed by dotted path plus
-    the static flags of STATIC_FLAGS. Extra leaves (BVH/TLAS, LUT quad
-    tables, tap-block tables) are ignored: the raster path reads none."""
+    the static flags of STATIC_FLAGS. The TLAS comes along where the
+    leaves hold one ("tlas.*"). Extra leaves (LUT quad tables, tap-block
+    tables, the pool's vertex streams) are ignored: no pass reads them."""
     device = torch.device(device)
 
     def group(prefix):
@@ -93,6 +140,8 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
         textures=tex_mod.pool_from_numpy(group("textures"), device),
         ltc1=ltc1,
         ltc2=ltc2,
+        tlas=(tlas_from_numpy(group("tlas"), device)
+              if "tlas.tlas_min" in leaves else None),
         **flags,
     )
 
@@ -100,8 +149,8 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
 class World:
     """Host-side scene assembly (pools + lights)."""
 
-    def __init__(self, texture_base_size: int = 1024):
-        self.meshes = MeshPool()
+    def __init__(self, texture_base_size: int = 1024, build_bvh: bool = True):
+        self.meshes = MeshPool(build_bvh=build_bvh)
         self.instances = InstancePool()
         self.materials = MaterialPool()
         self.lights = LightPool()
@@ -120,6 +169,28 @@ class World:
             np.asarray(transform, np.float32) @ scale,
             VERTICAL_PLANE_MESH,
             LIGHT_MATERIAL,
+        )
+
+    def build_tlas(self) -> dict:
+        """The TLAS over the instances' world AABBs as host arrays keyed
+        as TLAS_LEAVES (the JAX TlasData's leaves by name and type)."""
+        mesh_h = self.meshes.bounds()
+        inst_h = self.instances.host_arrays()
+        imin, imax = bvh_mod.instance_world_aabbs(
+            mesh_h["mesh_min"], mesh_h["mesh_max"], inst_h["transform"],
+            inst_h["mesh_id"])
+        nodes = bvh_mod.build_tlas(imin, imax)
+        plan = bvh_mod.tlas_refit_plan(nodes)
+        return dict(
+            tlas_min=np.ascontiguousarray(nodes["min"]),
+            tlas_max=np.ascontiguousarray(nodes["max"]),
+            tlas_left_right=np.ascontiguousarray(nodes["left_right"]),
+            tlas_instance=np.ascontiguousarray(
+                nodes["instance_idx"]).astype(np.int64).astype(np.int32),
+            tlas_exit=bvh_mod.tlas_exit_links(nodes),
+            refit_order=plan["order"],
+            refit_child=plan["child"],
+            refit_instance=plan["instance"],
         )
 
     def any_alpha_mask(self) -> bool:
@@ -144,7 +215,7 @@ class World:
             return None
         return flags.pop() if flags else False
 
-    def host_leaves(self) -> dict:
+    def host_leaves(self, with_tlas: bool = False) -> dict:
         """The scene's leaves as numpy arrays keyed by dotted path."""
         ltc1, ltc2 = load_ltc_tables()
         leaves = {"ltc1": ltc1, "ltc2": ltc2}
@@ -155,6 +226,8 @@ class World:
             lights=self.lights.host_arrays(),
             textures=self.textures.host_arrays(),
         )
+        if with_tlas:
+            parts["tlas"] = self.build_tlas()
         for prefix, arrays in parts.items():
             for k, v in arrays.items():
                 leaves[f"{prefix}.{k}"] = v
@@ -175,8 +248,9 @@ class World:
             mr_srgb=self._slot_srgb_static(mats.metallic_roughness),
         )
 
-    def device(self, device="cuda") -> SceneData:
+    def device(self, device="cuda", with_tlas: bool = False) -> SceneData:
         """The scene on `device`: the card unless the caller asks for
         another (the CPU tests pass "cpu"). Raises where there is no
-        card."""
-        return scene_from_numpy(self.host_leaves(), self.statics(), device)
+        card. `with_tlas` builds the TLAS the raytraced shadows need."""
+        return scene_from_numpy(self.host_leaves(with_tlas), self.statics(),
+                                device)
