@@ -61,13 +61,34 @@ compiler), then:
      printing the BVH builder and the host's BLAS / TLAS build times: 12
      frames at rt_shadow_scale 1 and 12 at 2 (overflow 0, no shadow ray
      at the step limit, K1 and the shadow kernel launched once a frame),
-     and the kernel against its twin on each scale's shadow rays, timed.
-Phases 5-8 and 10 print the median ms/frame of frames 3-12 (CUDA events)
-and the peak device memory of the 12 frames. Every path run sets the
-launch counts to 0 just before it and checks them just after. Prints the
-kernel table as one JSON line (each row also with device_ms, K3's with its
-1-table shape under one_table, the shadow kernel's with its scale-2 rays
-under scale2), then the card line, then the result line {"ok": true,
+     and the kernel against its twin on each scale's shadow rays, timed;
+ 11. closest hit (closest_phases): the kernel against its twin on the
+     adversarial ray sets and a tree deeper than its stack (the overflow
+     counted alike); the bvh_trace example's scene (12 instances of
+     the knot and the sphere) and config 5's scene (81-node TLAS), each
+     with its camera's 1920x1080 primary rays through the example's trace
+     (one launch), then kernel against twin on those rays (every t word,
+     visit count and counter equal, nothing overflowed or exhausted),
+     timed; the example module at its own size (512x288);
+ 12. the skinned frame (skin_phases): config 5 with its knot a 2-joint
+     skin (weights by height) bent by a new pose each frame, raytraced
+     shadows, 12 frames at 1920x1080 (overflow 0, rt_exhausted 0, K1 and
+     the shadow kernel once a frame), the last pose's refit BLAS and TLAS
+     valid and tight on the card, and the scene at 320x184 on the card
+     against the CPU twins (mean 5e-3);
+ 13. the ring light (ring_phases): the golden ring_light scene at 160x96
+     on the card against tests/golden/ring_light.png and the CPU twins
+     (mean 5e-3), 12 frames of it at 1920x1080 (K1 and K3 once a frame,
+     the fused LTC kernel never), and K3 against its twin on that frame's
+     own uvs (max abs diff <= 1e-6).
+Phases 5-8 and 10-13 print the median ms/frame of frames 3-12 (CUDA
+events) and the peak device memory of the 12 frames. Every path run sets
+the launch counts to 0 just before it and checks them just after. Prints
+the kernel table as one JSON line (each row also with device_ms, K3's with
+its 1-table shape under one_table and the ring frame's fetch under ring,
+the shadow kernel's with its scale-2 rays under scale2, the closest-hit
+kernel's with config 5's rays under config5), then the card line, then the
+result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
 records is null, with a line saying so. Exits non-zero on any failure and
 when no CUDA device is available.
@@ -76,7 +97,6 @@ when no CUDA device is available.
 import dataclasses
 import json
 import os
-import struct
 import subprocess
 import sys
 import time
@@ -118,51 +138,13 @@ def card_line():
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def read_png_rgb(path):
-    """(H, W, 3) uint8 from an 8-bit RGB/RGBA non-interlaced PNG."""
-    data = open(path, "rb").read()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", path
-    i, idat = 8, b""
-    while i < len(data):
-        n = struct.unpack(">I", data[i:i + 4])[0]
-        kind = data[i + 4:i + 8]
-        body = data[i + 8:i + 8 + n]
-        if kind == b"IHDR":
-            w, h, depth, ctype, _c, _f, interlace = struct.unpack(
-                ">IIBBBBB", body)
-            assert depth == 8 and ctype in (2, 6) and interlace == 0
-            bpp = 3 if ctype == 2 else 4
-        elif kind == b"IDAT":
-            idat += body
-        i += 12 + n
-    raw = zlib.decompress(idat)
-    stride = w * bpp
-    img = np.zeros((h, stride), np.int32)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        f = raw[y * (stride + 1)]
-        line = np.frombuffer(raw, np.uint8, stride,
-                             y * (stride + 1) + 1).astype(np.int32)
-        out = np.zeros(stride, np.int32)
-        for x in range(stride):
-            a = out[x - bpp] if x >= bpp else 0
-            b = prev[x]
-            c = prev[x - bpp] if x >= bpp else 0
-            if f == 0:
-                p = 0
-            elif f == 1:
-                p = a
-            elif f == 2:
-                p = b
-            elif f == 3:
-                p = (a + b) // 2
-            else:
-                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            out[x] = (line[x] + p) & 0xFF
-        img[y] = out
-        prev = out
-    return img.reshape(h, w, bpp)[..., :3].astype(np.uint8)
+def golden_rgb(name):
+    """tests/golden/<name>.png as (H, W, 3) floats in [0, 1]."""
+    from voidin_tpu_torch.io.image import load_image
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    img = load_image(os.path.join(root, "tests", "golden", f"{name}.png"))
+    return img[..., :3] / 255.0
 
 
 def time_cuda(fn, reps):
@@ -361,6 +343,7 @@ def k3_bound(n_chan, n_px):
 
 def launch_counters():
     """Every kernel's launch counter: name -> (ops module, attribute)."""
+    from voidin_tpu_torch.ops import closest_hit as ch
     from voidin_tpu_torch.ops import fine_raster as fr
     from voidin_tpu_torch.ops import ltc_rect as lr
     from voidin_tpu_torch.ops import lut_fetch as lf
@@ -373,7 +356,8 @@ def launch_counters():
                 k3=(lf, "LAUNCHES"), k3_bf16=(lf, "LAUNCHES_BF16"),
                 ltc_rect=(lr, "LAUNCHES"),
                 ltc_rect_bf16=(lr, "LAUNCHES_BF16"),
-                shadow_trace=(st, "LAUNCHES"))
+                shadow_trace=(st, "LAUNCHES"),
+                closest_hit=(ch, "LAUNCHES"))
 
 
 def reset_launches():
@@ -444,11 +428,12 @@ def frame_blocks(scene, cfg):
     return blocks, counts
 
 
-def run_frames(renderer, cam, label):
+def run_frames(renderer, cam, label, joint_mats=None):
     """FRAMES frames through Renderer.render, each timed with CUDA events
-    and checked: overflow 0, something visible. Returns (last image,
-    per-frame ms, the peak device memory over the frames and the part of
-    it above what was resident before, as text)."""
+    and checked: overflow 0, something visible; `joint_mats(i)` poses
+    frame i's skins. Returns (last image, per-frame ms, the peak device
+    memory over the frames and the part of it above what was resident
+    before, as text)."""
     import torch
 
     before = torch.cuda.memory_allocated()
@@ -458,7 +443,8 @@ def run_frames(renderer, cam, label):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        img = renderer.render(cam)
+        img = renderer.render(cam, joint_mats=None if joint_mats is None
+                              else joint_mats(i))
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -891,7 +877,6 @@ def rt_phases(dev, card):
     from voidin_tpu_torch.passes.raster import RasterConfig
     from voidin_tpu_torch.rt import traverse
 
-    root = os.path.dirname(os.path.abspath(__file__))
     # --- golden rt_shadows: card vs golden image and vs the CPU twins ----
     gw, gh = 160, 96
     gcfg = RasterConfig(width=gw, height=gh, tri_capacity=1 << 16,
@@ -905,8 +890,7 @@ def rt_phases(dev, card):
         if int(r.aux["overflow"]) or int(r.aux["rt_exhausted"]):
             fail(f"golden rt_shadows scene overflowed or exhausted on the "
                  f"{where}")
-    want = read_png_rgb(os.path.join(root, "tests", "golden",
-                                     "rt_shadows.png")) / 255.0
+    want = golden_rgb("rt_shadows")
     gold_diff = float(np.abs(np.clip(imgs["card"], 0, 1) - want).mean())
     cpu_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
     print(f"golden rt_shadows 160x96 on the card: mean abs diff vs "
@@ -1001,6 +985,340 @@ def rt_phases(dev, card):
     return row, launches
 
 
+def closest_bound(n_rays, counts, tlas, blas, inst, tri_pos):
+    """The closest-hit kernel must read each ray (24 B) and write its t
+    and visits (8 B), and read the TLAS, BLAS, instance and triangle rows
+    once; its FP32 operations are counted by the twin's walk on the same
+    rays, as shadow_bound counts them: 12 a node visit, 30 an instance
+    entry, 40 a triangle test."""
+    n_bytes = n_rays * 32 + 4 * (tlas.numel() + blas.numel() + inst.numel()
+                                 + tri_pos.numel())
+    n_ops = (12 * counts.node_visits + 30 * counts.instance_entries
+             + 40 * counts.triangle_tests)
+    return bound_ms(n_bytes, n_ops)
+
+
+def closest_hit_check(args, kwargs):
+    """The closest-hit kernel against its twin on one ray set: (kernel
+    result, twin result, twin walk counts, {output: differing words or
+    count difference})."""
+    import torch
+
+    from voidin_tpu_torch.ops import closest_hit as ch
+    from voidin_tpu_torch.rt import traverse
+
+    got = ch.closest_hit(*args, **kwargs)
+    want, counts = traverse.closest_hit_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    return got, want, counts, dict(
+        t=words_differ(got.t, want.t),
+        visits=int((got.visits != want.visits).sum()),
+        overflow=abs(int(got.overflow) - int(want.overflow)),
+        exhausted=abs(int(got.exhausted) - int(want.exhausted)))
+
+
+def closest_phases(dev, card):
+    """Closest hit: the kernel against its twin on the adversarial ray sets
+    of shadow_edge_case and on staircase_case's overflowing stack; the
+    bvh_trace example's scene and config 5's
+    scene with their cameras' 1920x1080 primary rays through the example's
+    trace (launch counted), then kernel against twin on those rays, timed
+    as kernel_phases times the others; the example module at its own size.
+    Every t word, visit count and counter equal, nothing overflowed or
+    exhausted. Returns (the closest_hit row, its launches on the bvh_trace
+    path)."""
+    import tempfile
+
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.examples import bvh_trace
+    from voidin_tpu_torch.io.image import load_image
+    from voidin_tpu_torch.ops import closest_hit as ch
+    from voidin_tpu_torch.rt import traverse
+
+    for kind in SHADOW_EDGE_CASES:
+        world, o, d, act = shadow_edge_case(pt, kind)
+        scene = world.device(dev, with_tlas=True)
+        args = traverse.scene_rays(scene) + tuple(
+            torch.from_numpy(a).to(dev) for a in (o, d))
+        kwargs = dict(active=torch.from_numpy(act).to(dev))
+        reset_launches()
+        got, want, counts, differ = closest_hit_check(args, kwargs)
+        n_launch = ch.LAUNCHES
+        print(f"closest_hit edge set {kind}: {len(o)} rays ({int(act.sum())} "
+              f"active), hits {int((got.t < traverse.MAX_DIST).sum())}, "
+              f"differing {differ}, overflow {int(got.overflow)} exhausted "
+              f"{int(got.exhausted)}, {counts}, launches {n_launch} "
+              f"({card})", flush=True)
+        if any(differ.values()) or int(got.overflow) or int(got.exhausted) \
+                or n_launch != (1 if len(o) else 0):
+            fail(f"closest_hit disagrees with its twin on edge set {kind}")
+    world, o, d = staircase_case(pt)
+    args = traverse.scene_rays(world.device(dev, with_tlas=True)) + tuple(
+        torch.from_numpy(a).to(dev) for a in (o, d))
+    got, want, counts, differ = closest_hit_check(args, {})
+    print(f"closest_hit on a tree deeper than its stack: overflow kernel "
+          f"{int(got.overflow)} twin {int(want.overflow)}, differing "
+          f"{differ} ({card})", flush=True)
+    if any(differ.values()) or not int(got.overflow) > 0:
+        fail("closest_hit disagrees with its twin where the stack overflows")
+
+    rows, launches = {}, None
+    for label, world, camera in (
+            ("bvh_trace scene", bvh_trace.trace_world(), None),
+            ("config 5", config5_world(pt), CONFIG5_CAMERA)):
+        scene = world.device(dev, with_tlas=True)
+        reset_launches()
+        res = bvh_trace.trace(scene, WIDTH, HEIGHT, camera)
+        torch.cuda.synchronize()
+        got_l = expect_launches(f"closest hit, {label}", dict(closest_hit=1))
+        if launches is None:
+            launches = got_l["closest_hit"]
+        o, d = bvh_trace.primary_rays(WIDTH, HEIGHT, camera)
+        args = traverse.scene_rays(scene) + (torch.from_numpy(o).to(dev),
+                                             torch.from_numpy(d).to(dev))
+        kwargs = dict(t_max=bvh_trace.T_MAX)
+        got, want, counts, differ = closest_hit_check(args, kwargs)
+        path_differ = words_differ(res.t.reshape(-1), got.t)
+        row = timed_row(lambda: ch.closest_hit(*args, **kwargs),
+                        "closest_hit_kernel", 20,
+                        lambda: traverse.closest_hit_reference(*args,
+                                                               **kwargs), 1,
+                        closest_bound(len(o), counts, *args[:4]),
+                        float((got.t - want.t).abs().max()))
+        hits = int((got.t < bvh_trace.T_MAX).sum())
+        row.update(rays=len(o), hits=hits, node_visits=counts.node_visits,
+                   instance_entries=counts.instance_entries,
+                   triangle_tests=counts.triangle_tests,
+                   max_visits=int(got.visits.max()),
+                   instances=int(scene.instances.count),
+                   tlas_nodes=int(scene.tlas.tlas_min.shape[0]))
+        rows[label] = row
+        print(f"closest_hit ({label}, {WIDTH}x{HEIGHT} primary rays, "
+              f"{row['instances']} instances, TLAS of {row['tlas_nodes']} "
+              f"nodes): hits {hits}, differing {differ}, path vs kernel t "
+              f"words {path_differ}, overflow {int(got.overflow)} exhausted "
+              f"{int(got.exhausted)}; {counts}, max visits "
+              f"{row['max_visits']}; {timing(row)} ({card})", flush=True)
+        if any(differ.values()) or path_differ or int(got.overflow) \
+                or int(got.exhausted) or int(res.overflow) \
+                or int(res.exhausted):
+            fail(f"closest_hit disagrees with its twin on {label}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bvh_trace.png")
+        reset_launches()
+        bvh_trace.main(["--out", out])
+        expect_launches("the bvh_trace example", dict(closest_hit=1))
+        img = load_image(out)
+    if img.shape != (288, 512, 4) or not img[..., :3].std() > 0:
+        fail(f"the bvh_trace example's image is bad: {img.shape}")
+    return dict(rows["bvh_trace scene"], config5=rows["config 5"]), launches
+
+
+def refit_violations(world, knot, meshes, tlas, instances, eps=1e-5):
+    """Checks the skinned knot's refit BLAS and the refit TLAS (device
+    tensors) on the host: every reachable node contains its triangles or
+    children (TLAS leaves their instance's world AABB from the refit mesh
+    bounds), and each root equals the bounds of what it holds within
+    1e-4. Returns the count of violations of each kind."""
+    from voidin_tpu_torch.rt import bvh as bvh_mod
+
+    nodes = world.meshes.bvh_nodes[knot]
+    skin = world.skins[0]
+    base = world.meshes.mesh_info[knot]["bvh_index"]
+    bmin = meshes.bvh_min.cpu().numpy()[base:base + len(nodes)]
+    bmax = meshes.bvh_max.cpu().numpy()[base:base + len(nodes)]
+    pos = meshes.tri_pos.cpu().numpy().reshape(-1, 3, 3)[
+        skin.base_tri:skin.base_tri + skin.rest_pos.shape[0]]
+    bad = dict(blas=0, blas_root=0, tlas=0, tlas_root=0)
+    stack = [0]
+    while stack:
+        n = stack.pop()
+        lo = int(nodes["left_first"][n])
+        if nodes["count"][n] > 0:
+            tris = pos[lo:lo + int(nodes["count"][n])].reshape(-1, 3)
+            bad["blas"] += int(not ((bmin[n] <= tris.min(0) + eps).all()
+                                    and (bmax[n] >= tris.max(0) - eps).all()))
+            continue
+        for c in (lo, lo + 1):
+            bad["blas"] += int(not ((bmin[n] <= bmin[c] + eps).all()
+                                    and (bmax[n] >= bmax[c] - eps).all()))
+            stack.append(c)
+    flat = pos.reshape(-1, 3)
+    bad["blas_root"] = int(not (np.allclose(bmin[0], flat.min(0), atol=1e-4)
+                                and np.allclose(bmax[0], flat.max(0),
+                                                atol=1e-4)))
+    imin, imax = bvh_mod.instance_world_aabbs(
+        meshes.mesh_min.cpu().numpy(), meshes.mesh_max.cpu().numpy(),
+        instances.transform.cpu().numpy(), instances.mesh_id.cpu().numpy())
+    tmin, tmax = tlas.tlas_min.cpu().numpy(), tlas.tlas_max.cpu().numpy()
+    lr = tlas.tlas_left_right.cpu().numpy().view(np.uint32)
+    inst = tlas.tlas_instance.cpu().numpy()
+    for n in range(len(lr)):
+        if lr[n] == 0:
+            held = [(imin[inst[n]], imax[inst[n]])]
+        else:
+            held = [(tmin[c], tmax[c]) for c in (lr[n] & 0xFFFF, lr[n] >> 16)]
+        bad["tlas"] += sum(int(not ((tmin[n] <= lo + eps).all()
+                                    and (tmax[n] >= hi - eps).all()))
+                           for lo, hi in held)
+    bad["tlas_root"] = int(not (np.allclose(tmin[0], imin.min(0), atol=1e-4)
+                                and np.allclose(tmax[0], imax.max(0),
+                                                atol=1e-4)))
+    return bad
+
+
+def skin_phases(dev, card):
+    """The skinned frame: config 5 with its knot a skin of 2 joints
+    (config5_world(skinned=True)) bent by knot_joint_mats, raytraced
+    shadows, no TAA: 12 frames at 1920x1080 through Renderer.render
+    (overflow 0, no shadow ray at the step limit, K1 and the shadow kernel
+    launched once a frame), the last pose's refit BLAS and TLAS valid and
+    tight (refit_violations), then the scene at 320x184 on the card against
+    the port's CPU render (mean 5e-3). Returns the median ms/frame."""
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework.renderer import Renderer
+    from voidin_tpu_torch.passes.raster import RasterConfig
+    from voidin_tpu_torch.scene import skin as skin_mod
+
+    world = config5_world(pt, skinned=True)
+    knot = world.skins[0].mesh_id
+    scene = world.device(dev, with_tlas=True)
+    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=1 << 17,
+                       pair_capacity=1 << 19)
+    cam = pt.Camera(**CONFIG5_CAMERA, aspect=WIDTH / HEIGHT)
+    r = Renderer(scene, cfg, enable_taa=False, enable_rt_shadows=True)
+    reset_launches()
+    out, times, mem = run_frames(r, cam, "skinned config 5", knot_joint_mats)
+    expect_launches("skinned config 5", dict(k1=FRAMES, shadow_trace=FRAMES))
+    ms = float(np.median(times[2:]))
+    n_inst = int((scene.instances.mesh_id == knot).sum())
+    print(f"skinned config 5 {WIDTH}x{HEIGHT} (the knot a 2-joint skin of "
+          f"{world.skins[0].rest_pos.shape[0]} triangles, {n_inst} "
+          f"instances; rt shadows): median {ms:.3f} ms/frame over frames "
+          f"3-{FRAMES} ({card}); {mem}; shadow rays {int(r.aux['rt_rays'])}, "
+          f"exhausted {int(r.aux['rt_exhausted'])}; image mean "
+          f"{out.mean():.4f} std {out.std():.4f}", flush=True)
+    jm = torch.from_numpy(knot_joint_mats(FRAMES - 1)).to(dev)
+    meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm)
+    tlas = skin_mod.refit_tlas(scene.tlas, meshes, scene.instances)
+    bad = refit_violations(world, knot, meshes, tlas, scene.instances)
+    moved = float((meshes.bvh_max - scene.meshes.bvh_max).abs().max())
+    print(f"skinned config 5, last pose's refits on the card: violations "
+          f"{bad}; BLAS AABBs moved up to {moved:.4f} from the rest pose",
+          flush=True)
+    if any(bad.values()) or not moved > 0:
+        fail("the skinned knot's refit BLAS or TLAS does not hold its pose")
+    del r, scene, meshes, tlas
+
+    sw, sh = 320, 184
+    scfg = RasterConfig(width=sw, height=sh, tri_capacity=1 << 17,
+                        pair_capacity=1 << 17)
+    imgs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        r = Renderer(config5_world(pt, skinned=True).device(
+            d, with_tlas=True), scfg, enable_taa=False,
+            enable_rt_shadows=True)
+        for i in range(2):
+            img = r.render(pt.Camera(**CONFIG5_CAMERA, aspect=sw / sh),
+                           joint_mats=knot_joint_mats(i + 3))
+            if int(r.aux["overflow"]) or int(r.aux["rt_exhausted"]):
+                fail(f"small skinned frame overflowed on the {where}")
+        imgs[where] = img.cpu().numpy()
+    diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
+    print(f"skinned config 5 {sw}x{sh} (2 poses) on the card: mean abs diff "
+          f"vs the CPU twins {diff:.3e} (budget {GOLDEN_BUDGET})", flush=True)
+    if not (np.isfinite(imgs["card"]).all() and diff < GOLDEN_BUDGET):
+        fail("the small skinned frame on the card disagrees with the CPU")
+    return ms
+
+
+def ring_phases(dev, card):
+    """The ring light: the golden ring_light scene at 160x96 through the
+    example's render on the card against tests/golden/ring_light.png and
+    the port's CPU render (mean 5e-3); the scene at 1920x1080 for 12
+    frames (K1 and K3 launched once a frame, the fused LTC kernel never; a
+    finite image with variance); then K3 against its twin on that frame's
+    own 5-channel uvs (max abs diff <= 1e-6), timed. Returns (K3's ring
+    row, its launches on the ring path, the median ms/frame)."""
+    import torch
+
+    from voidin_tpu_torch.examples import ring_light
+    from voidin_tpu_torch.ops import lut_fetch as lf
+
+    imgs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        imgs[where] = ring_light.render(ring_light.ring_world().device(d),
+                                        160, 96).cpu().numpy()
+    gold_diff = float(np.abs(np.clip(imgs["card"], 0, 1)
+                             - golden_rgb("ring_light")).mean())
+    cpu_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
+    print(f"golden ring_light 160x96 on the card: mean abs diff vs "
+          f"tests/golden/ring_light.png {gold_diff:.6f} (budget "
+          f"{GOLDEN_BUDGET}), vs the CPU twins {cpu_diff:.3e}", flush=True)
+    if not (np.isfinite(imgs["card"]).all() and gold_diff < GOLDEN_BUDGET
+            and cpu_diff < GOLDEN_BUDGET):
+        fail("golden ring_light render disagrees")
+
+    scene = ring_light.ring_world().device(dev)
+    caps = dict(tri_capacity=1 << 16, pair_capacity=1 << 19)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, img = [], None
+    for _ in range(FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = ring_light.render(scene, WIDTH, HEIGHT, **caps)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    got_l = expect_launches("ring light", dict(k1=FRAMES, k3=FRAMES))
+    out = img.cpu().numpy()
+    ms = float(np.median(times[2:]))
+    print(f"ring light {WIDTH}x{HEIGHT}: median {ms:.3f} ms/frame over "
+          f"frames 3-{FRAMES} ({card}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; image mean "
+          f"{out.mean():.4f} std {out.std():.4f}", flush=True)
+    if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all() \
+            or not out.std() > 0:
+        fail("the ring light image is bad")
+
+    seen, real = [], lf.lut_fetch
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    lf.lut_fetch = capture
+    try:
+        ring_light.render(scene, WIDTH, HEIGHT, **caps)
+    finally:
+        lf.lut_fetch = real
+    (tables, uv), kwargs = seen[0]
+    got = lf.lut_fetch(tables, uv, **kwargs)
+    want = lf.lut_fetch_reference(tables, uv, **kwargs)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    row = dict(path="shade_ring_light's ltc_matrix, once a frame",
+               max_abs_err=err, tables=len(tables),
+               ms=time_cuda(lambda: lf.lut_fetch(tables, uv, **kwargs), 50),
+               device_ms=device_ms(lambda: lf.lut_fetch(tables, uv, **kwargs),
+                                   50, "lut_fetch_kernel"),
+               frame_ms=ms)
+    print(f"K3 lut_fetch on the ring frame's own uvs ({len(tables)} tables, "
+          f"{uv.shape[0]}x{uv.shape[1]}): max abs diff to its twin {err}, "
+          f"call {fmt_ms(row['ms'])}, device {fmt_ms(row['device_ms'])} "
+          f"({card})", flush=True)
+    if not err <= K3_TOL:
+        fail(f"K3 disagrees with its twin on the ring uvs beyond {K3_TOL}")
+    return row, got_l["k3"], ms
+
+
 def main():
     import torch
 
@@ -1058,8 +1376,7 @@ def main():
         imgs[where] = r.render(pt.Camera(**gcam)).cpu().numpy()
         if int(r.aux["overflow"]):
             fail("golden scene overflowed")
-    want = read_png_rgb(os.path.join(root, "tests", "golden",
-                                     "deferred.png")) / 255.0
+    want = golden_rgb("deferred")
     gold_diff = float(np.abs(np.clip(imgs["card"], 0, 1) - want).mean())
     cpu_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
     print(f"golden deferred 160x96 on the card: mean abs diff vs "
@@ -1256,6 +1573,9 @@ def main():
         fail("the bf16 LUT masked frame strays from the f32 frame")
 
     rows["shadow_trace"], rt_launches = rt_phases(dev, card)
+    rows["closest_hit"], closest_launches = closest_phases(dev, card)
+    skin_phases(dev, card)
+    rows["lut_fetch"]["ring"], ring_k3_launches, _ = ring_phases(dev, card)
 
     path_launches = dict(
         fine_raster_pairs=ns_launches["k1"],
@@ -1263,11 +1583,12 @@ def main():
         fine_raster_pairs_payload=payload_launches["k1_payload"],
         fine_raster_blocks=block_launches["k2"],
         fine_raster_blocks_track2=small_block_launches["k2_track2"],
-        lut_fetch=ns_launches["k3"],
+        lut_fetch=ring_k3_launches,
         lut_fetch_bf16=bf16_launches["k3_bf16"],
         ltc_rect=ns_launches["ltc_rect"],
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         shadow_trace=rt_launches,
+        closest_hit=closest_launches,
     )
     meta = dict(
         fine_raster_pairs=("voidin_tpu_torch/csrc/fine_raster.cu",
@@ -1291,6 +1612,8 @@ def main():
         # no TPU kernel: the JAX package's stackless traversal in plain jnp
         shadow_trace=("voidin_tpu_torch/csrc/shadow_trace.cu",
                       "voidin_tpu/rt/traverse.py:616"),
+        closest_hit=("voidin_tpu_torch/csrc/closest_hit.cu",
+                     "voidin_tpu/rt/traverse.py:889"),
     )
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1412,18 +1735,22 @@ def _mesh_module(pkg):
 CONFIG5_CAMERA = dict(position=[0.0, 4.0, 3.0], pitch=-22.0)
 
 
-def config5_world(pkg):
+def config5_world(pkg, skinned=False):
     """The raytraced-shadows scene of voidin_tpu/framework/presets.py:284-322
     (config 5) on `pkg`'s World: 40 instances of the 96x16 torus knot and
     the res-4 sphere on a ring, a 50x ground plane, one point light. The
     scene is its own. The preset's traversal choice (rt_packet 128 +
     rt_threaded) has no counterpart: the port's one kernel gives the hits
-    that all of JAX's traversals give."""
+    that all of JAX's traversals give. `skinned` registers the knot as a
+    skin of 2 joints (knot_skin)."""
     from voidin_tpu_torch.core import mathx
 
     mesh = _mesh_module(pkg)
     w = pkg.World()
-    knot = w.meshes.add(mesh.make_torus_knot(segments=96, sides=16))
+    knot_mesh = mesh.make_torus_knot(segments=96, sides=16)
+    knot = w.meshes.add(knot_mesh)
+    if skinned:
+        knot_skin(pkg, w, knot, knot_mesh)
     sphere = w.meshes.add(mesh.make_uv_sphere(1.0, 4))
     mat = w.materials.add()
     rng = np.random.default_rng(11)
@@ -1439,6 +1766,66 @@ def config5_world(pkg):
                    @ mathx.from_scale(50.0)), 0, mat)
     w.lights.add_point_light([5, 9, 0], 35.0, [0.7, 0.68, 0.6])
     return w
+
+
+def staircase_case(pkg, n=44):
+    """(world, origins, directions) of a tree deeper than the closest-hit
+    stack on `pkg`'s World: n res-10 spheres, sphere k at -2^(n - k) along
+    axis k % 3, so at every level the TLAS builder splits the farthest
+    sphere off as the left child, and a walk down the chain of right
+    children (popped first) leaves one entry a level on the stack; the
+    nearest sphere's BLAS adds its own depth. The three rays pass the
+    origin's neighbourhood and need 55 entries (rt/traverse.py STACK is
+    48): their pushes overflow."""
+    from voidin_tpu_torch.core import mathx
+
+    mesh = _mesh_module(pkg)
+    w = pkg.World()
+    for k in range(n):
+        v = [0.0, 0.0, 0.0]
+        v[k % 3] = -float(2.0 ** (n - k))
+        w.instances.add(np.asarray(mathx.from_translation(v)),
+                        mesh.SPHERE_10_MESH, 0)
+    o = np.array([[-2.0, 5.0, 0.1], [0.1, 5.0, 0.1], [-1.9, -5.0, 0.2]],
+                 np.float32)
+    d = np.array([[0.0, -1.0, 0.0], [0.0, -1.0, 0.0], [0.0, 1.0, 0.0]],
+                 np.float32)
+    return w, o, d
+
+
+def knot_skin(pkg, world, knot, knot_mesh):
+    """Registers mesh `knot` of `world` (`pkg`'s) as a skin of 2 joints
+    with weights by height, as tests/test_skin.py _strip_mesh binds its
+    strip: the lowest vertices to joint 0, the highest to joint 1, a
+    linear blend between. Returns the skin's joint offset."""
+    import importlib
+
+    skin = importlib.import_module(pkg.__name__ + ".scene.skin")
+    y = np.asarray(knot_mesh.vertices)[:, 1]
+    s = ((y - y.min()) / (y.max() - y.min())).astype(np.float32)
+    joints = np.zeros((len(y), 4), np.int32)
+    joints[:, 1] = 1
+    weights = np.zeros((len(y), 4), np.float32)
+    weights[:, 0], weights[:, 1] = 1.0 - s, s
+    info = world.meshes.mesh_info[knot]
+    off = world.allocate_joints(2)
+    world.skins.append(skin.build_skin_data(
+        knot_mesh, world.meshes.indices[knot], joints, weights,
+        base_tri=info["base_index"] // 3, mesh_id=knot, joint_offset=off,
+        n_joints=2, nodes=world.meshes.bvh_nodes[knot],
+        bvh_base=info["bvh_index"]))
+    return off
+
+
+def knot_joint_mats(frame):
+    """(2, 4, 4) f32 joint matrices of the skinned knot at `frame`: joint 0
+    at rest, joint 1 bent about z around the knot's centre by an angle
+    that changes every frame."""
+    from voidin_tpu_torch.core import mathx
+
+    rot = mathx.from_rotation_z(np.float32(0.8 * np.sin(0.9 * frame + 0.4)))
+    return np.stack([np.eye(4, dtype=np.float32),
+                     np.asarray(rot, np.float32)])
 
 
 SHADOW_EDGE_CASES = ("box", "single", "max_leaf", "empty")

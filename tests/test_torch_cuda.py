@@ -4,10 +4,13 @@ edge; K2 base and track2, also on the adversarial block sets of
 chip_smoke.block_edge_set; K3 f32 and bf16; the fused LTC rect kernel f32
 and bf16, and that it launches nothing on empty inputs; the shadow-ray
 kernel on the golden rt_shadows frame's rays at both scales and on the
-adversarial ray sets of chip_smoke.shadow_edge_case) against their
-PyTorch twins, and of the frame on the card against the CPU path, on the
-pair and block paths, with slim_rec + kernel_payload and with raytraced
-shadows. Marked
+adversarial ray sets of chip_smoke.shadow_edge_case; the closest-hit
+kernel on those sets, on a tree deeper than its stack and on the
+bvh_trace example's primary rays with a step limit and per-ray t_max;
+K3 on the ring-light frame's own uvs) against their PyTorch twins, and of
+the frame on the card against the CPU path, on the pair and block paths,
+with slim_rec + kernel_payload, with raytraced shadows, skinned, and for
+the ring light. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -32,8 +35,11 @@ from voidin_tpu_torch.passes.raster import RasterConfig
 from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
 from chip_smoke import BIG_BLOCK_EDGE_SET, BLOCK_EDGE_SETS, \
-    SHADOW_EDGE_CASES, add_foliage, block_edge_set, frame_shadow_rays, \
-    golden_scene, shadow_edge_case, shadow_trace_check
+    CONFIG5_CAMERA, SHADOW_EDGE_CASES, add_foliage, block_edge_set, \
+    closest_hit_check, config5_world, frame_shadow_rays, golden_scene, \
+    knot_joint_mats, shadow_edge_case, shadow_trace_check, staircase_case
+from voidin_tpu_torch.examples import bvh_trace, ring_light
+from voidin_tpu_torch.ops import closest_hit as t_ch
 from voidin_tpu_torch.ops import shadow_trace as t_st
 from voidin_tpu_torch.rt import traverse as t_trav
 
@@ -368,4 +374,92 @@ def test_rt_frame_on_card_matches_cpu(cuda, scale):
         assert int(r.aux["overflow"]) == 0
         assert int(r.aux["rt_exhausted"]) == 0
         assert t_st.LAUNCHES == before + (device.type == "cuda")
+    assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+@pytest.mark.parametrize("kind", SHADOW_EDGE_CASES + ("staircase",))
+def test_closest_hit_kernel_edge_sets(cuda, kind):
+    if kind == "staircase":
+        world, o, d = staircase_case(pt)
+        act = np.ones(len(o), bool)
+    else:
+        world, o, d, act = shadow_edge_case(pt, kind)
+    scene = world.device(cuda, with_tlas=True)
+    args = t_trav.scene_rays(scene) + (
+        torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda))
+    before = t_ch.LAUNCHES
+    got, want, _counts, differ = closest_hit_check(
+        args, dict(active=torch.from_numpy(act).to(cuda)))
+    assert not any(differ.values()), differ
+    assert int(got.exhausted) == 0
+    assert (int(got.overflow) > 0) == (kind == "staircase")
+    assert t_ch.LAUNCHES == before + (1 if len(o) else 0)
+
+
+@pytest.mark.parametrize("max_steps,per_ray", [(2048, False), (3, True)])
+def test_closest_hit_kernel_on_primary_rays(cuda, max_steps, per_ray):
+    scene = bvh_trace.trace_world().device(cuda, with_tlas=True)
+    o, d = bvh_trace.primary_rays(256, 144)
+    t_max = 1e6
+    if per_ray:
+        t_max = torch.where(torch.arange(len(o)) % 3 == 0, 8.0, 1e6).to(cuda)
+    args = t_trav.scene_rays(scene) + (torch.from_numpy(o).to(cuda),
+                                       torch.from_numpy(d).to(cuda))
+    got, want, _counts, differ = closest_hit_check(
+        args, dict(t_max=t_max, max_steps=max_steps))
+    assert not any(differ.values()), differ
+    assert (int(got.exhausted) > 0) == (max_steps == 3)
+    assert (got.t < 1e6).any()
+
+
+def test_lut_fetch_kernel_on_ring_uvs(cuda):
+    """K3 on the 5-channel uvs ltc_matrix hands it in a 320x184 ring
+    frame: within 1e-6 of its twin."""
+    seen, real = [], t_lut.lut_fetch
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    scene = ring_light.ring_world().device(cuda)
+    t_lut.lut_fetch = capture
+    try:
+        ring_light.render(scene, 320, 184)
+    finally:
+        t_lut.lut_fetch = real
+    assert len(seen) == 1
+    (tables, uv), kwargs = seen[0]
+    assert len(tables) == 5 and uv.is_cuda
+    got = t_lut.lut_fetch(tables, uv, **kwargs)
+    want = t_lut.lut_fetch_reference(tables, uv, **kwargs)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-6
+
+
+def test_ring_light_on_card_matches_cpu(cuda):
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        before = (t_fr.LAUNCHES, t_lut.LAUNCHES)
+        imgs.append(ring_light.render(ring_light.ring_world().device(device),
+                                      160, 96).cpu().numpy())
+        launched = device.type == "cuda"
+        assert (t_fr.LAUNCHES, t_lut.LAUNCHES) == (before[0] + launched,
+                                                   before[1] + launched)
+    assert np.isfinite(imgs[0]).all()
+    assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+def test_skinned_frame_on_card_matches_cpu(cuda):
+    cfg = RasterConfig(width=160, height=96, tri_capacity=1 << 17,
+                       pair_capacity=1 << 17)
+    cam = pt.Camera(**CONFIG5_CAMERA, aspect=160 / 96)
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        r = Renderer(config5_world(pt, skinned=True).device(
+            device, with_tlas=True), cfg, enable_taa=False,
+            enable_rt_shadows=True)
+        with pytest.raises(ValueError):
+            r.render(cam)
+        img = r.render(cam, joint_mats=knot_joint_mats(2))
+        assert int(r.aux["overflow"]) == 0 and int(r.aux["rt_exhausted"]) == 0
+        imgs.append(img.cpu().numpy())
     assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3

@@ -13,6 +13,7 @@ import torch
 
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.framework.renderer import Renderer, build_world
+from voidin_tpu_torch.ops import closest_hit as t_ch
 from voidin_tpu_torch.ops import fine_raster as t_fr
 from voidin_tpu_torch.ops import ltc_rect as t_ltc
 from voidin_tpu_torch.ops import lut_fetch as t_lut
@@ -117,6 +118,60 @@ def test_rt_frame_and_bvh_builds_open_nothing_of_the_jax_package():
     assert out.stdout.startswith("OK")
 
 
+def test_examples_and_skinned_frame_open_nothing_of_the_jax_package(
+        tmp_path):
+    """With jax unimportable, under the same audit hook: both example
+    modules write their PNGs on the CPU, and a skinned frame with
+    raytraced shadows renders through Renderer.render(joint_mats=...)."""
+    code = textwrap.dedent("""
+        import os, sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        opened = []
+
+        def hook(event, args):
+            if (event in ("open", "ctypes.dlopen") and args
+                    and isinstance(args[0], (str, bytes, os.PathLike))):
+                opened.append(os.path.abspath(os.fsdecode(args[0])))
+
+        sys.addaudithook(hook)
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        import voidin_tpu_torch as pt
+        from voidin_tpu_torch.examples import bvh_trace, ring_light
+        from voidin_tpu_torch.framework.renderer import Renderer
+        from voidin_tpu_torch.io.image import load_image
+        from voidin_tpu_torch.passes.raster import RasterConfig
+        import chip_smoke
+        for mod, name in ((bvh_trace, "bvh"), (ring_light, "ring")):
+            out = os.path.join(TMP, name + ".png")
+            mod.main(["--cpu", "--width", "48", "--height", "32", "--out",
+                      out])
+            img = load_image(out)
+            assert img.shape == (32, 48, 4) and img[..., :3].std() > 0
+        world = chip_smoke.config5_world(pt, skinned=True)
+        r = Renderer(world.device("cpu", with_tlas=True),
+                     RasterConfig(width=64, height=32, tri_capacity=1 << 17,
+                                  pair_capacity=1 << 15),
+                     enable_taa=False, enable_rt_shadows=True)
+        cam = pt.Camera(**chip_smoke.CONFIG5_CAMERA, aspect=2.0)
+        img = r.render(cam, joint_mats=chip_smoke.knot_joint_mats(1)).numpy()
+        assert np.isfinite(img).all() and img.std() > 0
+        assert int(r.aux["overflow"]) == 0 and int(r.aux["rt_exhausted"]) == 0
+        assert not any(k == "voidin_tpu" or k.startswith("voidin_tpu.")
+                       for k in sys.modules)
+        jax_pkg = os.path.join(ROOT, "voidin_tpu") + os.sep
+        bad = [p for p in opened if p.startswith(jax_pkg)]
+        assert not bad, bad
+        print("OK")
+    """).replace("ROOT", repr(ROOT)).replace("TMP", repr(str(tmp_path)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")
@@ -134,6 +189,8 @@ def test_cuda_device_without_a_card_raises():
         t_ltc.ltc_rect_terms(*_ltc_inputs("cuda"))
     with pytest.raises((RuntimeError, AssertionError)):
         t_st.occluded(*_trace_inputs("cuda"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_ch.closest_hit(*_closest_inputs("cuda"))
 
 
 def _ltc_inputs(device):
@@ -155,6 +212,15 @@ def _trace_inputs(device):
     return z(1, 16), 1, z(1, 24), z(1, 9), z(4, 3), z(4, 3)
 
 
+def _closest_inputs(device):
+    """(tlas_rows, blas_rows, instance_rows, tri_pos, origins, directions)
+    of one node each, one instance and one triangle, for 4 rays."""
+    def z(*shape):
+        return torch.zeros(*shape, device=device)
+
+    return z(1, 8), z(1, 8), z(1, 24), z(1, 9), z(4, 3), z(4, 3)
+
+
 def test_wrappers_take_no_other_device():
     rec = torch.zeros(384, 16, device="meta")
     st = torch.zeros(8, dtype=torch.int32, device="meta")
@@ -169,13 +235,15 @@ def test_wrappers_take_no_other_device():
         t_ltc.ltc_rect_terms(*_ltc_inputs("meta"))
     with pytest.raises(ValueError):
         t_st.occluded(*_trace_inputs("meta"))
+    with pytest.raises(ValueError):
+        t_ch.closest_hit(*_closest_inputs("meta"))
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(fused_resolve_rec=True),
     dict(area_light_scale=2),
     dict(mesh="rows"),
-    dict(skins=("skin",)),
+    dict(debug_bounds=True),
     dict(planar_resolve=True),
     dict(taa_quad_history=True),
 ])

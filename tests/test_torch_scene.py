@@ -31,21 +31,26 @@ from voidin_tpu_torch.framework.renderer import build_world as port_build_world
 from voidin_tpu_torch.scene import mesh as pt_mesh
 from voidin_tpu_torch.scene import scene as pt_scene_mod
 from voidin_tpu_torch.scene.scene import STATIC_FLAGS, scene_from_numpy
+from voidin_tpu_torch.scene.skin import skin_statics
 
 torch.set_num_threads(2)
 
 
 def jax_leaves(tree) -> dict:
-    """Pytree leaves as numpy arrays keyed by dotted attribute path."""
+    """Pytree leaves as numpy arrays keyed by dotted attribute path (a
+    tuple's entries by their index, as in "skins.0.rest_pos")."""
     return {
-        ".".join(p.name for p in path): np.asarray(leaf)
+        ".".join(str(p.name if hasattr(p, "name") else p.idx)
+                 for p in path): np.asarray(leaf)
         for path, leaf in jax.tree_util.tree_leaves_with_path(tree)
     }
 
 
 def port_scene(jax_scene, device="cpu"):
-    """The port's SceneData holding the very state of a JAX SceneData."""
+    """The port's SceneData holding the very state of a JAX SceneData,
+    its skins included."""
     statics = {k: getattr(jax_scene, k) for k in STATIC_FLAGS}
+    statics["skins"] = tuple(skin_statics(s) for s in jax_scene.skins)
     return scene_from_numpy(jax_leaves(jax_scene), statics, device)
 
 

@@ -8,8 +8,13 @@ capacities 2^19, moving instances, TAA), the same frame on the block path
 and with slim_rec + kernel_payload, the masked frame (the north star
 plus chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20) and
 the raytraced-shadow frame of config 5 (chip_smoke.config5_world, TLAS,
-no TAA) at rt_shadow_scale 1 and 2 through Renderer.render, overflow 0 on
-every frame, with CUDA events around each pass of render_frame, around
+no TAA) at rt_shadow_scale 1 and 2, and config 5 with its knot a 2-joint
+skin bent by a new pose each frame (config5_world(skinned=True),
+chip_smoke.knot_joint_mats) through Renderer.render, overflow 0 on
+every frame, with CUDA events around each pass of render_frame (the skin
+stage, apply_skins with its BLAS refit, and the TLAS refit), and the
+ring-light frame of examples/ring_light.py at 1920x1080 (its shading with
+K3's call and the three disk evaluations), around
 the resolve's per-pixel field evaluations (the dense (H, W) pass and the
 flat fallback batch), around the fused LTC kernel's call inside shade and
 around the shadow-ray kernel's call inside shade_raytraced (the ray
@@ -37,13 +42,18 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 import voidin_tpu_torch as pt  # noqa: E402
 from voidin_tpu_torch.framework import renderer as renderer_mod  # noqa: E402
+from voidin_tpu_torch.examples import ring_light  # noqa: E402
 from voidin_tpu_torch.ops import fine_raster as fr  # noqa: E402
+from voidin_tpu_torch.ops import lut_fetch  # noqa: E402
 from voidin_tpu_torch.ops import ltc_rect  # noqa: E402
 from voidin_tpu_torch.ops import shadow_trace  # noqa: E402
 from voidin_tpu_torch.passes import raster, resolve  # noqa: E402
 
 STAGES = [
     (renderer_mod.update_pass, "compute_update", "update"),
+    (renderer_mod.skin_mod, "apply_skins", "skin"),
+    (renderer_mod.skin_mod, "refit_blas", "  BLAS refit"),
+    (renderer_mod.skin_mod, "refit_tlas", "TLAS refit"),
     (renderer_mod.cull_pass, "emit_draws", "cull + LOD"),
     (raster, "rasterize", "raster"),
     (raster, "triangle_setup", "  triangle setup"),
@@ -59,8 +69,14 @@ STAGES = [
     (ltc_rect, "ltc_rect_terms", "  LTC rect, fused kernel"),
     (renderer_mod.shading_pass, "shade_raytraced", "shade, raytraced"),
     (shadow_trace, "occluded", "  shadow rays, kernel"),
+    (renderer_mod.shading_pass, "shade_ring_light", "shade, ring light"),
+    (renderer_mod.shading_pass, "ltc_matrix", "  LTC matrix"),
+    (lut_fetch, "lut_fetch", "    K3 LUT fetch"),
+    (renderer_mod.shading_pass, "ltc_evaluate_disk",
+     "  disk evaluation, each of 3"),
     (renderer_mod.taa_pass, "taa", "taa"),
     (renderer_mod.post_pass, "postprocess", "postprocess"),
+    (ring_light, "postprocess", "postprocess"),
 ]
 EVENTS = collections.defaultdict(list)
 
@@ -87,9 +103,11 @@ def instrument():
         setattr(mod, fn_name, timed)
 
 
-def split(label, world, moving, cfg, frames, card, cam=None, **options):
+def split(label, world, moving, cfg, frames, card, cam=None,
+          joint_mats=None, **options):
     """Renders `frames` frames with Renderer(**options) at `cam` (default
-    the north-star camera) and prints each stage's median."""
+    the north-star camera), frame i posed by `joint_mats(i)`, and prints
+    each stage's median."""
     EVENTS.clear()
     scene = world.device("cuda",
                          with_tlas=options.get("enable_rt_shadows", False))
@@ -100,11 +118,33 @@ def split(label, world, moving, cfg, frames, card, cam=None, **options):
         if i == 2:  # frames 1-2 warm up: drop their events
             EVENTS.clear()
         t0 = time.perf_counter()
-        r.render(cam)
+        r.render(cam, joint_mats=None if joint_mats is None
+                 else joint_mats(i))
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         if int(r.aux["overflow"]):
             sys.exit(f"{label}: frame {i} overflowed")
+    report(label, walls, frames, card)
+
+
+def ring_split(frames, card):
+    """The ring-light frame (examples/ring_light.py render) at 1920x1080,
+    `frames` frames, each stage's median as split prints it."""
+    EVENTS.clear()
+    scene = ring_light.ring_world().device("cuda")
+    walls = []
+    for i in range(frames):
+        if i == 2:
+            EVENTS.clear()
+        t0 = time.perf_counter()
+        ring_light.render(scene, chip_smoke.WIDTH, chip_smoke.HEIGHT,
+                          tri_capacity=1 << 16, pair_capacity=1 << 19)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    report("ring light", walls, frames, card)
+
+
+def report(label, walls, frames, card):
     ms = {k: float(np.median([s.elapsed_time(e) for s, e in v]))
           for k, v in EVENTS.items()}
     print(f"{label}: host-clock median {np.median(walls[2:]):.3f} ms/frame "
@@ -181,6 +221,11 @@ def main():
         split(f"config 5, rt_shadow_scale {scale}", chip_smoke.config5_world(
             pt), None, rt_cfg, args.frames, card, cam=rt_cam,
             enable_taa=False, enable_rt_shadows=True, rt_shadow_scale=scale)
+    split("config 5, skinned knot", chip_smoke.config5_world(
+        pt, skinned=True), None, rt_cfg, args.frames, card, cam=rt_cam,
+        joint_mats=chip_smoke.knot_joint_mats, enable_taa=False,
+        enable_rt_shadows=True)
+    ring_split(args.frames, card)
 
 
 if __name__ == "__main__":

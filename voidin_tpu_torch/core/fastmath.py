@@ -45,6 +45,41 @@ def cross(a, b):
     return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], dim=-1)
 
 
+def _fma(a, b, c):
+    """fma(a, b, c) in f32, emulated in f64 where a * b is exact."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def dot_fma(a, b):
+    """jnp.sum(a * b, axis=-1) as XLA compiles it inside a jitted function
+    on the CPU: the sequential fused chain
+    fma(a_n, b_n, ... fma(a1, b1, a0 * b0))."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = _fma(a[..., k], b[..., k], acc)
+    return acc
+
+
+def _row3_fma(m, i, v):
+    # XLA contracts m0 v0 + m1 v1 + m2 v2 into
+    # fma(m2, v2, fma(m0, v0, m1 * v1))
+    return _fma(m[..., i, 2], v[..., 2],
+                _fma(m[..., i, 0], v[..., 0], m[..., i, 1] * v[..., 1]))
+
+
+def mat3_vec_fma(m, v):
+    """mat3_vec as jitted JAX code rounds it (see _row3_fma)."""
+    return torch.stack([_row3_fma(m, i, v) for i in range(3)], dim=-1)
+
+
+def mat4_point_fma(m, p):
+    """mat4_point as jitted JAX code rounds it: the mat3_vec_fma rows plus
+    the translation."""
+    return torch.stack([_row3_fma(m, i, p) + m[..., i, 3]
+                        for i in range(3)], dim=-1)
+
+
 def mat3_vec(m, v):
     """(..., 3, 3) @ (..., 3) -> (..., 3), elementwise."""
     return torch.stack(

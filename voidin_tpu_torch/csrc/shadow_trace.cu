@@ -50,101 +50,15 @@
 // copy and four ints, all in registers.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "ray_math.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRowFloats = 16;
 constexpr int kInstFloats = 24;
-
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-
-// jnp.maximum / jnp.minimum (and torch.maximum / minimum / amax / amin):
-// NaN in either operand gives NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v_sub(V3 a, V3 b) {
-  return {sub(a.x, b.x), sub(a.y, b.y), sub(a.z, b.z)};
-}
-// fastmath.sum3(a * b) = (a0 b0 + a1 b1) + a2 b2
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return add(add(mul(a.x, b.x), mul(a.y, b.y)), mul(a.z, b.z));
-}
-// fastmath.cross component a_j b_k - a_k b_j: the second product rounded
-// to f32, the difference taken in f64 and rounded to f32.
-__device__ __forceinline__ float cross_comp(float aj, float bk, float ak,
-                                            float bj) {
-  const double s = (double)mul(ak, bj);
-  return __double2float_rn(__dsub_rn(__dmul_rn((double)aj, (double)bk), s));
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {cross_comp(a.y, b.z, a.z, b.y), cross_comp(a.z, b.x, a.x, b.z),
-          cross_comp(a.x, b.y, a.y, b.x)};
-}
-// rt/traverse.py inv_direction: 1 / where(|d| > 1e-20, d, 1e-20)
-__device__ __forceinline__ float inv_guarded(float d) {
-  return __frcp_rn(fabsf(d) > 1e-20f ? d : 1e-20f);
-}
-__device__ __forceinline__ V3 inv_direction(V3 d) {
-  return {inv_guarded(d.x), inv_guarded(d.y), inv_guarded(d.z)};
-}
-
-// rt/traverse.py _slab (intersections.wgsl:13-24)
-__device__ __forceinline__ bool slab(V3 o, V3 inv, V3 bmin, V3 bmax,
-                                     float t_max) {
-  const float x1 = mul(sub(bmin.x, o.x), inv.x);
-  const float y1 = mul(sub(bmin.y, o.y), inv.y);
-  const float z1 = mul(sub(bmin.z, o.z), inv.z);
-  const float x2 = mul(sub(bmax.x, o.x), inv.x);
-  const float y2 = mul(sub(bmax.y, o.y), inv.y);
-  const float z2 = mul(sub(bmax.z, o.z), inv.z);
-  const float hi =
-      min_nan(min_nan(max_nan(x1, x2), max_nan(y1, y2)), max_nan(z1, z2));
-  const float lo =
-      max_nan(max_nan(min_nan(x1, x2), min_nan(y1, y2)), min_nan(z1, z2));
-  return hi >= lo && lo < t_max && hi > 0.0f;
-}
-
-// rt/traverse.py _tri_hit: backface-culled Moller-Trumbore
-// (intersections.wgsl:26-45) on one (9,) corner row.
-__device__ __forceinline__ bool tri_hit(V3 o, V3 d,
-                                        const float* __restrict__ tri,
-                                        float t_max) {
-  const V3 v0 = {__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2)};
-  const V3 v1 = {__ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5)};
-  const V3 v2 = {__ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8)};
-  const V3 e1 = v_sub(v1, v0);
-  const V3 e2 = v_sub(v2, v0);
-  const V3 uvec = cross(d, e2);
-  const float det = dot(e1, uvec);
-  const float inv_det = __frcp_rn(fabsf(det) > 1e-20f ? det : 1e-20f);
-  const V3 orig = v_sub(o, v0);
-  const float u = mul(inv_det, dot(orig, uvec));
-  const V3 vvec = cross(orig, e1);
-  const float v = mul(inv_det, dot(d, vvec));
-  const float t = mul(inv_det, dot(e2, vvec));
-  return det >= 1e-10f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-         add(u, v) <= 1.0f && t > 0.0f && t < t_max;
-}
 
 __global__ void __launch_bounds__(kThreads)
 shadow_trace_kernel(const float* __restrict__ table, int n_tlas,

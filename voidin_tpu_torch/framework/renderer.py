@@ -11,12 +11,14 @@ history) around it.
 
 The Renderer switches the runner-up raster and the alpha fallback on for
 an alpha-masked scene (RasterConfig.alpha_mask, from
-SceneData.alpha_masked). It raises NotImplementedError for what the port
-does not carry: skins, area_light_scale > 1, a device mesh, the JAX
-package's gather-economy RasterConfig options, and slim_rec on a scene
-outside its envelope (where the JAX package falls back to
-fused_resolve_rec + inst_rec_f16). A frame with raytraced shadows on a
-scene without a TLAS raises ValueError.
+SceneData.alpha_masked). A scene with skinning regions (SceneData.skins)
+is skinned each frame from the joint matrices ``Renderer.render`` takes,
+and its BLAS and TLAS refit; rendering it without them raises ValueError,
+as does a frame with raytraced shadows on a scene without a TLAS. It
+raises NotImplementedError for what the port does not carry:
+area_light_scale > 1, a device mesh, the JAX package's gather-economy
+RasterConfig options, and slim_rec on a scene outside its envelope (where
+the JAX package falls back to fused_resolve_rec + inst_rec_f16).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..passes import taa as taa_pass
 from ..passes import update as update_pass
 from ..passes.raster import RasterConfig
 from ..scene import mesh as mesh_mod
+from ..scene import skin as skin_mod
 from ..scene.scene import SceneData, World
 from ..scene.texture import linear_to_srgb
 
@@ -90,15 +93,28 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
                  state: FrameState, moving_ids: torch.Tensor,
                  config: RasterConfig, enable_cull: bool = True,
                  enable_taa: bool = True, enable_post: bool = True,
-                 enable_rt_shadows: bool = False, rt_shadow_scale: int = 1):
+                 enable_rt_shadows: bool = False, rt_shadow_scale: int = 1,
+                 joint_mats=None):
     """Full frame. Returns (srgb_image, state, scene, aux). The moving
     instances' transforms and the TAA history update in place. Without
     post the frame is the sRGB of the HDR (no sharpen, no tonemap). With
     raytraced shadows aux also holds rt_exhausted (shadow rays still
-    walking at the step limit) and rt_rays (shadow rays traced)."""
-    # 1. compute_update: animate moving instances
+    walking at the step limit) and rt_rays (shadow rays traced).
+    `joint_mats` ((J, 4, 4) world-joint @ inverse-bind, composed on the
+    host each frame) drives the scene's skinning regions: the returned
+    scene holds the skinned pool tables and the refit BLAS and TLAS."""
+    # 1. compute_update: animate moving instances; skinning recomputes the
+    # skinned pool ranges from the joint matrices
     update_pass.compute_update(scene.instances, moving_ids, globals_.time,
                                globals_.dt)
+    if scene.skins and joint_mats is not None:
+        scene = dataclasses.replace(scene, meshes=skin_mod.apply_skins(
+            scene.meshes, scene.skins, joint_mats))
+        if scene.tlas is not None:
+            # the skinned AABBs moved: refit the TLAS so traced shadows
+            # follow the pose (the BLAS refit ran in apply_skins)
+            scene = dataclasses.replace(scene, tlas=skin_mod.refit_tlas(
+                scene.tlas, scene.meshes, scene.instances))
     # 2. emit_draws: frustum cull + LOD select + compaction
     if enable_cull:
         draws = cull_pass.emit_draws(scene.meshes, scene.instances, camera)
@@ -160,12 +176,9 @@ class Renderer:
         area_light_scale: int = 1,
         moving_ids: Optional[np.ndarray] = None,
         mesh=None,
-        skins=(),
         **options,
     ):
         unsupported = []
-        if skins:
-            unsupported.append("skins")
         if area_light_scale != 1:
             unsupported.append("area_light_scale > 1")
         if mesh is not None:
@@ -209,7 +222,20 @@ class Renderer:
         self._prev_uniform = None
         self.aux = None
 
-    def render(self, camera: Camera, dt: float = 1.0 / 60.0) -> torch.Tensor:
+    def render(self, camera: Camera, dt: float = 1.0 / 60.0,
+               joint_mats=None) -> torch.Tensor:
+        """One frame at `camera`; `joint_mats` ((J, 4, 4), array or
+        tensor) poses the scene's skins and is required when it has
+        any. The Renderer's scene keeps the rest pose: every frame skins
+        it anew."""
+        if self.scene.skins:
+            if joint_mats is None:
+                raise ValueError("scene has skinning regions: pass "
+                                 "joint_mats")
+            jm = torch.as_tensor(joint_mats, dtype=torch.float32,
+                                 device=self.device)
+        else:
+            jm = torch.zeros(0, 4, 4, device=self.device)
         if self.enable_taa:
             camera.jitter = self.jitter.get_jitter(
                 self.frame_count, self.config.width, self.config.height
@@ -218,12 +244,12 @@ class Renderer:
         self._prev_uniform = uniform
         globals_ = Globals.make(self.config.width, self.config.height,
                                 frame=self.frame_count, time=self.time, dt=dt)
-        img, self.state, self.scene, self.aux = render_frame(
+        img, self.state, _, self.aux = render_frame(
             self.scene, uniform, globals_, self.state, self.moving_ids,
             self.config, enable_cull=self.enable_cull,
             enable_taa=self.enable_taa, enable_post=self.enable_post,
             enable_rt_shadows=self.enable_rt_shadows,
-            rt_shadow_scale=self.rt_shadow_scale,
+            rt_shadow_scale=self.rt_shadow_scale, joint_mats=jm,
         )
         self.frame_count += 1
         self.time += dt

@@ -10,10 +10,10 @@ with ctypes:
          -o _build/libvoidin_kernels_<hash>.so _build/*.o
 
 The library lands in ``voidin_tpu_torch/_build/`` (git-ignored), named by a
-hash of the sources and flags, so an edited kernel rebuilds and an
-unchanged one loads as is. ``-fmad=false`` keeps every multiply and add
-separately rounded, as the plain PyTorch twins compute them: the kernels
-are then bit-comparable with their twins.
+hash of the sources, the headers they share and the flags, so an edited
+kernel rebuilds and an unchanged one loads as is. ``-fmad=false`` keeps
+every multiply and add separately rounded, as the plain PyTorch twins
+compute them: the kernels are then bit-comparable with their twins.
 
 Nothing here runs at import time; the first kernel launch builds.
 """
@@ -54,7 +54,8 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for src in _sources() + headers:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -143,6 +144,9 @@ def load() -> ctypes.CDLL:
         lib.voidin_shadow_trace.restype = i
         lib.voidin_shadow_trace.argtypes = [p, i, p, p, p, p, p, i64,
                                             ctypes.c_float, i, p, p, p]
+        lib.voidin_closest_hit.restype = i
+        lib.voidin_closest_hit.argtypes = [p, p, p, p, p, p, p, i64, i, p, p,
+                                           p, p, p]
         lib.voidin_error_string.restype = ctypes.c_char_p
         lib.voidin_error_string.argtypes = [i]
         _lib = lib

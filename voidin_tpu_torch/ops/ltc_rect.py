@@ -52,14 +52,17 @@ def integrate_edge(v1, v2):
     return _cross(v1, v2) * theta_sintheta[..., None]
 
 
-def ltc_matrix(ltc1, ltc2, nor, view, roughness, bf16=False):
-    """ltc.wgsl:160-177: fetch inverse-M + the LTC2 norm/fresnel texel."""
+def ltc_matrix(ltc1, ltc2, nor, view, roughness, bf16=False,
+               fetch=lut_fetch_reference):
+    """ltc.wgsl:160-177: fetch inverse-M + the LTC2 norm/fresnel texel
+    through `fetch` (K3's twin, or passes/shading.py's K3 launch).
+    Returns (minv (..., 3, 3), t1 (..., 4), t2.x (...,))."""
     ndotv = torch.clamp(fastmath.sum3(nor * view), 0.0, 1.0)
     uv = torch.stack([roughness, fastmath.sqrt(1.0 - ndotv)], dim=-1)
     uv = uv * LUT_SCALE + LUT_BIAS
     # Only 5 of the 8 packed channels are consumed (t1.xyzw + t2.x).
     chans = [ltc1[..., c] for c in range(4)] + [ltc2[..., 0]]
-    vals = lut_fetch_reference(chans, uv, bf16=bf16)
+    vals = fetch(chans, uv, bf16=bf16)
     t1 = torch.stack(vals[:4], dim=-1)
     zero = torch.zeros_like(vals[4])
     one = torch.ones_like(zero)
@@ -73,7 +76,7 @@ def ltc_matrix(ltc1, ltc2, nor, view, roughness, bf16=False):
         ],
         dim=-2,
     )
-    return minv, t2x
+    return minv, t1, t2x
 
 
 def ltc_evaluate_rect(ltc2, nor, view, pos, mminv, points, bf16=False):
@@ -107,7 +110,7 @@ def ltc_rect_terms_reference(nor, rd, pos, roughness, area_points, ltc1,
     """Plain PyTorch twin of the fused kernel: ltc_matrix, then per light
     ltc_evaluate_rect with the identity (diffuse) and with the fetched
     matrix (specular, times t2.x). Returns (diff, spec), each (L, ...)."""
-    minv, t2x = ltc_matrix(ltc1, ltc2, nor, rd, roughness, bf16=bf16)
+    minv, _, t2x = ltc_matrix(ltc1, ltc2, nor, rd, roughness, bf16=bf16)
     identity = torch.eye(3, dtype=torch.float32,
                          device=nor.device).expand(minv.shape)
     diffs, specs = [], []

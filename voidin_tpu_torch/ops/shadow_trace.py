@@ -25,7 +25,8 @@ from ..rt.traverse import (MAX_LEAF, MAX_STEPS, OcclusionResult,
 LAUNCHES = 0  # kernel launches (CUDA path only)
 
 
-def _check(name, t, cols, dtype, device):
+def check_rows(name, t, cols, dtype, device):
+    """Raises unless `t` is an (n, cols) `dtype` tensor on `device`."""
     if (t.device != device or t.dtype != dtype or t.dim() != 2
             or t.shape[1] != cols):
         raise ValueError(f"{name} must be (n, {cols}) {dtype} on {device}, "
@@ -53,11 +54,11 @@ def occluded(table, n_tlas, instance_rows, tri_pos, origins, directions,
     dev = origins.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check("table", table, 16, torch.float32, dev)
-    _check("instance_rows", instance_rows, 24, torch.float32, dev)
-    _check("tri_pos", tri_pos, 9, torch.float32, dev)
-    _check("origins", origins, 3, torch.float32, dev)
-    _check("directions", directions, 3, torch.float32, dev)
+    check_rows("table", table, 16, torch.float32, dev)
+    check_rows("instance_rows", instance_rows, 24, torch.float32, dev)
+    check_rows("tri_pos", tri_pos, 9, torch.float32, dev)
+    check_rows("origins", origins, 3, torch.float32, dev)
+    check_rows("directions", directions, 3, torch.float32, dev)
     R = origins.shape[0]
     if directions.shape[0] != R:
         raise ValueError("origins and directions differ in length")

@@ -26,6 +26,16 @@ first child, a miss to its exit link; a TLAS leaf hit transforms the ray
 by the instance's inverse, saves the leaf's exit in ``resume`` and enters
 the BLAS root; a BLAS leaf hit tests its triangles; a BLAS exit of 0
 resumes at the saved TLAS exit. No stack, so nothing overflows.
+
+Closest hit (JAX ``closest_hit``, the src/bin/bvh_trace.wgsl demo) cannot
+stop at a hit, and its slab tests bound by the best t so far, so its node
+visits depend on the visiting order. The port keeps JAX's per-ray stack
+walk and its push order (left, right; then the BLAS root; then the BLAS
+children left + 1, left + 2) over the row layouts of ``scene_rays``
+(``pack_tlas_rows``, ``pack_blas_rows``), so t, the visit counts and the
+overflow and exhausted counters are JAX's: the kernel in
+``csrc/closest_hit.cu``, reached through ``ops/closest_hit.py
+closest_hit``, and its plain version here, ``closest_hit_reference``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import torch
 
 from ..core import fastmath
 
+MAX_DIST = 1e30
+STACK = 48  # closest_hit's per-ray stack entries
 MAX_LEAF = 8  # builder leaves are <= 3 except degenerate fallbacks
 # The walk visits each node at most once per instance it enters, and
 # enters each instance at most once: a ray takes at most n_tlas + the sum of
@@ -49,6 +61,14 @@ class OcclusionResult(NamedTuple):
     hit: torch.Tensor  # (R,) bool
     overflow: torch.Tensor  # () i32, always 0: the walk has no stack
     exhausted: torch.Tensor  # () i32, rays still live at max_steps
+
+
+class ClosestHitResult(NamedTuple):
+    t: torch.Tensor  # (R,) f32 hit distance in |direction| units, t_max on
+    # a miss
+    visits: torch.Tensor  # (R,) i32 stack pops (the demo's heat overlay)
+    overflow: torch.Tensor  # () i32 pushes dropped on a full stack
+    exhausted: torch.Tensor  # () i32 rays with a stack left at max_steps
 
 
 class WalkCounts(NamedTuple):
@@ -77,6 +97,53 @@ def pack_instance_rows(inv_transform, mesh_bvh_index, mesh_base_index,
     )
 
 
+def _refuse_big_leaves(max_leaf):
+    if max_leaf > MAX_LEAF:
+        raise ValueError(
+            f"BLAS leaf with {max_leaf} tris exceeds MAX_LEAF={MAX_LEAF}; "
+            "traversal would miss intersections (build with "
+            "build_bvh=True)")
+
+
+def pack_blas_rows(bvh_min, bvh_max, left_first, count):
+    """(B, 8) f32 BLAS rows [min3, left_first, max3, count] (leaf iff
+    count > 0). Leaves above MAX_LEAF (a pool built with build_bvh=False)
+    are refused, as the JAX package's pack_blas_rows refuses them."""
+    if count.numel():
+        _refuse_big_leaves(int(count.max()))
+    return torch.cat(
+        [bvh_min, left_first.to(torch.float32)[:, None], bvh_max,
+         count.to(torch.float32)[:, None]], dim=-1).contiguous()
+
+
+def pack_tlas_rows(tlas_min, tlas_max, left_right, instance):
+    """(B, 8) f32 TLAS rows [min3, a, max3, b]: internal a = left, b =
+    right child; leaf a = -1, b = instance."""
+    lr = left_right.to(torch.int64) & 0xFFFFFFFF  # u32 bits in int32
+    is_leaf = lr == 0
+    a = torch.where(is_leaf, -1.0, (lr & 0xFFFF).to(torch.float32))
+    b = torch.where(is_leaf, instance.to(torch.float32),
+                    (lr >> 16).to(torch.float32))
+    return torch.cat([tlas_min, a[:, None], tlas_max, b[:, None]],
+                     dim=-1).contiguous()
+
+
+def scene_rays(scene):
+    """(tlas_rows, blas_rows, instance_rows, tri_pos) of a SceneData with a
+    TLAS: closest_hit's tables."""
+    m, t = scene.meshes, scene.tlas
+    if t is None:
+        raise ValueError("ray queries need the TLAS: build the scene with "
+                         "World.device(with_tlas=True)")
+    blas = pack_blas_rows(m.bvh_min, m.bvh_max, m.bvh_left_first,
+                          m.bvh_count)
+    tlas = pack_tlas_rows(t.tlas_min, t.tlas_max, t.tlas_left_right,
+                          t.tlas_instance)
+    inst = pack_instance_rows(scene.instances.inv_transform, m.bvh_index,
+                              m.base_index, scene.instances.mesh_id)
+    return tlas, blas, inst, m.tri_pos
+
+
 def pack_threaded_table(tlas_min, tlas_max, tlas_left_right, tlas_instance,
                         tlas_exit, blas_min, blas_max, blas_left_first,
                         blas_count, blas_exit, max_leaf):
@@ -89,11 +156,7 @@ def pack_threaded_table(tlas_min, tlas_max, tlas_left_right, tlas_instance,
     `max_leaf` is the pool's largest leaf (MeshPoolData.bvh_max_leaf):
     leaves above MAX_LEAF (a pool built with build_bvh=False) are refused,
     as the JAX package's pack_blas_rows refuses them."""
-    if max_leaf > MAX_LEAF:
-        raise ValueError(
-            f"BLAS leaf with {max_leaf} tris exceeds MAX_LEAF={MAX_LEAF}; "
-            "traversal would miss intersections (build with "
-            "build_bvh=True)")
+    _refuse_big_leaves(max_leaf)
     # left_right carries u32 bits in int32: unpack in int64
     lr = tlas_left_right.to(torch.int64) & 0xFFFFFFFF
     left = (lr & 0xFFFF).to(torch.float32)
@@ -164,6 +227,26 @@ def _tri_hit(o, d, v0, v1, v2, t_max):
     t = inv_det * fastmath.sum3(e2 * vvec)
     return ((det >= 1e-10) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
             & (u + v <= 1.0) & (t > 0.0) & (t < t_max))
+
+
+def _tri_t(o, d, v0, v1, v2):
+    """Hit distance, -1 on a miss (JAX traverse.py _tri_t), rounded as the
+    JAX closest_hit loop rounds it: XLA fuses each jnp.sum(a * b) of the
+    jitted loop body into a chain of fused multiply-adds
+    (fastmath.dot_fma), where _tri_hit's twin keeps plain sums."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    uvec = fastmath.cross(d, e2)
+    det = fastmath.dot_fma(e1, uvec)
+    inv_det = 1.0 / torch.where(det.abs() > 1e-20, det, 1e-20)
+    orig = o - v0
+    u = inv_det * fastmath.dot_fma(orig, uvec)
+    vvec = fastmath.cross(orig, e1)
+    v = inv_det * fastmath.dot_fma(d, vvec)
+    t = inv_det * fastmath.dot_fma(e2, vvec)
+    ok = ((det >= 1e-10) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0))
+    return torch.where(ok, t, -1.0)
 
 
 def occluded_reference(table, n_tlas, instance_rows, tri_pos, origins,
@@ -254,3 +337,116 @@ def occluded_reference(table, n_tlas, instance_rows, tri_pos, origins,
         exhausted=torch.tensor(live.numel(), dtype=torch.int32, device=dev),
     )
     return res, WalkCounts(visits, entries, tests)
+
+
+def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
+                          origins, directions, t_max=MAX_DIST,
+                          max_steps=2048, active=None):
+    """Plain PyTorch version of csrc/closest_hit.cu: JAX closest_hit's
+    per-ray stack walk, run in lock-step over the rays whose stack is not
+    empty (one pop per ray and step) until none is left or `max_steps`
+    steps are taken. Tables from scene_rays; (R, 3) origins and
+    directions, not normalized; `t_max` a float or (R,) f32, in units of
+    |direction|; inactive rays (`active` False) walk nothing.
+
+    A pop of TLAS node n runs the world-space slab test against the ray's
+    best t so far; a hit on an internal node pushes its left child, then
+    its right; on a leaf it moves the ray into the instance's object
+    space and pushes the BLAS root. A pop of BLAS node n runs the
+    object-space slab test; a hit on a leaf takes each of its triangles
+    whose t lies in (0, best t); on an internal node it pushes the
+    children left + 1, then left + 2 (mesh-local, offset by the BLAS
+    base). A push onto a full stack (STACK entries) is dropped and counted
+    in `overflow`. Returns (ClosestHitResult, WalkCounts)."""
+    dev = origins.device
+    R = origins.shape[0]
+    i64 = torch.int64
+    t = torch.as_tensor(t_max, dtype=torch.float32,
+                        device=dev).expand(R).clone()
+    inv0 = inv_direction(directions)
+    co, cd, cinv = origins.clone(), directions.clone(), inv0.clone()
+    tri_base = torch.zeros(R, dtype=i64, device=dev)
+    bvh_base = torch.zeros(R, dtype=i64, device=dev)
+    visits = torch.zeros(R, dtype=torch.int32, device=dev)
+    stack = torch.zeros(R, STACK, dtype=i64, device=dev)
+    stack[:, 0] = 1
+    sp = torch.ones(R, dtype=i64, device=dev)
+    if active is not None:
+        sp = torch.where(active, sp, 0)
+    overflow = 0
+    n_visits = entries = tests = 0
+
+    def push(rows, value):
+        nonlocal overflow
+        full = sp[rows] >= STACK
+        overflow += int(full.sum())
+        rows, value = rows[~full], value[~full]
+        stack[rows, sp[rows]] = value
+        sp[rows] += 1
+
+    steps = 0
+    live = torch.nonzero(sp > 0).flatten()
+    while live.numel() and steps < max_steps:
+        steps += 1
+        sp[live] -= 1
+        entry = stack[live, sp[live]]
+        visits[live] += 1
+        n_visits += live.numel()
+
+        # TLAS pops: slab in world space; internal -> left, right; leaf ->
+        # enter the instance
+        tl = live[entry > 0]
+        trow = tlas_rows[entry[entry > 0] - 1]
+        hit = _slab(origins[tl], inv0[tl], trow[:, 0:3], trow[:, 4:7],
+                    t[tl])
+        leaf = trow[:, 3] < 0.0
+        inner = tl[hit & ~leaf]
+        if inner.numel():
+            rows = trow[hit & ~leaf]
+            push(inner, rows[:, 3].to(i64) + 1)
+            push(inner, rows[:, 7].to(i64) + 1)
+        e = tl[hit & leaf]
+        if e.numel():
+            irow = instance_rows[trow[hit & leaf][:, 7].to(i64)]
+            inv_t = irow[:, :16].reshape(-1, 4, 4)
+            co[e] = fastmath.mat4_point_fma(inv_t, origins[e])
+            cd[e] = fastmath.mat3_vec_fma(inv_t[:, :3, :3], directions[e])
+            cinv[e] = inv_direction(cd[e])
+            bvh_base[e] = irow[:, 16].to(i64)
+            tri_base[e] = irow[:, 17].to(i64)
+            push(e, -(bvh_base[e] + 1))
+            entries += e.numel()
+
+        # BLAS pops: slab in object space; leaf -> its triangles; internal
+        # -> the children left + 1, left + 2
+        bl = live[entry < 0]
+        brow = blas_rows[-entry[entry < 0] - 1]
+        hit = _slab(co[bl], cinv[bl], brow[:, 0:3], brow[:, 4:7], t[bl])
+        count = brow[:, 7].to(i64)
+        left = brow[:, 3].to(i64)
+        inner = hit & (count <= 0)
+        ib = bl[inner]
+        if ib.numel():
+            push(ib, -(bvh_base[ib] + left[inner] + 1))
+            push(ib, -(bvh_base[ib] + left[inner] + 2))
+        lf = hit & (count > 0)
+        lr = bl[lf]
+        if lr.numel():
+            first = tri_base[lr] + left[lf]
+            cnt = count[lf]
+            best = t[lr]
+            for k in range(int(cnt.max())):
+                m = k < cnt
+                tests += int(m.sum())
+                tri = tri_pos[torch.where(m, first + k, 0)]
+                th = _tri_t(co[lr], cd[lr], tri[:, 0:3], tri[:, 3:6],
+                            tri[:, 6:9])
+                best = torch.where(m & (th > 0.0) & (th < best), th, best)
+            t[lr] = best
+        live = live[sp[live] > 0]
+    res = ClosestHitResult(
+        t=t, visits=visits,
+        overflow=torch.tensor(overflow, dtype=torch.int32, device=dev),
+        exhausted=(sp > 0).sum().to(torch.int32),
+    )
+    return res, WalkCounts(n_visits, entries, tests)

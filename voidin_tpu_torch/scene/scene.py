@@ -13,6 +13,10 @@ a JAX SceneData, so both packages render the very same state.
 
 ``World.device(with_tlas=True)`` also builds the TLAS over the instances'
 world AABBs (``TlasData``), which the raytraced shadows walk.
+
+``World.skins`` holds the scene's skinning regions (``scene/skin.py``
+SkinData); ``SceneData.skins`` carries them to the device, leaves keyed
+"skins.<i>.<field>" and their static fields under ``statics["skins"]``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from . import texture as tex_mod
 from .instance import INSTANCE_LEAVES, InstanceData, InstancePool
 from .light import LIGHT_LEAVES, LightData, LightPool
 from .ltc import load_ltc_tables
+from .skin import skin_from_numpy, skin_leaves, skin_statics
 from .material import LIGHT_MATERIAL, MATERIAL_LEAVES, MaterialData, MaterialPool
 from .mesh import VERTICAL_PLANE_MESH, MeshPool, MeshPoolData
 from .texture import TexturePool, TexturePoolData
@@ -102,6 +107,9 @@ class SceneData:
     normal_srgb: Optional[bool] = None
     emissive_srgb: Optional[bool] = None
     mr_srgb: Optional[bool] = None
+    # Vertex skinning regions (scene/skin.py SkinData), each recomputing
+    # its pool triangle range from the frame's joint matrices
+    skins: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -111,8 +119,10 @@ class SceneData:
 def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
     """SceneData on `device` from numpy leaves keyed by dotted path plus
     the static flags of STATIC_FLAGS. The TLAS comes along where the
-    leaves hold one ("tlas.*"). Extra leaves (LUT quad tables, tap-block
-    tables, the pool's vertex streams) are ignored: no pass reads them."""
+    leaves hold one ("tlas.*"), and skin i where they hold "skins.<i>.*",
+    with its static fields from statics["skins"][i]. Extra leaves (LUT
+    quad tables, tap-block tables, the pool's vertex streams) are ignored:
+    no pass reads them."""
     device = torch.device(device)
 
     def group(prefix):
@@ -132,6 +142,8 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
     ltc2 = torch.as_tensor(np.array(leaves["ltc2"], np.float32),
                            device=device)
     flags = {k: statics[k] for k in STATIC_FLAGS if k in statics}
+    skins = tuple(skin_from_numpy(group(f"skins.{i}"), st, device)
+                  for i, st in enumerate(statics.get("skins", ())))
     return SceneData(
         meshes=mesh_mod.pool_from_numpy(group("meshes"), device),
         instances=InstanceData(**tensors("instances", INSTANCE_LEAVES)),
@@ -142,6 +154,7 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
         ltc2=ltc2,
         tlas=(tlas_from_numpy(group("tlas"), device)
               if "tlas.tlas_min" in leaves else None),
+        skins=skins,
         **flags,
     )
 
@@ -155,6 +168,19 @@ class World:
         self.materials = MaterialPool()
         self.lights = LightPool()
         self.textures = TexturePool(base_size=texture_base_size)
+        self.skins: list = []  # SkinData entries (scene/skin.py)
+        self._n_joints = 0
+
+    def allocate_joints(self, n: int) -> int:
+        """Reserve n rows in the frame's concatenated joint-matrix array;
+        returns the skin's offset."""
+        off = self._n_joints
+        self._n_joints += int(n)
+        return off
+
+    @property
+    def total_joints(self) -> int:
+        return self._n_joints
 
     def add_area_light(self, color, intensity, wh, transform):
         """Adds the light and an emissive quad instance (app.rs:220-236)."""
@@ -228,6 +254,8 @@ class World:
         )
         if with_tlas:
             parts["tlas"] = self.build_tlas()
+        for i, skin in enumerate(self.skins):
+            parts[f"skins.{i}"] = skin_leaves(skin)
         for prefix, arrays in parts.items():
             for k, v in arrays.items():
                 leaves[f"{prefix}.{k}"] = v
@@ -246,6 +274,7 @@ class World:
             normal_srgb=self._slot_srgb_static(mats.normal),
             emissive_srgb=self._slot_srgb_static(mats.emissive),
             mr_srgb=self._slot_srgb_static(mats.metallic_roughness),
+            skins=tuple(skin_statics(s) for s in self.skins),
         )
 
     def device(self, device="cuda", with_tlas: bool = False) -> SceneData:
