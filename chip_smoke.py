@@ -57,7 +57,7 @@ compiler), then:
      on the card against tests/golden/rt_shadows.png and the CPU twins
      (mean 5e-3); the shadow-ray kernel against its twin on the
      adversarial ray sets of shadow_edge_case (every hit equal, nothing
-     exhausted); then config 5 (config5_world, 1920x1080, TLAS, no TAA),
+     exhausted); then config 5 (config5_preset, 1920x1080, TLAS, no TAA),
      printing the BVH builder and the host's BLAS / TLAS build times: 12
      frames at rt_shadow_scale 1 and 12 at 2 (overflow 0, no shadow ray
      at the step limit, K1 and the shadow kernel launched once a frame),
@@ -80,14 +80,44 @@ compiler), then:
      on the card against tests/golden/ring_light.png and the CPU twins
      (mean 5e-3), 12 frames of it at 1920x1080 (K1 and K3 once a frame,
      the fused LTC kernel never), and K3 against its twin on that frame's
-     own uvs (max abs diff <= 1e-6).
-Phases 5-8 and 10-13 print the median ms/frame of frames 3-12 (CUDA
+     own uvs (max abs diff <= 1e-6);
+ 14. the BASELINE presets (preset_phases): configs 1, 2 (1,000 instances,
+     a 3-level LOD chain), 3, 4 (skinned clapping arms, TAA, moving
+     instances), 6 (104 textures, 32 knots) and 7 (detail 1.0) of
+     voidin_tpu_torch/framework/presets.py at 1920x1080, wired as
+     bench.py:458-501 wires them (the preset's capacities, flags and
+     moving instances; config 4 posed by clapper_joint_mats at the
+     Renderer's time), 12 frames each: overflow 0, K1 base once a frame,
+     the fused LTC kernel once a frame on the presets with area lights
+     (3, 4, 6, 7) and never on 1 and 2, every other kernel never; on
+     config 4 the last pose's refit BLAS of both arms valid and tight and
+     frames 0 and 6 different; before each run, K1 base and the fused LTC
+     kernel held against their twins (every word equal) on the inputs
+     the preset's first frame hands them, with K1's fullest tile printed
+     (hold_path_kernels); each preset's host build times, sizes and draws
+     printed. Config 5 is phases 10-12's scene, the preset itself
+     (config5_preset);
+ 15. scene import and snapshots (import_phases): write_import_scene's
+     glTF (.glb: a textured box with an embedded palette PNG instanced
+     under a translated parent, a 2-joint skinned strip with a rotation
+     animation, a floor without indices) and OBJ (.obj + .mtl) files
+     imported through the port, 12 frames at 1920x1080 posed by
+     GltfAnimator (overflow 0, K1 and the fused LTC kernel once a frame;
+     both held against their twins on the first frame's inputs first),
+     the scene (.gltf with data URIs) at 320x184 on the card against the
+     CPU twins (mean 5e-3); config 7 saved with save_scene, loaded onto
+     the card with load_scene and rendered once against a frame of the
+     scene it was saved from (mean <= 1e-6; max abs diff and word
+     equality printed).
+Phases 5-8 and 10-15 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
 its 1-table shape under one_table and the ring frame's fetch under ring,
 the shadow kernel's with its scale-2 rays under scale2, the closest-hit
-kernel's with config 5's rays under config5), then the card line, then the
+kernel's with config 5's rays under config5, K1's and the fused LTC
+kernel's with each preset's and the import scene's inputs under paths),
+then the card line, then the
 result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
 records is null, with a line saying so. Exits non-zero on any failure and
@@ -428,12 +458,13 @@ def frame_blocks(scene, cfg):
     return blocks, counts
 
 
-def run_frames(renderer, cam, label, joint_mats=None):
+def run_frames(renderer, cam, label, joint_mats=None, keep=None):
     """FRAMES frames through Renderer.render, each timed with CUDA events
     and checked: overflow 0, something visible; `joint_mats(i)` poses
-    frame i's skins. Returns (last image, per-frame ms, the peak device
-    memory over the frames and the part of it above what was resident
-    before, as text)."""
+    frame i's skins; the images of the frames `keep` names go into it
+    (frame -> host image). Returns (last image, per-frame ms, the peak
+    device memory over the frames and the part of it above what was
+    resident before, as text)."""
     import torch
 
     before = torch.cuda.memory_allocated()
@@ -448,6 +479,8 @@ def run_frames(renderer, cam, label, joint_mats=None):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+        if keep is not None and i in keep:
+            keep[i] = img.cpu().numpy()
         aux = {k: int(v) for k, v in renderer.aux.items() if v.numel() == 1}
         line = (f"{label} frame {i}: {times[-1]:.3f} ms draws "
                 f"{aux['draw_count']} overflow {aux['overflow']} coverage "
@@ -535,6 +568,98 @@ def timing(r):
     return (f"call {fmt_ms(r['ms'])}, device {fmt_ms(r['device_ms'])}, "
             f"twin {fmt_ms(r['plain_ms'])}, bound {fmt_ms(r['bound_ms'])}"
             f" ({r['bound_by']})")
+
+
+def main_path_inputs(render):
+    """The arguments of the first call of K1 base (fine_raster_pairs) and
+    of the fused LTC kernel (ltc_rect_terms) while `render()` draws one
+    frame: {counter name: (args, kwargs)}, a kernel that the frame did not
+    call left out."""
+    from voidin_tpu_torch.ops import fine_raster as fr
+    from voidin_tpu_torch.ops import ltc_rect as lr
+
+    wrapped = dict(k1=(fr, "fine_raster_pairs"),
+                   ltc_rect=(lr, "ltc_rect_terms"))
+    reals = {k: getattr(m, a) for k, (m, a) in wrapped.items()}
+    seen = {}
+
+    def keeper(key):
+        def call(*args, **kwargs):
+            seen.setdefault(key, (args, kwargs))
+            return reals[key](*args, **kwargs)
+        return call
+
+    for k, (m, a) in wrapped.items():
+        setattr(m, a, keeper(k))
+    try:
+        render()
+    finally:
+        for k, (m, a) in wrapped.items():
+            setattr(m, a, reals[k])
+    return seen
+
+
+def hold_path_kernels(label, render, want, card):
+    """K1 base and the fused LTC kernel against their twins on the inputs
+    that one frame of `render()` hands them (main_path_inputs): every
+    output word equal, as kernel_phases and ltc_rect_phases hold them on
+    the north-star frame; `want` names the counters of the kernels that
+    the frame must call. Prints K1's records and the fullest tile among
+    them, and times each kernel as kernel_phases does. Returns {kernel
+    row name: its row on this path}."""
+    import torch
+
+    from voidin_tpu_torch.ops import fine_raster as fr
+    from voidin_tpu_torch.ops import ltc_rect as lr
+
+    seen = main_path_inputs(render)
+    if set(seen) != set(want):
+        fail(f"{label}: the frame called {sorted(seen)}, expected "
+             f"{sorted(want)}")
+    rows = {}
+    if "k1" in seen:
+        args, kw = seen["k1"]
+        counts = args[2]
+        got = fr.fine_raster_pairs(*args, **kw)
+        ref = fr.fine_raster_pairs_reference(*args, **kw)
+        torch.cuda.synchronize()
+        differ = [words_differ(a, b) for a, b in zip(got, ref)]
+        r = rows["fine_raster_pairs"] = timed_row(
+            lambda: fr.fine_raster_pairs(*args, **kw),
+            "fine_raster_pairs_kernel", 10,
+            lambda: fr.fine_raster_pairs_reference(*args, **kw), 1,
+            k1_bound(counts, 2), float((got[0] - ref[0]).abs().max()))
+        r.update(records=int(counts.sum()), max_records=int(counts.max()),
+                 differing_words=sum(differ))
+        print(f"{label}, K1 on the frame's own records ({kw or 'base'}): "
+              f"{r['records']} records over {counts.numel()} tiles, the "
+              f"fullest tile {r['max_records']}; per-tile counts "
+              f"{count_histogram(counts)}; differing words (depth, id) "
+              f"{differ}; {timing(r)} ({card})", flush=True)
+        if any(differ):
+            fail(f"{label}: K1 disagrees with its twin on the frame's "
+                 f"records")
+    if "ltc_rect" in seen:
+        args, kw = seen["ltc_rect"]
+        got = lr.ltc_rect_terms(*args, **kw)
+        ref = lr.ltc_rect_terms_reference(*args, **kw)
+        torch.cuda.synchronize()
+        differ = [words_differ(a, b) for a, b in zip(got, ref)]
+        n_px, n_lights = args[3].numel(), args[4].shape[0]
+        r = rows["ltc_rect"] = timed_row(
+            lambda: lr.ltc_rect_terms(*args, **kw), "ltc_rect", 10,
+            lambda: lr.ltc_rect_terms_reference(*args, **kw), 1,
+            ltc_rect_bound(n_px, n_lights),
+            max(float((a - b).abs().max()) for a, b in zip(got, ref)))
+        r.update(lights=n_lights, differing_words=sum(differ))
+        print(f"{label}, fused LTC on the frame's own shade fields "
+              f"({n_lights} lights, {kw}): differing words (diff, spec) "
+              f"{differ}; max abs diff {r['max_abs_err']}; {timing(r)} "
+              f"({card})", flush=True)
+        if any(differ):
+            fail(f"{label}: the fused LTC kernel disagrees with its twin on "
+                 f"the frame's shade fields")
+    return rows
 
 
 def k2_edge_phase(dev, card):
@@ -923,7 +1048,8 @@ def rt_phases(dev, card):
 
     # --- config 5 at 1080p through the Renderer --------------------------
     t0 = time.perf_counter()
-    world = config5_world(pt)
+    p = config5_preset(pt)
+    world = p.world
     t_blas = time.perf_counter() - t0
     t0 = time.perf_counter()
     tlas = world.build_tlas()
@@ -934,15 +1060,14 @@ def rt_phases(dev, card):
           f"({tlas['tlas_min'].shape[0]} nodes; instance AABBs, build, exit "
           f"links, refit plan) {t_tlas * 1e3:.1f} ms on the host",
           flush=True)
-    scene = world.device(dev, with_tlas=True)
-    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=1 << 17,
-                       pair_capacity=1 << 19)
-    cam = pt.Camera(**CONFIG5_CAMERA, aspect=WIDTH / HEIGHT)
+    scene = world.device(dev, with_tlas=p.with_tlas)
+    cam = p.camera
     out_rows, launches, frame_ms = {}, None, {}
     for scale in (1, 2):
         label = f"config 5 scale {scale}"
-        r = Renderer(scene, cfg, enable_taa=False, enable_rt_shadows=True,
-                     rt_shadow_scale=scale)
+        r = preset_renderer(dataclasses.replace(p, rt_shadow_scale=scale),
+                            scene, WIDTH, HEIGHT)
+        cfg = r.config
         reset_launches()
         out, times, mem = run_frames(r, cam, label)
         got = expect_launches(label, dict(k1=FRAMES, shadow_trace=FRAMES))
@@ -1065,9 +1190,12 @@ def closest_phases(dev, card):
         fail("closest_hit disagrees with its twin where the stack overflows")
 
     rows, launches = {}, None
+    c5 = config5_preset(pt)
     for label, world, camera in (
             ("bvh_trace scene", bvh_trace.trace_world(), None),
-            ("config 5", config5_world(pt), CONFIG5_CAMERA)):
+            ("config 5", c5.world, dict(position=c5.camera.position,
+                                        yaw=c5.camera.yaw,
+                                        pitch=c5.camera.pitch))):
         scene = world.device(dev, with_tlas=True)
         reset_launches()
         res = bvh_trace.trace(scene, WIDTH, HEIGHT, camera)
@@ -1118,15 +1246,16 @@ def closest_phases(dev, card):
 
 
 def refit_violations(world, knot, meshes, tlas, instances, eps=1e-5):
-    """Checks the skinned knot's refit BLAS and the refit TLAS (device
-    tensors) on the host: every reachable node contains its triangles or
-    children (TLAS leaves their instance's world AABB from the refit mesh
-    bounds), and each root equals the bounds of what it holds within
-    1e-4. Returns the count of violations of each kind."""
+    """Checks the refit BLAS of the skin of mesh `knot` and the refit TLAS
+    (device tensors; None for a scene without one) on the host: every
+    reachable node contains its triangles or children (TLAS leaves their
+    instance's world AABB from the refit mesh bounds), and each root
+    equals the bounds of what it holds within 1e-4. Returns the count of
+    violations of each kind."""
     from voidin_tpu_torch.rt import bvh as bvh_mod
 
     nodes = world.meshes.bvh_nodes[knot]
-    skin = world.skins[0]
+    skin = next(s for s in world.skins if s.mesh_id == knot)
     base = world.meshes.mesh_info[knot]["bvh_index"]
     bmin = meshes.bvh_min.cpu().numpy()[base:base + len(nodes)]
     bmax = meshes.bvh_max.cpu().numpy()[base:base + len(nodes)]
@@ -1150,6 +1279,8 @@ def refit_violations(world, knot, meshes, tlas, instances, eps=1e-5):
     bad["blas_root"] = int(not (np.allclose(bmin[0], flat.min(0), atol=1e-4)
                                 and np.allclose(bmax[0], flat.max(0),
                                                 atol=1e-4)))
+    if tlas is None:
+        return bad
     imin, imax = bvh_mod.instance_world_aabbs(
         meshes.mesh_min.cpu().numpy(), meshes.mesh_max.cpu().numpy(),
         instances.transform.cpu().numpy(), instances.mesh_id.cpu().numpy())
@@ -1172,7 +1303,7 @@ def refit_violations(world, knot, meshes, tlas, instances, eps=1e-5):
 
 def skin_phases(dev, card):
     """The skinned frame: config 5 with its knot a skin of 2 joints
-    (config5_world(skinned=True)) bent by knot_joint_mats, raytraced
+    (config5_preset(skinned=True)) bent by knot_joint_mats, raytraced
     shadows, no TAA: 12 frames at 1920x1080 through Renderer.render
     (overflow 0, no shadow ray at the step limit, K1 and the shadow kernel
     launched once a frame), the last pose's refit BLAS and TLAS valid and
@@ -1181,19 +1312,16 @@ def skin_phases(dev, card):
     import torch
 
     import voidin_tpu_torch as pt
-    from voidin_tpu_torch.framework.renderer import Renderer
-    from voidin_tpu_torch.passes.raster import RasterConfig
     from voidin_tpu_torch.scene import skin as skin_mod
 
-    world = config5_world(pt, skinned=True)
+    p = config5_preset(pt, skinned=True)
+    world = p.world
     knot = world.skins[0].mesh_id
-    scene = world.device(dev, with_tlas=True)
-    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=1 << 17,
-                       pair_capacity=1 << 19)
-    cam = pt.Camera(**CONFIG5_CAMERA, aspect=WIDTH / HEIGHT)
-    r = Renderer(scene, cfg, enable_taa=False, enable_rt_shadows=True)
+    scene = world.device(dev, with_tlas=p.with_tlas)
+    r = preset_renderer(p, scene, WIDTH, HEIGHT)
     reset_launches()
-    out, times, mem = run_frames(r, cam, "skinned config 5", knot_joint_mats)
+    out, times, mem = run_frames(r, p.camera, "skinned config 5",
+                                 knot_joint_mats)
     expect_launches("skinned config 5", dict(k1=FRAMES, shadow_trace=FRAMES))
     ms = float(np.median(times[2:]))
     n_inst = int((scene.instances.mesh_id == knot).sum())
@@ -1216,16 +1344,14 @@ def skin_phases(dev, card):
     del r, scene, meshes, tlas
 
     sw, sh = 320, 184
-    scfg = RasterConfig(width=sw, height=sh, tri_capacity=1 << 17,
-                        pair_capacity=1 << 17)
     imgs = {}
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        r = Renderer(config5_world(pt, skinned=True).device(
-            d, with_tlas=True), scfg, enable_taa=False,
-            enable_rt_shadows=True)
+        p = dataclasses.replace(config5_preset(pt, True, sw / sh),
+                                pair_capacity=1 << 17)
+        r = preset_renderer(p, p.world.device(d, with_tlas=p.with_tlas),
+                            sw, sh)
         for i in range(2):
-            img = r.render(pt.Camera(**CONFIG5_CAMERA, aspect=sw / sh),
-                           joint_mats=knot_joint_mats(i + 3))
+            img = r.render(p.camera, joint_mats=knot_joint_mats(i + 3))
             if int(r.aux["overflow"]) or int(r.aux["rt_exhausted"]):
                 fail(f"small skinned frame overflowed on the {where}")
         imgs[where] = img.cpu().numpy()
@@ -1317,6 +1443,225 @@ def ring_phases(dev, card):
     if not err <= K3_TOL:
         fail(f"K3 disagrees with its twin on the ring uvs beyond {K3_TOL}")
     return row, got_l["k3"], ms
+
+
+# Phase 14: config -> (the preset's arguments at full size, the kernels
+# besides K1 base that its frame launches once: the fused LTC kernel where
+# the scene has rect area lights). Config 5 is phase 10's scene.
+PRESET_RUNS = {
+    1: ({}, ()),
+    2: (dict(n_instances=1000), ()),
+    3: ({}, ("ltc_rect",)),
+    4: ({}, ("ltc_rect",)),
+    6: (dict(n_textures=104, n_knots=32), ("ltc_rect",)),
+    7: (dict(detail=1.0), ("ltc_rect",)),
+}
+
+
+def preset_renderer(p, scene, width, height):
+    """A Renderer for preset `p` wired as bench.py:458-501 wires it: the
+    preset's capacities, cull / TAA / raytraced-shadow flags and moving
+    instances."""
+    from voidin_tpu_torch.framework.renderer import Renderer
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    cfg = RasterConfig(width=width, height=height,
+                       tri_capacity=p.tri_capacity,
+                       pair_capacity=p.pair_capacity,
+                       tile_tri_capacity=p.tile_tri_capacity)
+    return Renderer(scene, cfg, enable_cull=p.enable_cull,
+                    enable_taa=p.enable_taa,
+                    enable_rt_shadows=p.enable_rt_shadows,
+                    rt_shadow_scale=p.rt_shadow_scale,
+                    moving_ids=np.asarray(p.moving_ids, np.int32))
+
+
+def preset_phases(dev, card):
+    """The BASELINE presets of PRESET_RUNS at 1920x1080 through the
+    Renderer, FRAMES frames each (config 4 posed by clapper_joint_mats at
+    the Renderer's time): overflow 0, a finite last image with variance,
+    K1 base once a frame and the fused LTC kernel once a frame where the
+    preset has area lights, nothing else; on config 4 the last pose's
+    refit BLAS valid and tight for both arms and frames 0 and 6 different.
+    Before its run, each preset's first frame holds K1 base and the fused
+    LTC kernel against their twins on the inputs it hands them
+    (hold_path_kernels). Prints each preset's host build times, sizes,
+    draws, median ms/frame and peak memory. Returns (the launches of the
+    presets' runs by counter, {kernel row name: {preset: its row on that
+    preset's inputs}})."""
+    import torch
+
+    from voidin_tpu_torch.framework import presets
+    from voidin_tpu_torch.scene import skin as skin_mod
+
+    launches, paths = {}, {}
+    for n, (kwargs, extra) in PRESET_RUNS.items():
+        label = f"config {n}"
+        t0 = time.perf_counter()
+        p = presets.PRESETS[n](WIDTH / HEIGHT, **kwargs)
+        t_world = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        scene = p.world.device(dev, with_tlas=p.with_tlas)
+        torch.cuda.synchronize()
+        t_device = (time.perf_counter() - t0) * 1e3
+        w = p.world
+        sizes = dict(triangles=w.meshes._index_count // 3,
+                     instances=len(w.instances), meshes=len(w.meshes),
+                     texture_slots=len(w.textures),
+                     texture_bytes=int(scene.textures.quads.numel()),
+                     skins=len(w.skins))
+        print(f"{label}: World {t_world:.1f} ms, World.device() "
+              f"{t_device:.1f} ms on the host; {sizes}; capacities tri "
+              f"{p.tri_capacity} pair {p.pair_capacity}; cull "
+              f"{p.enable_cull} TAA {p.enable_taa} moving "
+              f"{len(p.moving_ids)}", flush=True)
+        for k, row in hold_path_kernels(
+                label, lambda: preset_renderer(p, scene, WIDTH, HEIGHT).render(
+                    p.camera, joint_mats=p.animator(0.0) if p.animator
+                    else None), ("k1",) + extra, card).items():
+            paths.setdefault(k, {})[label] = row
+        r = preset_renderer(p, scene, WIDTH, HEIGHT)
+        joint_mats = None
+        if p.animator is not None:
+            def joint_mats(_i, r=r, p=p):
+                return p.animator(r.time)
+        keep = {0: None, 6: None} if w.skins else None
+        reset_launches()
+        out, times, mem = run_frames(r, p.camera, label, joint_mats, keep)
+        want = dict(k1=FRAMES, **{k: FRAMES for k in extra})
+        got = expect_launches(label, want)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ms = float(np.median(times[2:]))
+        print(f"{label} {WIDTH}x{HEIGHT}: median {ms:.3f} ms/frame over "
+              f"frames 3-{FRAMES} ({card}); {mem}; draws "
+              f"{int(r.aux['draw_count'])} of {sizes['instances']} "
+              f"instances; image mean {out.mean():.4f} std "
+              f"{out.std():.4f}", flush=True)
+        if w.skins:
+            jm = torch.from_numpy(p.animator(r.time - 1.0 / 60.0)).to(dev)
+            meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm)
+            bad = [refit_violations(w, s.mesh_id, meshes, None,
+                                    scene.instances) for s in w.skins]
+            moved = float(np.abs(keep[6] - keep[0]).mean())
+            print(f"{label}, last pose's refit BLAS of its {len(w.skins)} "
+                  f"skins on the card: violations {bad}; frames 0 and 6 "
+                  f"differ by mean {moved:.3e}", flush=True)
+            if any(any(b.values()) for b in bad) or not moved > 0:
+                fail(f"{label}: the skinned arms' refit BLAS is invalid or "
+                     f"they do not move")
+        del r, scene, p, w
+        torch.cuda.empty_cache()
+    return launches, paths
+
+
+def import_phases(dev, card):
+    """Scene import and snapshots: write_import_scene's glTF (.glb) and OBJ
+    files imported through the port (import_world), FRAMES frames at
+    1920x1080 posed by GltfAnimator (overflow 0, K1 base and the fused LTC
+    kernel once a frame), the same scene (.gltf with data URIs) at 320x184
+    on the card against the CPU twins (mean 5e-3); then config 7 saved with
+    save_scene, loaded onto the card with load_scene and rendered once
+    against one frame of the scene it was saved from (mean <= 1e-6; the
+    max abs diff and whether every word is equal printed). Before the
+    1080p run, its first frame holds K1 base and the fused LTC kernel
+    against their twins on its own inputs (hold_path_kernels). Returns
+    (the launches of the import run by counter, {kernel row name:
+    {"import": its row on the import scene's inputs}})."""
+    import tempfile
+
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework import presets
+    from voidin_tpu_torch.framework.renderer import Renderer
+    from voidin_tpu_torch.io.gltf import GltfAnimator
+    from voidin_tpu_torch.io.snapshot import load_scene, save_scene
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_import_scene(tmp)
+        t0 = time.perf_counter()
+        world, doc = import_world(pt, paths, "glb")
+        t_import = (time.perf_counter() - t0) * 1e3
+        small = {where: import_world(pt, paths, "gltf")[0].device(d)
+                 for where, d in (("card", dev),
+                                  ("cpu", torch.device("cpu")))}
+    animator = GltfAnimator(doc)
+    print(f"import scene: {os.path.basename(paths['glb'])} "
+          f"({len(doc.mesh_ids)} primitives, {len(doc.material_ids)} "
+          f"materials, {len(world.skins)} skin, animation "
+          f"{animator.duration} s) + {os.path.basename(paths['obj'])}: "
+          f"{len(world.meshes)} meshes, {len(world.instances)} instances, "
+          f"{len(world.textures)} texture slots, imported in "
+          f"{t_import:.1f} ms on the host", flush=True)
+    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=1 << 16,
+                       pair_capacity=1 << 19)
+    scene = world.device(dev)
+    cam = pt.Camera(**IMPORT_CAMERA, aspect=WIDTH / HEIGHT)
+    paths = {k: {"import": row} for k, row in hold_path_kernels(
+        "import", lambda: Renderer(scene, cfg).render(
+            cam, joint_mats=import_joint_mats(animator, 0)),
+        ("k1", "ltc_rect"), card).items()}
+    r = Renderer(scene, cfg)
+    reset_launches()
+    out, times, mem = run_frames(r, cam, "import",
+                                 lambda i: import_joint_mats(animator, i))
+    got = expect_launches("import", dict(k1=FRAMES, ltc_rect=FRAMES))
+    ms = float(np.median(times[2:]))
+    print(f"import scene {WIDTH}x{HEIGHT}: median {ms:.3f} ms/frame over "
+          f"frames 3-{FRAMES} ({card}); {mem}; image mean {out.mean():.4f} "
+          f"std {out.std():.4f}", flush=True)
+    del r, scene
+
+    sw, sh = 320, 184
+    scfg = RasterConfig(width=sw, height=sh, tri_capacity=1 << 16,
+                        pair_capacity=1 << 17)
+    imgs = {}
+    for where, scene in small.items():
+        r = Renderer(scene, scfg)
+        for i in range(3):
+            img = r.render(pt.Camera(**IMPORT_CAMERA, aspect=sw / sh),
+                           joint_mats=import_joint_mats(animator, i + 4))
+            if int(r.aux["overflow"]):
+                fail(f"small import scene overflowed on the {where}")
+        imgs[where] = img.cpu().numpy()
+    diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
+    print(f"import scene (.gltf, data URIs) {sw}x{sh}, 3 TAA frames, on the "
+          f"card: mean abs diff vs the CPU twins {diff:.3e} (budget "
+          f"{GOLDEN_BUDGET})", flush=True)
+    if not (np.isfinite(imgs["card"]).all() and diff < GOLDEN_BUDGET
+            and imgs["card"].std() > 0):
+        fail("the small import scene on the card disagrees with the CPU")
+
+    p = presets.config7_sponza_geometry(WIDTH / HEIGHT)
+    scene = p.world.device(dev)
+    frames = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config7.npz")
+        t0 = time.perf_counter()
+        save_scene(path, scene, p.camera)
+        t_save = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded, cam = load_scene(path, dev)
+        t_load = (time.perf_counter() - t0) * 1e3
+    for label, sc in (("saved", scene), ("loaded", loaded)):
+        r = preset_renderer(p, sc, WIDTH, HEIGHT)
+        frames[label] = r.render(cam if label == "loaded" else p.camera)
+        if int(r.aux["overflow"]):
+            fail(f"the {label} config-7 snapshot frame overflowed")
+    a, b = frames["saved"], frames["loaded"]
+    diff = (a - b).abs()
+    same = words_differ(a, b) == 0
+    print(f"snapshot of config 7: {size / 2**20:.1f} MiB, saved in "
+          f"{t_save:.0f} ms, loaded onto the card in {t_load:.0f} ms; one "
+          f"frame of the loaded scene vs the saved one: max abs diff "
+          f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}, every "
+          f"word equal {same}", flush=True)
+    if not float(diff.mean()) <= 1e-6:
+        fail("the loaded snapshot renders another frame")
+    return got, paths
 
 
 def main():
@@ -1576,16 +1921,23 @@ def main():
     rows["closest_hit"], closest_launches = closest_phases(dev, card)
     skin_phases(dev, card)
     rows["lut_fetch"]["ring"], ring_k3_launches, _ = ring_phases(dev, card)
+    preset_launches, preset_paths = preset_phases(dev, card)
+    import_launches, import_paths = import_phases(dev, card)
+    for name in ("fine_raster_pairs", "ltc_rect"):
+        rows[name]["paths"] = {**preset_paths.get(name, {}),
+                               **import_paths.get(name, {})}
 
     path_launches = dict(
-        fine_raster_pairs=ns_launches["k1"],
+        fine_raster_pairs=(ns_launches["k1"] + preset_launches["k1"]
+                           + import_launches["k1"]),
         fine_raster_pairs_track2=masked_launches["k1_track2"],
         fine_raster_pairs_payload=payload_launches["k1_payload"],
         fine_raster_blocks=block_launches["k2"],
         fine_raster_blocks_track2=small_block_launches["k2_track2"],
         lut_fetch=ring_k3_launches,
         lut_fetch_bf16=bf16_launches["k3_bf16"],
-        ltc_rect=ns_launches["ltc_rect"],
+        ltc_rect=(ns_launches["ltc_rect"] + preset_launches["ltc_rect"]
+                  + import_launches["ltc_rect"]),
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         shadow_trace=rt_launches,
         closest_hit=closest_launches,
@@ -1731,41 +2083,23 @@ def _mesh_module(pkg):
     return importlib.import_module(pkg.__name__ + ".scene.mesh")
 
 
-# The camera of voidin_tpu/framework/presets.py:303 (config 5).
-CONFIG5_CAMERA = dict(position=[0.0, 4.0, 3.0], pitch=-22.0)
+def config5_preset(pkg, skinned=False, aspect=WIDTH / HEIGHT):
+    """`pkg`'s raytraced-shadows preset (config 5,
+    voidin_tpu/framework/presets.py:284-322): 40 instances of the 96x16
+    torus knot and the res-4 sphere on a ring, a 50x ground plane, one
+    point light, its camera, capacities and flags. The preset's traversal
+    choice (rt_packet 128 + rt_threaded) has no counterpart: the port's
+    one kernel gives the hits that all of JAX's traversals give. `skinned`
+    registers the knot as a skin of 2 joints (knot_skin)."""
+    import importlib
 
-
-def config5_world(pkg, skinned=False):
-    """The raytraced-shadows scene of voidin_tpu/framework/presets.py:284-322
-    (config 5) on `pkg`'s World: 40 instances of the 96x16 torus knot and
-    the res-4 sphere on a ring, a 50x ground plane, one point light. The
-    scene is its own. The preset's traversal choice (rt_packet 128 +
-    rt_threaded) has no counterpart: the port's one kernel gives the hits
-    that all of JAX's traversals give. `skinned` registers the knot as a
-    skin of 2 joints (knot_skin)."""
-    from voidin_tpu_torch.core import mathx
-
-    mesh = _mesh_module(pkg)
-    w = pkg.World()
-    knot_mesh = mesh.make_torus_knot(segments=96, sides=16)
-    knot = w.meshes.add(knot_mesh)
+    presets = importlib.import_module(pkg.__name__ + ".framework.presets")
+    p = presets.config5_raytraced_shadows(aspect)
     if skinned:
-        knot_skin(pkg, w, knot, knot_mesh)
-    sphere = w.meshes.add(mesh.make_uv_sphere(1.0, 4))
-    mat = w.materials.add()
-    rng = np.random.default_rng(11)
-    for i in range(40):
-        a = 2 * np.pi * i / 40
-        r = 3 + (i % 5)
-        t = mathx.from_translation(
-            [r * np.cos(a), 0.5 + (i % 3) * 1.2, -8 + r * np.sin(a)]
-        ) @ mathx.from_scale(float(rng.uniform(0.5, 1.0)))
-        w.instances.add(np.asarray(t), knot if i % 2 else sphere, mat)
-    w.instances.add(
-        np.asarray(mathx.from_translation([0, -1.0, -8])
-                   @ mathx.from_scale(50.0)), 0, mat)
-    w.lights.add_point_light([5, 9, 0], 35.0, [0.7, 0.68, 0.6])
-    return w
+        # the preset puts the knot on its odd instances
+        knot_skin(pkg, p.world, p.world.instances.mesh_ids[1],
+                  _mesh_module(pkg).make_torus_knot(segments=96, sides=16))
+    return p
 
 
 def staircase_case(pkg, n=44):
@@ -1953,6 +2287,293 @@ def shadow_edge_case(pkg, kind, seed=0):
     dirs = np.asarray(d, np.float32)
     active = rng.uniform(size=len(origins)) >= 0.25
     return w, origins, dirs, active
+
+
+
+# --- the import scene (phase 15): glTF and OBJ files written here --------
+
+# The camera of the import scene: the glTF boxes and the skinned strip at
+# z = -6 to -7, the OBJ pyramid to the right.
+IMPORT_CAMERA = dict(position=[0.0, 0.6, -1.5], pitch=-8.0)
+
+
+def palette_png(index, palette, alpha=None):
+    """The bytes of an 8-bit palette PNG (colour type 3) of `index` (H, W)
+    into `palette` (P, 3) uint8, with `alpha` (P,) as its tRNS chunk."""
+    import struct
+
+    from voidin_tpu_torch.io.image import _SIGNATURE, _chunk
+
+    h, w = index.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          index.astype(np.uint8)], axis=1)
+    out = (_SIGNATURE
+           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+           + _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if alpha is not None:
+        out += _chunk(b"tRNS", np.asarray(alpha, np.uint8).tobytes())
+    return (out + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def _quat(axis, angle):
+    """glTF (x, y, z, w) quaternion of `angle` radians about `axis`."""
+    a = np.asarray(axis, np.float64) * np.sin(angle / 2)
+    return [float(a[0]), float(a[1]), float(a[2]), float(np.cos(angle / 2))]
+
+
+def import_gltf_document():
+    """(glTF JSON, binary buffer, image bytes) of the import scene:
+    - mesh 0, a textured box (24 vertices: positions and normals
+      interleaved in one buffer view with byteStride 24, normalized
+      uint16 uvs, float tangents, uint16 indices; an embedded palette PNG
+      with a tRNS chunk as its base colour), instanced twice under a
+      translated parent node (one child by TRS, one by matrix);
+    - mesh 1, a vertical strip of 9 rows skinned to 2 joints (uint8
+      joints, normalized uint8 weights by height, normalized uint8 uvs,
+      uint32 indices) whose node carries a translation the skin ignores;
+      its elbow joint turns about z by a LINEAR rotation channel over 2 s;
+    - mesh 2, a floor quad of 6 vertices without indices, uvs or tangents,
+      with the same image as emissive (sRGB) and normal (linear) map."""
+    from voidin_tpu_torch.scene import mesh as mesh_mod
+
+    blob, views, accessors = bytearray(), [], []
+
+    def view(data, stride=None):
+        while len(blob) % 4:
+            blob.append(0)
+        v = dict(buffer=0, byteOffset=len(blob), byteLength=len(data))
+        if stride:
+            v["byteStride"] = stride
+        blob.extend(data)
+        views.append(v)
+        return len(views) - 1
+
+    def accessor(v, ctype, count, kind, offset=0, normalized=False):
+        a = dict(bufferView=v, componentType=ctype, count=count, type=kind)
+        if offset:
+            a["byteOffset"] = offset
+        if normalized:
+            a["normalized"] = True
+        accessors.append(a)
+        return len(accessors) - 1
+
+    f32, u8, u16, u32 = 5126, 5121, 5123, 5125
+    box = mesh_mod.make_cube_mesh(1.0)
+    nv = len(box.vertices)
+    pn = view(np.concatenate([box.vertices, box.normals], axis=1)
+              .astype(np.float32).tobytes(), stride=24)
+    box_prim = dict(attributes=dict(
+        POSITION=accessor(pn, f32, nv, "VEC3"),
+        NORMAL=accessor(pn, f32, nv, "VEC3", offset=12),
+        TANGENT=accessor(view(box.tangents.tobytes()), f32, nv, "VEC4"),
+        TEXCOORD_0=accessor(view(np.round(box.uvs * 65535).astype(np.uint16)
+                                 .tobytes()), u16, nv, "VEC2",
+                            normalized=True)),
+        indices=accessor(view(box.indices.astype(np.uint16).tobytes()), u16,
+                         len(box.indices), "SCALAR"),
+        material=0)
+
+    rows = 9
+    ys = np.linspace(-1.0, 1.4, rows, dtype=np.float32)
+    strip = np.stack([np.tile([-0.3, 0.3], rows), np.repeat(ys, 2),
+                      np.full(2 * rows, -6.0)], -1).astype(np.float32)
+    tris = [[2 * r, 2 * r + 1, 2 * r + 2] for r in range(rows - 1)] + [
+        [2 * r + 1, 2 * r + 3, 2 * r + 2] for r in range(rows - 1)]
+    w1 = np.round(np.linspace(0, 255, rows)).astype(np.uint8).repeat(2)
+    joints = np.zeros((2 * rows, 4), np.uint8)
+    joints[:, 1] = 1
+    weights = np.zeros((2 * rows, 4), np.uint8)
+    weights[:, 0], weights[:, 1] = 255 - w1, w1
+    uv8 = np.stack([np.tile([0, 255], rows),
+                    np.round(np.linspace(0, 255, rows)).repeat(2)],
+                   -1).astype(np.uint8)
+    strip_prim = dict(attributes=dict(
+        POSITION=accessor(view(strip.tobytes()), f32, 2 * rows, "VEC3"),
+        NORMAL=accessor(view(np.tile(np.float32([0, 0, 1]), (2 * rows, 1))
+                             .tobytes()), f32, 2 * rows, "VEC3"),
+        TEXCOORD_0=accessor(view(uv8.tobytes()), u8, 2 * rows, "VEC2",
+                            normalized=True),
+        JOINTS_0=accessor(view(joints.tobytes()), u8, 2 * rows, "VEC4"),
+        WEIGHTS_0=accessor(view(weights.tobytes()), u8, 2 * rows, "VEC4",
+                           normalized=True)),
+        indices=accessor(view(np.asarray(tris, np.uint32).tobytes()), u32,
+                         3 * len(tris), "SCALAR"),
+        material=1)
+    # joint 0 at (0, -1, -6), joint 1 (the elbow) 1.2 above it: their
+    # inverse binds, column-major
+    ibm = np.stack([np.eye(4), np.eye(4)]).astype(np.float32)
+    ibm[0, :3, 3] = [0.0, 1.0, 6.0]
+    ibm[1, :3, 3] = [0.0, -0.2, 6.0]
+    ibm_acc = accessor(view(np.transpose(ibm, (0, 2, 1)).tobytes()), f32, 2,
+                       "MAT4")
+    times = accessor(view(np.float32([0.0, 1.0, 2.0]).tobytes()), f32, 3,
+                     "SCALAR")
+    quats = accessor(view(np.float32([_quat([0, 0, 1], 0.0),
+                                      _quat([0, 0, 1], 1.05),
+                                      _quat([0, 0, 1], 0.0)]).tobytes()),
+                     f32, 3, "VEC4")
+
+    floor = np.float32([[-8, -1.2, -12], [-8, -1.2, 2], [8, -1.2, 2],
+                        [-8, -1.2, -12], [8, -1.2, 2], [8, -1.2, -12]])
+    floor_prim = dict(attributes=dict(
+        POSITION=accessor(view(floor.tobytes()), f32, 6, "VEC3"),
+        NORMAL=accessor(view(np.tile(np.float32([0, 1, 0]), (6, 1))
+                             .tobytes()), f32, 6, "VEC3")),
+        material=2)
+
+    yy, xx = np.mgrid[0:16, 0:16]
+    image = palette_png((xx // 4 + yy // 4) % 2 + 2 * (yy >= 8),
+                        [[210, 60, 40], [240, 220, 180], [40, 90, 200],
+                         [90, 200, 120]], alpha=[255, 230, 255, 200])
+    m2 = np.eye(4, dtype=np.float32) * 0.8
+    m2[3, 3] = 1.0
+    m2[:3, 3] = [2.0, 0.3, 0.5]
+    doc = dict(
+        asset=dict(version="2.0"),
+        scene=0,
+        scenes=[dict(nodes=[0, 3, 5, 6])],
+        nodes=[
+            dict(name="parent", translation=[0.0, 0.0, -7.0],
+                 children=[1, 2]),
+            dict(mesh=0, translation=[-2.0, 0.5, 0.0],
+                 rotation=_quat([0, 1, 0], 0.5), scale=[1.2, 1.2, 1.2]),
+            dict(mesh=0, matrix=[float(v) for v in m2.T.reshape(-1)]),
+            dict(name="hinge", translation=[0.0, -1.0, -6.0], children=[4]),
+            dict(name="elbow", translation=[0.0, 1.2, 0.0]),
+            dict(mesh=1, skin=0, translation=[5.0, 5.0, 5.0]),
+            dict(mesh=2),
+        ],
+        meshes=[dict(primitives=[box_prim]), dict(primitives=[strip_prim]),
+                dict(primitives=[floor_prim])],
+        skins=[dict(joints=[3, 4], inverseBindMatrices=ibm_acc)],
+        animations=[dict(
+            channels=[dict(sampler=0, target=dict(node=4, path="rotation"))],
+            samplers=[dict(input=times, output=quats,
+                           interpolation="LINEAR")])],
+        materials=[
+            dict(pbrMetallicRoughness=dict(baseColorTexture=dict(index=0))),
+            dict(pbrMetallicRoughness=dict(
+                baseColorFactor=[0.9, 0.5, 0.3, 1.0])),
+            dict(pbrMetallicRoughness=dict(
+                baseColorFactor=[0.6, 0.7, 0.6, 1.0]),
+                emissiveTexture=dict(index=0), normalTexture=dict(index=1)),
+        ],
+        textures=[dict(source=0), dict(source=0)],
+        accessors=accessors,
+        bufferViews=views,
+    )
+    return doc, bytes(blob), image
+
+
+IMPORT_OBJ = """# a pyramid in two material groups, the sides by negative indices
+mtllib pyramid.mtl
+o pyramid
+v -0.5 0.0 -0.5
+v 0.5 0.0 -0.5
+v 0.5 0.0 0.5
+v -0.5 0.0 0.5
+v 0.0 0.9 0.0
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+vt 0.5 0.5
+vn 0 -1 0
+g base
+usemtl red
+f 1/1/1 2/2/1 3/3/1 4/4/1
+g sides
+usemtl green
+f -4/2 -5/1 -1/5
+f -3/3 -4/2 -1/5
+f -2/4 -3/3 -1/5
+f -5/1 -2/4 -1/5
+"""
+IMPORT_MTL = """newmtl red
+Kd 0.8 0.2 0.2
+newmtl green
+Kd 0.2 0.7 0.3
+"""
+
+
+def write_import_scene(directory):
+    """Writes the import scene into `directory`: scene.glb (the glTF of
+    import_gltf_document with its buffer and image in the BIN chunk),
+    scene.gltf (the same with both as data URIs), pyramid.obj and
+    pyramid.mtl. Returns their paths by kind (glb, gltf, obj)."""
+    import base64
+    import struct
+
+    doc, blob, image = import_gltf_document()
+    paths = {k: os.path.join(directory, f"scene.{k}")
+             for k in ("glb", "gltf")}
+    paths["obj"] = os.path.join(directory, "pyramid.obj")
+
+    # .gltf: the buffer and the image as data URIs
+    text = dict(doc, buffers=[dict(
+        byteLength=len(blob), uri="data:application/octet-stream;base64,"
+        + base64.b64encode(blob).decode())], images=[dict(
+            uri="data:image/png;base64," + base64.b64encode(image).decode())])
+    with open(paths["gltf"], "w") as f:
+        json.dump(text, f)
+
+    # .glb: the image in a buffer view of the BIN chunk
+    body = bytearray(blob)
+    while len(body) % 4:
+        body.append(0)
+    views = doc["bufferViews"] + [dict(buffer=0, byteOffset=len(body),
+                                       byteLength=len(image))]
+    body.extend(image)
+    while len(body) % 4:
+        body.append(0)
+    js = json.dumps(dict(doc, bufferViews=views,
+                         buffers=[dict(byteLength=len(body))],
+                         images=[dict(bufferView=len(views) - 1,
+                                      mimeType="image/png")])).encode()
+    js += b" " * (-len(js) % 4)
+    glb = (struct.pack("<II", len(js), 0x4E4F534A) + js
+           + struct.pack("<II", len(body), 0x004E4942) + bytes(body))
+    with open(paths["glb"], "wb") as f:
+        f.write(b"glTF" + struct.pack("<II", 2, 12 + len(glb)) + glb)
+
+    with open(paths["obj"], "w") as f:
+        f.write(IMPORT_OBJ)
+    with open(os.path.join(directory, "pyramid.mtl"), "w") as f:
+        f.write(IMPORT_MTL)
+    return paths
+
+
+def import_world(pkg, paths, kind="glb"):
+    """`pkg`'s World of the import scene: the glTF file of `kind` (glb or
+    gltf) imported and instanced (GltfDocument.add_to_world, its skin
+    bound), the OBJ pyramid's groups instanced at one transform, a point
+    light and a rect area light. Returns (world, GltfDocument)."""
+    import importlib
+
+    from voidin_tpu_torch.core import mathx
+
+    gltf = importlib.import_module(pkg.__name__ + ".io.gltf")
+    obj = importlib.import_module(pkg.__name__ + ".io.obj")
+    w = pkg.World()
+    doc = gltf.GltfDocument.import_file(w, paths[kind])
+    doc.add_to_world(w)
+    place = np.asarray(mathx.from_translation([1.8, -1.2, -4.5])
+                       @ mathx.from_rotation_y(np.float32(0.4))
+                       @ mathx.from_scale(1.2), np.float32)
+    for mesh_id, mat_id in obj.import_obj(w, paths["obj"]):
+        w.instances.add(place, mesh_id, mat_id)
+    w.lights.add_point_light([2.0, 3.0, -3.0], 15.0, [1.0, 0.95, 0.9])
+    w.add_area_light([1, 1, 1], 5.0, (4.0, 3.0), np.asarray(
+        mathx.from_translation([0, 4.5, -3.0])
+        @ mathx.from_rotation_x(np.float32(-np.pi / 3))))
+    return w, doc
+
+
+def import_joint_mats(animator, frame):
+    """The import scene's joint matrices at `frame`: its one skin sampled
+    by `animator` (a GltfAnimator of either package) at 0.15 s a frame."""
+    return animator.joint_matrices(0, 0.15 * frame)
 
 
 if __name__ == "__main__":

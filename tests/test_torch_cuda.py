@@ -9,8 +9,9 @@ kernel on those sets, on a tree deeper than its stack and on the
 bvh_trace example's primary rays with a step limit and per-ray t_max;
 K3 on the ring-light frame's own uvs) against their PyTorch twins, and of
 the frame on the card against the CPU path, on the pair and block paths,
-with slim_rec + kernel_payload, with raytraced shadows, skinned, and for
-the ring light. Marked
+with slim_rec + kernel_payload, with raytraced shadows, skinned, for the
+ring light, for the presets (configs 4 and 7) and for the imported glTF
+scene. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -35,9 +36,10 @@ from voidin_tpu_torch.passes.raster import RasterConfig
 from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
 from chip_smoke import BIG_BLOCK_EDGE_SET, BLOCK_EDGE_SETS, \
-    CONFIG5_CAMERA, SHADOW_EDGE_CASES, add_foliage, block_edge_set, \
-    closest_hit_check, config5_world, frame_shadow_rays, golden_scene, \
-    knot_joint_mats, shadow_edge_case, shadow_trace_check, staircase_case
+    SHADOW_EDGE_CASES, add_foliage, block_edge_set, \
+    closest_hit_check, config5_preset, frame_shadow_rays, golden_scene, \
+    knot_joint_mats, preset_renderer, shadow_edge_case, shadow_trace_check, \
+    staircase_case
 from voidin_tpu_torch.examples import bvh_trace, ring_light
 from voidin_tpu_torch.ops import closest_hit as t_ch
 from voidin_tpu_torch.ops import shadow_trace as t_st
@@ -449,17 +451,65 @@ def test_ring_light_on_card_matches_cpu(cuda):
 
 
 def test_skinned_frame_on_card_matches_cpu(cuda):
-    cfg = RasterConfig(width=160, height=96, tri_capacity=1 << 17,
-                       pair_capacity=1 << 17)
-    cam = pt.Camera(**CONFIG5_CAMERA, aspect=160 / 96)
     imgs = []
     for device in (cuda, torch.device("cpu")):
-        r = Renderer(config5_world(pt, skinned=True).device(
-            device, with_tlas=True), cfg, enable_taa=False,
-            enable_rt_shadows=True)
+        p = dataclasses.replace(config5_preset(pt, True, 160 / 96),
+                                pair_capacity=1 << 17)
+        r = preset_renderer(p, p.world.device(device, with_tlas=True), 160,
+                            96)
         with pytest.raises(ValueError):
-            r.render(cam)
-        img = r.render(cam, joint_mats=knot_joint_mats(2))
+            r.render(p.camera)
+        img = r.render(p.camera, joint_mats=knot_joint_mats(2))
         assert int(r.aux["overflow"]) == 0 and int(r.aux["rt_exhausted"]) == 0
         imgs.append(img.cpu().numpy())
+    assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+@pytest.mark.parametrize("n", [4, 7])
+def test_preset_frame_on_card_matches_cpu(cuda, n):
+    """A BASELINE preset at 160x96 (config 4: two TAA frames, skinned arms
+    posed by clapper_joint_mats, moving instances; config 7 at
+    tests/test_oracle.py's reduced size), wired from its Preset, on the
+    card against the CPU twins; K1 once a frame on the card."""
+    from voidin_tpu_torch.framework import presets
+
+    kwargs = {7: dict(n_textures=8, base_size=64, detail=0.15)}.get(n, {})
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        p = presets.PRESETS[n](160 / 96, **kwargs)
+        r = preset_renderer(p, p.world.device(device), 160, 96)
+        before = t_fr.LAUNCHES
+        for _ in range(2):
+            jm = p.animator(r.time) if p.animator else None
+            img = r.render(p.camera, joint_mats=jm)
+            assert int(r.aux["overflow"]) == 0
+        assert t_fr.LAUNCHES - before == (2 if device.type == "cuda" else 0)
+        imgs.append(img.cpu().numpy())
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.02
+    assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+def test_gltf_frame_on_card_matches_cpu(cuda, tmp_path):
+    """chip_smoke's import scene (glTF with its skin and animation, OBJ) at
+    160x96, two TAA frames posed by GltfAnimator, on the card against the
+    CPU twins."""
+    from voidin_tpu_torch.io.gltf import GltfAnimator
+
+    from chip_smoke import (IMPORT_CAMERA, import_joint_mats, import_world,
+                            write_import_scene)
+
+    paths = write_import_scene(str(tmp_path))
+    cfg = RasterConfig(width=160, height=96, tri_capacity=1 << 12,
+                       pair_capacity=1 << 14)
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        world, doc = import_world(pt, paths, "glb")
+        r = Renderer(world.device(device), cfg)
+        an = GltfAnimator(doc)
+        for i in (2, 6):
+            img = r.render(pt.Camera(**IMPORT_CAMERA, aspect=160 / 96),
+                           joint_mats=import_joint_mats(an, i))
+            assert int(r.aux["overflow"]) == 0
+        imgs.append(img.cpu().numpy())
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.02
     assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3

@@ -5,7 +5,8 @@ save_png: the port's file decodes (with PIL) to the same array as the
 JAX package's file of the same image, for float images (clipped, NaN as
 0, rounded to 256 steps) and uint8 RGB and RGBA. load_image: every golden
 image reads as JAX's load_image reads it, and what the port writes reads
-back unchanged. Anything but 8-bit RGB/RGBA non-interlaced PNG is refused.
+back unchanged. 16-bit and interlaced PNGs are refused (the other colour
+types are held to PIL in tests/test_torch_io.py).
 """
 
 import glob
@@ -66,8 +67,15 @@ def test_load_image_reads_every_filter(tmp_path):
 
 @pytest.mark.parametrize("mode", ["L", "P", "I;16"])
 def test_refuses_other_pngs(tmp_path, mode):
+    """What stays refused: 16-bit samples, and interlaced grey and palette
+    PNGs (8-bit grey and palette ones decode since they back glTF
+    textures; tests/test_torch_io.py holds them to PIL)."""
     path = tmp_path / "other.png"
     Image.new(mode, (4, 3)).save(path)
+    if mode != "I;16":
+        data = bytearray(path.read_bytes())
+        data[28] = 1  # IHDR interlace method: Adam7 (CRC not checked)
+        path.write_bytes(bytes(data))
     with pytest.raises(ValueError):
         t_image.load_image(str(path))
 

@@ -135,13 +135,12 @@ def test_examples_and_skinned_frame_open_nothing_of_the_jax_package(
                 opened.append(os.path.abspath(os.fsdecode(args[0])))
 
         sys.addaudithook(hook)
+        import dataclasses
         import numpy as np, torch
         torch.set_num_threads(2)
         import voidin_tpu_torch as pt
         from voidin_tpu_torch.examples import bvh_trace, ring_light
-        from voidin_tpu_torch.framework.renderer import Renderer
         from voidin_tpu_torch.io.image import load_image
-        from voidin_tpu_torch.passes.raster import RasterConfig
         import chip_smoke
         for mod, name in ((bvh_trace, "bvh"), (ring_light, "ring")):
             out = os.path.join(TMP, name + ".png")
@@ -149,13 +148,12 @@ def test_examples_and_skinned_frame_open_nothing_of_the_jax_package(
                       out])
             img = load_image(out)
             assert img.shape == (32, 48, 4) and img[..., :3].std() > 0
-        world = chip_smoke.config5_world(pt, skinned=True)
-        r = Renderer(world.device("cpu", with_tlas=True),
-                     RasterConfig(width=64, height=32, tri_capacity=1 << 17,
-                                  pair_capacity=1 << 15),
-                     enable_taa=False, enable_rt_shadows=True)
-        cam = pt.Camera(**chip_smoke.CONFIG5_CAMERA, aspect=2.0)
-        img = r.render(cam, joint_mats=chip_smoke.knot_joint_mats(1)).numpy()
+        p = dataclasses.replace(chip_smoke.config5_preset(pt, True, 2.0),
+                                pair_capacity=1 << 15)
+        r = chip_smoke.preset_renderer(
+            p, p.world.device("cpu", with_tlas=True), 64, 32)
+        img = r.render(p.camera,
+                       joint_mats=chip_smoke.knot_joint_mats(1)).numpy()
         assert np.isfinite(img).all() and img.std() > 0
         assert int(r.aux["overflow"]) == 0 and int(r.aux["rt_exhausted"]) == 0
         assert not any(k == "voidin_tpu" or k.startswith("voidin_tpu.")
@@ -279,3 +277,82 @@ def test_world_device_defaults_to_the_card():
         pytest.skip("a CUDA device is present; this checks its absence")
     with pytest.raises((RuntimeError, AssertionError)):
         pt.World().device()
+
+
+def test_presets_and_import_open_nothing_of_the_jax_package(tmp_path):
+    """With jax, flax and PIL unimportable, under the audit hook: every
+    preset builds (configs 6 and 7 reduced) and config 4 renders a frame;
+    chip_smoke's glTF (.glb and .gltf) and OBJ files import, with the
+    palette PNG decoded by io/image.py, and render posed by GltfAnimator;
+    a snapshot saves and loads. No module of the JAX package is imported
+    and no file under voidin_tpu/ is opened."""
+    code = textwrap.dedent("""
+        import os, sys
+        for name in ("jax", "flax", "PIL"):
+            sys.modules[name] = None
+        opened = []
+
+        def hook(event, args):
+            if (event in ("open", "ctypes.dlopen") and args
+                    and isinstance(args[0], (str, bytes, os.PathLike))):
+                opened.append(os.path.abspath(os.fsdecode(args[0])))
+
+        sys.addaudithook(hook)
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        import voidin_tpu_torch as pt
+        from voidin_tpu_torch.framework import presets
+        from voidin_tpu_torch.framework.renderer import Renderer
+        from voidin_tpu_torch.io import gltf, obj, snapshot
+        from voidin_tpu_torch.passes.raster import RasterConfig
+        import chip_smoke
+        small = {6: dict(base_size=64, n_textures=6, n_knots=2,
+                         knot_detail=(48, 8)),
+                 7: dict(n_textures=4, base_size=32, detail=0.1)}
+        for n, make in presets.PRESETS.items():
+            p = make(2.0, **small.get(n, {}))
+            assert len(p.world.instances) > 0
+        p = presets.config4_animated_taa(2.0)
+        r = chip_smoke.preset_renderer(p, p.world.device("cpu"), 64, 32)
+        img = r.render(p.camera, joint_mats=p.animator(r.time)).numpy()
+        assert np.isfinite(img).all() and img.std() > 0
+        assert int(r.aux["overflow"]) == 0
+        paths = chip_smoke.write_import_scene(TMP)
+        for kind in ("glb", "gltf"):
+            world, doc = chip_smoke.import_world(pt, paths, kind)
+            assert len(world.skins) == 1 and len(world.textures) == 8
+        an = gltf.GltfAnimator(doc)
+        r = Renderer(world.device("cpu"),
+                     RasterConfig(width=64, height=32, tri_capacity=1 << 12,
+                                  pair_capacity=1 << 13))
+        img = r.render(pt.Camera(**chip_smoke.IMPORT_CAMERA, aspect=2.0),
+                       joint_mats=chip_smoke.import_joint_mats(an, 3)).numpy()
+        assert np.isfinite(img).all() and img.std() > 0
+        path = os.path.join(TMP, "scene.npz")
+        snapshot.save_scene(path, world.device("cpu"))
+        scene, cam = snapshot.load_scene(path, "cpu")
+        assert cam is None and scene.skins == ()
+        bad_mods = [k for k, m in sys.modules.items() if m is not None
+                    and (k.split(".")[0] in ("voidin_tpu", "PIL"))]
+        assert not bad_mods, bad_mods
+        jax_pkg = os.path.join(ROOT, "voidin_tpu") + os.sep
+        bad = [p for p in opened if p.startswith(jax_pkg)]
+        assert not bad, bad
+        print("OK")
+    """).replace("ROOT", repr(ROOT)).replace("TMP", repr(str(tmp_path)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
+def test_load_scene_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from voidin_tpu_torch.io.snapshot import load_scene, save_scene
+
+    path = str(tmp_path / "scene.npz")
+    save_scene(path, pt.World().device("cpu"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        load_scene(path)

@@ -1,20 +1,23 @@
 """Where a frame of the PyTorch + CUDA port spends its time, on one GPU.
 
-    python3 tools/torch_stage_split.py [--frames 10]
+    python3 tools/torch_stage_split.py [--frames 10] [--presets]
 
 Renders the north-star frame (build_world(10_000, seed=0), 1920x1080,
 capacities 2^19, moving instances, TAA), the same frame on the block path
 (backend "xla", K the smallest multiple of 128 above its fullest tile)
 and with slim_rec + kernel_payload, the masked frame (the north star
 plus chip_smoke.add_foliage(world, 3000, seed=1), pair capacity 2^20) and
-the raytraced-shadow frame of config 5 (chip_smoke.config5_world, TLAS,
+the raytraced-shadow frame of config 5 (chip_smoke.config5_preset, TLAS,
 no TAA) at rt_shadow_scale 1 and 2, and config 5 with its knot a 2-joint
-skin bent by a new pose each frame (config5_world(skinned=True),
+skin bent by a new pose each frame (config5_preset(skinned=True),
 chip_smoke.knot_joint_mats) through Renderer.render, overflow 0 on
 every frame, with CUDA events around each pass of render_frame (the skin
 stage, apply_skins with its BLAS refit, and the TLAS refit), and the
 ring-light frame of examples/ring_light.py at 1920x1080 (its shading with
-K3's call and the three disk evaluations), around
+K3's call and the three disk evaluations), and the BASELINE presets 2,
+4, 6 and 7 at chip_smoke.PRESET_RUNS' full sizes, wired as
+chip_smoke.preset_renderer wires them (config 4 posed by its animator;
+--presets renders these alone), around
 the resolve's per-pixel field evaluations (the dense (H, W) pass and the
 flat fallback batch), around the fused LTC kernel's call inside shade and
 around the shadow-ray kernel's call inside shade_raytraced (the ray
@@ -79,6 +82,9 @@ STAGES = [
     (ring_light, "postprocess", "postprocess"),
 ]
 EVENTS = collections.defaultdict(list)
+# The presets split: the LOD field (2), skins with TAA and moving
+# instances (4), the 108-slot texture pool (6), the unique geometry (7).
+PRESET_SPLITS = (2, 4, 6, 7)
 
 
 def instrument():
@@ -103,23 +109,18 @@ def instrument():
         setattr(mod, fn_name, timed)
 
 
-def split(label, world, moving, cfg, frames, card, cam=None,
-          joint_mats=None, **options):
-    """Renders `frames` frames with Renderer(**options) at `cam` (default
-    the north-star camera), frame i posed by `joint_mats(i)`, and prints
-    each stage's median."""
+def split(label, world, moving, cfg, frames, card):
+    """Renders `frames` frames of `world` at the north-star camera and
+    prints each stage's median."""
     EVENTS.clear()
-    scene = world.device("cuda",
-                         with_tlas=options.get("enable_rt_shadows", False))
-    r = renderer_mod.Renderer(scene, cfg, moving_ids=moving, **options)
-    cam = cam or chip_smoke.north_star_camera(pt)
+    r = renderer_mod.Renderer(world.device("cuda"), cfg, moving_ids=moving)
+    cam = chip_smoke.north_star_camera(pt)
     walls = []
     for i in range(frames):
         if i == 2:  # frames 1-2 warm up: drop their events
             EVENTS.clear()
         t0 = time.perf_counter()
-        r.render(cam, joint_mats=None if joint_mats is None
-                 else joint_mats(i))
+        r.render(cam)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         if int(r.aux["overflow"]):
@@ -142,6 +143,42 @@ def ring_split(frames, card):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     report("ring light", walls, frames, card)
+
+
+def baseline_split(n, frames, card):
+    """Preset `n` at chip_smoke.PRESET_RUNS' full size, split by
+    preset_split."""
+    from voidin_tpu_torch.framework import presets
+
+    preset_split(f"config {n}", presets.PRESETS[n](
+        chip_smoke.WIDTH / chip_smoke.HEIGHT, **chip_smoke.PRESET_RUNS[n][0]),
+        frames, card)
+
+
+def preset_split(label, p, frames, card, joint_mats=None):
+    """Preset `p` at 1920x1080, `frames` frames through its Renderer
+    (chip_smoke.preset_renderer), frame i posed by `joint_mats(i)`, by
+    default by the preset's animator at the Renderer's time (config 4's
+    arms); each stage's median as split prints it."""
+    EVENTS.clear()
+    r = chip_smoke.preset_renderer(
+        p, p.world.device("cuda", with_tlas=p.with_tlas), chip_smoke.WIDTH,
+        chip_smoke.HEIGHT)
+    walls = []
+    for i in range(frames):
+        if i == 2:
+            EVENTS.clear()
+        t0 = time.perf_counter()
+        if joint_mats is not None:
+            jm = joint_mats(i)
+        else:
+            jm = p.animator(r.time) if p.animator else None
+        r.render(p.camera, joint_mats=jm)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if int(r.aux["overflow"]):
+            sys.exit(f"{label}: frame {i} overflowed")
+    report(label, walls, frames, card)
 
 
 def report(label, walls, frames, card):
@@ -188,10 +225,17 @@ def resolve_variants(world, cfg, card, reps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--presets", action="store_true",
+                    help="split the presets 2, 4, 6 and 7 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     card = chip_smoke.card_line()
+    if args.presets:
+        instrument()
+        for n in PRESET_SPLITS:
+            baseline_split(n, args.frames, card)
+        return
     cfg = raster.RasterConfig(width=chip_smoke.WIDTH,
                               height=chip_smoke.HEIGHT,
                               tri_capacity=chip_smoke.CAP,
@@ -214,18 +258,17 @@ def main():
                             ("slim + payload", world, moving, slim_cfg),
                             ("masked", masked, masked_moving, masked_cfg)):
         split(label, w, mv, c, args.frames, card)
-    rt_cfg = dataclasses.replace(cfg, tri_capacity=1 << 17)
-    rt_cam = pt.Camera(**chip_smoke.CONFIG5_CAMERA,
-                       aspect=cfg.width / cfg.height)
     for scale in (1, 2):
-        split(f"config 5, rt_shadow_scale {scale}", chip_smoke.config5_world(
-            pt), None, rt_cfg, args.frames, card, cam=rt_cam,
-            enable_taa=False, enable_rt_shadows=True, rt_shadow_scale=scale)
-    split("config 5, skinned knot", chip_smoke.config5_world(
-        pt, skinned=True), None, rt_cfg, args.frames, card, cam=rt_cam,
-        joint_mats=chip_smoke.knot_joint_mats, enable_taa=False,
-        enable_rt_shadows=True)
+        preset_split(f"config 5, rt_shadow_scale {scale}",
+                     dataclasses.replace(chip_smoke.config5_preset(pt),
+                                         rt_shadow_scale=scale),
+                     args.frames, card)
+    preset_split("config 5, skinned knot",
+                 chip_smoke.config5_preset(pt, skinned=True), args.frames,
+                 card, joint_mats=chip_smoke.knot_joint_mats)
     ring_split(args.frames, card)
+    for n in PRESET_SPLITS:
+        baseline_split(n, args.frames, card)
 
 
 if __name__ == "__main__":

@@ -104,6 +104,21 @@ def make_uv_sphere(radius: float = 1.0, resolution: int = 10) -> Mesh:
     return Mesh(vertices, normals, tangents, uvs, indices)
 
 
+def make_box_mesh(width: float, height: float, length: float) -> Mesh:
+    """Per-axis box: 24 verts, 6 faces, half-extent per dimension
+    (crates/pools/src/mesh/boxx.rs:5-117 — vertices are dims/2, per-face
+    normals/uv quads, tangent (1,0,0,-1))."""
+    m = make_cube_mesh(1.0)
+    scale = np.array([width, height, length], np.float32)
+    return Mesh(
+        (m.vertices * scale).astype(np.float32),
+        m.normals,
+        m.tangents,
+        m.uvs,
+        m.indices,
+    )
+
+
 def make_cube_mesh(size: float = 1.0) -> Mesh:
     """24-vertex, 6-face cube (cube.rs / boxx.rs equivalent)."""
     s = size / 2.0
@@ -235,6 +250,25 @@ class MeshPool:
         for m, _r in lods:
             assert 0 <= m < len(self.mesh_info)
         self.mesh_info[base_id]["lods"] = list(lods)
+
+    def add_with_auto_lods(self, mesh: Mesh, ratios=(10.0, 25.0),
+                           cells=(24, 10)) -> int:
+        """Add a mesh plus grid-decimated LOD levels (decimate_grid) at the
+        given distance/radius thresholds. Levels that fail to reduce the
+        triangle count are skipped. Returns the base mesh id."""
+        base = self.add(mesh)
+        lods = []
+        prev_tris = mesh.indices.size // 3
+        for r, c in zip(ratios, cells):
+            m = decimate_grid(mesh, c)
+            t = m.indices.size // 3
+            if t >= prev_tris:
+                continue
+            lods.append((self.add(m), float(r)))
+            prev_tris = t
+        if lods:
+            self.set_lods(base, lods)
+        return base
 
     def bounds(self) -> dict:
         """Each mesh's object-space AABB: mesh_min, mesh_max (M, 3) f32."""
@@ -392,3 +426,47 @@ def make_torus_knot(
             idx += [a0, b0, a1, a1, b0, b1]
     return Mesh(verts, normals, tangents.astype(np.float32), uvs,
                 np.array(idx, np.int32))
+
+
+def decimate_grid(mesh: Mesh, cells: int = 24) -> Mesh:
+    """Vertex-clustering decimation: snap vertices to a cells^3 grid over
+    the mesh AABB, merge clusters (position/normal/tangent/uv averaged),
+    drop degenerate triangles. Coarse but robust, for distant geometric
+    LODs, where silhouette fidelity at a few pixels is all that matters.
+    """
+    v = mesh.vertices
+    mn = v.min(axis=0)
+    ext = np.maximum(v.max(axis=0) - mn, 1e-9)
+    key = np.minimum((v - mn) / ext * cells, cells - 1e-4).astype(np.int64)
+    flat = (key[:, 0] * cells + key[:, 1]) * cells + key[:, 2]
+    uniq, remap = np.unique(flat, return_inverse=True)
+    k = len(uniq)
+
+    def avg(a):
+        out = np.zeros((k, a.shape[1]), np.float64)
+        np.add.at(out, remap, a.astype(np.float64))
+        cnt = np.zeros(k, np.float64)
+        np.add.at(cnt, remap, 1.0)
+        return (out / cnt[:, None]).astype(np.float32)
+
+    verts = avg(v)
+    nrm = avg(mesh.normals)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+    tan = avg(mesh.tangents)
+    t3 = tan[:, :3]
+    t3 /= np.maximum(np.linalg.norm(t3, axis=1, keepdims=True), 1e-9)
+    # majority handedness; never 0 (a zero tangent.w kills the bitangent)
+    tan = np.concatenate(
+        [t3, np.where(tan[:, 3:4] >= 0.0, 1.0, -1.0)], axis=1
+    )
+    uv = avg(mesh.uvs)
+
+    tri = remap[mesh.indices.reshape(-1, 3)]
+    keep = (
+        (tri[:, 0] != tri[:, 1]) & (tri[:, 1] != tri[:, 2])
+        & (tri[:, 0] != tri[:, 2])
+    )
+    idx = tri[keep].reshape(-1).astype(np.int32)
+    if idx.size == 0:  # degenerate input: keep one triangle
+        idx = np.array([0, min(1, k - 1), min(2, k - 1)], np.int32)
+    return Mesh(verts, nrm, tan.astype(np.float32), uv, idx)

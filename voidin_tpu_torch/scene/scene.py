@@ -11,6 +11,9 @@ scene's leaves as numpy arrays keyed by dotted path (``"meshes.tri_pos"``,
 feeds it the port's own host arrays; the parity tests feed it the leaves of
 a JAX SceneData, so both packages render the very same state.
 
+``scene_to_numpy`` is its reverse: the leaves and statics of a SceneData
+back on the host, under the same names (``io/snapshot.py`` saves them).
+
 ``World.device(with_tlas=True)`` also builds the TLAS over the instances'
 world AABBs (``TlasData``), which the raytraced shadows walk.
 
@@ -157,6 +160,34 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
         skins=skins,
         **flags,
     )
+
+
+def scene_to_numpy(scene: SceneData):
+    """(leaves, statics) of `scene` on the host, the reverse of
+    scene_from_numpy: the leaves keyed as World.host_leaves keys them and
+    typed as the device holds them (the host's u32 words as int32, which
+    scene_from_numpy takes unchanged), the static flags of
+    STATIC_FLAGS and the skins' static fields under statics["skins"]. The
+    statics that the leaves determine (the pool's has_lods, the texture
+    base size, the TLAS refit levels) are left to scene_from_numpy."""
+    parts = dict(meshes=(scene.meshes, mesh_mod.MESH_LEAVES),
+                 instances=(scene.instances, INSTANCE_LEAVES),
+                 materials=(scene.materials, MATERIAL_LEAVES),
+                 lights=(scene.lights, LIGHT_LEAVES),
+                 textures=(scene.textures, tex_mod.TEXTURE_LEAVES))
+    if scene.tlas is not None:
+        parts["tlas"] = (scene.tlas, TLAS_LEAVES)
+    leaves = {"ltc1": scene.ltc1.cpu().numpy(),
+              "ltc2": scene.ltc2.cpu().numpy()}
+    for prefix, (data, names) in parts.items():
+        for k in names:
+            leaves[f"{prefix}.{k}"] = getattr(data, k).cpu().numpy()
+    for i, skin in enumerate(scene.skins):
+        for k, v in skin_leaves(skin).items():
+            leaves[f"skins.{i}.{k}"] = v
+    statics = {k: getattr(scene, k) for k in STATIC_FLAGS}
+    statics["skins"] = tuple(skin_statics(s) for s in scene.skins)
+    return leaves, statics
 
 
 class World:

@@ -53,6 +53,17 @@ def _mip_sizes(base: int) -> List[int]:
     return sizes
 
 
+def pool_device_bytes(n_textures: int, pool_size: int) -> int:
+    """Device bytes of the pool's quad table for `n_textures` slots at
+    pool size S=`pool_size`: one 32 B quad row per texel over the
+    flattened mip chain (sum of s^2 over the mips, ~(4/3) S^2 rows), so
+    ~44.7 MB a slot at S=1024. The port builds neither the 16 B split
+    twins nor the 4x4 tap-block tables, so the JAX function's split
+    doubling and its `blocks` tripling do not apply."""
+    total_rows = sum(s * s for s in _mip_sizes(pool_size))
+    return n_textures * total_rows * 32
+
+
 def _downsample2x2(img: np.ndarray) -> np.ndarray:
     h, w = img.shape[:2]
     if h == 1 and w == 1:
@@ -110,6 +121,9 @@ class TexturePoolData:
     @property
     def count(self) -> int:
         return self.size.shape[0]
+
+
+TEXTURE_LEAVES = ("quads", "size", "max_lod", "srgb")
 
 
 class TexturePool:
