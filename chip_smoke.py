@@ -108,15 +108,31 @@ compiler), then:
      CPU twins (mean 5e-3); config 7 saved with save_scene, loaded onto
      the card with load_scene and rendered once against a frame of the
      scene it was saved from (mean <= 1e-6; max abs diff and word
-     equality printed).
-Phases 5-8 and 10-15 print the median ms/frame of frames 3-12 (CUDA
+     equality printed);
+ 16. the app layer (app_phases): examples/model.py through App at its
+     1280x1024 (K1 base and the fused LTC kernel held against their
+     twins on the App's first frame, every word equal), 12 App.step frames
+     (overflow 0, K1 base and the fused LTC kernel once a frame, every
+     other kernel never), 12 Renderer.render frames alone on the same
+     camera path, 12 App.step frames again; App.resize(1920, 1080)
+     (Example.resize called, peak memory printed) and the same three runs
+     at full width; App.run(12, record_path=<tmp>/clip.mp4, hud=True), its
+     route printed (ffmpeg or the MJPEG-AVI), the AVI read back
+     (avi_frames: RIFF / hdrl / movi / idx1, 12 '00dc' chunks) and every
+     frame decoded by io/jpeg.py within mean abs 0.01 of the frame the
+     recorder was handed; profile_frame on the north star at 1920x1080
+     (every row > 0, the fine raster row beside K1's device ms); run_web
+     on 127.0.0.1 at a free port (a 1080p PNG decoded, the stats, a held
+     key moves the camera).
+Phases 5-8 and 10-16 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
 its 1-table shape under one_table and the ring frame's fetch under ring,
 the shadow kernel's with its scale-2 rays under scale2, the closest-hit
 kernel's with config 5's rays under config5, K1's and the fused LTC
-kernel's with each preset's and the import scene's inputs under paths),
+kernel's with each preset's, the import scene's and the App's inputs under
+paths; their launches count phase 16's App frames too),
 then the card line, then the
 result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
@@ -458,13 +474,14 @@ def frame_blocks(scene, cfg):
     return blocks, counts
 
 
-def run_frames(renderer, cam, label, joint_mats=None, keep=None):
+def run_frames(renderer, cam, label, joint_mats=None, keep=None,
+               shape=(HEIGHT, WIDTH, 3)):
     """FRAMES frames through Renderer.render, each timed with CUDA events
     and checked: overflow 0, something visible; `joint_mats(i)` poses
     frame i's skins; the images of the frames `keep` names go into it
-    (frame -> host image). Returns (last image, per-frame ms, the peak
-    device memory over the frames and the part of it above what was
-    resident before, as text)."""
+    (frame -> host image); the last image must have `shape`. Returns (last
+    image, per-frame ms, the peak device memory over the frames and the
+    part of it above what was resident before, as text)."""
     import torch
 
     before = torch.cuda.memory_allocated()
@@ -500,7 +517,7 @@ def run_frames(renderer, cam, label, joint_mats=None, keep=None):
         if aux["vis_coverage"] <= 0:
             fail(f"{label} frame {i} has no visible pixel")
     out = img.cpu().numpy()
-    if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all():
+    if out.shape != shape or not np.isfinite(out).all():
         fail(f"{label} image bad: shape {out.shape}")
     if not out.std() > 0:
         fail(f"{label} image has no variance")
@@ -1663,6 +1680,320 @@ def import_phases(dev, card):
         fail("the loaded snapshot renders another frame")
     return got, paths
 
+APP_SIZE = (1280, 1024)  # the model example's window (model.rs)
+
+
+class _AppSteps:
+    """App.step behind run_frames' Renderer interface (the App moves its
+    own camera)."""
+
+    def __init__(self, app):
+        self.app = app
+
+    def render(self, cam, joint_mats=None):
+        return self.app.step()
+
+    @property
+    def aux(self):
+        return self.app.renderer.aux
+
+
+class _CameraPath:
+    """Renderer.render alone on the App's camera path: the camera
+    advanced by one fixed step before each frame, as App.step does."""
+
+    def __init__(self, renderer):
+        self.renderer = renderer
+
+    def render(self, cam, joint_mats=None):
+        from voidin_tpu_torch.framework.app import FIXED_TIME_STEP
+
+        cam.update(FIXED_TIME_STEP)
+        return self.renderer.render(cam, dt=FIXED_TIME_STEP)
+
+    @property
+    def aux(self):
+        return self.renderer.aux
+
+
+def app_run_pair(app, label, card):
+    """FRAMES App.step frames, FRAMES frames of a Renderer alone over the
+    App's scene on the same camera path, then FRAMES App.step frames
+    again (the Renderer's run between the App's, as the card's frame times
+    drift); each App run's launches counted: K1 base and the fused LTC
+    kernel once a frame, nothing else. Returns (the App runs' launches,
+    the App's median ms over both runs' frames 3-12, the Renderer's)."""
+    import copy
+
+    import torch
+
+    from voidin_tpu_torch.framework.renderer import Renderer
+
+    w, h = app.config.width, app.config.height
+    launches, app_times = {}, []
+    r = Renderer(app.renderer.scene, app.config,
+                 moving_ids=app.renderer.moving_ids.cpu().numpy())
+    for run in ("App", "Renderer", "App"):
+        name = (f"{label}, Renderer.render alone" if run == "Renderer"
+                else label)
+        cam = copy.deepcopy(app.state.camera)
+        reset_launches()
+        if run == "App":
+            out, times, mem = run_frames(_AppSteps(app), None, name,
+                                         shape=(h, w, 3))
+            app_times += times[2:]
+        else:
+            _, times, _ = run_frames(_CameraPath(r), cam, name,
+                                     shape=(h, w, 3))
+            r_ms = float(np.median(times[2:]))
+        got = expect_launches(name, dict(k1=FRAMES, ltc_rect=FRAMES))
+        if run == "App":
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+    del r
+    torch.cuda.empty_cache()
+    app_ms = float(np.median(app_times))
+    print(f"{label} {w}x{h}: App.step median {app_ms:.3f} ms/frame over "
+          f"frames 3-{FRAMES} of two runs, Renderer.render alone "
+          f"{r_ms:.3f} between them (the App's own host cost "
+          f"{app_ms - r_ms:+.3f}) ({card}); {mem}; image mean "
+          f"{out.mean():.4f} std {out.std():.4f}", flush=True)
+    return launches, app_ms, r_ms
+
+
+def record_phase(app, card, path, step_ms):
+    """App.run(FRAMES, record_path=path, hud=True): prints the route the
+    recorder took and the run's ms/frame beside `step_ms` (App.step
+    without recording); on the AVI route reads the file back
+    (avi_frames: the RIFF / hdrl / movi / idx1 layout, FRAMES '00dc'
+    chunks that idx1 points at) and decodes every frame with the port's
+    decoder against the frame the recorder was handed (mean abs <= 0.01).
+    Returns the run's launches."""
+    import torch
+
+    from voidin_tpu_torch.io.jpeg import decode_jpeg
+
+    pushed, step_times = [], []
+    real_push, real_step = app.recorder.push, app.step
+
+    def push(frame):
+        pushed.append(np.array(frame, np.float32))
+        real_push(frame)
+
+    def step():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = real_step()
+        end.record()
+        end.synchronize()
+        step_times.append(start.elapsed_time(end))
+        if int(app.renderer.aux["overflow"]):
+            fail("App.run frame overflowed")
+        return img
+
+    app.recorder.push, app.step = push, step
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        app.run(FRAMES, record_path=path, hud=True)
+    finally:
+        app.step = real_step
+    wall = (time.perf_counter() - t0) * 1e3
+    got = expect_launches("App.run with recording",
+                          dict(k1=FRAMES, ltc_rect=FRAMES))
+    out = app.recorder.out_path
+    route = "MJPEG-AVI (no ffmpeg)" if out.endswith(".avi") else "ffmpeg"
+    size = os.path.getsize(out)
+    print(f"App.run({FRAMES}, record_path={os.path.basename(path)}, "
+          f"hud=True) at {app.config.width}x{app.config.height}: route "
+          f"{route} -> {os.path.basename(out)} ({size:,} bytes); App.step "
+          f"median {float(np.median(step_times[2:])):.3f} ms/frame over "
+          f"frames 3-{FRAMES} while recording, the run's wall time "
+          f"{wall / FRAMES:.3f} ms/frame (the recorder's drain included), "
+          f"against {step_ms:.3f} ms/frame without recording ({card})",
+          flush=True)
+    if len(pushed) != FRAMES or size <= 0:
+        fail(f"the recorder was handed {len(pushed)} frames")
+    if route != "ffmpeg":
+        with open(out, "rb") as f:
+            frames = avi_frames(f.read())
+        if len(frames) != FRAMES:
+            fail(f"the AVI holds {len(frames)} frames, not {FRAMES}")
+        t0 = time.perf_counter()
+        diffs = []
+        for data, want in zip(frames, pushed):
+            got_img = decode_jpeg(data, "clip.avi frame") / 255.0
+            if got_img.shape != want.shape:
+                fail(f"decoded frame shape {got_img.shape}")
+            diffs.append(np.abs(got_img - np.clip(want, 0, 1)))
+        t_dec = (time.perf_counter() - t0) * 1e3 / FRAMES
+        means = [float(d.mean()) for d in diffs]
+        print(f"AVI read back: {FRAMES} '00dc' frames of "
+              f"{min(map(len, frames)):,}-{max(map(len, frames)):,} bytes, "
+              f"decoded by io/jpeg.py in {t_dec:.0f} ms each on the host; "
+              f"mean abs diff to the frames handed to the recorder "
+              f"{max(means):.4f} at most (budget 0.01), max abs diff "
+              f"{max(float(d.max()) for d in diffs):.4f}", flush=True)
+        if not max(means) <= 0.01:
+            fail("the AVI's frames stray from the recorded frames")
+    return got
+
+
+def web_phase(app, card):
+    """run_web on 127.0.0.1 at a free port over the App: GET a frame
+    (decode_png: the App's size), GET the stats, hold W for three frames
+    and check that the camera moved, then Esc. Returns the launches of
+    its frames (K1 base and the fused LTC kernel once a frame)."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    from voidin_tpu_torch.framework.webviewer import run_web
+    from voidin_tpu_torch.io.image import decode_png
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.read()
+
+    def post(url, obj):
+        req = urllib.request.Request(url, data=_json.dumps(obj).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.read()
+
+    pos0 = np.array(app.state.camera.position, np.float64)
+    ready = threading.Event()
+    result = {}
+    reset_launches()
+    t = threading.Thread(target=lambda: result.update(frames=run_web(
+        app, host="127.0.0.1", port=0, max_frames=200, fps_cap=1000.0,
+        ready=ready)), daemon=True)
+    t.start()
+    if not ready.wait(60):
+        fail("the web viewer did not come up")
+    base = f"http://127.0.0.1:{ready.port}"
+    try:
+        t0 = time.perf_counter()
+        png = get(base + "/frame.png")
+        t_png = (time.perf_counter() - t0) * 1e3
+        img = decode_png(png)
+        stats = _json.loads(get(base + "/stats"))
+        post(base + "/input", {"type": "down", "key": "w"})
+        f0 = _json.loads(get(base + "/stats"))["frame"]
+        deadline = time.perf_counter() + 60
+        while _json.loads(get(base + "/stats"))["frame"] < f0 + 3:
+            if time.perf_counter() > deadline:
+                fail("the web viewer stopped rendering")
+            time.sleep(0.01)
+        post(base + "/input", {"type": "up", "key": "w"})
+    finally:
+        post(base + "/input", {"type": "down", "key": "escape"})
+        t.join(120)
+    if t.is_alive():
+        fail("the web viewer did not stop on Esc")
+    n = result["frames"]
+    got = expect_launches("web viewer", dict(k1=n, ltc_rect=n))
+    moved = float(np.linalg.norm(np.asarray(app.state.camera.position)
+                                 - pos0))
+    h, w = app.config.height, app.config.width
+    print(f"web viewer on {base}: {n} frames; /frame.png {len(png):,} "
+          f"bytes, decoded {img.shape}, first response in {t_png:.0f} ms; "
+          f"stats frame {stats['frame']}; W held -> camera moved "
+          f"{moved:.4f} ({card})", flush=True)
+    if img.shape[:2] != (h, w) or not img[..., :3].std() > 0:
+        fail(f"the web viewer served a frame of shape {img.shape}")
+    if not moved > 1e-3:
+        fail("the web viewer's key did not move the camera")
+    return got
+
+
+def app_phases(dev, card, k1_device_ms):
+    """Phase 16: the app layer on the card. examples/model.py's App at its
+    1280x1024 (K1 base and the fused LTC kernel held against their twins
+    on the App's first frame first, hold_path_kernels), App.step frames
+    beside Renderer.render frames on the same camera path (app_run_pair);
+    App.resize(1920, 1080) (Example.resize called, the
+    peak memory after it printed) and the pair again; App.run with
+    recording (record_phase); profile_frame on the north star at
+    1920x1080 (every row > 0; the fine raster row beside K1's device ms
+    from phase 2); the web viewer (web_phase). Returns (the launches of
+    the App's runs by counter, {kernel row name: {"App (model)": its row
+    on the App's first-frame inputs}})."""
+    import tempfile
+
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.examples import model
+    from voidin_tpu_torch.framework.profiler import (print_table,
+                                                     profile_frame)
+    from voidin_tpu_torch.framework.renderer import build_world
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    app = model.make_app(*APP_SIZE, dev)
+    print(f"App (examples/model.py) at {APP_SIZE[0]}x{APP_SIZE[1]}: "
+          f"{len(app.world.instances)} instances, {len(app.moving_ids)} "
+          f"moving, built in {(time.perf_counter() - t0) * 1e3:.0f} ms on "
+          f"the host", flush=True)
+    paths = {k: {"App (model)": row} for k, row in hold_path_kernels(
+        "App (model) first frame", app.step, ("k1", "ltc_rect"),
+        card).items()}
+    got, small_ms, _ = app_run_pair(app, "App (model)", card)
+    add(got)
+
+    resized = []
+    real_resize = app.example.resize
+    app.example.resize = lambda a, w, h: (resized.append((w, h)),
+                                          real_resize(a, w, h))
+    torch.cuda.reset_peak_memory_stats()
+    app.resize(WIDTH, HEIGHT)
+    print(f"App.resize({WIDTH}, {HEIGHT}): Example.resize called with "
+          f"{resized}; peak device memory through the resize "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, resident "
+          f"after it {torch.cuda.memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    if resized != [(WIDTH, HEIGHT)] or app.renderer.config.width != WIDTH:
+        fail("App.resize did not reach the Example or the Renderer")
+    got, full_ms, _ = app_run_pair(app, "App (model) resized", card)
+    add(got)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        add(record_phase(app, card, os.path.join(tmp, "clip.mp4"), full_ms))
+        if app.recorder.out_path.endswith(".mp4"):  # ffmpeg took it
+            add(record_phase(app, card, os.path.join(tmp, "clip.avi"),
+                             full_ms))
+    print(f"App (model) ms/frame: {APP_SIZE[0]}x{APP_SIZE[1]} "
+          f"{small_ms:.3f}, {WIDTH}x{HEIGHT} {full_ms:.3f} ({card})",
+          flush=True)
+
+    world, _ = build_world(10_000, seed=0)
+    scene = world.device(dev)
+    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
+                       pair_capacity=CAP)
+    rows = profile_frame(scene, north_star_camera(pt).uniform(), cfg)
+    print(f"profile_frame, north star {WIDTH}x{HEIGHT} ({card}):",
+          flush=True)
+    print_table(rows)
+    fine = dict(rows)["fine raster (cuda)"]
+    print(f"profiler row 'fine raster (cuda)' {fine:.4f} ms (CUDA events "
+          f"around one call, wrapper included) beside K1's device time "
+          f"from phase 2 {fmt_ms(k1_device_ms)}", flush=True)
+    if not all(ms > 0 for _, ms in rows):
+        fail("a profiler row is not > 0")
+    del scene, world
+    torch.cuda.empty_cache()
+
+    add(web_phase(app, card))
+    return launches, paths
+
 
 def main():
     import torch
@@ -1923,13 +2254,16 @@ def main():
     rows["lut_fetch"]["ring"], ring_k3_launches, _ = ring_phases(dev, card)
     preset_launches, preset_paths = preset_phases(dev, card)
     import_launches, import_paths = import_phases(dev, card)
+    app_launches, app_paths = app_phases(
+        dev, card, rows["fine_raster_pairs"]["device_ms"])
     for name in ("fine_raster_pairs", "ltc_rect"):
         rows[name]["paths"] = {**preset_paths.get(name, {}),
-                               **import_paths.get(name, {})}
+                               **import_paths.get(name, {}),
+                               **app_paths.get(name, {})}
 
     path_launches = dict(
         fine_raster_pairs=(ns_launches["k1"] + preset_launches["k1"]
-                           + import_launches["k1"]),
+                           + import_launches["k1"] + app_launches["k1"]),
         fine_raster_pairs_track2=masked_launches["k1_track2"],
         fine_raster_pairs_payload=payload_launches["k1_payload"],
         fine_raster_blocks=block_launches["k2"],
@@ -1937,7 +2271,8 @@ def main():
         lut_fetch=ring_k3_launches,
         lut_fetch_bf16=bf16_launches["k3_bf16"],
         ltc_rect=(ns_launches["ltc_rect"] + preset_launches["ltc_rect"]
-                  + import_launches["ltc_rect"]),
+                  + import_launches["ltc_rect"]
+                  + app_launches["ltc_rect"]),
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         shadow_trace=rt_launches,
         closest_hit=closest_launches,
@@ -1979,6 +2314,46 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def avi_frames(data):
+    """The JPEG bytes of an MJPEG-AVI's frames in idx1 order, after
+    checking the layout io/avi.py writes: RIFF 'AVI ' holding the rest of
+    the file; LIST 'hdrl' first, whose avih dwTotalFrames is the idx1
+    entry count; LIST 'movi' of '00dc' chunks; idx1 last, each entry a
+    key frame whose offset (counted from the 'movi' fourcc) points at a
+    '00dc' chunk of the entry's size inside movi. Raises ValueError."""
+    import struct
+
+    def check(ok, what):
+        if not ok:
+            raise ValueError(f"AVI layout: {what}")
+
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI ", "no RIFF AVI")
+    check(struct.unpack("<I", data[4:8])[0] == len(data) - 8, "RIFF size")
+    check(data[12:16] == b"LIST" and data[20:24] == b"hdrl", "no hdrl")
+    hdrl_end = 20 + struct.unpack("<I", data[16:20])[0]
+    check(data[24:28] == b"avih", "no avih")
+    n_frames = struct.unpack("<I", data[48:52])[0]
+    check(data[hdrl_end:hdrl_end + 4] == b"LIST"
+          and data[hdrl_end + 8:hdrl_end + 12] == b"movi", "no movi")
+    movi = hdrl_end + 8
+    movi_end = movi + struct.unpack("<I", data[hdrl_end + 4:hdrl_end + 8])[0]
+    check(data[movi_end:movi_end + 4] == b"idx1", "idx1 not after movi")
+    n_idx = struct.unpack("<I", data[movi_end + 4:movi_end + 8])[0]
+    check(n_idx == 16 * n_frames and movi_end + 8 + n_idx == len(data),
+          f"idx1 of {n_idx} bytes for {n_frames} frames")
+    frames = []
+    for i in range(n_frames):
+        e = movi_end + 8 + 16 * i
+        fourcc, flags, off, size = struct.unpack("<4sIII", data[e:e + 16])
+        at = movi + off
+        check(fourcc == b"00dc" and flags & 0x10, f"idx1 entry {i}")
+        check(data[at:at + 4] == b"00dc" and at + 8 + size <= movi_end
+              and struct.unpack("<I", data[at + 4:at + 8])[0] == size,
+              f"frame {i} at offset {off}")
+        frames.append(data[at + 8:at + 8 + size])
+    return frames
 
 
 def golden_scene(pt):

@@ -11,7 +11,10 @@ K3 on the ring-light frame's own uvs) against their PyTorch twins, and of
 the frame on the card against the CPU path, on the pair and block paths,
 with slim_rec + kernel_payload, with raytraced shadows, skinned, for the
 ring light, for the presets (configs 4 and 7) and for the imported glTF
-scene. Marked
+scene; the App path (examples/model.py's scene through App.step, launches
+and the resize) on the card against the CPU, its recorded MJPEG-AVI read
+back by the port's JPEG decoder, and the profiler's CUDA-event timing.
+Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -513,3 +516,80 @@ def test_gltf_frame_on_card_matches_cpu(cuda, tmp_path):
         imgs.append(img.cpu().numpy())
     assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.02
     assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+def test_app_model_on_card_matches_cpu(cuda):
+    """examples/model.py's App at 160x128 on the card and on the CPU:
+    three App.step frames within 5e-3 mean; K1 base and the fused LTC
+    kernel launched once a card frame; the resize to 128x96 frees the old
+    Renderer and renders at the new size."""
+    import gc
+    import weakref
+
+    from voidin_tpu_torch.examples import model
+
+    imgs = []
+    for device in (cuda, torch.device("cpu")):
+        app = model.make_app(160, 128, device)
+        b_fr, b_ltc = t_fr.LAUNCHES, t_ltc.LAUNCHES
+        for _ in range(3):
+            img = app.step()
+        assert img.device.type == device.type
+        assert int(app.renderer.aux["overflow"]) == 0
+        n = 3 if device.type == "cuda" else 0
+        assert (t_fr.LAUNCHES - b_fr, t_ltc.LAUNCHES - b_ltc) == (n, n)
+        imgs.append(img.cpu().numpy())
+        old = weakref.ref(app.renderer)
+        app.resize(128, 96)
+        gc.collect()
+        assert old() is None
+        assert app.step().shape == (96, 128, 3)
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.02
+    assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
+
+
+def test_app_recording_round_trip_on_card(cuda, tmp_path):
+    """App.run records card frames (host copies) into the MJPEG-AVI; the
+    port's decoder reads each frame back within mean 0.01 of the frame
+    the recorder was handed."""
+    from chip_smoke import avi_frames
+    from voidin_tpu_torch.examples import model
+    from voidin_tpu_torch.framework import recorder
+    from voidin_tpu_torch.io.jpeg import decode_jpeg
+
+    app = model.make_app(160, 128, cuda)
+    pushed = []
+    real_push = app.recorder.push
+    app.recorder.push = lambda f: (pushed.append(np.array(f)), real_push(f))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(recorder.shutil, "which", lambda name: None)
+        app.run(4, record_path=str(tmp_path / "clip.mp4"), hud=True)
+    frames = avi_frames((tmp_path / "clip.avi").read_bytes())
+    assert len(frames) == len(pushed) == 4
+    for data, want in zip(frames, pushed):
+        got = decode_jpeg(data) / 255.0
+        assert np.abs(got - np.clip(want, 0, 1)).mean() <= 0.01
+
+
+def test_profiler_times_card_passes_with_cuda_events(cuda, monkeypatch):
+    from voidin_tpu_torch.framework import profiler
+
+    made = []
+    real = torch.cuda.Event
+
+    def event(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    ms = profiler.time_fn(lambda x: x * 2, torch.ones(1 << 20, device=cuda),
+                          n=3)
+    assert ms > 0 and len(made) == 6
+    world, _ = build_world(200, seed=0)
+    rows = profiler.profile_frame(
+        world.device(cuda), pt.Camera(position=[0.0, 2.0, 30.0],
+                                      pitch=-5.0, aspect=2.0).uniform(),
+        RasterConfig(width=320, height=160, tri_capacity=1 << 15,
+                     pair_capacity=1 << 15))
+    assert [n for n, _ in rows][3] == "fine raster (cuda)"
+    assert all(ms > 0 for _, ms in rows)

@@ -7,9 +7,9 @@ snapshot, image) against the JAX package's io modules.
   node-transform document of tests/test_skin.py:219 through
   scene_instances; GltfAnimator's joint matrices equal to JAX's at several
   times, on that scene and on tests/test_skin.py's synthetic skeleton; the
-  skinned glTF frame within 5e-3 of JAX's; a JPEG image refused with
-  NotImplementedError naming it, a missing image file replaced by WHITE
-  with a warning, as JAX does.
+  skinned glTF frame within 5e-3 of JAX's; a progressive JPEG image
+  refused with NotImplementedError naming it, a missing image file
+  replaced by WHITE with a warning, as JAX does.
 - PNG: colour types 0 (grey), 3 (palette, with and without tRNS) and 4
   (grey + alpha) decode to the RGBA of PIL's convert("RGBA") (PIL exists
   here, not on the card's host).
@@ -187,14 +187,18 @@ def _with_image(scene_files, tmp_path, image):
 
 
 def test_gltf_jpeg_image_refused(scene_files, tmp_path):
+    """The port decodes baseline JPEG (io/jpeg.py) but refuses a
+    progressive one, naming the file, in the glTF importer and in
+    load_image."""
     b = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(b, format="JPEG")
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(
+        b, format="JPEG", progressive=True)
     with open(tmp_path / "albedo.jpg", "wb") as f:
         f.write(b.getvalue())
     path = _with_image(scene_files, tmp_path, {"uri": "albedo.jpg"})
     with pytest.raises(NotImplementedError, match="albedo.jpg"):
         t_gltf.GltfDocument.import_file(pt.World(), path)
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="progressive"):
         load_image(str(tmp_path / "albedo.jpg"))
 
 

@@ -347,6 +347,92 @@ def test_presets_and_import_open_nothing_of_the_jax_package(tmp_path):
     assert "OK" in out.stdout
 
 
+APP_MODULES = (
+    "core.hash", "framework.app", "framework.input", "framework.pipeline",
+    "framework.profiler", "framework.recorder", "framework.viewer",
+    "framework.webviewer", "io.avi", "io.jpeg", "passes.blit",
+    "passes.hud", "examples.trig", "examples.spheres",
+    "examples.raytraced_shadows", "examples.fractal", "examples.bvh_cpu",
+    "examples.model", "examples.viewer", "examples.web_viewer")
+
+
+def test_app_layer_opens_nothing_of_the_jax_package(tmp_path):
+    """With jax, flax and PIL unimportable, under the audit hook: every
+    module of the app layer imports; an App runs frames, records them as
+    an MJPEG-AVI (no ffmpeg) whose frames the port's own decoder reads
+    back, profiles a frame and serves one to the web viewer; a JPEG
+    texture loads. No module of the JAX package or PIL is imported and no
+    file under voidin_tpu/ is opened."""
+    code = textwrap.dedent("""
+        import importlib, os, shutil, sys, threading
+        for name in ("jax", "flax", "PIL"):
+            sys.modules[name] = None
+        opened = []
+
+        def hook(event, args):
+            if (event in ("open", "ctypes.dlopen") and args
+                    and isinstance(args[0], (str, bytes, os.PathLike))):
+                opened.append(os.path.abspath(os.fsdecode(args[0])))
+
+        sys.addaudithook(hook)
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        for m in MODULES:
+            importlib.import_module("voidin_tpu_torch." + m)
+        from voidin_tpu_torch.examples import viewer
+        from voidin_tpu_torch.framework import profiler, recorder
+        from voidin_tpu_torch.framework.webviewer import run_web
+        from voidin_tpu_torch.io import jpeg
+        from voidin_tpu_torch.io.image import load_image
+        import chip_smoke
+        recorder.shutil.which = lambda name: None
+        app = viewer.make_app(48, 32, "cpu")
+        app.run(3, record_path=os.path.join(TMP, "clip.mp4"), hud=True)
+        data = open(os.path.join(TMP, "clip.avi"), "rb").read()
+        frames = [jpeg.decode_jpeg(f) for f in chip_smoke.avi_frames(data)]
+        assert len(frames) == 3 and frames[0].shape == (32, 48, 3)
+        rows = profiler.profile_frame(app.renderer.scene,
+                                      app.state.camera.uniform(), app.config)
+        assert all(ms > 0 for _, ms in rows)
+        assert run_web(app, port=0, max_frames=1) == 1
+        path = os.path.join(TMP, "t.jpg")
+        open(path, "wb").write(jpeg.encode_jpeg(frames[0]))
+        assert load_image(path).shape == (32, 48, 4)
+        bad_mods = [k for k, m in sys.modules.items() if m is not None
+                    and (k.split(".")[0] in ("voidin_tpu", "PIL", "jax"))]
+        assert not bad_mods, bad_mods
+        jax_pkg = os.path.join(ROOT, "voidin_tpu") + os.sep
+        bad = [p for p in opened if p.startswith(jax_pkg)]
+        assert not bad, bad
+        print("OK")
+    """).replace("ROOT", repr(ROOT)).replace("TMP", repr(str(tmp_path)))
+    code = code.replace("MODULES", repr(APP_MODULES))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
+def test_app_without_a_card_raises():
+    """App's device defaults to the card: without one it raises (as
+    World.device() does) unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    from voidin_tpu_torch.examples import model, viewer
+    from voidin_tpu_torch.framework.app import App, Example
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        App(Example(), config=RasterConfig(width=32, height=16))
+    with pytest.raises((RuntimeError, AssertionError)):
+        viewer.make_app(32, 16, "cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        model.main(["--width", "32", "--height", "16", "--frames", "1"])
+    app = App(Example(), config=RasterConfig(width=32, height=16),
+              device="cpu")
+    assert app.renderer.device.type == "cpu"
+
+
 def test_load_scene_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks its absence")

@@ -192,9 +192,13 @@ def test_config6_procedural_fallback(monkeypatch):
 
 
 def test_sponza_texture_set_refuses_jpeg(tmp_path, monkeypatch):
-    """With Sponza's texture directory present, PNG files load through
-    io/image.py and a JPEG file raises NotImplementedError naming it (the
-    port has no JPEG decoder)."""
+    """With Sponza's texture directory present, PNG and baseline JPEG
+    files load through io/image.py (the JPEG to PIL's pixels), and a
+    progressive JPEG raises NotImplementedError naming it."""
+    import io
+
+    from PIL import Image
+
     from voidin_tpu_torch.io.image import save_png
 
     d = tmp_path / "glTF-Sample-Models" / "2.0" / "Sponza" / "glTF"
@@ -207,8 +211,15 @@ def test_sponza_texture_set_refuses_jpeg(tmp_path, monkeypatch):
     ids = t_presets._sponza_texture_set(w, 3, 64)
     assert len(ids) == 3
     np.testing.assert_array_equal(w.textures.images[ids[0]][..., :3], img)
-    (d / "b.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
-    with pytest.raises(NotImplementedError, match="b.jpg"):
+    Image.fromarray(img).save(d / "b.jpg", quality=90)
+    w = t_presets.World(texture_base_size=64)
+    ids = t_presets._sponza_texture_set(w, 3, 64)
+    want = np.asarray(Image.open(d / "b.jpg").convert("RGBA"))
+    np.testing.assert_array_equal(w.textures.images[ids[1]], want)
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, format="JPEG", progressive=True)
+    (d / "a.jpg").write_bytes(b.getvalue())
+    with pytest.raises(NotImplementedError, match="a.jpg"):
         t_presets._sponza_texture_set(t_presets.World(), 3, 64)
 
 

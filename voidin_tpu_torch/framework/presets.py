@@ -313,8 +313,8 @@ def _sponza_texture_set(w: World, n_textures: int, base_size: int) -> List[int]:
     """Sponza's REAL texture files from the asset root (when present),
     padded to `n_textures` with seeded procedural plasma textures (full
     procedural fallback when the root lacks the files). The files load
-    through io/image.py, which decodes PNG only: a JPEG among them raises
-    NotImplementedError naming it."""
+    through io/image.py (PNG, and JPEG through io/jpeg.py; a progressive
+    JPEG raises NotImplementedError naming it)."""
     import glob
 
     tex_dir = find_asset("glTF-Sample-Models/2.0/Sponza/glTF")

@@ -14,8 +14,11 @@ an alpha-masked scene (RasterConfig.alpha_mask, from
 SceneData.alpha_masked). A scene with skinning regions (SceneData.skins)
 is skinned each frame from the joint matrices ``Renderer.render`` takes,
 and its BLAS and TLAS refit; rendering it without them raises ValueError,
-as does a frame with raytraced shadows on a scene without a TLAS. It
-raises NotImplementedError for what the port does not carry:
+as does a frame with raytraced shadows on a scene without a TLAS. With
+a ``pipeline_cache`` (framework/pipeline.PipelineCache) the frame routes
+through its entry "frame", rebuilt from the live modules when one of
+``frame_sources()`` changes on disk (hot reload). It raises
+NotImplementedError for what the port does not carry:
 area_light_scale > 1, a device mesh, the JAX package's gather-economy
 RasterConfig options, and slim_rec on a scene outside its envelope (where
 the JAX package falls back to fused_resolve_rec + inst_rec_f16).
@@ -160,6 +163,23 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     return srgb, state, scene, aux
 
 
+def frame_sources():
+    """Source files whose edits must rebuild the frame pipeline — the
+    import_mapping of the frame 'shader' (pipeline.rs:35-36): the pass
+    modules, scene/skin.py and this module. The JAX package also lists
+    parallel/sharding.py, which the port does not have. No ops/ module
+    and no csrc/ file is listed: reloading an ops module would reset its
+    launch counters and the kernel library's handle, and a CUDA source is
+    rebuilt at the next process start, not hot-reloaded."""
+    mods = [
+        cull_pass, post_pass, raster_pass, resolve_pass, shading_pass,
+        taa_pass, update_pass, skin_mod,
+    ]
+    files = [m.__file__ for m in mods if getattr(m, "__file__", None)]
+    files.append(__file__)
+    return files
+
+
 class Renderer:
     """Host-side frame loop: owns the scene, the per-frame state and the
     jitter schedule."""
@@ -176,6 +196,7 @@ class Renderer:
         area_light_scale: int = 1,
         moving_ids: Optional[np.ndarray] = None,
         mesh=None,
+        pipeline_cache=None,
         **options,
     ):
         unsupported = []
@@ -221,6 +242,30 @@ class Renderer:
         self.time = 0.0
         self._prev_uniform = None
         self.aux = None
+        self._fn = None
+        if pipeline_cache is not None:
+            self._fn = pipeline_cache.register("frame", self._build_frame,
+                                               sources=frame_sources())
+
+    def _build_frame(self):
+        """The frame function over this Renderer's options, with
+        render_frame resolved from the live module, so a reload of any
+        pass module (or this one) is picked up at rebuild time — the
+        PipelineArena hot-swap semantics (app/pipeline.rs:253-351)."""
+        import importlib
+
+        rf = importlib.import_module(__name__).render_frame
+
+        def frame(scene, uniform, globals_, state, moving_ids, joint_mats):
+            return rf(scene, uniform, globals_, state, moving_ids,
+                      self.config, enable_cull=self.enable_cull,
+                      enable_taa=self.enable_taa,
+                      enable_post=self.enable_post,
+                      enable_rt_shadows=self.enable_rt_shadows,
+                      rt_shadow_scale=self.rt_shadow_scale,
+                      joint_mats=joint_mats)
+
+        return frame
 
     def render(self, camera: Camera, dt: float = 1.0 / 60.0,
                joint_mats=None) -> torch.Tensor:
@@ -244,13 +289,9 @@ class Renderer:
         self._prev_uniform = uniform
         globals_ = Globals.make(self.config.width, self.config.height,
                                 frame=self.frame_count, time=self.time, dt=dt)
-        img, self.state, _, self.aux = render_frame(
-            self.scene, uniform, globals_, self.state, self.moving_ids,
-            self.config, enable_cull=self.enable_cull,
-            enable_taa=self.enable_taa, enable_post=self.enable_post,
-            enable_rt_shadows=self.enable_rt_shadows,
-            rt_shadow_scale=self.rt_shadow_scale, joint_mats=jm,
-        )
+        frame = self._fn or self._build_frame()
+        img, self.state, _, self.aux = frame(
+            self.scene, uniform, globals_, self.state, self.moving_ids, jm)
         self.frame_count += 1
         self.time += dt
         return img

@@ -15,9 +15,9 @@ semantics:
   Instance records (get_scene_instances, mod.rs:160-207).
 
 Counterpart of ``voidin_tpu/io/gltf.py``. Parsing is self-contained
-(json + struct + numpy; images through ``io/image.py``, which decodes PNG
-only: a JPEG image raises NotImplementedError naming it); .glb and .gltf
-supported.
+(json + struct + numpy; PNG and JPEG images through ``io/image.py``
+``decode_image``, without PIL; a progressive JPEG raises
+NotImplementedError naming it); .glb and .gltf supported.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import numpy as np
 
 from ..scene.mesh import Mesh
 from ..scene.texture import BLACK_TEXTURE, WHITE_TEXTURE
-from .image import decode_png
+from .image import decode_image
 
 _COMPONENT_DTYPES = {
     5120: np.int8,
@@ -230,7 +230,7 @@ class GltfDocument:
                     name = os.path.join(os.path.dirname(path), unquote(uri))
                     with open(name, "rb") as f:
                         raw = f.read()
-            rgba = decode_png(raw, name=f"{path}: {name}")
+            rgba = decode_image(raw, name=f"{path}: {name}")
             tid = world.textures.add(rgba, srgb=srgb)
             image_cache[key] = tid
             return tid

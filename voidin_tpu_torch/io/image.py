@@ -6,8 +6,11 @@ type at 8 bits (grey, RGB, palette, grey + alpha, RGBA; grey and palette
 also at 1, 2 and 4 bits), from a file (``load_image``) or from bytes
 (``decode_png``; glTF embeds its images in buffers and data URIs), and
 expands each to the RGBA that PIL's ``convert("RGBA")`` gives. 16-bit
-and interlaced PNGs are refused with a ValueError, JPEG data with
-NotImplementedError.
+and interlaced PNGs are refused with a ValueError. ``decode_image`` and
+``load_image`` also read JPEG through ``io/jpeg.py`` (baseline and
+extended-sequential; a progressive file raises NotImplementedError).
+``encode_png`` gives a PNG's bytes (the web viewer's frames) at a zlib
+level of the caller's choice.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels (grey, RGB, palette, grey + alpha, RGBA)
@@ -27,9 +32,10 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def save_png(path: str, img) -> None:
-    """Save an (H, W, 3|4) float [0, 1] or uint8 image (floats are
-    clipped, NaN is 0, and rounded to the nearest of 256 steps)."""
+def encode_png(img, level: int = 6) -> bytes:
+    """An (H, W, 3|4) float [0, 1] or uint8 image as PNG bytes (floats
+    are clipped, NaN is 0, and rounded to the nearest of 256 steps);
+    `level` is zlib's (1 fast, 9 small)."""
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         arr = (np.clip(np.nan_to_num(arr), 0.0, 1.0) * 255.0
@@ -42,10 +48,15 @@ def save_png(path: str, img) -> None:
     raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)],
                          axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def save_png(path: str, img) -> None:
+    """Save an (H, W, 3|4) float [0, 1] or uint8 image (encode_png)."""
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+        f.write(encode_png(img))
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
@@ -102,11 +113,8 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     gives it: grey (bit depths 1-8) replicated into RGB, palette indices
     (1-8 bits) looked up with their tRNS alphas, grey + alpha spread, an
     RGB or grey tRNS key cut to alpha 0, opaque alpha elsewhere. 16-bit
-    and interlaced PNGs raise ValueError; JPEG data raises
-    NotImplementedError (this module has no JPEG decoder)."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(
-            f"{name}: JPEG image; voidin_tpu_torch decodes PNG only")
+    and interlaced PNGs raise ValueError (decode_image also reads
+    JPEG)."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{name}: not a PNG")
     i, idat, header, plte, trns = 8, [], None, None, None
@@ -170,7 +178,20 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return samples
 
 
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """A PNG's or a JPEG's bytes as (H, W, 4) uint8 RGBA, as PIL's
+    convert("RGBA") gives it (JPEG: io/jpeg.decode_jpeg, grey replicated
+    into RGB, opaque alpha)."""
+    if data[:2] != jpeg.SOI:
+        return decode_png(data, name)
+    rgb = jpeg.decode_jpeg(data, name)
+    if rgb.ndim == 2:
+        rgb = np.repeat(rgb[..., None], 3, axis=-1)
+    alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
+    return np.concatenate([rgb, alpha], axis=-1)
+
+
 def load_image(path: str) -> np.ndarray:
-    """Load a PNG file as (H, W, 4) uint8 RGBA (decode_png)."""
+    """Load a PNG or JPEG file as (H, W, 4) uint8 RGBA (decode_image)."""
     with open(path, "rb") as f:
-        return decode_png(f.read(), name=str(path))
+        return decode_image(f.read(), name=str(path))
