@@ -124,7 +124,23 @@ compiler), then:
      (every row > 0, the fine raster row beside K1's device ms); run_web
      on 127.0.0.1 at a free port (a 1080p PNG decoded, the stats, a held
      key moves the camera).
-Phases 5-8 and 10-16 print the median ms/frame of frames 3-12 (CUDA
+ 17. the row-sharded frame, debug_bounds and area_light_scale
+     (shard_phases): the north star at 1920x1088 (136 tile rows; 1080
+     rows split into no whole slabs; pair capacity 2^21, where each slab
+     bins at the JAX package's local_pair_capacity, 1/N of it), 12 TAA
+     frames unsharded, then on meshes naming the card 2 and 4 times (and
+     on 2 and 4 cards where that many are visible): every frame word for
+     word the unsharded one, overflow 0, K1 and the fused LTC kernel once
+     per slab and frame, each slab's launches of one more frame equal to
+     their twins on the slab's own inputs (per-slab K1 device ms
+     printed); config 5
+     raytraced on 2 slabs, word for word; debug_bounds (a checked frame
+     equal to the unchecked one, a corrupted tri_id raising resolve.rec,
+     a corrupted TLAS child raising rt. with no shadow launch, the card
+     usable after); area_light_scale=2 (the fused kernel on the
+     (544, 960) fields equal to its twin, the frame within
+     tests/test_ltc.py's budgets of full resolution, 12 frames timed).
+Phases 5-8 and 10-17 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
@@ -132,7 +148,8 @@ its 1-table shape under one_table and the ring frame's fetch under ring,
 the shadow kernel's with its scale-2 rays under scale2, the closest-hit
 kernel's with config 5's rays under config5, K1's and the fused LTC
 kernel's with each preset's, the import scene's and the App's inputs under
-paths; their launches count phase 16's App frames too),
+paths, the fused kernel's also on area_light_scale 2's; their launches
+count phase 16's App frames and phase 17's runs too),
 then the card line, then the
 result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
@@ -587,11 +604,11 @@ def timing(r):
             f" ({r['bound_by']})")
 
 
-def main_path_inputs(render):
-    """The arguments of the first call of K1 base (fine_raster_pairs) and
-    of the fused LTC kernel (ltc_rect_terms) while `render()` draws one
-    frame: {counter name: (args, kwargs)}, a kernel that the frame did not
-    call left out."""
+def kernel_calls(render):
+    """The arguments of every call of K1 base (fine_raster_pairs) and of
+    the fused LTC kernel (ltc_rect_terms) while `render()` draws one
+    frame: {counter name: [(args, kwargs), ...]}, a kernel that the frame
+    did not call left out."""
     from voidin_tpu_torch.ops import fine_raster as fr
     from voidin_tpu_torch.ops import ltc_rect as lr
 
@@ -602,7 +619,7 @@ def main_path_inputs(render):
 
     def keeper(key):
         def call(*args, **kwargs):
-            seen.setdefault(key, (args, kwargs))
+            seen.setdefault(key, []).append((args, kwargs))
             return reals[key](*args, **kwargs)
         return call
 
@@ -616,66 +633,88 @@ def main_path_inputs(render):
     return seen
 
 
+def main_path_inputs(render):
+    """The arguments of the first call of K1 base and of the fused LTC
+    kernel while `render()` draws one frame (kernel_calls): {counter
+    name: (args, kwargs)}."""
+    return {k: calls[0] for k, calls in kernel_calls(render).items()}
+
+
+def hold_k1_call(label, args, kw, card):
+    """One recorded launch of K1 base (its arguments `args`, `kw`) against
+    its twin: every output word equal, timed as kernel_phases times K1.
+    Prints its records and fullest tile; returns its row."""
+    import torch
+
+    from voidin_tpu_torch.ops import fine_raster as fr
+
+    counts = args[2]
+    got = fr.fine_raster_pairs(*args, **kw)
+    ref = fr.fine_raster_pairs_reference(*args, **kw)
+    torch.cuda.synchronize()
+    differ = [words_differ(a, b) for a, b in zip(got, ref)]
+    r = timed_row(
+        lambda: fr.fine_raster_pairs(*args, **kw),
+        "fine_raster_pairs_kernel", 10,
+        lambda: fr.fine_raster_pairs_reference(*args, **kw), 1,
+        k1_bound(counts, 2), float((got[0] - ref[0]).abs().max()))
+    r.update(records=int(counts.sum()), max_records=int(counts.max()),
+             differing_words=sum(differ))
+    print(f"{label}, K1 on its own records ({kw or 'base'}): "
+          f"{r['records']} records over {counts.numel()} tiles, the "
+          f"fullest tile {r['max_records']}; per-tile counts "
+          f"{count_histogram(counts)}; differing words (depth, id) "
+          f"{differ}; {timing(r)} ({card})", flush=True)
+    if any(differ):
+        fail(f"{label}: K1 disagrees with its twin on its own records")
+    return r
+
+
+def hold_ltc_call(label, args, kw, card):
+    """One recorded launch of the fused LTC kernel against its twin:
+    every output word equal, timed as ltc_rect_phases times it; returns
+    its row."""
+    import torch
+
+    from voidin_tpu_torch.ops import ltc_rect as lr
+
+    got = lr.ltc_rect_terms(*args, **kw)
+    ref = lr.ltc_rect_terms_reference(*args, **kw)
+    torch.cuda.synchronize()
+    differ = [words_differ(a, b) for a, b in zip(got, ref)]
+    n_px, n_lights = args[3].numel(), args[4].shape[0]
+    r = timed_row(
+        lambda: lr.ltc_rect_terms(*args, **kw), "ltc_rect", 10,
+        lambda: lr.ltc_rect_terms_reference(*args, **kw), 1,
+        ltc_rect_bound(n_px, n_lights),
+        max(float((a - b).abs().max()) for a, b in zip(got, ref)))
+    r.update(lights=n_lights, differing_words=sum(differ))
+    print(f"{label}, fused LTC on its own {tuple(args[3].shape)} shade "
+          f"fields ({n_lights} lights, {kw}): differing words (diff, spec) "
+          f"{differ}; max abs diff {r['max_abs_err']}; {timing(r)} "
+          f"({card})", flush=True)
+    if any(differ):
+        fail(f"{label}: the fused LTC kernel disagrees with its twin on "
+             f"its own shade fields")
+    return r
+
+
 def hold_path_kernels(label, render, want, card):
     """K1 base and the fused LTC kernel against their twins on the inputs
     that one frame of `render()` hands them (main_path_inputs): every
     output word equal, as kernel_phases and ltc_rect_phases hold them on
     the north-star frame; `want` names the counters of the kernels that
-    the frame must call. Prints K1's records and the fullest tile among
-    them, and times each kernel as kernel_phases does. Returns {kernel
-    row name: its row on this path}."""
-    import torch
-
-    from voidin_tpu_torch.ops import fine_raster as fr
-    from voidin_tpu_torch.ops import ltc_rect as lr
-
+    the frame must call. Returns {kernel row name: its row on this
+    path}."""
     seen = main_path_inputs(render)
     if set(seen) != set(want):
         fail(f"{label}: the frame called {sorted(seen)}, expected "
              f"{sorted(want)}")
     rows = {}
     if "k1" in seen:
-        args, kw = seen["k1"]
-        counts = args[2]
-        got = fr.fine_raster_pairs(*args, **kw)
-        ref = fr.fine_raster_pairs_reference(*args, **kw)
-        torch.cuda.synchronize()
-        differ = [words_differ(a, b) for a, b in zip(got, ref)]
-        r = rows["fine_raster_pairs"] = timed_row(
-            lambda: fr.fine_raster_pairs(*args, **kw),
-            "fine_raster_pairs_kernel", 10,
-            lambda: fr.fine_raster_pairs_reference(*args, **kw), 1,
-            k1_bound(counts, 2), float((got[0] - ref[0]).abs().max()))
-        r.update(records=int(counts.sum()), max_records=int(counts.max()),
-                 differing_words=sum(differ))
-        print(f"{label}, K1 on the frame's own records ({kw or 'base'}): "
-              f"{r['records']} records over {counts.numel()} tiles, the "
-              f"fullest tile {r['max_records']}; per-tile counts "
-              f"{count_histogram(counts)}; differing words (depth, id) "
-              f"{differ}; {timing(r)} ({card})", flush=True)
-        if any(differ):
-            fail(f"{label}: K1 disagrees with its twin on the frame's "
-                 f"records")
+        rows["fine_raster_pairs"] = hold_k1_call(label, *seen["k1"], card)
     if "ltc_rect" in seen:
-        args, kw = seen["ltc_rect"]
-        got = lr.ltc_rect_terms(*args, **kw)
-        ref = lr.ltc_rect_terms_reference(*args, **kw)
-        torch.cuda.synchronize()
-        differ = [words_differ(a, b) for a, b in zip(got, ref)]
-        n_px, n_lights = args[3].numel(), args[4].shape[0]
-        r = rows["ltc_rect"] = timed_row(
-            lambda: lr.ltc_rect_terms(*args, **kw), "ltc_rect", 10,
-            lambda: lr.ltc_rect_terms_reference(*args, **kw), 1,
-            ltc_rect_bound(n_px, n_lights),
-            max(float((a - b).abs().max()) for a, b in zip(got, ref)))
-        r.update(lights=n_lights, differing_words=sum(differ))
-        print(f"{label}, fused LTC on the frame's own shade fields "
-              f"({n_lights} lights, {kw}): differing words (diff, spec) "
-              f"{differ}; max abs diff {r['max_abs_err']}; {timing(r)} "
-              f"({card})", flush=True)
-        if any(differ):
-            fail(f"{label}: the fused LTC kernel disagrees with its twin on "
-                 f"the frame's shade fields")
+        rows["ltc_rect"] = hold_ltc_call(label, *seen["ltc_rect"], card)
     return rows
 
 
@@ -1475,10 +1514,10 @@ PRESET_RUNS = {
 }
 
 
-def preset_renderer(p, scene, width, height):
+def preset_renderer(p, scene, width, height, mesh=None):
     """A Renderer for preset `p` wired as bench.py:458-501 wires it: the
     preset's capacities, cull / TAA / raytraced-shadow flags and moving
-    instances."""
+    instances; row-sharded over `mesh` where given."""
     from voidin_tpu_torch.framework.renderer import Renderer
     from voidin_tpu_torch.passes.raster import RasterConfig
 
@@ -1490,7 +1529,8 @@ def preset_renderer(p, scene, width, height):
                     enable_taa=p.enable_taa,
                     enable_rt_shadows=p.enable_rt_shadows,
                     rt_shadow_scale=p.rt_shadow_scale,
-                    moving_ids=np.asarray(p.moving_ids, np.int32))
+                    moving_ids=np.asarray(p.moving_ids, np.int32),
+                    mesh=mesh)
 
 
 def preset_phases(dev, card):
@@ -2037,6 +2077,12 @@ def main():
     rows, ns_k, masked_k, masked_scene = kernel_phases(
         dev, card, world, masked_world, cfg, masked_cfg)
     ltc_rect_phases(dev, card, rows, world, masked_scene, cfg, masked_cfg)
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done",
+              flush=True)
+
+    stamp("phase 2 (the kernels against their twins)")
     block_cfg = dataclasses.replace(cfg, backend="xla",
                                     tile_tri_capacity=ns_k)
     slim_cfg = dataclasses.replace(cfg, slim_rec=True)
@@ -2117,6 +2163,7 @@ def main():
         fail("small masked block-path scene on the card disagrees with the "
              "CPU")
 
+    stamp("phases 3-4 (golden and small scenes)")
     # --- the north-star frame through the Renderer ----------------------
     r = Renderer(world.device(dev), cfg, moving_ids=moving)
     reset_launches()
@@ -2248,22 +2295,35 @@ def main():
     if not diff.mean() < BF16_MEAN_BUDGET:
         fail("the bf16 LUT masked frame strays from the f32 frame")
 
+    stamp("phases 5-9 (the 1080p frames)")
     rows["shadow_trace"], rt_launches = rt_phases(dev, card)
+    stamp("phase 10 (raytraced shadows)")
     rows["closest_hit"], closest_launches = closest_phases(dev, card)
+    stamp("phase 11 (closest hit)")
     skin_phases(dev, card)
+    stamp("phase 12 (skinned)")
     rows["lut_fetch"]["ring"], ring_k3_launches, _ = ring_phases(dev, card)
+    stamp("phase 13 (ring light)")
     preset_launches, preset_paths = preset_phases(dev, card)
+    stamp("phase 14 (presets)")
     import_launches, import_paths = import_phases(dev, card)
+    stamp("phase 15 (import, snapshots)")
     app_launches, app_paths = app_phases(
         dev, card, rows["fine_raster_pairs"]["device_ms"])
+    stamp("phase 16 (the app layer)")
+    shard_launches, als_row = shard_phases(dev, card)
+    stamp("phase 17 (the sharded frame, debug_bounds, area_light_scale)")
     for name in ("fine_raster_pairs", "ltc_rect"):
         rows[name]["paths"] = {**preset_paths.get(name, {}),
                                **import_paths.get(name, {}),
                                **app_paths.get(name, {})}
+    rows["ltc_rect"]["paths"][
+        f"area_light_scale 2 ({WIDTH}x{SHARD_HEIGHT})"] = als_row
 
     path_launches = dict(
         fine_raster_pairs=(ns_launches["k1"] + preset_launches["k1"]
-                           + import_launches["k1"] + app_launches["k1"]),
+                           + import_launches["k1"] + app_launches["k1"]
+                           + shard_launches["k1"]),
         fine_raster_pairs_track2=masked_launches["k1_track2"],
         fine_raster_pairs_payload=payload_launches["k1_payload"],
         fine_raster_blocks=block_launches["k2"],
@@ -2272,9 +2332,9 @@ def main():
         lut_fetch_bf16=bf16_launches["k3_bf16"],
         ltc_rect=(ns_launches["ltc_rect"] + preset_launches["ltc_rect"]
                   + import_launches["ltc_rect"]
-                  + app_launches["ltc_rect"]),
+                  + app_launches["ltc_rect"] + shard_launches["ltc_rect"]),
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
-        shadow_trace=rt_launches,
+        shadow_trace=rt_launches + shard_launches["shadow_trace"],
         closest_hit=closest_launches,
     )
     meta = dict(
@@ -2314,6 +2374,238 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# --- phase 17: the row-sharded frame and the Renderer options -------------
+# 1080 rows are 135 tile rows, which no slab count above 1 divides: the
+# sharded north star runs at 1088 rows (136 tile rows), its unsharded
+# frame at the same size as the reference.
+SHARD_HEIGHT = 1088
+SHARD_COUNTS = (2, 4)
+# A slab bins its extras at local_pair_capacity (pair capacity / N, the
+# JAX package's rule), which assumes the extras spread over the slabs;
+# the north star's sit mostly in the horizon's slab (at 2^19, 2 slabs
+# overflowed by 27,153 pairs), so every run of phase 17 bins with 2^21.
+SHARD_PAIR_CAP = 1 << 21
+SHARD_RT_FRAMES = 3
+ALS_Q99_BUDGET = 0.12  # tests/test_ltc.py:401 (mean: GOLDEN_BUDGET)
+
+
+def hold_slab_kernels(label, calls, card):
+    """Each slab's K1 and fused LTC launch of one sharded frame (the
+    kernel_calls of that frame) against its twin on the slab's own
+    inputs (hold_k1_call, hold_ltc_call). Returns [K1 device ms per
+    slab]."""
+    k1_ms = [hold_k1_call(f"{label}, slab {d}", *call, card)["device_ms"]
+             for d, call in enumerate(calls["k1"])]
+    for d, call in enumerate(calls["ltc_rect"]):
+        hold_ltc_call(f"{label}, slab {d}", *call, card)
+    return k1_ms
+
+
+def shard_phases(dev, card, cards_only=False):
+    """Phase 17: the row-sharded frame (parallel/sharding.py),
+    debug_bounds and area_light_scale on the card.
+
+    1. The north star at 1920x1088 (pair capacity SHARD_PAIR_CAP),
+       FRAMES frames with TAA and moving instances: unsharded, then on
+       meshes naming the card 2 and 4 times (and on 2 and 4 real cards
+       where that many are visible): every
+       sharded frame word for word the unsharded one, overflow 0, K1 and
+       the fused LTC kernel launched once per slab and frame; then each
+       slab's K1 and fused LTC launch of one more frame against their
+       twins on the slab's own inputs (hold_slab_kernels).
+    2. Config 5 (raytraced shadows) at 1920x1088 on 2 slabs,
+       SHARD_RT_FRAMES frames: word for word its unsharded frames, the
+       shadow kernel once per slab and frame.
+    3. debug_bounds: the checked north-star frame word for word the
+       unchecked one; a corrupted tri_id raises resolve.rec; a corrupted
+       TLAS child raises rt. with the shadow kernel not launched; a
+       checked frame after those errors is still the clean frame.
+    4. area_light_scale=2 on the north star: the fused kernel once, on
+       the (544, 960) subsampled fields, equal to its twin there; the
+       frame within tests/test_ltc.py's budgets of the full-resolution
+       frame; FRAMES frames timed.
+
+    `cards_only` (tools/torch_shard_probe.py --cards-only, a host with
+    several cards): part 1 alone, unsharded and on the real cards.
+    Returns (the launches of the main-path runs by counter, the fused
+    kernel's row on area_light_scale 2's inputs, None with cards_only)."""
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.core import checks
+    from voidin_tpu_torch.framework.renderer import Renderer, build_world
+    from voidin_tpu_torch.ops import shadow_trace as st
+    from voidin_tpu_torch.parallel import sharding as sh
+    from voidin_tpu_torch.passes import cull, raster, resolve
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    H = SHARD_HEIGHT
+    shape = (H, WIDTH, 3)
+    cfg = RasterConfig(width=WIDTH, height=H, tri_capacity=CAP,
+                       pair_capacity=SHARD_PAIR_CAP)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], yaw=0.0, pitch=-5.0,
+                    aspect=WIDTH / H)
+    world, moving = build_world(10_000, seed=0)
+    n_cards = torch.cuda.device_count()
+    runs = [("unsharded", None, 1)]
+    runs += [(f"{n} slabs on one card", sh.make_mesh(devices=[dev] * n), n)
+             for n in SHARD_COUNTS if not cards_only]
+    runs += [(f"{n} slabs on {n} cards", sh.make_mesh(n), n)
+             for n in SHARD_COUNTS if n_cards >= n]
+    print(f"phase 17, the sharded north star {WIDTH}x{H}: runs "
+          f"{[label for label, _, _ in runs]} ({n_cards} card(s) visible; "
+          f"a run on N real cards only where N are)", flush=True)
+    base, ms = None, {}
+    for label, mesh, n in runs:
+        r = Renderer(world.device(dev), cfg, moving_ids=moving, mesh=mesh)
+        keep = dict.fromkeys(range(FRAMES))
+        reset_launches()
+        out, times, mem = run_frames(r, cam, f"sharded north star, {label}",
+                                     keep=keep, shape=shape)
+        add(expect_launches(f"sharded north star, {label}", dict(
+            k1=n * FRAMES, ltc_rect=n * FRAMES)))
+        ms[label] = float(np.median(times[2:]))
+        line = (f"sharded north star {WIDTH}x{H}, {label}: median "
+                f"{ms[label]:.3f} ms/frame over frames 3-{FRAMES} ({card}); "
+                f"{mem}")
+        if mesh is None:
+            base = keep
+            print(line, flush=True)
+            continue
+        differ = [words_differ(torch.from_numpy(keep[i]),
+                               torch.from_numpy(base[i]))
+                  for i in range(FRAMES)]
+        print(f"{line}; words differing from the unsharded frames {differ}",
+              flush=True)
+        if any(differ):
+            fail(f"sharded north star, {label}: the frames differ from the "
+                 f"unsharded frames")
+        calls = kernel_calls(lambda: r.render(cam))
+        if {k: len(v) for k, v in calls.items()} != dict(k1=n, ltc_rect=n):
+            fail(f"{label}: one frame called {calls.keys()} other than once "
+                 f"per slab")
+        k1_ms = hold_slab_kernels(f"sharded north star, {label}", calls,
+                                  card)
+        print(f"sharded north star, {label}: per-slab K1 device ms "
+              f"{[fmt_ms(t) for t in k1_ms]} ({card})", flush=True)
+        del r
+    del base
+    print("sharded north star ms/frame: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})", flush=True)
+    if cards_only:
+        return launches, None
+
+    # --- config 5 with raytraced shadows on 2 slabs -----------------------
+    p = config5_preset(pt, aspect=WIDTH / H)
+    imgs = {}
+    for label, mesh, n in (("unsharded", None, 1),
+                           ("2 slabs", sh.make_mesh(devices=[dev] * 2), 2)):
+        r = preset_renderer(p, p.world.device(dev, with_tlas=p.with_tlas),
+                            WIDTH, H, mesh=mesh)
+        reset_launches()
+        for _ in range(SHARD_RT_FRAMES):
+            img = r.render(p.camera)
+            if int(r.aux["overflow"]) or int(r.aux["rt_exhausted"]):
+                fail(f"config 5 sharded, {label}: overflow or exhausted rays")
+        add(expect_launches(f"config 5 {WIDTH}x{H}, {label}", dict(
+            k1=n * SHARD_RT_FRAMES, shadow_trace=n * SHARD_RT_FRAMES)))
+        imgs[label] = img
+    differ = words_differ(imgs["2 slabs"], imgs["unsharded"])
+    print(f"config 5 {WIDTH}x{H} raytraced, 2 slabs: words differing from "
+          f"the unsharded frame {differ} (after {SHARD_RT_FRAMES} frames)",
+          flush=True)
+    if differ:
+        fail("the sharded config 5 frame differs from the unsharded frame")
+    del imgs
+
+    # --- debug_bounds -----------------------------------------------------
+    checked = dataclasses.replace(cfg, debug_bounds=True)
+
+    def frame(c, scene=None, **kw):
+        r = Renderer(scene or world.device(dev), c, enable_taa=False, **kw)
+        return r.render(cam)
+
+    clean = frame(cfg)
+    got = frame(checked)
+    differ = words_differ(got, clean)
+    print(f"debug_bounds north star {WIDTH}x{H}: words differing from the "
+          f"unchecked frame {differ}", flush=True)
+    if differ:
+        fail("the checked frame differs from the unchecked frame")
+    scene = world.device(dev)
+    u = cam.uniform()
+    draws = cull.emit_draws(scene.meshes, scene.instances, u)
+    vis = raster.rasterize(scene.meshes, scene.instances, draws, u, cfg,
+                           materials=scene.materials)
+    vis.tri_id = torch.where(vis.tri_id >= 0, vis.tri_id + 10_000_000,
+                             vis.tri_id)
+    try:
+        with checks.bounds(True):
+            resolve.resolve_gbuffer(scene, vis, cfg)
+        fail("a corrupted tri_id did not raise")
+    except IndexError as e:
+        print(f"debug_bounds, corrupted tri_id: IndexError {e}", flush=True)
+        if "resolve.rec" not in str(e):
+            fail("the corrupted tri_id raised another check")
+    del scene, vis
+    c5 = p.world.device(dev, with_tlas=True)
+    c5.tlas.tlas_left_right[0] = 0x7FFF7FFF  # both children at 32767
+    reset_launches()
+    try:
+        frame(dataclasses.replace(checked, tri_capacity=p.tri_capacity,
+                                  pair_capacity=p.pair_capacity),
+              scene=c5, enable_rt_shadows=True)
+        fail("a corrupted TLAS child did not raise")
+    except IndexError as e:
+        print(f"debug_bounds, corrupted TLAS child (config 5, raytraced): "
+              f"IndexError {e}; shadow kernel launches {st.LAUNCHES}",
+              flush=True)
+        if not str(e).startswith("rt.") or st.LAUNCHES:
+            fail("the corrupted TLAS raised another check or launched")
+    del c5
+    differ = words_differ(frame(checked), clean)
+    print(f"debug_bounds: a checked frame after those errors differs from "
+          f"the clean frame in {differ} words", flush=True)
+    if differ:
+        fail("the card is not usable after the bounds errors")
+
+    # --- area_light_scale = 2 ---------------------------------------------
+    calls = kernel_calls(lambda: frame(cfg, area_light_scale=2))
+    (args, kw), = calls["ltc_rect"]
+    if tuple(args[3].shape) != (-(-H // 2), WIDTH // 2):
+        fail("area_light_scale 2: the fused LTC kernel's fields are not "
+             "the subsampled grid")
+    row = hold_ltc_call("area_light_scale 2", args, kw, card)
+    full = frame(cfg).cpu().numpy()
+    half = frame(cfg, area_light_scale=2).cpu().numpy()
+    diff = np.abs(full - half)
+    q99 = float(np.quantile(diff, 0.99))
+    print(f"area_light_scale 2 vs 1, north star {WIDTH}x{H}: mean abs diff "
+          f"{diff.mean():.3e} (budget {GOLDEN_BUDGET}), 0.99 quantile "
+          f"{q99:.3e} (budget {ALS_Q99_BUDGET})", flush=True)
+    if not (diff.mean() < GOLDEN_BUDGET and q99 < ALS_Q99_BUDGET):
+        fail("area_light_scale 2 strays from the full-resolution frame")
+    r = Renderer(world.device(dev), cfg, moving_ids=moving,
+                 area_light_scale=2)
+    reset_launches()
+    out, times, mem = run_frames(r, cam, "area_light_scale 2", shape=shape)
+    add(expect_launches("area_light_scale 2", dict(k1=FRAMES,
+                                                   ltc_rect=FRAMES)))
+    print(f"area_light_scale 2 north star {WIDTH}x{H}: median "
+          f"{float(np.median(times[2:])):.3f} ms/frame over frames "
+          f"3-{FRAMES} ({card}) vs {ms['unsharded']:.3f} at full "
+          f"resolution; {mem}", flush=True)
+    del r, world
+    torch.cuda.empty_cache()
+    return launches, row
 
 
 def avi_frames(data):

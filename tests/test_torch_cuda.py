@@ -593,3 +593,127 @@ def test_profiler_times_card_passes_with_cuda_events(cuda, monkeypatch):
                      pair_capacity=1 << 15))
     assert [n for n, _ in rows][3] == "fine raster (cuda)"
     assert all(ms > 0 for _, ms in rows)
+
+
+SHARD_CFG = RasterConfig(width=320, height=192, tri_capacity=1 << 15,
+                         pair_capacity=1 << 16)  # 24 tile rows
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_frame_on_card_launches_k1_per_slab(cuda, n):
+    """The row-sharded frame on a mesh naming the card n times: K1 once
+    per slab and frame, the fused LTC kernel once per slab and frame, the
+    image word for word the unsharded card frame's over 3 TAA frames;
+    each slab's K1 equals its twin on that slab's own records."""
+    from voidin_tpu_torch.parallel import sharding as sh
+
+    world, moving = build_world(1000, seed=0)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                    aspect=320 / 192)
+    imgs = []
+    for mesh in (None, sh.make_mesh(devices=[cuda] * n)):
+        r = Renderer(world.device(cuda), SHARD_CFG, moving_ids=moving,
+                     mesh=mesh)
+        k1, ltc = t_fr.LAUNCHES, t_ltc.LAUNCHES
+        for _ in range(3):
+            img = r.render(cam)
+            assert int(r.aux["overflow"]) == 0
+        slabs = 1 if mesh is None else n
+        assert (t_fr.LAUNCHES - k1, t_ltc.LAUNCHES - ltc) == (3 * slabs,
+                                                              3 * slabs)
+        imgs.append(img.cpu().numpy())
+    np.testing.assert_array_equal(imgs[1], imgs[0])
+
+    seen = []
+    real = t_fr.fine_raster_pairs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_fr, "fine_raster_pairs",
+                   lambda *a, **k: (seen.append((a, k)), real(*a, **k))[1])
+        Renderer(world.device(cuda), SHARD_CFG,
+                 mesh=sh.make_mesh(devices=[cuda] * n)).render(cam)
+    assert len(seen) == n
+    for args, kw in seen:
+        got = t_fr.fine_raster_pairs(*args, **kw)
+        ref = t_fr.fine_raster_pairs_reference(*args, **kw)
+        for g, w in zip(got, ref):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_walk_tables_checked_before_launch_on_card(cuda):
+    """In the bounds mode a corrupt TLAS child raises a named rt. error
+    from the shadow and closest-hit wrappers before anything launches;
+    the clean tables launch, and the card stays usable."""
+    from voidin_tpu_torch.core import checks
+
+    scene = config5_preset(pt).world.device(cuda, with_tlas=True)
+    table, n_tlas, inst, tri_pos = t_trav.scene_rays_threaded(scene)
+    tlas, blas, inst2, tri_pos2 = t_trav.scene_rays(scene)
+    o = torch.zeros(64, 3, device=cuda)
+    d = torch.randn(64, 3, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(0))
+    bad_table = table.clone()
+    bad_table[0, 3] = 1.0e7
+    bad_tlas = tlas.clone()
+    bad_tlas[0, 3] = 1.0e7
+    with checks.bounds(True):
+        before = (t_st.LAUNCHES, t_ch.LAUNCHES)
+        with pytest.raises(IndexError, match="rt\\.node"):
+            t_st.occluded(bad_table, n_tlas, inst, tri_pos, o, d,
+                          t_max=10.0)
+        with pytest.raises(IndexError, match="rt\\.tlas_node"):
+            t_ch.closest_hit(bad_tlas, blas, inst2, tri_pos2, o, d)
+        assert (t_st.LAUNCHES, t_ch.LAUNCHES) == before
+        hit = t_st.occluded(table, n_tlas, inst, tri_pos, o, d, t_max=10.0)
+        t_ch.closest_hit(tlas, blas, inst2, tri_pos2, o, d)
+    torch.cuda.synchronize()
+    assert (t_st.LAUNCHES, t_ch.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert hit.hit.shape == (64,)
+
+
+def test_resolve_check_and_clean_checked_frame_on_card(cuda):
+    """debug_bounds on the card: the checked frame equals the unchecked
+    one word for word; a corrupted tri_id raises resolve.rec."""
+    from voidin_tpu_torch.core import checks
+
+    world, _ = build_world(1000, seed=0)
+    scene = world.device(cuda)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0, aspect=320 / 184)
+    imgs = [Renderer(scene, dataclasses.replace(CFG, debug_bounds=b),
+                     enable_taa=False).render(cam).cpu().numpy()
+            for b in (False, True)]
+    np.testing.assert_array_equal(imgs[1], imgs[0])
+    u = cam.uniform()
+    draws = cull.emit_draws(scene.meshes, scene.instances, u)
+    vis = raster.rasterize(scene.meshes, scene.instances, draws, u, CFG)
+    vis.tri_id = torch.where(vis.tri_id >= 0, vis.tri_id + 10_000_000,
+                             vis.tri_id)
+    with checks.bounds(True), pytest.raises(IndexError, match="resolve.rec"):
+        resolve.resolve_gbuffer(scene, vis, CFG)
+
+
+def test_area_light_scale_on_card(cuda):
+    """area_light_scale=2 on the card: one fused LTC launch on the
+    subsampled fields, equal to its twin word for word there; the frame
+    within the frame budget of the CPU's."""
+    world, _ = build_world(1000, seed=0)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0, aspect=320 / 184)
+    seen = []
+    real = t_ltc.ltc_rect_terms
+    imgs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_ltc, "ltc_rect_terms",
+                   lambda *a, **k: (seen.append((a, k)), real(*a, **k))[1])
+        for d in (cuda, torch.device("cpu")):
+            n = t_ltc.LAUNCHES
+            imgs[d.type] = Renderer(world.device(d), CFG, enable_taa=False,
+                                    area_light_scale=2).render(
+                cam).cpu().numpy()
+            if d.type == "cuda":
+                assert t_ltc.LAUNCHES == n + 1
+    args, kw = seen[0]
+    assert tuple(args[3].shape) == (92, 160)
+    got = t_ltc.ltc_rect_terms(*args, **kw)
+    ref = t_ltc.ltc_rect_terms_reference(*args, **kw)
+    for g, w in zip(got, ref):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert np.abs(imgs["cuda"] - imgs["cpu"]).mean() < 5e-3

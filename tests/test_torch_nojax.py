@@ -239,9 +239,6 @@ def test_wrappers_take_no_other_device():
 
 @pytest.mark.parametrize("kwargs", [
     dict(fused_resolve_rec=True),
-    dict(area_light_scale=2),
-    dict(mesh="rows"),
-    dict(debug_bounds=True),
     dict(planar_resolve=True),
     dict(taa_quad_history=True),
 ])

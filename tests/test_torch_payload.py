@@ -242,15 +242,26 @@ def test_payload_frame_equals_slim_frame_and_jax():
 
 
 def test_renderer_refuses_slim_outside_its_envelope():
+    """Outside slim_rec's envelope (here a normal map) the Renderer
+    declines slim_rec and kernel_payload, where the JAX package falls
+    back to fused_resolve_rec + inst_rec_f16: it renders the default dense
+    path, word for word the frame without slim_rec."""
     w = pt.World()
     normal = w.textures.add(np.full((4, 4, 3), 128, np.uint8))
     w.instances.add(np.eye(4, dtype=np.float32), 1,
                     w.materials.add(normal=normal))
     scene = w.device("cpu")
     assert not scene.no_normal_maps
-    with pytest.raises(NotImplementedError, match="fused_resolve_rec"):
-        Renderer(scene, t_raster.RasterConfig(width=32, height=16,
-                                              slim_rec=True))
+    cfg = t_raster.RasterConfig(width=32, height=16, tri_capacity=1 << 8,
+                                pair_capacity=1 << 10)
+    r = Renderer(scene, dataclasses.replace(cfg, slim_rec=True,
+                                            kernel_payload=True),
+                 enable_taa=False)
+    assert not r.config.slim_rec and not r.config.kernel_payload
+    cam = pt.Camera(position=[0.0, 0.0, -3.0], yaw=180.0, aspect=2.0)
+    np.testing.assert_array_equal(
+        r.render(cam).numpy(),
+        Renderer(scene, cfg, enable_taa=False).render(cam).numpy())
 
 
 @pytest.mark.parametrize("options", [

@@ -7,6 +7,7 @@ so both packages round alike.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -186,3 +187,73 @@ def compact_indices(mask_flat, size):
     return torch.cat(
         [order, torch.zeros(size - n, dtype=order.dtype, device=order.device)]
     )
+
+
+def _bilinear_taps(n_out: int, n_in: int, s: int):
+    """Per output index: the two source taps (lo, hi) and their f32
+    weights of jax.image.resize('bilinear') upsampling at integer scale s
+    (half-pixel centres src = (i + 0.5) / s - 0.5, edge clamp), as numpy
+    arrays: the nonzeros of each row of _bilinear_matrix."""
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) / s - 0.5
+    lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+    hi = np.minimum(lo + 1, n_in - 1)
+    w_hi = np.clip(src - np.floor(src), 0.0, 1.0)
+    w_hi = np.where(src < 0, 0.0, np.where(src > n_in - 1, 1.0, w_hi))
+    return lo, hi, (1.0 - w_hi).astype(np.float32), w_hi.astype(np.float32)
+
+
+def _bilinear_matrix(n_out: int, n_in: int, s: int):
+    """(n_out, n_in) numpy f32 interpolation matrix of the JAX package's
+    upsample_bilinear_mm (fastmath.py:139-152)."""
+    lo, hi, w_lo, w_hi = _bilinear_taps(n_out, n_in, s)
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    m[np.arange(n_out), lo] += w_lo
+    m[np.arange(n_out), hi] += w_hi
+    return m
+
+
+def _lerp_taps(x, dim, lo, hi, w_lo, w_hi):
+    """x[lo] * w_lo + x[hi] * w_hi along `dim` (numpy taps)."""
+    shape = [1] * x.dim()
+    shape[dim] = -1
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=x.device).reshape(
+            shape)
+
+    lo_t = torch.as_tensor(lo, device=x.device)
+    hi_t = torch.as_tensor(hi, device=x.device)
+    return (x.index_select(dim, lo_t) * t(w_lo, torch.float32)
+            + x.index_select(dim, hi_t) * t(w_hi, torch.float32))
+
+
+def upsample_bilinear_mm(x, s: int, h_out: int, w_out: int, row0: int = 0,
+                         height=None):
+    """(h, w, C) -> (h_out, w_out, C) bilinear upsample at integer scale
+    s: the JAX package's upsample_bilinear_mm (two products with the
+    constant matrices of _bilinear_matrix, rows then columns), applied as
+    the two nonzero taps of each matrix row, so that a window of rows
+    computes the same words as those rows of the whole image.
+
+    Row window (the sharded frame): the output rows are image rows
+    [row0, row0 + h_out) of a `height`-row image (default h_out) whose
+    subsampled rows [row0 // s, row0 // s + h) `x` holds; row0 must be a
+    multiple of s. A tap outside the window clamps to its edge (only
+    halo rows that the caller discards need one)."""
+    height = h_out if height is None else height
+    if row0 % s:
+        raise ValueError(f"row0={row0} is not a multiple of the scale {s}")
+    h, w = x.shape[:2]
+    lo, hi, w_lo, w_hi = _bilinear_taps(height, -(-height // s), s)
+    sl = slice(row0, row0 + h_out)
+    lo = np.clip(lo[sl] - row0 // s, 0, h - 1)
+    hi = np.clip(hi[sl] - row0 // s, 0, h - 1)
+    y = _lerp_taps(x, 0, lo, hi, w_lo[sl], w_hi[sl])
+    return _lerp_taps(y, 1, *_bilinear_taps(w_out, w, s))
+
+
+def subsample_mm(x, s: int):
+    """(h, w, ...) -> (ceil(h / s), ceil(w / s), ...): every s-th pixel,
+    the JAX package's subsample_mm (one-hot matrix products on the TPU);
+    a strided slice selects the same values exactly."""
+    return x[::s, ::s]

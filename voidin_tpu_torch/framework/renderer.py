@@ -17,11 +17,22 @@ and its BLAS and TLAS refit; rendering it without them raises ValueError,
 as does a frame with raytraced shadows on a scene without a TLAS. With
 a ``pipeline_cache`` (framework/pipeline.PipelineCache) the frame routes
 through its entry "frame", rebuilt from the live modules when one of
-``frame_sources()`` changes on disk (hot reload). It raises
-NotImplementedError for what the port does not carry:
-area_light_scale > 1, a device mesh, the JAX package's gather-economy
-RasterConfig options, and slim_rec on a scene outside its envelope (where
-the JAX package falls back to fused_resolve_rec + inst_rec_f16).
+``frame_sources()`` changes on disk (hot reload).
+
+``Renderer(mesh=make_mesh(devices=[...]))`` (parallel/sharding.py) renders
+the row-sharded frame: one slab of tile rows per device of the mesh (a
+device may repeat), K1 once per slab, the image gathered on the mesh's
+first device, word for word the unsharded frame. ``area_light_scale=s``
+evaluates the area lights on every s-th pixel (the JAX package's
+documented deviation). ``RasterConfig.debug_bounds`` checks every
+data-dependent gather of the frame (core/checks.py) and raises an
+IndexError naming it. slim_rec on a scene outside its envelope (normal
+maps, sampled emissive or metallic-roughness, alpha masking, ids not
+exact in f16) is switched off: the JAX package falls back to
+fused_resolve_rec + inst_rec_f16 there, a gather economy of the same
+frame, and the port renders that frame on its default dense path. The
+Renderer raises NotImplementedError for the JAX package's gather-economy
+RasterConfig options alone (raster.UNSUPPORTED_OPTIONS).
 """
 
 from __future__ import annotations
@@ -32,9 +43,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import mathx
+from ..core import checks, mathx
 from ..core.camera import Camera, CameraUniform
 from ..core.jitter import JitterSequence
+from ..parallel import sharding as shard_mod
 from ..passes import cull as cull_pass
 from ..passes import postprocess as post_pass
 from ..passes import raster as raster_pass
@@ -42,6 +54,7 @@ from ..passes import resolve as resolve_pass
 from ..passes import shading as shading_pass
 from ..passes import taa as taa_pass
 from ..passes import update as update_pass
+from ..passes.gbuffer import GBuffer, VisBuffer
 from ..passes.raster import RasterConfig
 from ..scene import mesh as mesh_mod
 from ..scene import skin as skin_mod
@@ -97,7 +110,8 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
                  config: RasterConfig, enable_cull: bool = True,
                  enable_taa: bool = True, enable_post: bool = True,
                  enable_rt_shadows: bool = False, rt_shadow_scale: int = 1,
-                 joint_mats=None):
+                 area_light_scale: int = 1, mesh=None, joint_mats=None,
+                 replicas=None):
     """Full frame. Returns (srgb_image, state, scene, aux). The moving
     instances' transforms and the TAA history update in place. Without
     post the frame is the sRGB of the HDR (no sharpen, no tonemap). With
@@ -105,28 +119,20 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     walking at the step limit) and rt_rays (shadow rays traced).
     `joint_mats` ((J, 4, 4) world-joint @ inverse-bind, composed on the
     host each frame) drives the scene's skinning regions: the returned
-    scene holds the skinned pool tables and the refit BLAS and TLAS."""
-    # 1. compute_update: animate moving instances; skinning recomputes the
-    # skinned pool ranges from the joint matrices
-    update_pass.compute_update(scene.instances, moving_ids, globals_.time,
-                               globals_.dt)
-    if scene.skins and joint_mats is not None:
-        scene = dataclasses.replace(scene, meshes=skin_mod.apply_skins(
-            scene.meshes, scene.skins, joint_mats))
-        if scene.tlas is not None:
-            # the skinned AABBs moved: refit the TLAS so traced shadows
-            # follow the pose (the BLAS refit ran in apply_skins)
-            scene = dataclasses.replace(scene, tlas=skin_mod.refit_tlas(
-                scene.tlas, scene.meshes, scene.instances))
-    # 2. emit_draws: frustum cull + LOD select + compaction
-    if enable_cull:
-        draws = cull_pass.emit_draws(scene.meshes, scene.instances, camera)
-    else:
-        n = scene.instances.count
-        draws = cull_pass.DrawList(
-            instance=torch.arange(n, dtype=torch.int32, device=scene.device),
-            count=torch.tensor(n, device=scene.device),
-        )
+    scene holds the skinned pool tables and the refit BLAS and TLAS.
+    `area_light_scale=s` evaluates the area lights on every s-th pixel
+    (shading.shade). With `mesh` (parallel/sharding.RowMesh) the frame
+    runs row-sharded (_render_frame_sharded); `replicas` ({device:
+    SceneData}, sharding.replicated) are the scene's copies it updates,
+    made from `scene` where not given."""
+    if mesh is not None:
+        return _render_frame_sharded(
+            scene, camera, globals_, state, moving_ids, config, enable_cull,
+            enable_taa, enable_post, enable_rt_shadows, rt_shadow_scale,
+            area_light_scale, mesh, joint_mats, replicas)
+    # 1. compute_update + skinning; 2. emit_draws
+    scene = _update_scene(scene, moving_ids, globals_, joint_mats)
+    draws = _emit_draws(scene, camera, enable_cull)
     # 3. visibility raster + G-buffer resolve; slim_rec threads the f16
     # instance record through setup into the slim resolve record
     inst_rec = resolve_pass._inst_rec_f16(scene) if config.slim_rec else None
@@ -140,7 +146,8 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
         hdr, rt = shading_pass.shade_raytraced(
             scene, gbuffer, camera, aux_r, shadow_scale=rt_shadow_scale)
     else:
-        hdr = shading_pass.shade(scene, gbuffer, camera, aux_r)
+        hdr = shading_pass.shade(scene, gbuffer, camera, aux_r,
+                                 area_light_scale=area_light_scale)
     # 5. TAA (reproject + resolve into history)
     if enable_taa:
         hdr, state = taa_pass.taa(hdr, gbuffer, camera, state)
@@ -163,17 +170,209 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     return srgb, state, scene, aux
 
 
+def _update_scene(scene, moving_ids, globals_, joint_mats):
+    """compute_update (moving instances, in place) and skinning: the
+    skinned pool ranges recomputed from the joint matrices, the BLAS
+    refit inside apply_skins and the TLAS refit so traced shadows follow
+    the pose. Returns the frame's scene."""
+    dev = scene.device
+    update_pass.compute_update(scene.instances, moving_ids.to(dev),
+                               globals_.time, globals_.dt)
+    if scene.skins and joint_mats is not None:
+        scene = dataclasses.replace(scene, meshes=skin_mod.apply_skins(
+            scene.meshes, scene.skins, joint_mats.to(dev)))
+        if scene.tlas is not None:
+            scene = dataclasses.replace(scene, tlas=skin_mod.refit_tlas(
+                scene.tlas, scene.meshes, scene.instances))
+    return scene
+
+
+def _emit_draws(scene, camera, enable_cull):
+    """Frustum cull + LOD select + compaction, or every instance."""
+    if enable_cull:
+        return cull_pass.emit_draws(scene.meshes, scene.instances, camera)
+    n = scene.instances.count
+    return cull_pass.DrawList(
+        instance=torch.arange(n, dtype=torch.int32, device=scene.device),
+        count=torch.tensor(n, device=scene.device),
+    )
+
+
+def _shard_vis(mesh, vis, bounds):
+    """A whole-frame VisBuffer as one VisBuffer per slab (the block path
+    of the sharded frame, as the JAX package shards its images)."""
+    fields = [f for f in ("tri_id", "depth", "tri_id2", "depth2")
+              if getattr(vis, f) is not None]
+    split = {f: shard_mod.shard_rows(mesh, getattr(vis, f), bounds=bounds)
+             for f in fields}
+    recs = {dev: vis.resolve_rec.to(dev) for dev in mesh.distinct}
+    return [VisBuffer(resolve_rec=recs[dev], overflow=vis.overflow.to(dev),
+                      **{f: split[f][d] for f in fields})
+            for d, dev in enumerate(mesh.devices)]
+
+
+def _rows(x, r):
+    """Rows r (a slice) of a G-buffer or ResolveAux's per-pixel fields."""
+    if isinstance(x, GBuffer):
+        return GBuffer(normal_uv=x.normal_uv[r], material=x.material[r],
+                       depth=x.depth[r])
+    return dataclasses.replace(x, albedo=x.albedo[r], emissive=x.emissive[r],
+                               mr=x.mr[r])
+
+
+def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
+                          enable_cull, enable_taa, enable_post,
+                          enable_rt_shadows, rt_shadow_scale,
+                          area_light_scale, mesh, joint_mats, replicas):
+    """The row-sharded frame (JAX render_frame with a mesh, :90-266),
+    each slab's work on its own device (parallel/sharding.py):
+
+    * update, skinning and refits run replicated on every distinct
+      device, the cull once on mesh.devices[0];
+    * the pair path rasterizes row-partitioned (rasterize_sharded: one
+      K1 launch per slab); the block path rasterizes whole on
+      mesh.devices[0] and splits the images, as the JAX package does;
+    * resolve and shade run on each slab alone, on a window of rows: one
+      row of halo below for the mip level's finite difference, and with
+      area_light_scale = s one subsampled row of halo on each side for
+      the upsample; raytraced shadows trace one launch per slab and point
+      light, the fused LTC kernel runs once per slab;
+    * TAA and postprocess read 3x3 neighbourhoods: each slab takes one
+      halo row from each neighbour before each of them. TAA reprojection
+      reads the history anywhere, so every distinct device holds the
+      whole history, gathered from the slabs after each frame
+      (state.history, on the history's device);
+    * the sRGB image is gathered on mesh.devices[0].
+
+    Every slab computes the words of its rows of the unsharded frame. The
+    lazy alpha fallback is a compaction: each slab gets the whole frame's
+    alpha_fallback_capacity, so it overflows only where the whole frame
+    would (its window holds no more cut pixels than the frame)."""
+    devs = mesh.devices
+    primary = devs[0]
+    bounds = shard_mod.slab_bounds(mesh, config)
+    H = config.height
+    if replicas is None:
+        replicas = shard_mod.replicated(mesh, scene)
+    scenes = {dev: _update_scene(sc, moving_ids, globals_, joint_mats)
+              for dev, sc in replicas.items()}
+    scene0 = scenes[primary]
+    draws = _emit_draws(scene0, camera, enable_cull)
+    inst_rec = resolve_pass._inst_rec_f16(scene0) if config.slim_rec else None
+    if config.backend == "pallas":
+        vis = shard_mod.rasterize_sharded(
+            scene0.meshes, scene0.instances, draws, camera, config, mesh,
+            materials=scene0.materials, inst_rec=inst_rec, replicas=scenes)
+    else:
+        vis = _shard_vis(mesh, raster_pass.rasterize(
+            scene0.meshes, scene0.instances, draws, camera, config,
+            materials=scene0.materials, inst_rec=inst_rec), bounds)
+
+    # resolve + shade per slab, on its window of rows
+    s = 1 if enable_rt_shadows else area_light_scale
+    fields = [f for f in ("tri_id", "depth", "tri_id2", "depth2")
+              if getattr(vis[0], f) is not None]
+    gbs, auxs, hdrs, rts = [], [], [], []
+    for d, dev in enumerate(devs):
+        r0, r1 = bounds[d]
+        if s > 1:
+            a = max(0, (r0 // s - 1) * s)
+            b = min(H, ((r1 - 1) // s + 1) * s + 1)
+        else:
+            a, b = r0, min(H, r1 + 1)
+        vis_w = VisBuffer(
+            resolve_rec=vis[d].resolve_rec, overflow=vis[d].overflow,
+            **{f: shard_mod.take_rows([getattr(v, f) for v in vis], bounds,
+                                      a, b, dev) for f in fields})
+        sc = scenes[dev]
+        gb, aux_r = resolve_pass.resolve_gbuffer(
+            sc, vis_w, config, row0=a, height=H, rows=(r0 - a, r1 - a))
+        own = slice(r0 - a, r1 - a)
+        if enable_rt_shadows:
+            hdr, rt = shading_pass.shade_raytraced(
+                sc, _rows(gb, own), camera, _rows(aux_r, own),
+                shadow_scale=rt_shadow_scale, row0=r0, height=H)
+            rts.append(rt)
+        elif s > 1:
+            hdr = shading_pass.shade(sc, gb, camera, aux_r,
+                                     area_light_scale=s, row0=a,
+                                     height=H)[own]
+        else:
+            hdr = shading_pass.shade(sc, _rows(gb, own), camera,
+                                     _rows(aux_r, own), row0=r0, height=H)
+        gbs.append(_rows(gb, own))
+        auxs.append(aux_r)
+        hdrs.append(hdr)
+
+    def halo(slabs, d):
+        """Slab d with one row of each neighbour: (rows, first row)."""
+        r0, r1 = bounds[d]
+        a, b = max(0, r0 - 1), min(H, r1 + 1)
+        return shard_mod.take_rows(slabs, bounds, a, b, devs[d]), r0 - a
+
+    if enable_taa:
+        if state.history_valid:
+            hist = {dev: state.history.to(dev) for dev in mesh.distinct}
+            quads = {dev: taa_pass.history_quads(h)
+                     for dev, h in hist.items()}
+            outs = []
+            for d, dev in enumerate(devs):
+                depth_w, top = halo([g.depth for g in gbs], d)
+                color_w, _ = halo(hdrs, d)
+                motion = taa_pass.reproject(
+                    GBuffer(normal_uv=None, material=None, depth=depth_w),
+                    camera, row0=bounds[d][0] - top, height=H)
+                out = taa_pass.taa_resolve(
+                    color_w, hist[dev], motion, row0=bounds[d][0] - top,
+                    quads=quads[dev])
+                outs.append(out[top:top + hdrs[d].shape[0]])
+            hdrs = outs
+        # the history after every slab has read it
+        for (r0, r1), out in zip(bounds, hdrs):
+            state.history[r0:r1].copy_(out)
+        state.history_valid = True
+
+    srgbs = []
+    for d in range(len(devs)):
+        if enable_post:
+            hdr_w, top = halo(hdrs, d)
+            ldr = post_pass.postprocess(hdr_w)[top:top + hdrs[d].shape[0]]
+        else:
+            ldr = hdrs[d]
+        srgbs.append(linear_to_srgb(ldr))
+    srgb = shard_mod.gather_rows(srgbs, primary)
+
+    def total(xs):
+        return sum(x.to(primary) for x in xs)
+
+    overflow = vis[0].overflow
+    if auxs[0].overflow is not None:
+        overflow = overflow + total(a.overflow for a in auxs)
+    aux = dict(
+        draw_count=draws.count,
+        overflow=overflow,
+        depth=shard_mod.gather_rows([g.depth for g in gbs], primary),
+        vis_coverage=total((v.tri_id >= 0).sum() for v in vis),
+    )
+    if auxs[0].cut is not None:
+        aux.update(alpha_cut=total(a.cut for a in auxs),
+                   alpha_fallback=total(a.fallback for a in auxs))
+    if rts:
+        aux.update(rt_exhausted=total(r["exhausted"] for r in rts),
+                   rt_rays=total(r["rays"] for r in rts))
+    return srgb, state, scene0, aux
+
+
 def frame_sources():
     """Source files whose edits must rebuild the frame pipeline — the
     import_mapping of the frame 'shader' (pipeline.rs:35-36): the pass
-    modules, scene/skin.py and this module. The JAX package also lists
-    parallel/sharding.py, which the port does not have. No ops/ module
-    and no csrc/ file is listed: reloading an ops module would reset its
-    launch counters and the kernel library's handle, and a CUDA source is
-    rebuilt at the next process start, not hot-reloaded."""
+    modules, parallel/sharding.py, scene/skin.py and this module. No ops/
+    module and no csrc/ file is listed: reloading an ops module would
+    reset its launch counters and the kernel library's handle, and a CUDA
+    source is rebuilt at the next process start, not hot-reloaded."""
     mods = [
         cull_pass, post_pass, raster_pass, resolve_pass, shading_pass,
-        taa_pass, update_pass, skin_mod,
+        taa_pass, update_pass, shard_mod, skin_mod,
     ]
     files = [m.__file__ for m in mods if getattr(m, "__file__", None)]
     files.append(__file__)
@@ -200,36 +399,42 @@ class Renderer:
         **options,
     ):
         unsupported = []
-        if area_light_scale != 1:
-            unsupported.append("area_light_scale > 1")
-        if mesh is not None:
-            unsupported.append("a device mesh")
         for k, v in options.items():
             if k not in raster_pass.UNSUPPORTED_OPTIONS:
                 raise TypeError(f"unknown Renderer option {k!r}")
             if v:
                 unsupported.append(k)
-        if config is not None and config.slim_rec and not _slim_fits(scene):
-            # the JAX package switches to fused_resolve_rec + inst_rec_f16
-            # here; the port carries neither
-            unsupported.append(
-                "slim_rec outside its envelope (the fallback "
-                "fused_resolve_rec + inst_rec_f16)")
         if unsupported:
             raise NotImplementedError(
                 "not ported to voidin_tpu_torch: " + ", ".join(unsupported)
             )
         self.scene = scene
+        config = config or RasterConfig()
+        if config.slim_rec and not _slim_fits(scene):
+            # outside slim's envelope the JAX package switches to
+            # fused_resolve_rec + inst_rec_f16, a gather economy of the
+            # same frame; the port renders that frame on its default
+            # dense path (kernel_payload rides the slim record, so it goes
+            # too)
+            config = dataclasses.replace(config, slim_rec=False,
+                                         kernel_payload=False)
         # runner-up tracking only when the scene has per-texel alpha-masked
         # materials (visibility.wgsl:79-81 semantics)
-        self.config = dataclasses.replace(config or RasterConfig(),
+        self.config = dataclasses.replace(config,
                                           alpha_mask=scene.alpha_masked)
         self.enable_cull = enable_cull
         self.enable_taa = enable_taa
         self.enable_post = enable_post
         self.enable_rt_shadows = enable_rt_shadows
         self.rt_shadow_scale = rt_shadow_scale
-        self.device = scene.device
+        self.area_light_scale = area_light_scale
+        self.mesh = mesh
+        self._replicas = None
+        if mesh is not None:
+            shard_mod.slab_bounds(mesh, self.config)  # raises on odd slabs
+            self._replicas = shard_mod.replicated(mesh, scene)
+        # the frame's device: the mesh's first, where the image gathers
+        self.device = scene.device if mesh is None else mesh.devices[0]
         self.state = FrameState.initial(self.config.width, self.config.height,
                                         self.device)
         self.moving_ids = torch.as_tensor(
@@ -257,13 +462,17 @@ class Renderer:
         rf = importlib.import_module(__name__).render_frame
 
         def frame(scene, uniform, globals_, state, moving_ids, joint_mats):
-            return rf(scene, uniform, globals_, state, moving_ids,
-                      self.config, enable_cull=self.enable_cull,
-                      enable_taa=self.enable_taa,
-                      enable_post=self.enable_post,
-                      enable_rt_shadows=self.enable_rt_shadows,
-                      rt_shadow_scale=self.rt_shadow_scale,
-                      joint_mats=joint_mats)
+            # the bounds mode for this frame only, on this thread
+            with checks.bounds(self.config.debug_bounds):
+                return rf(scene, uniform, globals_, state, moving_ids,
+                          self.config, enable_cull=self.enable_cull,
+                          enable_taa=self.enable_taa,
+                          enable_post=self.enable_post,
+                          enable_rt_shadows=self.enable_rt_shadows,
+                          rt_shadow_scale=self.rt_shadow_scale,
+                          area_light_scale=self.area_light_scale,
+                          mesh=self.mesh, joint_mats=joint_mats,
+                          replicas=self._replicas)
 
         return frame
 

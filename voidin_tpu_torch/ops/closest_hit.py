@@ -8,14 +8,19 @@ steps would sync with the host, so the port walks in a kernel of its own.
 On a CUDA tensor it launches the kernel in ``csrc/closest_hit.cu`` (see
 its header for what bounds it on an H100); on a CPU tensor it runs the
 plain PyTorch twin, ``rt/traverse.py closest_hit_reference``. A CUDA
-tensor goes to the kernel or raises.
+tensor goes to the kernel or raises. In the bounds mode
+(RasterConfig.debug_bounds) the wrapper holds the tables' link columns to
+the table sizes before the launch (``check_stack_tables``), as
+ops/shadow_trace.py does and for the same reason.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..rt.traverse import MAX_DIST, ClosestHitResult, closest_hit_reference
+from ..core import checks
+from ..rt.traverse import (MAX_DIST, ClosestHitResult, check_stack_tables,
+                           closest_hit_reference)
 from .shadow_trace import check_rows
 
 LAUNCHES = 0  # kernel launches (CUDA path only)
@@ -68,6 +73,8 @@ def closest_hit(tlas_rows, blas_rows, instance_rows, tri_pos, origins,
     exhausted = torch.zeros((), dtype=torch.int32, device=dev)
     if R == 0 or instance_rows.shape[0] == 0:
         return ClosestHitResult(t, visits, overflow, exhausted)
+    if checks.bounds_enabled():
+        check_stack_tables(tlas_rows, blas_rows, instance_rows, tri_pos)
     tlas_rows, blas_rows, instance_rows, tri_pos, origins, directions = (
         x.contiguous() for x in (tlas_rows, blas_rows, instance_rows,
                                  tri_pos, origins, directions))

@@ -11,6 +11,13 @@ own. On a CUDA tensor it launches the kernel in ``csrc/shadow_trace.cu``
 (see its header for what bounds it on an H100); on a CPU tensor it runs
 the plain PyTorch twin, ``rt/traverse.py occluded_reference``. A CUDA
 tensor goes to the kernel or raises.
+
+In the bounds mode (RasterConfig.debug_bounds, core/checks.py) the twin
+checks each gather as the JAX package's walk does; the kernel reads
+nothing but table indices, and on CUDA an out-of-range read is no error
+the host sees, so the wrapper holds every link column of the tables to
+the table sizes before the launch (``check_threaded_table``) and a
+corrupt scene raises a named IndexError with nothing launched.
 """
 
 from __future__ import annotations
@@ -19,8 +26,9 @@ import ctypes
 
 import torch
 
+from ..core import checks
 from ..rt.traverse import (MAX_LEAF, MAX_STEPS, OcclusionResult,
-                           occluded_reference)
+                           check_threaded_table, occluded_reference)
 
 LAUNCHES = 0  # kernel launches (CUDA path only)
 
@@ -75,6 +83,8 @@ def occluded(table, n_tlas, instance_rows, tri_pos, origins, directions,
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if R == 0 or instance_rows.shape[0] == 0:
         return OcclusionResult(hit, overflow, exhausted)  # nothing to walk
+    if checks.bounds_enabled():
+        check_threaded_table(table, n_tlas, instance_rows, tri_pos)
     table, instance_rows, tri_pos, origins, directions = (
         t.contiguous() for t in (table, instance_rows, tri_pos, origins,
                                  directions))

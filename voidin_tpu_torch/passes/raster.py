@@ -52,7 +52,7 @@ UNSUPPORTED_OPTIONS = (
     "sort_payload", "fused_resolve_rec", "inst_rec_f16",
     "planar_resolve", "fused_inst_rec", "quad_rate_resolve",
     "taa_quad_history", "taa_inwindow", "taa_quad_where", "tap_block",
-    "slot_resolve", "debug_bounds",
+    "slot_resolve",
 )
 
 
@@ -87,6 +87,10 @@ class RasterConfig:
     # (VisBuffer.payload_img), so resolve skips its per-pixel record
     # gather; bit-identical to it. Needs slim_rec and the pair path.
     kernel_payload: bool = False
+    # Hold every data-dependent gather index of the frame to its table
+    # (core/checks.py): the Renderer sets the bounds mode for its frame;
+    # an out-of-range index raises an IndexError naming the gather.
+    debug_bounds: bool = False
     # K1's tile shape; the tile count pads to a multiple of 8 like the JAX
     # layout's grid step, so both packages bin to the same tile table
     tile_h = fr.TILE_H
@@ -241,24 +245,31 @@ def _slim_resolve_rec(clip, attr, rec, num):
 
 
 def setup_work_slice(tri_pos, tri_attr_packed, draw_rec, n_tris,
-                     config: RasterConfig):
-    """Per-work-item transform, near clip, projection and packing over all
-    tri_capacity slots. `tri_attr_packed` is read only for slim_rec."""
+                     config: RasterConfig, lo: int = 0, num=None):
+    """Per-work-item transform, near clip, projection and packing of the
+    global work slots [lo, lo + num) (default all tri_capacity slots).
+    Every operation is per slot, so a slice computes the same words as
+    those rows of the whole run: the sharded raster runs tri_capacity / N
+    slots on each device (parallel/sharding.py). `tri_attr_packed` is
+    read only for slim_rec."""
     cap = config.tri_capacity
+    if num is None:
+        num = cap
     dev = tri_pos.device
     draw_slot, _, valid = segment_ids_from_counts(n_tris, cap,
                                                   need_local=False)
-    slot_ids = torch.arange(cap, device=dev)
-    rec = draw_rec[draw_slot]  # (cap, 24)
+    draw_slot, valid = draw_slot[lo:lo + num], valid[lo:lo + num]
+    slot_ids = lo + torch.arange(num, device=dev)
+    rec = draw_rec[draw_slot]  # (num, 24)
     inst = torch.where(valid, rec[:, 18].to(torch.int64), 0)
     bc_cut = rec[:, 19] < 0.5  # base_color.w cutoff: drop the triangle
     local_tri = slot_ids - rec[:, 20].to(torch.int64)
     tri_pool = rec[:, 16].to(torch.int64) + local_tri
     idx_start = rec[:, 17].to(torch.int64) + 3 * local_tri
 
-    pos = tri_pos[torch.where(valid, tri_pool, 0)].reshape(cap, 3, 3)
-    m = rec[:, :16].reshape(cap, 4, 4)
-    clip = fastmath.mat4_point4(m[:, None, :, :], pos)  # (cap, 3, 4)
+    pos = tri_pos[torch.where(valid, tri_pool, 0)].reshape(num, 3, 3)
+    m = rec[:, :16].reshape(num, 4, 4)
+    clip = fastmath.mat4_point4(m[:, None, :, :], pos)  # (num, 3, 4)
 
     # --- near-plane clipping (s = w - z > 0) ----------------------------
     s_dist = clip[..., 3] - clip[..., 2]
@@ -310,20 +321,20 @@ def setup_work_slice(tri_pos, tri_attr_packed, draw_rec, n_tris,
                 "slim_rec needs the f16 instance record threaded through "
                 "the draw record (rasterize(inst_rec=...))")
         attr = tri_attr_packed[torch.where(valid, tri_pool, 0)]
-        resolve1 = _slim_resolve_rec(clip, attr, rec, cap)
+        resolve1 = _slim_resolve_rec(clip, attr, rec, num)
     else:
         resolve1 = torch.cat(
             [
-                clip[:, :, [0, 1, 3]].reshape(cap, 9),
+                clip[:, :, [0, 1, 3]].reshape(num, 9),
                 inst.to(torch.float32)[:, None],
                 idx_start.to(torch.float32)[:, None],
-                torch.zeros(cap, 1, dtype=torch.float32, device=dev),
+                torch.zeros(num, 1, dtype=torch.float32, device=dev),
             ],
             dim=-1,
         )
     extra_geom = torch.cat(
         [sx2, sy2, z2, alive2[:, None].to(torch.float32)], dim=-1
-    )  # (cap, 10)
+    )  # (num, 10)
     return dict(rec1=rec1, resolve1=resolve1, sx1=sx1, sy1=sy1, z1=z1,
                 needs2=needs2, extra_geom=extra_geom)
 
@@ -418,12 +429,15 @@ def triangle_setup(meshes: MeshPoolData, instances: InstanceData,
 # ---------------------------------------------------------------------------
 
 
-def bake_tile_origin(rec, tiles, config: RasterConfig):
+def bake_tile_origin(rec, tiles, config: RasterConfig, row_px_offset=0):
     """Re-base the b coefficients from the per-triangle anchor frame to
     each pair's tile origin: b' = b + (ax*(tx0 - anchor_x) +
-    ay*(ty0 - anchor_y))."""
+    ay*(ty0 - anchor_y)). `row_px_offset`: the global pixel row of tile
+    row 0 (slab-local tile ids in the sharded raster), so records stay
+    baked to GLOBAL pixel origins."""
     tx0 = ((tiles % config.tiles_x) * config.tile_w).to(torch.float32)
-    ty0 = ((tiles // config.tiles_x) * config.tile_h).to(torch.float32)
+    ty0 = ((tiles // config.tiles_x) * config.tile_h
+           + row_px_offset).to(torch.float32)
     offx = tx0 - rec[..., fr.F_ANCHOR]
     offy = ty0 - rec[..., fr.F_ANCHOR + 1]
     out = rec.clone()
@@ -513,15 +527,34 @@ def bin_triangles(setup: dict, config: RasterConfig):
     return blocks, counts, overflow
 
 
-def bin_triangles_pairs(setup: dict, config: RasterConfig):
+def bin_triangles_pairs(setup: dict, config: RasterConfig, ty_range=None):
     """Pair-centric two-stream binning: tile-sorted baked records plus
     per-tile ranges, padded for K1. Returns (rec_sorted, starts, counts,
-    overflow) with starts/counts int32."""
+    overflow) with starts/counts int32.
+
+    `ty_range=(ty_lo, rows)`: bin only the `rows` tile rows from tile row
+    `ty_lo` (one slab of the sharded raster): every triangle's tile rows
+    are clamped to the slab and rebased to local row 0, triangles left
+    with no row drop out, and tile ids count the slab's
+    ceil(rows * tiles_x / tile_pad) * tile_pad tiles; record b
+    coefficients are still baked to GLOBAL pixel origins, so K1, which
+    evaluates tile-local pixel coordinates only, runs unchanged."""
     TX = config.tiles_x
-    NT = config.n_tiles_padded
+    if ty_range is None:
+        NT = config.n_tiles_padded
+        ty_lo, row_px_offset = 0, 0
+    else:
+        ty_lo, local_rows = ty_range
+        NT = -(-(local_rows * TX) // config.tile_pad) * config.tile_pad
+        row_px_offset = ty_lo * config.tile_h
     EB = config.pair_capacity // 4  # extra-pair stream capacity
     dev = setup["sx"].device
     alive, tx0, ty0, tx1, ty1 = _tile_bounds(setup, config)
+    if ty_range is not None:
+        # clamp to the slab's tile rows; rebase to local row 0
+        ty0 = torch.clamp(ty0, min=ty_lo) - ty_lo
+        ty1 = torch.clamp(ty1, max=ty_lo + local_rows - 1) - ty_lo
+        alive = alive & (ty1 >= ty0)
     bw = tx1 - tx0 + 1
     n_pairs = torch.where(alive, bw * (ty1 - ty0 + 1), 0)
     bbox_rec = torch.stack([tx0, ty0, bw], dim=-1)
@@ -551,7 +584,8 @@ def bin_triangles_pairs(setup: dict, config: RasterConfig):
     tile_sorted, order = torch.sort(tile, stable=True)
     tri_sorted = tri[order]
     rec_sorted = setup["raster_rec"][tri_sorted]
-    rec_sorted = bake_tile_origin(rec_sorted, tile_sorted, config)
+    rec_sorted = bake_tile_origin(rec_sorted, tile_sorted, config,
+                                  row_px_offset=row_px_offset)
     bounds = torch.searchsorted(
         tile_sorted, torch.arange(NT + 1, device=dev), right=False
     )

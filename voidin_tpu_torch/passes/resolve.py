@@ -26,11 +26,11 @@ from typing import Optional
 
 import torch
 
-from ..core import encoding, fastmath
+from ..core import checks, encoding, fastmath
 from ..scene.scene import SceneData
 from ..scene.texture import sample_trilinear
 from .gbuffer import GBuffer, VisBuffer
-from .shading import uv_lod
+from .shading import pixel_rows, uv_lod
 
 
 @dataclasses.dataclass
@@ -112,12 +112,17 @@ def _fetch_rows(scene: SceneData, vis: VisBuffer, tri_id,
             and tri_id.shape == vis.payload_img.shape[:-1]):
         return dict(rec=vis.payload_img)
     tid = torch.clamp(tri_id.to(torch.int64), min=0)
-    rec = vis.resolve_rec[tid]  # (*S, 12 | 24)
+    rec = vis.resolve_rec[
+        checks.check_index(tid, vis.resolve_rec.shape[0], "resolve.rec")
+    ]  # (*S, 12 | 24)
     if slim:
         return dict(rec=rec)
     tri_pool = (rec[..., 10] / 3.0).to(torch.int64)  # idx_start / 3
-    pk = scene.meshes.tri_attr_packed[tri_pool]  # (*S, 12)
-    inst = rec[..., 9].to(torch.int64)
+    pk = scene.meshes.tri_attr_packed[checks.check_index(
+        tri_pool, scene.meshes.tri_attr_packed.shape[0], "resolve.tri_attr")
+    ]  # (*S, 12)
+    inst = checks.check_index(rec[..., 9].to(torch.int64),
+                              scene.instances.count, "resolve.instance")
     irec = _inst_rec(scene)[inst]  # (*S, 24)
     return dict(rec=rec, pk=pk, irec=irec)
 
@@ -358,7 +363,8 @@ def _unpack_fallback(img):
     )
 
 
-def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
+def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
+                    height=None, rows=None):
     """Resolve the winning candidate per pixel. Returns (GBuffer,
     ResolveAux). With a runner-up in `vis` (RasterConfig.alpha_mask),
     pixels whose winner is alpha-cut fall back to the runner-up —
@@ -367,13 +373,24 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
     cutout behind a cutout resolves to background. `lazy_alpha_resolve`
     resolves the fallback on a compacted flat batch of the cut pixels
     (capacity alpha_fallback_capacity, overflow counted in
-    ResolveAux.overflow); otherwise every pixel is resolved twice."""
+    ResolveAux.overflow); otherwise every pixel is resolved twice.
+
+    Row window (a slab of the sharded frame): `vis` holds the image rows
+    [row0, row0 + H) of a `height`-row image (default H), and `rows =
+    (lo, hi)` names the window rows that are the caller's own; the rows
+    around them are halo. Every row is resolved, the halo's fallbacks
+    included; the mip level's finite difference makes a window's last row
+    exact only where it is the image's last, so the caller gives it one
+    row of halo below. The counts (cut, fallback and overflow, the
+    fallback pixels left unresolved) are those of the own rows, and the
+    fallback capacity is the whole image's."""
     H, W = vis.depth.shape
     dev = vis.depth.device
+    height = H if height is None else height
     x_ndc = ((torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
              * 2.0 - 1.0)[None, :].expand(H, W)
-    y_ndc = (1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)
-             / H * 2.0)[:, None].expand(H, W)
+    y_ndc = (1.0 - pixel_rows(H, dev, row0, height) * 2.0)[:, None].expand(
+        H, W)
 
     slim = config.slim_rec
 
@@ -392,7 +409,7 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
         fall = (vis.tri_id >= 0) & f1["cut"]
         tid = torch.where(fall, vis.tri_id2, vis.tri_id)
         dep = torch.where(fall, vis.depth2, vis.depth)
-        n_fall = fall.sum()
+        n_fall = _own(fall, rows).sum()
         return _assemble(dense_fields(tid, dep), cut=n_fall, fallback=n_fall)
 
     # Lazy fallback: full resolve of the winners (the final result for
@@ -400,7 +417,7 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
     # pixels only, scattered back as packed rows.
     f1 = dense_fields(vis.tri_id, vis.depth)
     fall = (vis.tri_id >= 0) & f1["cut"]
-    F = config.alpha_fallback_capacity or max((H * W) // 16, 1024)
+    F = config.alpha_fallback_capacity or max((height * W) // 16, 1024)
 
     flat = fall.reshape(-1)
     count = flat.sum()
@@ -409,16 +426,16 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
     tid2 = torch.where(valid, vis.tri_id2.reshape(-1)[idx], -1)
     dep2 = vis.depth2.reshape(-1)[idx]
     fx = (idx % W).to(torch.float32)
-    fy = (idx // W).to(torch.float32)
+    fy = (idx // W + row0).to(torch.float32)
     xb = (fx + 0.5) / W * 2.0 - 1.0
-    yb = 1.0 - (fy + 0.5) / H * 2.0
+    yb = 1.0 - (fy + 0.5) / height * 2.0
     fb = _pixel_fields(scene, vis, tid2, dep2, xb, yb,
-                       lod_probe=(2.0 / W, 2.0 / H), slim=slim)
-    rows = _pack_fallback_rows(fb)
+                       lod_probe=(2.0 / W, 2.0 / height), slim=slim)
+    fb_rows = _pack_fallback_rows(fb)
 
     # invalid slots write the extra row H*W, which is dropped
     buf = torch.zeros(H * W + 1, _FB_F, dtype=torch.int32, device=dev)
-    buf[torch.where(valid, idx, H * W)] = rows
+    buf[torch.where(valid, idx, H * W)] = fb_rows
     fbimg = _unpack_fallback(buf[: H * W].reshape(H, W, _FB_F))
     use = fall & fbimg["flag"]
 
@@ -427,5 +444,12 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config):
         merged[k] = torch.where(use, fbimg[k], f1[k])
     for k in ("albedo", "emissive", "mr"):
         merged[k] = torch.where(use[..., None], fbimg[k], f1[k])
-    return _assemble(merged, overflow=torch.clamp(count - F, min=0),
-                     cut=count, fallback=use.sum())
+    # overflow: the cut pixels left unresolved (count - F on a whole image)
+    return _assemble(merged, overflow=_own(fall & ~use, rows).sum(),
+                     cut=_own(fall, rows).sum(),
+                     fallback=_own(use, rows).sum())
+
+
+def _own(mask, rows):
+    """The rows (lo, hi) of an (H, W) mask, or all of it for None."""
+    return mask if rows is None else mask[rows[0]:rows[1]]

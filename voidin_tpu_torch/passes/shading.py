@@ -1,7 +1,7 @@
 """Deferred shading: ambient + emissive, point lights, LTC area lights.
 
-Counterpart of ``voidin_tpu/passes/shading.py`` ``shade`` at
-area_light_scale=1 (shaders/shading.wgsl:36-118), with the reference
+Counterpart of ``voidin_tpu/passes/shading.py`` ``shade``
+(shaders/shading.wgsl:36-118), with the reference
 quirks kept for parity:
 * world position reconstructed from reverse-Z depth + clip_to_world
   (utils/uv.wgsl world_position_from_depth);
@@ -17,7 +17,9 @@ quirks kept for parity:
 The area-light terms of every light (ltc_matrix, ltc_evaluate_rect and the
 LUT fetches of both) come from one launch of the fused LTC kernel
 (ops/ltc_rect.py); the per-light combine stays here, in the JAX package's
-order.
+order. With area_light_scale=s (the JAX package's documented deviation)
+that launch runs on every s-th pixel and the summed terms are upsampled
+bilinearly (core/fastmath.py upsample_bilinear_mm).
 
 ``shade_raytraced`` is the raytraced-shadows variant (JAX ``shade_raytraced``,
 src/bin/raytraced_shadows.wgsl:58-119): point lights only, each pixel's
@@ -53,19 +55,31 @@ from ..scene.texture import sample_trilinear
 LTC_LUT_BF16 = False
 
 
-def _pixel_ndc(H, W, device):
+def pixel_rows(h, device, row0=0, height=None):
+    """Pixel-centre v of the image rows [row0, row0 + h) of a
+    `height`-row image (default h): (row + 0.5) / height, f32. Every
+    per-pixel pass takes its rows from here, so a row slab of the
+    sharded frame computes the words of those rows of the whole image."""
+    height = h if height is None else height
+    rows = torch.arange(row0, row0 + h, dtype=torch.float32, device=device)
+    return (rows + 0.5) / height
+
+
+def _pixel_ndc(H, W, device, row0=0, height=None):
     u = (torch.arange(W, dtype=torch.float32, device=device) + 0.5) / W
-    v = (torch.arange(H, dtype=torch.float32, device=device) + 0.5) / H
+    v = pixel_rows(H, device, row0, height)
     x_ndc = (u * 2.0 - 1.0)[None, :].expand(H, W)
     y_ndc = ((1.0 - v) * 2.0 - 1.0)[:, None].expand(H, W)
     return x_ndc, y_ndc
 
 
-def world_position_from_depth(depth: torch.Tensor,
-                              clip_to_world) -> torch.Tensor:
-    """(H, W) raw depth -> (H, W, 3) world positions (uv.wgsl:18-23)."""
+def world_position_from_depth(depth: torch.Tensor, clip_to_world,
+                              row0=0, height=None) -> torch.Tensor:
+    """(H, W) raw depth -> (H, W, 3) world positions (uv.wgsl:18-23).
+    `row0` / `height`: the rows are image rows [row0, row0 + H) of a
+    `height`-row image (a slab of the sharded frame)."""
     H, W = depth.shape
-    x_ndc, y_ndc = _pixel_ndc(H, W, depth.device)
+    x_ndc, y_ndc = _pixel_ndc(H, W, depth.device, row0, height)
     m = np.asarray(clip_to_world, np.float32)
     wx, wy, wz, ww = fastmath.const_mat4_point4(m, x_ndc, y_ndc, depth)
     # depth == 0 (background, infinite far) gives w == 0: clamp so the
@@ -103,12 +117,49 @@ def _pow16(x):
     return x8 * x8
 
 
-def shade(scene: SceneData, gbuffer, camera, aux) -> torch.Tensor:
-    """G-buffer + the resolve pass's material fields -> (H, W, 3) HDR."""
+def _area_light_terms(scene: SceneData, nor, rd, pos, roughness):
+    """Accumulated area-light (diffuse before albedo, specular) rgb terms
+    of all area lights at the given pixel set (JAX shading.py
+    _area_light_terms, :362-385): one launch of the fused LTC kernel for
+    the per-light (diff, spec), summed in the JAX package's order."""
+    lights = scene.lights
+    diffs, specs = ltc_rect.ltc_rect_terms(
+        nor, rd, pos, roughness, lights.area_points, scene.ltc1,
+        scene.ltc2, bf16=LTC_LUT_BF16)
+    acc_d = torch.zeros(pos.shape, dtype=torch.float32, device=pos.device)
+    acc_s = torch.zeros_like(acc_d)
+    for i in range(lights.area_intensity.shape[0]):
+        pts = lights.area_points[i]  # (4, 3)
+        intensity = lights.area_intensity[i]
+        lcol = lights.area_color[i]
+        center = (pts[0] + pts[2]) * 0.5
+        dist_c = fastmath.norm3(center - pos)
+        atten = attenuation(intensity, 500.0, dist_c, 25.0)
+        acc_d = acc_d + (lcol * intensity) * diffs[i][..., None]
+        acc_s = acc_s + (lcol * intensity) * (specs[i] * atten)[..., None]
+    return acc_d, acc_s
+
+
+def shade(scene: SceneData, gbuffer, camera, aux, area_light_scale: int = 1,
+          row0: int = 0, height=None) -> torch.Tensor:
+    """G-buffer + the resolve pass's material fields -> (H, W, 3) HDR.
+
+    `area_light_scale=s` (the JAX package's documented deviation, off by
+    default): the area-light terms are evaluated on every s-th pixel (one
+    launch of the fused LTC kernel on the (ceil(H/s), ceil(W/s)) fields),
+    summed over the lights and bilinearly upsampled; albedo, point lights
+    and emissive stay at full resolution.
+
+    `row0` / `height`: the G-buffer holds image rows [row0, row0 + H) of
+    a `height`-row image (a window of the sharded frame); with s > 1
+    row0 must be a multiple of s, and the window's first and last rows
+    are exact only where they hold the image's edge (the caller gives the
+    window one subsampled row of halo on each side)."""
     depth = gbuffer.depth
     nor = encoding.decode_octahedral_32(gbuffer.normal_uv[..., 0])
     albedo, emissive, mr = aux.albedo, aux.emissive, aux.mr
-    pos = world_position_from_depth(depth, camera.clip_to_world)
+    pos = world_position_from_depth(depth, camera.clip_to_world, row0,
+                                    height)
     cam_pos = torch.as_tensor(np.asarray(camera.position, np.float32)[:3],
                               device=depth.device)
     rd = fastmath.normalize(cam_pos - pos)
@@ -134,7 +185,20 @@ def shade(scene: SceneData, gbuffer, camera, aux) -> torch.Tensor:
                               diff + spec)
         color = color + torch.where(is_light, 0.0, contrib)
 
-    if lights.area_intensity.shape[0] > 0:
+    if lights.area_intensity.shape[0] > 0 and area_light_scale > 1:
+        s = area_light_scale
+        roughness = torch.clamp(mr[..., 0], 0.0, 1.0)
+        acc_d, acc_s = _area_light_terms(
+            scene, fastmath.subsample_mm(nor, s),
+            fastmath.subsample_mm(rd, s), fastmath.subsample_mm(pos, s),
+            fastmath.subsample_mm(roughness, s))
+        H, W = depth.shape
+        acc_d, acc_s = (fastmath.upsample_bilinear_mm(a, s, H, W, row0,
+                                                      height)
+                        for a in (acc_d, acc_s))
+        contrib = albedo[..., :3] * acc_d + acc_s
+        color = color + torch.where(is_light, 0.0, contrib)
+    elif lights.area_intensity.shape[0] > 0:
         roughness = torch.clamp(mr[..., 0], 0.0, 1.0)
         diffs, specs = ltc_rect.ltc_rect_terms(
             nor, rd, pos, roughness, lights.area_points, scene.ltc1,
@@ -170,7 +234,7 @@ def _trace_shadow_rays(tables, max_leaf, pos, nor, lpos, needs_ray):
 
 
 def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
-                    shadow_scale: int = 1):
+                    shadow_scale: int = 1, row0: int = 0, height=None):
     """Deferred shading with TLAS-traced point-light shadows (JAX
     shading.py shade_raytraced, :555-710): ambient 0.3 * albedo +
     emissive; per point light a shadow ray from pos + 1e-4 * normal toward
@@ -184,14 +248,22 @@ def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
     `shadow_scale=s` (the JAX package's documented deviation) traces the
     top-left sample of each s x s block and repeats its occlusion.
 
+    `row0` / `height`: the G-buffer holds image rows [row0, row0 + H) of
+    a `height`-row image (a slab of the sharded frame); row0 must be a
+    multiple of shadow_scale, so the slab traces the image's samples.
+
     Returns (hdr, rt) with rt = dict(exhausted=rays still walking at the
     step limit, rays=the rays traced), () tensors summed over lights."""
+    if row0 % shadow_scale:
+        raise ValueError(f"row0={row0} is not a multiple of the shadow "
+                         f"scale {shadow_scale}")
     depth = gbuffer.depth
     material_id = gbuffer.material
     nor = encoding.decode_octahedral_32(gbuffer.normal_uv[..., 0])
     H, W = depth.shape
     albedo, emissive, mr = aux.albedo, aux.emissive, aux.mr
-    pos = world_position_from_depth(depth, camera.clip_to_world)
+    pos = world_position_from_depth(depth, camera.clip_to_world, row0,
+                                    height)
     cam_pos = torch.as_tensor(np.asarray(camera.position, np.float32)[:3],
                               device=depth.device)
     rd = fastmath.normalize(cam_pos - pos)

@@ -12,7 +12,9 @@ current frame instead of converging from black.
 
 The port writes the resolved image into the history buffer IN PLACE
 (FrameState.history.copy_): one full-resolution buffer carried across
-frames instead of a new one per frame.
+frames instead of a new one per frame. ``reproject`` and ``taa_resolve``
+also run on a window of rows (a slab of the sharded frame,
+framework/renderer.py), reading the whole history.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..core import fastmath
 from ..core.color import rgb_to_ycbcr, ycbcr_to_rgb
-from .shading import _pixel_ndc, world_position_from_depth
+from .shading import _pixel_ndc, pixel_rows, world_position_from_depth
 
 
 def _shift(img, dy, dx):
@@ -58,16 +60,24 @@ def _mitchell_weight_np(x: float) -> float:
     return 0.0
 
 
-def _bilinear_clamp(img, u, v):
-    """Bilinear sample of (H, W, C) at normalized uv (clamp-to-edge) from
-    the 2x2 texel neighborhood packed as one f16 row per texel (the JAX
-    package's history table, f16 included)."""
+def history_quads(img):
+    """The (H, W, C) history as its bilinear table: the 2x2 texel
+    neighbourhood (clamp-to-edge) packed as one f16 row per texel, (H * W,
+    4 C) (the JAX package's history table, f16 included)."""
     H, W, C = img.shape
     xn = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
     yn = torch.cat([img[1:], img[-1:]], dim=0)
     xyn = torch.cat([xn[1:], xn[-1:]], dim=0)
-    quads = torch.cat([img, xn, yn, xyn], dim=-1).to(torch.float16).reshape(
+    return torch.cat([img, xn, yn, xyn], dim=-1).to(torch.float16).reshape(
         H * W, 4 * C)
+
+
+def _bilinear_clamp(img, u, v, quads=None):
+    """Bilinear sample of (H, W, C) at normalized uv (clamp-to-edge) from
+    its history_quads table (`quads`, built here when not given)."""
+    H, W, C = img.shape
+    if quads is None:
+        quads = history_quads(img)
     fx = u * W - 0.5
     fy = v * H - 0.5
     x0 = torch.floor(fx)
@@ -84,18 +94,23 @@ def _bilinear_clamp(img, u, v):
     return top + (bot - top) * ty
 
 
-def reproject(gbuffer, camera) -> torch.Tensor:
-    """-> (H, W, 3): (velocity.xy in NDC units, in-bounds flag)."""
+def reproject(gbuffer, camera, row0: int = 0, height=None) -> torch.Tensor:
+    """-> (H, W, 3): (velocity.xy in NDC units, in-bounds flag). `row0` /
+    `height`: the G-buffer holds image rows [row0, row0 + H) of a
+    `height`-row image; the 3x3 depth dilation makes a window's first and
+    last rows exact only at the image's edges (the sharded frame gives
+    each slab one row of halo on each side)."""
     depth = gbuffer.depth
     H, W = depth.shape
+    height = H if height is None else height
     d = depth
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             if dy == 0 and dx == 0:
                 continue
             d = torch.maximum(d, _shift(depth, dy, dx))
-    x_ndc, y_ndc = _pixel_ndc(H, W, depth.device)
-    pos_ws = world_position_from_depth(d, camera.clip_to_world)
+    x_ndc, y_ndc = _pixel_ndc(H, W, depth.device, row0, height)
+    pos_ws = world_position_from_depth(d, camera.clip_to_world, row0, height)
     m = np.asarray(camera.prev_world_to_clip, np.float32)
     px_, py_, _pz, pw_ = fastmath.const_mat4_point4(
         m, pos_ws[..., 0], pos_ws[..., 1], pos_ws[..., 2]
@@ -108,25 +123,30 @@ def reproject(gbuffer, camera) -> torch.Tensor:
     vel_y = (y_ndc + jit[1]) - (prev_y + pjit[1])
     lo_x, hi_x = -1.0 + float(np.float32(1.0 / W)), 1.0 - float(
         np.float32(1.0 / W))
-    lo_y, hi_y = -1.0 + float(np.float32(1.0 / H)), 1.0 - float(
-        np.float32(1.0 / H))
+    lo_y, hi_y = -1.0 + float(np.float32(1.0 / height)), 1.0 - float(
+        np.float32(1.0 / height))
     in_bounds = (prev_x == torch.clamp(prev_x, lo_x, hi_x)) & (
         prev_y == torch.clamp(prev_y, lo_y, hi_y))
     return torch.stack([vel_x, vel_y, in_bounds.to(torch.float32)], dim=-1)
 
 
-def taa_resolve(color, history, motion):
-    """taa.wgsl:45-103. color/history/motion: (H, W, 3)."""
+def taa_resolve(color, history, motion, row0: int = 0, quads=None):
+    """taa.wgsl:45-103. color/motion: (H, W, 3); history: the whole (H',
+    W, 3) image. `row0`: color and motion hold image rows [row0, row0 +
+    H) of the history's image (a window of the sharded frame; its first
+    and last rows are exact only at the image's edges); `quads`: the
+    history's history_quads table, built here when not given."""
     H, W = color.shape[:2]
     dev = color.device
+    height = history.shape[0]
     u = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
-    v = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / H
+    v = pixel_rows(H, dev, row0, height)
     uu = u[None, :].expand(H, W)
     vv = v[:, None].expand(H, W)
     vel = motion
     hist_u = uu - vel[..., 0] * 0.5
     hist_v = vv + vel[..., 1] * 0.5  # * (1, -1) flip
-    hist = rgb_to_ycbcr(_bilinear_clamp(history, hist_u, hist_v))
+    hist = rgb_to_ycbcr(_bilinear_clamp(history, hist_u, hist_v, quads))
 
     vsum = torch.zeros_like(color)
     vsum2 = torch.zeros_like(color)
@@ -151,7 +171,7 @@ def taa_resolve(color, history, motion):
     local_contrast = dev_[..., 0] / (ex[..., 0] + 1e-5)
 
     hist_px = hist_u * W
-    hist_py = hist_v * H
+    hist_py = hist_v * height
     frac_x = hist_px - torch.floor(hist_px)
     frac_y = hist_py - torch.floor(hist_py)
     texel_center_dist = (0.5 - frac_x).abs() + (0.5 - frac_y).abs()

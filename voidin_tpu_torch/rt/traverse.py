@@ -44,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import fastmath
+from ..core import checks, fastmath
 
 MAX_DIST = 1e30
 STACK = 48  # closest_hit's per-ray stack entries
@@ -279,7 +279,9 @@ def occluded_reference(table, n_tlas, instance_rows, tri_pos, origins,
         steps += 1
         c = cur[live]
         is_blas = c < 0
-        row = table[torch.where(is_blas, n_tlas - c - 1, c - 1)]
+        row = table[checks.check_index(
+            torch.where(is_blas, n_tlas - c - 1, c - 1), table.shape[0],
+            "rt.node")]
         a, exit_enc = row[:, 3], row[:, 7].to(i64)
         count = torch.where(is_blas, row[:, 8], 0.0).to(i64)
         blas3 = is_blas[:, None]
@@ -292,7 +294,9 @@ def occluded_reference(table, n_tlas, instance_rows, tri_pos, origins,
         enter = shit & ~is_blas & (a < 0.0)
         e = live[enter]
         if e.numel():
-            irow = instance_rows[(-a[enter] - 1.0).to(i64)]
+            irow = instance_rows[checks.check_index(
+                (-a[enter] - 1.0).to(i64), instance_rows.shape[0],
+                "rt.instance")]
             inv_t = irow[:, :16].reshape(-1, 4, 4)
             co[e] = fastmath.mat4_point(inv_t, origins[e])
             cd[e] = fastmath.mat3_vec(inv_t[:, :3, :3], directions[e])
@@ -396,7 +400,8 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
         # TLAS pops: slab in world space; internal -> left, right; leaf ->
         # enter the instance
         tl = live[entry > 0]
-        trow = tlas_rows[entry[entry > 0] - 1]
+        trow = tlas_rows[checks.check_index(
+            entry[entry > 0] - 1, tlas_rows.shape[0], "rt.tlas_node")]
         hit = _slab(origins[tl], inv0[tl], trow[:, 0:3], trow[:, 4:7],
                     t[tl])
         leaf = trow[:, 3] < 0.0
@@ -407,7 +412,9 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
             push(inner, rows[:, 7].to(i64) + 1)
         e = tl[hit & leaf]
         if e.numel():
-            irow = instance_rows[trow[hit & leaf][:, 7].to(i64)]
+            irow = instance_rows[checks.check_index(
+                trow[hit & leaf][:, 7].to(i64), instance_rows.shape[0],
+                "rt.instance")]
             inv_t = irow[:, :16].reshape(-1, 4, 4)
             co[e] = fastmath.mat4_point_fma(inv_t, origins[e])
             cd[e] = fastmath.mat3_vec_fma(inv_t[:, :3, :3], directions[e])
@@ -420,7 +427,8 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
         # BLAS pops: slab in object space; leaf -> its triangles; internal
         # -> the children left + 1, left + 2
         bl = live[entry < 0]
-        brow = blas_rows[-entry[entry < 0] - 1]
+        brow = blas_rows[checks.check_index(
+            -entry[entry < 0] - 1, blas_rows.shape[0], "rt.blas_node")]
         hit = _slab(co[bl], cinv[bl], brow[:, 0:3], brow[:, 4:7], t[bl])
         count = brow[:, 7].to(i64)
         left = brow[:, 3].to(i64)
@@ -450,3 +458,58 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
         exhausted=(sp > 0).sum().to(torch.int32),
     )
     return res, WalkCounts(n_visits, entries, tests)
+
+
+def check_threaded_table(table, n_tlas, instance_rows, tri_pos):
+    """Hold every link column of the shadow kernel's tables
+    (scene_rays_threaded) to the table sizes, raising IndexError under the
+    twin's names: TLAS children and exit links and the instances' BLAS
+    roots ("rt.node"), TLAS leaves ("rt.instance"), BLAS children and
+    exit links ("rt.node", mesh-local, so held to the BLAS region), BLAS
+    leaf triangle ranges and the instances' first triangles
+    ("rt.tri_pos", which the JAX package does not check). What
+    ops/shadow_trace.py runs before a launch in the bounds mode: a link
+    that stays in its table but leaves its mesh is not caught."""
+    n_blas = table.shape[0] - n_tlas
+    n_tri = tri_pos.shape[0]
+    t, b = table[:n_tlas], table[n_tlas:]
+    a_t, a_b, count = t[:, 3], b[:, 3], b[:, 8]
+    checks.check_indices([
+        (a_t, n_tlas, "rt.node", a_t >= 0),
+        (-a_t - 1.0, instance_rows.shape[0], "rt.instance", ~(a_t >= 0)),
+        (t[:, 7], n_tlas + 1, "rt.node"),
+        (instance_rows[:, 16], n_blas, "rt.node"),
+        (a_b, n_blas, "rt.node", ~(count > 0)),
+        (b[:, 7], n_blas + 1, "rt.node"),
+        (count, n_tri + 1, "rt.tri_pos"),
+        (instance_rows[:, 17], n_tri, "rt.tri_pos"),
+        (a_b, n_tri, "rt.tri_pos", count > 0),
+        (a_b + count - 1.0, n_tri, "rt.tri_pos", count > 0),
+    ])
+
+
+def check_stack_tables(tlas_rows, blas_rows, instance_rows, tri_pos):
+    """Hold every link column of the closest-hit kernel's tables
+    (scene_rays) to the table sizes, raising IndexError under the twin's
+    names: TLAS children ("rt.tlas_node"), TLAS leaves ("rt.instance"),
+    the instances' BLAS roots and the BLAS children left + 1, left + 2
+    ("rt.blas_node", mesh-local, so held to the BLAS table), BLAS leaf
+    triangle ranges and the instances' first triangles ("rt.tri_pos",
+    which the JAX package does not check). What ops/closest_hit.py runs
+    before a launch in the bounds mode."""
+    n_tlas, n_blas = tlas_rows.shape[0], blas_rows.shape[0]
+    n_tri = tri_pos.shape[0]
+    a_t, b_t = tlas_rows[:, 3], tlas_rows[:, 7]
+    left, count = blas_rows[:, 3], blas_rows[:, 7]
+    checks.check_indices([
+        (a_t, n_tlas, "rt.tlas_node", a_t >= 0),
+        (b_t, n_tlas, "rt.tlas_node", a_t >= 0),
+        (b_t, instance_rows.shape[0], "rt.instance", ~(a_t >= 0)),
+        (instance_rows[:, 16], n_blas, "rt.blas_node"),
+        (left, n_blas, "rt.blas_node", ~(count > 0)),
+        (left + 1.0, n_blas, "rt.blas_node", ~(count > 0)),
+        (count, n_tri + 1, "rt.tri_pos"),
+        (instance_rows[:, 17], n_tri, "rt.tri_pos"),
+        (left, n_tri, "rt.tri_pos", count > 0),
+        (left + count - 1.0, n_tri, "rt.tri_pos", count > 0),
+    ])

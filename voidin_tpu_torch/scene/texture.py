@@ -23,6 +23,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core import checks
+
 WHITE_TEXTURE = 0
 BLACK_TEXTURE = 1
 MAX_TEXTURES = 1024
@@ -299,6 +301,7 @@ def _bilinear_level(pool: TexturePoolData, tex_id, uv, level, lod_frac, wh):
     y0i = torch.remainder(y0.to(torch.int64), lh)
 
     idx = tex_id * pool.total + off + y0i * stride + x0i
+    idx = checks.check_index(idx, pool.quads.shape[0], "texture.quads")
 
     def bilin(q, base):
         c00 = q[..., base: base + 4]
