@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and, at the
-first scene, the host BVH builder (native/bvh_builder.cpp, the host C++
-compiler), then:
+first scene, the host's native library (native/bvh_builder.cpp and
+native/texture_packer.cpp, the host C++ compiler), then:
   1. prints torch's version and the card's name and power limit;
   2. every kernel against its PyTorch twin on its 1080p inputs, each timed
      by call (CUDA events over back-to-back calls, the host wrapper
@@ -140,6 +140,16 @@ compiler), then:
      usable after); area_light_scale=2 (the fused kernel on the
      (544, 960) fields equal to its twin, the frame within
      tests/test_ltc.py's budgets of full resolution, 12 frames timed).
+ 18. the host path of texture upload and image import (host_phases): the
+     native texture packer in use (it fails on the numpy fallback);
+     configs 6 and 7 at phase 14's sizes packed by each packer (host ms
+     of TexturePool.host_arrays and of World.device(), the words where
+     the two pools differ,
+     held to tests/test_io.py:154-165's gate); every image fixture of
+     tests/data/torch_images (progressive, CMYK, YCCK, 4:1:1 and 4:4:0
+     JPEGs, Adam7 and 16-bit PNGs) decoded to its stored PIL pixels (PNG
+     word for word, JPEG within 1 level), with its host ms and ms per
+     megapixel. No kernel runs in it.
 Phases 5-8 and 10-17 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
@@ -2065,7 +2075,8 @@ def main():
     _build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print(f"host BVH builder: {native.builder()} (ready in "
+    print(f"host BVH builder and texture packer: {native.builder()}, "
+          f"{native.packer()} (ready in "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
                        pair_capacity=CAP)
@@ -2313,6 +2324,8 @@ def main():
     stamp("phase 16 (the app layer)")
     shard_launches, als_row = shard_phases(dev, card)
     stamp("phase 17 (the sharded frame, debug_bounds, area_light_scale)")
+    host_phases(dev, card)
+    stamp("phase 18 (texture packer, image decoding)")
     for name in ("fine_raster_pairs", "ltc_rect"):
         rows[name]["paths"] = {**preset_paths.get(name, {}),
                                **import_paths.get(name, {}),
@@ -2606,6 +2619,166 @@ def shard_phases(dev, card, cards_only=False):
     del r, world
     torch.cuda.empty_cache()
     return launches, row
+
+
+# --- phase 18: the host path of texture upload and image import ----------
+FIXTURE_DIR = os.path.join("tests", "data", "torch_images")
+FIXTURE_PIXELS = ".rgba.png"
+# tests/test_io.py:154-165's gate between the native and numpy packers:
+# levels 0-3 exact in each level's own texels, every word within 3 steps
+PACKER_STEPS = 3
+
+
+def pack_both(pool):
+    """(native quads, numpy quads, native ms, numpy ms) of one TexturePool's
+    host_arrays, by the host's clock; numpy under VOIDIN_NATIVE=0."""
+    t0 = time.perf_counter()
+    native_q = pool.host_arrays()["quads"]
+    t_native = (time.perf_counter() - t0) * 1e3
+    os.environ["VOIDIN_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        numpy_q = pool.host_arrays()["quads"]
+        t_numpy = (time.perf_counter() - t0) * 1e3
+    finally:
+        del os.environ["VOIDIN_NATIVE"]
+    return native_q, numpy_q, t_native, t_numpy
+
+
+def device_ms_both(world, dev):
+    """Host ms of World.device(dev) on the native packer and on numpy (the
+    packer of the port before the native one), by the host's clock."""
+    import torch
+
+    from voidin_tpu_torch import native
+
+    out = []
+    for packer in ("native", "numpy"):
+        real = native.pack_texture
+        if packer == "numpy":
+            native.pack_texture = lambda *a, **k: None
+        try:
+            t0 = time.perf_counter()
+            world.device(dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native.pack_texture = real
+    return out
+
+
+def packer_gate(label, pool, native_q, numpy_q):
+    """Fails unless the two pools meet PACKER_STEPS' gate; returns the
+    number of words where they differ."""
+    from voidin_tpu_torch.scene import texture
+
+    T = len(pool.images)
+    a = native_q.reshape(T, -1, 32).astype(np.int16)
+    b = numpy_q.reshape(T, -1, 32).astype(np.int16)
+    sizes = texture._mip_sizes(int(round(np.sqrt((3 * a.shape[1] + 1) / 4))))
+    fine = sum(s * s for s in sizes[:4])
+    if not np.array_equal(a[:, :fine, :16], b[:, :fine, :16]):
+        fail(f"{label}: the native and numpy pools differ at mip levels 0-3")
+    diff = np.abs(a - b)
+    if diff.max() > PACKER_STEPS:
+        fail(f"{label}: the native and numpy pools differ by {diff.max()} "
+             f"steps (gate {PACKER_STEPS})")
+    return int((diff > 0).sum())
+
+
+def decode_fixture(path):
+    """(decoded RGBA, stored PIL pixels, median ms of 3 decodes) of one
+    fixture through io/image.load_image."""
+    from voidin_tpu_torch.io.image import load_image
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = load_image(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return got, load_image(path + FIXTURE_PIXELS), float(np.median(times))
+
+
+def progressive_split(path):
+    """Host ms of one decode of a progressive JPEG by scan kind (DC or AC,
+    first or refinement scans, io/jpeg.py _decode_scan), the rest (markers,
+    IDCT, upsampling, colour) under "rest"."""
+    from voidin_tpu_torch.io import image, jpeg
+
+    split = {}
+    real = jpeg._decode_scan
+
+    def timed(fr, comps, spectral, *args):
+        ss, _, ah, _ = spectral
+        kind = ("DC" if ss == 0 else "AC") + (" refine" if ah else " first")
+        t0 = time.perf_counter()
+        real(fr, comps, spectral, *args)
+        split[kind] = split.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+    jpeg._decode_scan = timed
+    try:
+        t0 = time.perf_counter()
+        image.load_image(path)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        jpeg._decode_scan = real
+    split["rest"] = total - sum(split.values())
+    return {k: round(v, 1) for k, v in split.items()}
+
+
+def host_phases(dev, card):
+    """Phase 18: the native texture packer must be the one in use (no
+    numpy fallback here); configs 6 and 7 at phase 14's sizes pack their
+    TexturePool through each packer (host ms of host_arrays and of
+    World.device on the card, the words where the pools differ, held to
+    PACKER_STEPS' gate); every committed
+    image fixture decodes to its stored PIL pixels (PNG word for word,
+    JPEG within 1 level, tests/test_torch_image_formats.py's bounds), with
+    its host ms and, for the 512x512 progressive file, ms per megapixel."""
+    from voidin_tpu_torch import native
+    from voidin_tpu_torch.framework import presets
+
+    if native.packer() != "native":
+        fail("the native texture packer did not build on this host")
+    print(f"phase 18: texture packer {native.packer()} "
+          f"({os.path.basename(native.library_path())}); host ms on the "
+          f"card's host ({card})", flush=True)
+    for n in (6, 7):
+        p = presets.PRESETS[n](WIDTH / HEIGHT, **PRESET_RUNS[n][0])
+        pool = p.world.textures
+        native_q, numpy_q, t_native, t_numpy = pack_both(pool)
+        differ = packer_gate(f"config {n}", pool, native_q, numpy_q)
+        d_native, d_numpy = device_ms_both(p.world, dev)
+        print(f"phase 18, config {n}: {len(pool.images)} texture slots, "
+              f"{native_q.size} pool bytes; host_arrays native "
+              f"{t_native:.1f} ms, numpy {t_numpy:.1f} ms; World.device() "
+              f"native {d_native:.1f} ms, numpy {d_numpy:.1f} ms; {differ} "
+              f"words differ (gate: levels 0-3 exact, <= {PACKER_STEPS} "
+              f"steps)", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(root, FIXTURE_DIR)
+    paths = sorted(os.path.join(directory, f) for f in os.listdir(directory)
+                   if not f.endswith(FIXTURE_PIXELS))
+    if not paths:
+        fail(f"no image fixtures in {directory}")
+    for path in paths:
+        name = os.path.basename(path)
+        got, want, ms = decode_fixture(path)
+        tol = 0 if name.endswith(".png") else 1
+        if got.shape != want.shape:
+            fail(f"{name}: decoded {got.shape}, PIL's pixels {want.shape}")
+        diff = np.abs(got.astype(np.int16) - want)
+        if diff.max() > tol:
+            fail(f"{name}: {int((diff > 0).sum())} values differ from PIL's,"
+                 f" max {diff.max()} (bound {tol})")
+        mp = got.shape[0] * got.shape[1] / 1e6
+        print(f"phase 18, {name}: {got.shape[1]}x{got.shape[0]} decoded in "
+              f"{ms:.1f} ms ({ms / mp:.1f} ms per megapixel), "
+              f"{int((diff > 0).sum())} values differ from PIL's (bound "
+              f"{tol})", flush=True)
+        if name.startswith("progressive") and mp >= 0.25:
+            print(f"phase 18, {name} by scan kind (host ms): "
+                  f"{progressive_split(path)}", flush=True)
 
 
 def avi_frames(data):

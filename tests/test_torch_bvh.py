@@ -19,7 +19,6 @@ import torch
 
 import bench
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu import native as j_native
 from voidin_tpu.rt import bvh as j_bvh
 from voidin_tpu.scene import scene as jax_scene_mod
@@ -31,7 +30,7 @@ from voidin_tpu_torch.rt import bvh as t_bvh
 from voidin_tpu_torch.scene import mesh as t_mesh
 
 from tests.test_bvh import _check_invariants, _random_tris
-from tests.test_torch_scene import deferred_scene, jax_leaves
+from tests.test_torch_scene import deferred_scene, jax_leaves, packer  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -113,15 +112,8 @@ def test_build_tlas_bit_identical(builder, n):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.fixture
-def numpy_textures(monkeypatch):
-    """The JAX texture pool packs with numpy, as the port does."""
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
-
-
 @pytest.mark.parametrize("scene", ["golden", "build_world_300"])
-def test_world_leaves_bit_identical(builder, numpy_textures, scene):
+def test_world_leaves_bit_identical(builder, packer, scene):
     """Every leaf the port's World carries, the BVH-permuted pool and the
     TLAS included, equals the JAX World()'s (default build_bvh=True)."""
     if scene == "golden":
@@ -148,7 +140,7 @@ def test_world_leaves_bit_identical(builder, numpy_textures, scene):
     assert not np.array_equal(pl["meshes.indices"][:n], unpermuted["indices"])
 
 
-def test_world_without_bvh_keeps_input_order(numpy_textures):
+def test_world_without_bvh_keeps_input_order(packer):
     """build_bvh=False: input order and one leaf per mesh, as JAX's."""
     jw = functools.partial(jax_scene_mod.World, build_bvh=False)()
     pw = pt.World(build_bvh=False)

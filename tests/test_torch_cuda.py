@@ -13,8 +13,8 @@ with slim_rec + kernel_payload, with raytraced shadows, skinned, for the
 ring light, for the presets (configs 4 and 7) and for the imported glTF
 scene; the App path (examples/model.py's scene through App.step, launches
 and the resize) on the card against the CPU, its recorded MJPEG-AVI read
-back by the port's JPEG decoder, and the profiler's CUDA-event timing.
-Marked
+back by the port's JPEG decoder, and the profiler's CUDA-event timing;
+the native texture packer on the card's host. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -717,3 +717,19 @@ def test_area_light_scale_on_card(cuda):
     for g, w in zip(got, ref):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     assert np.abs(imgs["cuda"] - imgs["cpu"]).mean() < 5e-3
+
+
+def test_native_packer_on_the_card_host(cuda):
+    """The card's host builds the native texture packer (no numpy fallback
+    there), and config 6's scene built on the card carries the very quads
+    of its CPU build: the pool is packed on the host either way."""
+    from voidin_tpu_torch import native
+    from voidin_tpu_torch.framework import presets
+
+    assert native.packer() == "native"
+    p = presets.PRESETS[6](16 / 9, base_size=64, n_textures=12, n_knots=2,
+                           knot_detail=(48, 8))
+    on_card = p.world.device(cuda).textures.quads
+    assert on_card.is_cuda
+    assert torch.equal(on_card.cpu(),
+                       p.world.device("cpu").textures.quads)

@@ -5,8 +5,9 @@ save_png: the port's file decodes (with PIL) to the same array as the
 JAX package's file of the same image, for float images (clipped, NaN as
 0, rounded to 256 steps) and uint8 RGB and RGBA. load_image: every golden
 image reads as JAX's load_image reads it, and what the port writes reads
-back unchanged. 16-bit and interlaced PNGs are refused (the other colour
-types are held to PIL in tests/test_torch_io.py).
+back unchanged; 16-bit and Adam7 PNGs read as PIL reads them (every
+colour type is held to PIL in tests/test_torch_io.py and
+tests/test_torch_image_formats.py).
 """
 
 import glob
@@ -67,17 +68,27 @@ def test_load_image_reads_every_filter(tmp_path):
 
 @pytest.mark.parametrize("mode", ["L", "P", "I;16"])
 def test_refuses_other_pngs(tmp_path, mode):
-    """What stays refused: 16-bit samples, and interlaced grey and palette
-    PNGs (8-bit grey and palette ones decode since they back glTF
-    textures; tests/test_torch_io.py holds them to PIL)."""
+    """The PNGs once refused decode as PIL's convert("RGBA") gives them:
+    16-bit grey as PIL writes it (clamped at 255), and Adam7 grey and
+    palette PNGs of the same samples (PIL writes no Adam7 file, so
+    tests/torch_image_writers.py builds them)."""
+    from tests.torch_image_writers import png_bytes
+
+    rng = np.random.default_rng(4)
     path = tmp_path / "other.png"
-    Image.new(mode, (4, 3)).save(path)
-    if mode != "I;16":
-        data = bytearray(path.read_bytes())
-        data[28] = 1  # IHDR interlace method: Adam7 (CRC not checked)
-        path.write_bytes(bytes(data))
-    with pytest.raises(ValueError):
-        t_image.load_image(str(path))
+    if mode == "I;16":
+        Image.fromarray(rng.integers(0, 600, (3, 4)).astype(np.uint16)).save(
+            path)
+        assert Image.open(path).mode == "I;16"
+    else:
+        samples = rng.integers(0, 256, (5, 9, 1))
+        plte = rng.integers(0, 256, (256, 3)) if mode == "P" else None
+        path.write_bytes(png_bytes(samples, 8, 3 if mode == "P" else 0,
+                                   interlace=True, plte=plte))
+        assert Image.open(path).mode == mode
+    np.testing.assert_array_equal(
+        t_image.load_image(str(path)),
+        np.asarray(Image.open(path).convert("RGBA")))
 
 
 def test_save_png_refuses_other_shapes(tmp_path):

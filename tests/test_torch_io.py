@@ -8,11 +8,12 @@ snapshot, image) against the JAX package's io modules.
   scene_instances; GltfAnimator's joint matrices equal to JAX's at several
   times, on that scene and on tests/test_skin.py's synthetic skeleton; the
   skinned glTF frame within 5e-3 of JAX's; a progressive JPEG image
-  refused with NotImplementedError naming it, a missing image file
-  replaced by WHITE with a warning, as JAX does.
+  imported as JAX imports it, a missing image file replaced by WHITE with
+  a warning, as JAX does. Both packages on the numpy BVH builder and
+  texture packer, and on the native ones.
 - PNG: colour types 0 (grey), 3 (palette, with and without tRNS) and 4
-  (grey + alpha) decode to the RGBA of PIL's convert("RGBA") (PIL exists
-  here, not on the card's host).
+  (grey + alpha), 16-bit and Adam7 decode to the RGBA of PIL's
+  convert("RGBA") (PIL exists here, not on the card's host).
 - OBJ: negative indices, the .mtl colours, material groups; equal pools.
 - Snapshots: the leaves and statics round trip word for word with the
   camera; a file of another version or without the marker is refused; a
@@ -49,19 +50,23 @@ from voidin_tpu_torch.scene.scene import scene_to_numpy
 import chip_smoke
 from tests.test_skin import _synthetic_gltf
 from tests.test_torch_presets import assert_worlds_equal
+from tests.test_torch_recorder import sample_image
+from tests.test_torch_scene import load_jax_native
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
 
 
-@pytest.fixture
-def numpy_builders(monkeypatch):
-    """Both packages on the numpy BVH builder and texture packer."""
-    import voidin_tpu.native
-
-    monkeypatch.setenv("VOIDIN_NATIVE", "0")
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
+@pytest.fixture(params=["numpy", "native"])
+def host_builders(request, monkeypatch):
+    """Both packages on the numpy BVH builder and texture packer
+    (VOIDIN_NATIVE=0, read by both at each build), or both on their
+    native ones (the default)."""
+    if request.param == "numpy":
+        monkeypatch.setenv("VOIDIN_NATIVE", "0")
+    else:
+        load_jax_native()
+    return request.param
 
 
 @pytest.fixture
@@ -70,7 +75,7 @@ def scene_files(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["glb", "gltf"])
-def test_gltf_import_matches_jax(kind, scene_files, numpy_builders):
+def test_gltf_import_matches_jax(kind, scene_files, host_builders):
     jw, jdoc = chip_smoke.import_world(vt, scene_files, kind)
     tw, tdoc = chip_smoke.import_world(pt, scene_files, kind)
     assert tdoc.mesh_ids == jdoc.mesh_ids == {(0, 0): 4, (1, 0): 5,
@@ -145,7 +150,7 @@ def test_gltf_animator_matches_jax(t, scene_files):
         j_gltf.GltfAnimator(j).joint_matrices(0, t))
 
 
-def test_skinned_gltf_frame_matches_jax(scene_files, numpy_builders):
+def test_skinned_gltf_frame_matches_jax(scene_files, host_builders):
     """The import scene at 160x96, two frames posed by GltfAnimator (TAA
     on, so the second reprojects the first): the port's frame within 5e-3
     of the JAX frame; the pose changes the frame."""
@@ -187,19 +192,26 @@ def _with_image(scene_files, tmp_path, image):
 
 
 def test_gltf_jpeg_image_refused(scene_files, tmp_path):
-    """The port decodes baseline JPEG (io/jpeg.py) but refuses a
-    progressive one, naming the file, in the glTF importer and in
-    load_image."""
+    """A progressive JPEG image (once refused by the port) imports as JAX
+    imports it through PIL: the glTF importer of both packages builds the
+    same World, its texture pool on both packages' default packer, and
+    load_image gives PIL's convert("RGBA") pixels."""
+    load_jax_native()
     b = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(
-        b, format="JPEG", progressive=True)
+    img = sample_image(24, 40)
+    Image.fromarray(img).save(b, format="JPEG", progressive=True)
     with open(tmp_path / "albedo.jpg", "wb") as f:
         f.write(b.getvalue())
     path = _with_image(scene_files, tmp_path, {"uri": "albedo.jpg"})
-    with pytest.raises(NotImplementedError, match="albedo.jpg"):
-        t_gltf.GltfDocument.import_file(pt.World(), path)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        load_image(str(tmp_path / "albedo.jpg"))
+    jw, tw = vt.World(), pt.World()
+    j_gltf.GltfDocument.import_file(jw, path)
+    t_gltf.GltfDocument.import_file(tw, path)
+    assert_worlds_equal(jw, tw)
+    want = np.asarray(Image.open(tmp_path / "albedo.jpg").convert("RGBA"))
+    np.testing.assert_array_equal(load_image(str(tmp_path / "albedo.jpg")),
+                                  want)
+    assert any(i.shape == want.shape and (i == want).all()
+               for i in tw.textures.images)
 
 
 def test_gltf_missing_image_falls_back_to_white(scene_files, tmp_path):
@@ -248,17 +260,26 @@ def test_png_colour_types_match_pil(case, tmp_path):
 
 
 def test_png_16bit_and_interlaced_refused():
+    """16-bit and Adam7 PNGs (once refused by the port) decode to PIL's
+    convert("RGBA"): 16-bit grey clamped at 255 as PIL's I;16, and an
+    Adam7 RGB file (PIL writes no Adam7, so tests/torch_image_writers.py
+    builds it); tests/test_torch_image_formats.py covers every layout."""
+    from tests.torch_image_writers import png_bytes
+
     g = (np.arange(12, dtype=np.uint16).reshape(3, 4) * 5000)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        decode_png(_pil_png(Image.fromarray(g)))
-    data = bytearray(_pil_png(Image.fromarray(np.zeros((3, 4, 3),
-                                                       np.uint8))))
-    data[28] = 1  # IHDR interlace method (its CRC is not checked)
-    with pytest.raises(ValueError, match="interlace 1"):
-        decode_png(bytes(data))
+    data = _pil_png(Image.fromarray(g))
+    np.testing.assert_array_equal(
+        decode_png(data), np.asarray(Image.open(io.BytesIO(data))
+                                     .convert("RGBA")))
+    rgb = np.random.default_rng(3).integers(0, 256, (3, 4, 3))
+    data = png_bytes(rgb, 8, 2, interlace=True)
+    assert data[28] == 1  # IHDR interlace method: Adam7
+    np.testing.assert_array_equal(
+        decode_png(data), np.asarray(Image.open(io.BytesIO(data))
+                                     .convert("RGBA")))
 
 
-def test_obj_import_matches_jax(scene_files, numpy_builders):
+def test_obj_import_matches_jax(scene_files, host_builders):
     jw, tw = vt.World(), pt.World()
     jg = j_obj.import_obj(jw, scene_files["obj"])
     tg = t_obj.import_obj(tw, scene_files["obj"])

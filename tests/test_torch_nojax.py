@@ -344,6 +344,72 @@ def test_presets_and_import_open_nothing_of_the_jax_package(tmp_path):
     assert "OK" in out.stdout
 
 
+def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
+    """With jax, flax and PIL unimportable, under the audit hook: every
+    committed image fixture (progressive, CMYK, YCCK, 4:1:1 and 4:4:0
+    JPEGs, Adam7 and 16-bit PNGs) decodes through load_image to its stored
+    PIL pixels, and a texture pool packs through the native packer (its
+    library compiled from the port's own C++ sources) and through numpy
+    under VOIDIN_NATIVE=0. No module of the JAX package or PIL is imported
+    and no file under voidin_tpu/ is opened."""
+    code = textwrap.dedent("""
+        import glob, os, sys
+        for name in ("jax", "flax", "PIL"):
+            sys.modules[name] = None
+        opened, compiled = [], []
+
+        def hook(event, args):
+            if (event in ("open", "ctypes.dlopen") and args
+                    and isinstance(args[0], (str, bytes, os.PathLike))):
+                opened.append(os.path.abspath(os.fsdecode(args[0])))
+            elif event == "subprocess.Popen":
+                compiled.extend(os.path.abspath(str(a)) for a in args[1]
+                                if str(a).endswith(".cpp"))
+
+        sys.addaudithook(hook)
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        from voidin_tpu_torch import native
+        from voidin_tpu_torch.io.image import load_image
+        from voidin_tpu_torch.scene.texture import TexturePool
+        fixtures = sorted(p for p in glob.glob(os.path.join(
+            ROOT, "tests", "data", "torch_images", "*"))
+            if not p.endswith(".rgba.png"))
+        assert len(fixtures) == 18
+        for path in fixtures:
+            got = load_image(path).astype(np.int64)
+            want = load_image(path + ".rgba.png").astype(np.int64)
+            assert got.shape == want.shape, path
+            assert np.abs(got - want).max() <= (0 if path.endswith(".png")
+                                                else 1), path
+        pool = TexturePool(256)
+        pool.add(np.random.default_rng(0).integers(0, 256, (200, 130, 4),
+                                                   dtype=np.uint8))
+        assert native.packer() == "native"
+        quads = pool.host_arrays()["quads"]
+        os.environ["VOIDIN_NATIVE"] = "0"
+        assert native.packer() == "numpy"
+        plain = pool.host_arrays()["quads"]
+        assert np.abs(quads.astype(int) - plain).max() <= 3
+        port = os.path.join(ROOT, "voidin_tpu_torch") + os.sep
+        lib = native.library_path()
+        assert lib in opened and lib.startswith(port)
+        assert all(p.startswith(port) for p in compiled), compiled
+        bad_mods = [k for k, m in sys.modules.items() if m is not None
+                    and (k.split(".")[0] in ("voidin_tpu", "PIL", "jax"))]
+        assert not bad_mods, bad_mods
+        jax_pkg = os.path.join(ROOT, "voidin_tpu") + os.sep
+        bad = [p for p in opened if p.startswith(jax_pkg)]
+        assert not bad, bad
+        print("OK")
+    """).replace("ROOT", repr(ROOT))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+
+
 APP_MODULES = (
     "core.hash", "framework.app", "framework.input", "framework.pipeline",
     "framework.profiler", "framework.recorder", "framework.viewer",

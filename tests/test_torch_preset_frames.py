@@ -7,7 +7,8 @@ tests/test_torch_preset_oracle.py.
   clapper_joint_mats(0.0) and (0.7), its moving instances animated) at
   160x96 or 256x144, each Renderer wired from its Preset: sRGB mean abs
   diff < 5e-3 (tests/test_golden.py's budget), overflow 0 in both. Both
-  packages build their own World with the numpy BVH builder
+  packages build their own World with the numpy BVH builder and texture
+  packer, and the textured configs 6 and 7 also with the native ones
   (tests/test_torch_presets.py holds the two Worlds equal word for word).
 """
 
@@ -22,6 +23,8 @@ from voidin_tpu.passes.raster import RasterConfig as JaxRasterConfig
 from voidin_tpu_torch.framework import presets as t_presets
 from voidin_tpu_torch.framework.renderer import Renderer
 from voidin_tpu_torch.passes.raster import RasterConfig
+
+from tests.test_torch_scene import load_jax_native
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
@@ -44,14 +47,15 @@ CASES = {
 
 
 @pytest.fixture
-def numpy_builders(monkeypatch):
-    """Both packages on the numpy BVH builder and the numpy texture
-    packer."""
-    import voidin_tpu.native
-
-    monkeypatch.setenv("VOIDIN_NATIVE", "0")
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
+def host_builders(request, monkeypatch):
+    """Both packages on the numpy BVH builder and texture packer
+    (VOIDIN_NATIVE=0, read by both at each build), or both on their
+    native ones (the default); indirect, by the test's parameter."""
+    if request.param == "numpy":
+        monkeypatch.setenv("VOIDIN_NATIVE", "0")
+    else:
+        load_jax_native()
+    return request.param
 
 
 def _renderers(n):
@@ -70,8 +74,13 @@ def _renderers(n):
     return jr, tr, jp, tp
 
 
-@pytest.mark.parametrize("n", sorted(CASES))
-def test_preset_frame_matches_jax(n, numpy_builders):
+# the textured configs 6 and 7 also on the native packers, whose deepest
+# mips differ from numpy's (the other presets hold 1x1 textures only)
+@pytest.mark.parametrize("n, host_builders",
+                         [(n, "numpy") for n in sorted(CASES)]
+                         + [(6, "native"), (7, "native")],
+                         indirect=["host_builders"])
+def test_preset_frame_matches_jax(n, host_builders):
     jr, tr, jp, tp = _renderers(n)
     times = (0.0, 0.7) if n == 4 else (None,)
     for t in times:

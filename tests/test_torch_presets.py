@@ -4,8 +4,10 @@ against the JAX package's (voidin_tpu/framework/presets.py).
 - Every preset of PRESETS builds the same World in both packages: every
   host leaf (meshes with their LOD tables and BLASes, instances,
   materials, lights, textures, skins) equal word for word, with both
-  packages pinned to one BVH builder as tests/test_torch_bvh.py pins them,
-  and the same Preset fields and camera uniform. Configs 6 and 7 run at
+  packages pinned to one BVH builder as tests/test_torch_bvh.py pins them
+  and to one texture packer (tests/test_torch_scene.py pin_packer; the
+  numpy BVH builder's VOIDIN_NATIVE=0 turns both native packers off), and
+  the same Preset fields and camera uniform. Configs 6 and 7 run at
   the reduced arguments of tests/test_stress.py and tests/test_oracle.py.
 - The device-bytes arithmetic of tests/test_stress.py on the port's
   pool_device_bytes, and config 6's procedural fallback.
@@ -21,7 +23,6 @@ import pytest
 import torch
 
 import voidin_tpu as vt
-import voidin_tpu.native
 from voidin_tpu.framework import presets as j_presets
 
 from voidin_tpu_torch.framework import presets as t_presets
@@ -29,7 +30,7 @@ from voidin_tpu_torch.scene.skin import skin_statics
 from voidin_tpu_torch.scene.texture import pool_device_bytes
 
 from tests.test_torch_bvh import builder  # noqa: F401 (fixture)
-from tests.test_torch_scene import jax_leaves
+from tests.test_torch_scene import jax_leaves, packer  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -71,15 +72,8 @@ def assert_worlds_equal(jax_world, port_world, with_tlas=False):
         assert want == v, k
 
 
-@pytest.fixture
-def numpy_textures(monkeypatch):
-    """The JAX texture pool on its numpy packer, as the port packs."""
-    monkeypatch.setattr(voidin_tpu.native, "pack_texture",
-                        lambda *a, **k: None)
-
-
 @pytest.mark.parametrize("n", sorted(t_presets.PRESETS))
-def test_preset_world_matches_jax(n, builder, numpy_textures):  # noqa: F811
+def test_preset_world_matches_jax(n, builder, packer):  # noqa: F811
     assert sorted(t_presets.PRESETS) == sorted(j_presets.PRESETS)
     aspect = 16 / 9
     jp = j_presets.PRESETS[n](aspect, **SMALL.get(n, {}))
@@ -192,9 +186,9 @@ def test_config6_procedural_fallback(monkeypatch):
 
 
 def test_sponza_texture_set_refuses_jpeg(tmp_path, monkeypatch):
-    """With Sponza's texture directory present, PNG and baseline JPEG
-    files load through io/image.py (the JPEG to PIL's pixels), and a
-    progressive JPEG raises NotImplementedError naming it."""
+    """With Sponza's texture directory present, PNG, baseline JPEG and
+    progressive JPEG files (the last once refused) load through
+    io/image.py, the JPEGs to PIL's pixels."""
     import io
 
     from PIL import Image
@@ -219,8 +213,10 @@ def test_sponza_texture_set_refuses_jpeg(tmp_path, monkeypatch):
     b = io.BytesIO()
     Image.fromarray(img).save(b, format="JPEG", progressive=True)
     (d / "a.jpg").write_bytes(b.getvalue())
-    with pytest.raises(NotImplementedError, match="a.jpg"):
-        t_presets._sponza_texture_set(t_presets.World(), 3, 64)
+    w = t_presets.World(texture_base_size=64)
+    ids = t_presets._sponza_texture_set(w, 3, 64)
+    want = np.asarray(Image.open(d / "a.jpg").convert("RGBA"))
+    np.testing.assert_array_equal(w.textures.images[ids[0]], want)
 
 
 def test_find_asset_reads_voidin_assets(tmp_path, monkeypatch):

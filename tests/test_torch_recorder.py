@@ -14,7 +14,9 @@ package's recorder and against PIL (present here, not on the card's host).
 - Decoder: PIL-written baseline JPEGs at quality 50 / 75 / 92 / 100 and
   4:4:4 / 4:2:2 / 4:2:0, greyscale (a single-component scan), restart
   intervals and odd sizes decode to within 1 level of PIL's pixels (they
-  have all been equal); corrupt data raises ValueError.
+  have all been equal), and so does a progressive file
+  (tests/test_torch_image_formats.py holds the other layouts); corrupt
+  data raises ValueError.
 - A glTF with an embedded JPEG texture gives the same texture through both
   importers.
 """
@@ -232,10 +234,12 @@ def test_jpeg_decoder_edge_cases(case):
 
 
 def test_jpeg_decoder_refuses():
+    """A progressive file (once refused) decodes to PIL's pixels; a file
+    that is not a JPEG, and one cut short, are refused."""
     data = _pil_jpeg(sample_image(16, 16), quality=80)
-    with pytest.raises(NotImplementedError, match="x.jpg.*progressive"):
-        jpeg.decode_jpeg(_pil_jpeg(sample_image(16, 16), progressive=True),
-                         "x.jpg")
+    prog = _pil_jpeg(sample_image(16, 16), progressive=True)
+    got = jpeg.decode_jpeg(prog, "x.jpg").astype(np.int64)
+    assert np.abs(got - _pil_decode(prog)).max() <= 1
     with pytest.raises(ValueError):
         jpeg.decode_jpeg(b"\x89PNG" + data[4:])
     with pytest.raises(ValueError):

@@ -5,14 +5,18 @@ Both packages' pools permute each mesh's triangles while building its
 BLAS (tests/test_torch_bvh.py holds those trees against each other); the
 raster, resolve and shade parity tests compare stages in input order, so
 ``unpermuted_worlds`` builds both packages' Worlds with
-``build_bvh=False``. The JAX texture pool may pack through its native C++
-packer, whose deepest mips differ from the numpy packer by a few u8
-steps; the port packs with numpy, so these tests pin the JAX pool to
-numpy too. Exact equality is asserted for every leaf the port carries.
+``build_bvh=False``. Both packages pack textures through their native C++
+packer by default, whose deepest mips differ from the numpy packer's by a
+few u8 steps; ``pin_packer`` puts both on one packer, and the tests of
+World leaves run on each (tests/test_torch_texture_native.py holds the
+packers themselves). Exact equality is asserted for every leaf the port
+carries.
 """
 
 import contextlib
 import functools
+import os
+import time
 
 import jax
 import numpy as np
@@ -26,6 +30,7 @@ from voidin_tpu.core import mathx
 from voidin_tpu.scene import scene as jax_scene_mod
 
 import voidin_tpu_torch as pt
+import voidin_tpu_torch.native
 from voidin_tpu_torch.framework import renderer as pt_renderer
 from voidin_tpu_torch.framework.renderer import build_world as port_build_world
 from voidin_tpu_torch.scene import mesh as pt_mesh
@@ -54,11 +59,51 @@ def port_scene(jax_scene, device="cpu"):
     return scene_from_numpy(jax_leaves(jax_scene), statics, device)
 
 
+# The texture packers a parity test runs both packages on (pin_packer).
+PACKERS = ("numpy", "native")
+
+
+def load_jax_native(attempts=40):
+    """The JAX package's native library, loaded. It compiles into its own
+    package directory at first use, so test workers that start together
+    can find it half-written and fall back to numpy for good: load it
+    again (its _tried latch cleared) until it opens. None where no
+    compiler builds it."""
+    mod = voidin_tpu.native
+    for _ in range(attempts):
+        lib = mod.load()
+        if lib is not None or os.environ.get("VOIDIN_NATIVE", "1") == "0":
+            return lib
+        mod._tried = False
+        time.sleep(0.25)
+    return mod.load()
+
+
+def pin_packer(mp, packer):
+    """Both packages' texture pools on one packer: "numpy" turns both
+    native packers off (each package's numpy fallback); "native" is both
+    packages' default, each library built from its own copy of
+    texture_packer.cpp."""
+    assert packer in PACKERS, packer
+    if packer == "numpy":
+        for mod in (voidin_tpu.native, voidin_tpu_torch.native):
+            mp.setattr(mod, "pack_texture", lambda *a, **k: None)
+    else:
+        load_jax_native()
+
+
+@pytest.fixture(params=PACKERS)
+def packer(request, monkeypatch):
+    """Each test that takes it runs on both packers (pin_packer)."""
+    pin_packer(monkeypatch, request.param)
+    return request.param
+
+
 @contextlib.contextmanager
-def unpermuted_worlds():
+def unpermuted_worlds(packer="native"):
     """Both packages' Worlds (vt.World, pt.World and the one the port's
     build_world makes) without the BLAS triangle permutation
-    (build_bvh=False), and the JAX texture pool on the numpy packer.
+    (build_bvh=False), both texture pools on `packer` (pin_packer).
     Yields the MonkeyPatch for more patches of the same extent."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(vt, "World",
@@ -66,14 +111,15 @@ def unpermuted_worlds():
         port_world = functools.partial(pt_scene_mod.World, build_bvh=False)
         mp.setattr(pt, "World", port_world)
         mp.setattr(pt_renderer, "World", port_world)
-        mp.setattr(voidin_tpu.native, "pack_texture", lambda *a, **k: None)
+        pin_packer(mp, packer)
         yield mp
 
 
-@pytest.fixture
-def jax_world_unpermuted():
-    """Both packages' Worlds in input order (unpermuted_worlds)."""
-    with unpermuted_worlds():
+@pytest.fixture(params=PACKERS)
+def jax_world_unpermuted(request):
+    """Both packages' Worlds in input order (unpermuted_worlds), on each
+    packer."""
+    with unpermuted_worlds(request.param):
         yield
 
 

@@ -15,9 +15,13 @@ semantics:
   Instance records (get_scene_instances, mod.rs:160-207).
 
 Counterpart of ``voidin_tpu/io/gltf.py``. Parsing is self-contained
-(json + struct + numpy; PNG and JPEG images through ``io/image.py``
-``decode_image``, without PIL; a progressive JPEG raises
-NotImplementedError naming it); .glb and .gltf supported.
+(json + struct + numpy); .glb and .gltf supported. Images go through
+``io/image.py`` ``decode_image`` without PIL, to the pixels the JAX
+package's PIL gives: every PNG and the JPEGs of ``io/jpeg.py`` (baseline,
+extended-sequential and progressive; greyscale, YCbCr, RGB, CMYK and
+YCCK; sampling factors 1-4). Lossless and arithmetic-coded JPEGs raise
+NotImplementedError naming the file (no tool here writes them, so none is
+held to PIL), as do the files PIL refuses.
 """
 
 from __future__ import annotations

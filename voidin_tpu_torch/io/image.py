@@ -1,14 +1,17 @@
 """Image I/O: PNG screenshots (ScreenshotCtx equivalent) and loading.
 
 Counterpart of ``voidin_tpu/io/image.py``, written with ``zlib`` and
-``struct`` alone (no PIL). It reads non-interlaced PNGs of every colour
-type at 8 bits (grey, RGB, palette, grey + alpha, RGBA; grey and palette
-also at 1, 2 and 4 bits), from a file (``load_image``) or from bytes
-(``decode_png``; glTF embeds its images in buffers and data URIs), and
-expands each to the RGBA that PIL's ``convert("RGBA")`` gives. 16-bit
-and interlaced PNGs are refused with a ValueError. ``decode_image`` and
-``load_image`` also read JPEG through ``io/jpeg.py`` (baseline and
-extended-sequential; a progressive file raises NotImplementedError).
+``struct`` alone (no PIL). The JAX package reads every image through PIL
+(``Image.open(path).convert("RGBA")``); this module reads what PIL reads
+of PNG: every colour type at every bit depth the format allows (grey at
+1, 2, 4, 8 and 16 bits, palette at 1-8, RGB, grey + alpha and RGBA at 8
+and 16), non-interlaced or Adam7, from a file (``load_image``) or from
+bytes (``decode_png``; glTF embeds its images in buffers and data URIs),
+and expands each to the RGBA that PIL's ``convert("RGBA")`` gives, PIL's
+quirks included (16-bit grey clamped at 255, tRNS keys compared by their
+low byte). A layout the format does not define raises ValueError naming
+the file. ``decode_image`` and ``load_image`` also read JPEG through
+``io/jpeg.py`` (see its docstring for what it reads and what it refuses).
 ``encode_png`` gives a PNG's bytes (the web viewer's frames) at a zlib
 level of the caller's choice.
 """
@@ -108,13 +111,46 @@ def _expand_bits(rows: np.ndarray, w: int, bits: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], -1)[:, :w]
 
 
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# PNG colour type -> the bit depths the format allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+
+def _scanline_bytes(w: int, depth: int, chans: int) -> int:
+    return -(-w * depth * chans // 8)
+
+
+def _samples(raw: bytes, h: int, w: int, depth: int, chans: int):
+    """The filtered scanlines of one (sub)image -> (h, w, chans) samples:
+    uint8 up to 8 bits (low depths unpacked to their values), big-endian
+    uint16 at 16."""
+    if depth < 8:
+        packed = _unfilter(raw, h, _scanline_bytes(w, depth, 1), 1)[..., 0]
+        return _expand_bits(packed, w, depth)[..., None]
+    rows = _unfilter(raw, h, w, chans * depth // 8)
+    if depth == 16:
+        pairs = rows.reshape(h, w, chans, 2).astype(np.uint16)
+        return pairs[..., 0] << 8 | pairs[..., 1]
+    return rows
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """A PNG's bytes as (H, W, 4) uint8 RGBA, as PIL's convert("RGBA")
-    gives it: grey (bit depths 1-8) replicated into RGB, palette indices
-    (1-8 bits) looked up with their tRNS alphas, grey + alpha spread, an
-    RGB or grey tRNS key cut to alpha 0, opaque alpha elsewhere. 16-bit
-    and interlaced PNGs raise ValueError (decode_image also reads
-    JPEG)."""
+    gives it, for every colour type and bit depth the format allows,
+    non-interlaced or Adam7:
+    - grey: 1-4-bit values scaled to 0-255, 16-bit ones clamped at 255
+      (PIL's I;16 -> RGBA), replicated into RGB;
+    - palette indices (1-8 bits) looked up with their tRNS alphas;
+    - RGB, grey + alpha and RGBA: 16-bit samples keep their high byte;
+    - a grey or RGB tRNS key: alpha 0 where the 8-bit sample (scaled,
+      clamped or high byte, as above) equals the key's low byte (at 1 bit:
+      the white sample for any nonzero key), as PIL compares them;
+    - opaque alpha elsewhere.
+    Raises ValueError naming `name` on anything else (decode_image also
+    reads JPEG)."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{name}: not a PNG")
     i, idat, header, plte, trns = 8, [], None, None, None
@@ -135,44 +171,59 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if header is None:
         raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _comp, _filt, interlace = header
-    low_bits = ctype in (0, 3) and depth in (1, 2, 4)
-    if (ctype not in _CHANNELS or interlace != 0
-            or not (depth == 8 or low_bits)):
+    if depth not in _DEPTHS.get(ctype, ()) or interlace not in (0, 1):
         raise ValueError(
-            f"{name}: only non-interlaced 8-bit PNGs (and 1-4-bit grey or "
-            f"palette ones) are read (bit depth {depth}, colour type "
-            f"{ctype}, interlace {interlace})")
+            f"{name}: not a PNG layout PIL reads (bit depth {depth}, colour "
+            f"type {ctype}, interlace {interlace})")
     chans = _CHANNELS[ctype]
     raw = zlib.decompress(b"".join(idat))
-    if low_bits:
-        packed = _unfilter(raw, h, -(-w * depth // 8), 1)[..., 0]
-        samples = _expand_bits(packed, w, depth)[..., None]
-    else:
-        samples = _unfilter(raw, h, w, chans)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(h - y0) // dy), -(-(w - x0) // dx))
+             for x0, y0, dx, dy in passes]
+    need = sum(ph * (1 + _scanline_bytes(pw, depth, chans))
+               for ph, pw in sizes if ph > 0 and pw > 0)
+    if len(raw) < need:
+        raise ValueError(f"{name}: PNG image data ends early ({len(raw)} "
+                         f"of {need} bytes)")
+    samples = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy), (ph, pw) in zip(passes, sizes):
+        if ph <= 0 or pw <= 0:
+            continue  # an empty Adam7 pass has no scanlines at all
+        n = ph * (1 + _scanline_bytes(pw, depth, chans))
+        samples[y0::dy, x0::dx] = _samples(raw[pos:pos + n], ph, pw, depth,
+                                           chans)
+        pos += n
     if ctype == 3:
         if plte is None:
             raise ValueError(f"{name}: palette PNG without a PLTE chunk")
         alpha = np.full(256, 255, np.uint8)
         if trns is not None:
-            alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
+            alpha[:len(trns)] = np.frombuffer(trns, np.uint8)[:256]
         lut = np.zeros((256, 4), np.uint8)
-        lut[:len(plte), :3] = plte
+        lut[:len(plte), :3] = plte[:256]
         lut[:, 3] = alpha
         return lut[samples[..., 0]]
+    if depth == 16:
+        # grey clamps at 255 (PIL's I;16); the other types keep the high
+        # byte (PIL's ;16B raw modes)
+        samples = (np.minimum(samples, 255) if ctype == 0
+                   else samples >> 8).astype(np.uint8)
+    elif depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
     if ctype in (0, 4):
         grey = samples[..., 0]
-        if depth < 8:
-            grey = grey * np.uint8(255 // ((1 << depth) - 1))
         alpha = (samples[..., 1] if ctype == 4
                  else np.full((h, w), 255, np.uint8))
         if ctype == 0 and trns is not None:
             key = struct.unpack(">H", trns[:2])[0]
-            alpha = np.where(samples[..., 0] == key, np.uint8(0), alpha)
+            key = (255 if key else 0) if depth == 1 else key & 0xFF
+            alpha = np.where(grey == key, np.uint8(0), alpha)
         return np.stack([grey, grey, grey, alpha], axis=-1)
     if ctype == 2:
         alpha = np.full((h, w, 1), 255, np.uint8)
         if trns is not None:
-            key = np.array(struct.unpack(">HHH", trns[:6]))
+            key = np.array(struct.unpack(">HHH", trns[:6])) & 0xFF
             alpha[(samples == key).all(axis=-1)] = 0
         return np.concatenate([samples, alpha], axis=-1)
     return samples

@@ -1,8 +1,8 @@
-"""Baseline JPEG (JFIF) encoder and decoder in numpy, without PIL.
+"""JPEG encoder (baseline JFIF) and decoder in numpy, without PIL.
 
 The JAX package writes and reads JPEG through PIL (``io/avi.py``'s
-recorder frames, ``io/gltf.py``'s textures). The port's hosts have no PIL,
-so this module carries a codec of its own:
+recorder frames, ``io/gltf.py``'s textures, the presets' texture files).
+The port's hosts have no PIL, so this module carries a codec of its own:
 
 * ``encode_jpeg`` writes an RGB image as baseline JFIF (SOF0) as PIL's
   ``Image.save(..., "JPEG", quality=q)`` does: the Annex K quantization
@@ -10,19 +10,38 @@ so this module carries a codec of its own:
   RGB -> YCbCr, chroma at 4:2:0 (PIL's default) averaged with libjpeg's
   alternating bias, the standard Annex K Huffman tables. The DCT is float; the entropy coder works on arrays of
   all the symbols of the image at once (no Python loop per coefficient).
-* ``decode_jpeg`` reads baseline and extended-sequential 8-bit files
-  (SOF0 / SOF1): greyscale and YCbCr at any sampling factors of 1 or 2
-  (4:4:4, 4:2:2, 4:2:0), interleaved and single-component scans, restart
-  intervals, any size. It follows libjpeg's defaults, so its pixels match
-  PIL's: the integer ("islow") IDCT with its range-limit table, "fancy"
-  (triangle) chroma upsampling with the edge rows and columns replicated,
-  and libjpeg's fixed-point YCbCr -> RGB. Progressive (SOF2), lossless,
-  hierarchical, arithmetic-coded, 12-bit and CMYK files raise
-  NotImplementedError naming the file.
+* ``decode_jpeg`` reads every 8-bit Huffman-coded file PIL reads:
+  baseline, extended-sequential and progressive (SOF0 / SOF1 / SOF2);
+  greyscale, YCbCr, RGB, CMYK and YCCK; sampling factors 1-4 in each
+  direction that divide the largest (4:4:4, 4:2:2, 4:2:0, 4:4:0, true
+  4:1:1, ...); interleaved and single-component scans, Huffman tables
+  redefined between scans, restart intervals, any size. Progressive files
+  take DC and AC first and refinement scans: spectral selection,
+  successive approximation, EOB runs and the refinement scans' correction
+  bits. It follows libjpeg(-turbo)'s defaults, so its pixels match PIL's:
+  the integer ("islow") IDCT with its range-limit table; the fancy
+  (triangle) upsamplers for h2v1 and h2v2 on components wider than 2 and
+  for h1v2, replication otherwise, edge rows and columns repeated;
+  libjpeg's reading of the colour space (JFIF, then the Adobe transform,
+  then the component ids) and its fixed-point YCbCr -> RGB; and a CMYK
+  file read as PIL reads it (inverted, Adobe's polarity) and taken to RGB
+  by PIL's CMYK -> RGBA.
+* Refused with NotImplementedError naming the file: what PIL refuses too
+  (12-bit samples, hierarchical SOF5-7, a height set by DNL, 2
+  components), and what no tool here can write to hold the decoder to
+  PIL: lossless (SOF3) and arithmetic-coded (SOF9-11, SOF13-15) files, and
+  a progressive file whose scans leave coefficients 1-9 unrefined, which
+  libjpeg would smooth (no whole file does). An interleaved MCU of more
+  than 10 blocks raises ValueError, as libjpeg refuses it.
 
 The Huffman decode walks the symbols in a Python loop, but every bit
 position's code length and symbol is looked up for all positions at once
-beforehand, so the loop does one table read a symbol.
+beforehand, so the loop does one table read a symbol (sequential and
+progressive first scans). A progressive AC refinement scan also reads one
+correction bit for every nonzero coefficient a symbol passes: its loop
+finds where a symbol lands from each block's running counts of zero and
+nonzero coefficients, one lookup a symbol, and the correction bits are
+gathered afterwards in one pass.
 """
 
 from __future__ import annotations
@@ -434,31 +453,49 @@ def _ycc_to_rgb(y, cb, cr):
 _BAD = 0x3F0
 
 
-def _decode_lut(counts, symbols, dc: bool):
+def _decode_lut(counts, symbols, dc: bool, eob_runs: bool = False):
     """For every 16-bit window: symbol << 8 | bits to advance (the code's
-    length plus the magnitude bits that follow it). A window that starts
-    no code reads as the symbol _BAD, which no block survives (its run
-    carries the coefficient index past 63, its DC size past 11)."""
+    length plus the bits that follow it: a DC difference's or an AC
+    coefficient's magnitude, and with `eob_runs` (progressive AC scans) an
+    EOBn symbol's n run bits). A window that starts no code reads as the
+    symbol _BAD, which no block survives (its run carries the coefficient
+    index past 63, its DC size past 11)."""
     lut = np.full(1 << 16, _BAD << 8 | 1, np.int32)
     for s, (code, n) in huffman_codes(counts, symbols).items():
-        extra = s if dc else s & 15
+        if dc:
+            extra = s
+        elif s & 15 or not eob_runs:
+            extra = s & 15
+        else:
+            extra = 0 if s >> 4 == 15 else s >> 4
         lut[code << (16 - n):(code + 1) << (16 - n)] = s << 8 | (n + extra)
     return lut
+
+
+# Scans of successive approximation leave coefficients 1-9 of a component
+# unrefined below this many bits (libjpeg-turbo's jdcoefct.c SAVED_COEFS):
+# libjpeg then smooths the blocks (do_block_smoothing).
+_SMOOTHED_COEFS = 10
 
 
 class _Frame:
     """What the markers of one file set: tables by id, the restart
     interval, the frame header's size and components, and each
-    component's (block rows, block cols, 64) zig-zag coefficients."""
+    component's (block rows, block cols, 64) zig-zag coefficients with,
+    for a progressive file, the low bit each coefficient is known to
+    (coef_bits: -1 before any scan codes it, libjpeg's coef_bits)."""
 
     def __init__(self):
         self.quant = {}  # table id -> (64,) natural order
         self.huff = {}  # (class, id) -> (counts, symbols)
         self.restart = 0
         self.adobe_transform = None
+        self.jfif = False
+        self.progressive = False
         self.width = self.height = None
         self.comps = []  # dicts id, h, v, tq in frame-header order
         self.coef = {}  # component id -> coefficients
+        self.coef_bits = {}  # component id -> (64,) int
 
 
 def _parse_scan_data(data, start):
@@ -486,154 +523,411 @@ def _parse_scan_data(data, start):
     return tail[:end][keep], seg_starts, start + end
 
 
-def _decode_scan(fr, scan_comps, data, seg_starts, name):
-    """Huffman-decode one sequential scan into fr.coef (per component,
-    (block rows, block cols, 64) zig-zag coefficients)."""
-    single = len(scan_comps) == 1
+def _scan_blocks(fr, scan_comps):
+    """A scan's blocks in stream order: (blocks per MCU, each block's index
+    into scan_comps, its block row and column in its component). A
+    single-component scan covers that component's own ceil(width / 8) x
+    ceil(height / 8) blocks, one block an MCU; an interleaved scan covers
+    the MCU grid, each component's h x v blocks row-major in each MCU."""
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
-    mcux = -(-fr.width // (8 * hmax))
-    mcuy = -(-fr.height // (8 * vmax))
-    if single:
+    if len(scan_comps) == 1:
         c = scan_comps[0]
         bw = -(-(-(-fr.width * c["h"] // hmax)) // 8)
         bh = -(-(-(-fr.height * c["v"] // vmax)) // 8)
-        n_mcu = bw * bh
-        layout = [(0, np.arange(bh)[:, None].repeat(bw, 1).reshape(-1, 1),
-                   np.arange(bw)[None, :].repeat(bh, 0).reshape(-1, 1))]
-        per_mcu = [(0, 0, 0)]
-    else:
-        n_mcu = mcux * mcuy
-        my, mx = np.divmod(np.arange(n_mcu), mcux)
-        layout, per_mcu = [], []
-        for si, c in enumerate(scan_comps):
-            rows, cols = [], []
-            for by in range(c["v"]):
-                for bx in range(c["h"]):
-                    rows.append(my * c["v"] + by)
-                    cols.append(mx * c["h"] + bx)
-                    per_mcu.append((si, by, bx))
-            layout.append((si, np.stack(rows, 1), np.stack(cols, 1)))
+        rows, cols = np.divmod(np.arange(bw * bh), bw)
+        return 1, np.zeros(bw * bh, np.int64), rows, cols
+    per = [(si, by, bx) for si, c in enumerate(scan_comps)
+           for by in range(c["v"]) for bx in range(c["h"])]
+    si, by, bx = (np.array(v) for v in zip(*per))
+    hs = np.array([scan_comps[i]["h"] for i in si])
+    vs = np.array([scan_comps[i]["v"] for i in si])
+    mcux = -(-fr.width // (8 * hmax))
+    mcuy = -(-fr.height // (8 * vmax))
+    my, mx = np.divmod(np.arange(mcux * mcuy), mcux)
+    rows = (my[:, None] * vs + by).reshape(-1)
+    cols = (mx[:, None] * hs + bx).reshape(-1)
+    return len(per), np.tile(si, mcux * mcuy), rows, cols
 
-    byts = np.concatenate([data, np.zeros(8, np.uint8)]).astype(np.int64)
-    win = byts[:-2] << 16 | byts[1:-1] << 8 | byts[2:]
-    peek = ((win[:, None] >> (8 - np.arange(8))) & 0xFFFF).reshape(-1)
-    peek = peek.astype(np.int32)
-    limit = 8 * len(data)
-    luts = {}
-    for c in scan_comps:
-        for cls, tid in ((0, c["td"]), (1, c["ta"])):
-            if (cls, tid) not in luts:
-                if (cls, tid) not in fr.huff:
-                    raise JpegError(f"{name}: scan uses an undefined "
-                                     f"Huffman table {(cls, tid)}")
-                counts, symbols = fr.huff[(cls, tid)]
-                luts[(cls, tid)] = _decode_lut(counts, symbols, cls == 0)[peek]
-    views = {k: memoryview(v) for k, v in luts.items()}
-    mcu_tables = [(views[(0, scan_comps[si]["td"])],
-                   views[(1, scan_comps[si]["ta"])]) for si, _, _ in per_mcu]
 
-    dc_pos, ac_pos, ac_k, ac_end = [], [], [], []
-    dc_append, ac_append, k_append = dc_pos.append, ac_pos.append, ac_k.append
-    end_append = ac_end.append
-    restart = fr.restart
-    seg = 0
-    p = 0
-    try:
-        for m in range(n_mcu):
-            if restart and m and m % restart == 0:
-                seg += 1
-                if seg >= len(seg_starts):
-                    raise JpegError(f"{name}: restart marker missing")
-                p = 8 * int(seg_starts[seg])
-            for dct, act in mcu_tables:
-                dc_append(p)
-                p += dct[p] & 255
-                k = 1
-                while k < 64:
-                    c = act[p]
-                    s = c >> 8
-                    q = p
-                    p += c & 255
-                    if s == 0:
-                        break
-                    if s == 0xF0:
-                        k += 16
-                        continue
-                    k += s >> 4
-                    ac_append(q)
-                    k_append(k)
-                    k += 1
-                end_append(len(ac_pos))
-            if p > limit:
-                raise JpegError(f"{name}: JPEG data ends inside a block")
-    except IndexError:
-        raise JpegError(f"{name}: corrupt JPEG entropy data") from None
+class _Scan:
+    """One scan's entropy-coded bits: `peek[p]` holds the 16 bits from bit
+    p on, `limit` the scan's length in bits, `table(cls, id)` a Huffman
+    table's _decode_lut read at every bit position, and `start(b)` the bit
+    where block b's restart interval begins (None inside an interval)."""
 
-    n_blocks = len(dc_pos)
-    blk_tables = np.tile(np.array([[scan_comps[si]["td"],
-                                    scan_comps[si]["ta"], si]
-                                   for si, _, _ in per_mcu]), (n_mcu, 1))
+    def __init__(self, fr, data, seg_starts, n_blocks, per_mcu, name):
+        self.fr, self.name = fr, name
+        byts = np.concatenate([data, np.zeros(8, np.uint8)]).astype(np.int64)
+        win = byts[:-2] << 16 | byts[1:-1] << 8 | byts[2:]
+        peek = ((win[:, None] >> (8 - np.arange(8))) & 0xFFFF).reshape(-1)
+        self.peek = peek.astype(np.int32)
+        self.limit = 8 * len(data)
+        self.seg_starts = seg_starts
+        self.n_blocks = n_blocks
+        self.per_mcu = per_mcu
+        self.blocks_per_interval = fr.restart * per_mcu
+        self._luts = {}
 
-    def values(pos, cls, tids):
+    def table(self, cls, tid, eob_runs=False):
+        key = (cls, tid, eob_runs)
+        if key not in self._luts:
+            if (cls, tid) not in self.fr.huff:
+                raise JpegError(f"{self.name}: scan uses an undefined "
+                                f"Huffman table {(cls, tid)}")
+            counts, symbols = self.fr.huff[(cls, tid)]
+            self._luts[key] = _decode_lut(counts, symbols, cls == 0,
+                                          eob_runs)[self.peek]
+        return self._luts[key]
+
+    def interval(self):
+        """Each block's restart interval."""
+        b = np.arange(self.n_blocks)
+        return (b // self.blocks_per_interval if self.blocks_per_interval
+                else np.zeros(self.n_blocks, np.int64))
+
+    def restart_bits(self):
+        """{block: the bit its restart interval starts at} for every block
+        that starts one after the first."""
+        step = self.blocks_per_interval
+        if not step:
+            return {}
+        firsts = range(step, self.n_blocks, step)
+        if len(firsts) >= len(self.seg_starts):
+            raise JpegError(f"{self.name}: restart marker missing")
+        return {b: 8 * int(self.seg_starts[i + 1])
+                for i, b in enumerate(firsts)}
+
+    def check_end(self, p):
+        if p > self.limit:
+            raise JpegError(f"{self.name}: JPEG data ends inside a block")
+
+    def values(self, pos, cls, tids, eob_runs=False):
+        """The signed values of the magnitude bits after the codes at bit
+        positions `pos` (tables `tids` of class `cls`)."""
         comb = np.zeros(len(pos), np.int64)
         for tid in np.unique(tids):
             sel = tids == tid
-            comb[sel] = luts[(cls, int(tid))][pos[sel]]
+            comb[sel] = self.table(cls, int(tid), eob_runs)[pos[sel]]
         sym = comb >> 8
         if cls == 0 and len(sym) and sym.max() > 11:
-            raise JpegError(f"{name}: corrupt JPEG data (DC size)")
+            raise JpegError(f"{self.name}: corrupt JPEG data (DC size)")
         size = sym if cls == 0 else sym & 15
         start = pos + (comb & 255) - size
-        bits = peek[start].astype(np.int64) >> (16 - size)
+        bits = self.peek[start].astype(np.int64) >> (16 - size)
         return np.where(size == 0, 0,
                         np.where(bits >= (1 << np.maximum(size - 1, 0)),
                                  bits, bits - (1 << size) + 1))
 
-    dc_pos = np.asarray(dc_pos, np.int64)
-    diff = values(dc_pos, 0, blk_tables[:, 0])
-    ac_pos = np.asarray(ac_pos, np.int64)
-    ac_k = np.asarray(ac_k, np.int64)
-    if len(ac_k) and ac_k.max() > 63:
-        raise JpegError(f"{name}: corrupt JPEG data (run past the block)")
-    ac_blk = np.repeat(np.arange(n_blocks), np.diff(
-        np.concatenate([[0], np.asarray(ac_end, np.int64)])))
-    ac_val = values(ac_pos, 1, blk_tables[ac_blk, 1])
 
-    # DC predictors: per component, reset at each restart interval
-    blocks_per_mcu = len(per_mcu)
-    interval = (np.arange(n_blocks) // blocks_per_mcu) // restart if restart \
-        else np.zeros(n_blocks, np.int64)
-    zz = np.zeros((n_blocks, 64), np.int64)
-    zz[ac_blk, ac_k] = ac_val
-    comp_of = blk_tables[:, 2]
-    for si in range(len(scan_comps)):
+def _dc_predict(diff, comp_of, interval, n_comps):
+    """DC values from their differences: per scan component, summed from
+    the start of each restart interval."""
+    dc = np.zeros(len(diff), np.int64)
+    for si in range(n_comps):
         sel = np.flatnonzero(comp_of == si)
         d = diff[sel]
         cs = np.cumsum(d)
         first = np.ones(len(sel), bool)
         first[1:] = interval[sel][1:] != interval[sel][:-1]
         base = np.maximum.accumulate(np.where(first, np.arange(len(sel)), 0))
-        zz[sel, 0] = cs - cs[base] + d[base]
-    for si, rows, cols in layout:
-        c = scan_comps[si]
-        sel = np.flatnonzero(comp_of == si)
-        fr.coef[c["id"]][rows.reshape(-1), cols.reshape(-1)] = zz[sel]
+        dc[sel] = cs - cs[base] + d[base]
+    return dc
+
+
+def _first_scan(sc, tables, dc, ss, se, eob_runs):
+    """Huffman-decode a sequential scan (dc, ss=1, se=63) or a progressive
+    first scan (DC alone, or the band ss..se of one component with EOB
+    runs): the bit positions of the DC codes, and of the AC codes with
+    their zig-zag index and block. One table read a symbol."""
+    dc_pos, ac_pos, ac_k, ac_end = [], [], [], []
+    dc_append, ac_append, k_append = dc_pos.append, ac_pos.append, ac_k.append
+    end_append = ac_end.append
+    restarts = sc.restart_bits()
+    peek = sc.peek
+    per_mcu = sc.per_mcu
+    p = 0
+    eobrun = 0
+    try:
+        for b in range(sc.n_blocks):
+            if b in restarts:
+                p = restarts[b]
+                eobrun = 0
+            dct, act = tables[b % per_mcu]
+            if dc:
+                dc_append(p)
+                p += dct[p] & 255
+            if eobrun:
+                eobrun -= 1
+            else:
+                k = ss
+                while k <= se:
+                    c = act[p]
+                    s = c >> 8
+                    q = p
+                    p += c & 255
+                    if s & 15:
+                        k += s >> 4
+                        ac_append(q)
+                        k_append(k)
+                        k += 1
+                    elif s == 0xF0:
+                        k += 16
+                    else:
+                        if eob_runs:
+                            r = s >> 4
+                            eobrun = (1 << r) - 1 + (
+                                int(peek[p - r]) >> (16 - r) if r else 0)
+                        break
+            end_append(len(ac_pos))
+            if b % per_mcu == per_mcu - 1:
+                sc.check_end(p)
+    except IndexError:
+        raise JpegError(f"{sc.name}: corrupt JPEG entropy data") from None
+    ac_k = np.asarray(ac_k, np.int64)
+    if len(ac_k) and ac_k.max() > se:
+        raise JpegError(f"{sc.name}: corrupt JPEG data (run past the band)")
+    ac_blk = np.repeat(np.arange(sc.n_blocks), np.diff(
+        np.concatenate([[0], np.asarray(ac_end, np.int64)])))
+    return np.asarray(dc_pos, np.int64), np.asarray(ac_pos, np.int64), ac_k, \
+        ac_blk
+
+
+def _dc_refine_bits(sc):
+    """Bit positions of a DC refinement scan, which reads one bit a block
+    and no Huffman code: block b's bit, counted from the start of its
+    restart interval."""
+    first = np.arange(sc.n_blocks)
+    step = sc.blocks_per_interval
+    if step:
+        interval = sc.interval()
+        restarts = sc.restart_bits()
+        starts = np.array([0] + [restarts[b] for b in sorted(restarts)],
+                          np.int64)
+        first = first - first[interval * step] + starts[interval]
+    return first
+
+
+def _ac_refine(sc, tables, hist):
+    """Decode an AC refinement scan over blocks whose band was nonzero
+    where `hist` (blocks, band) is True before it: (the bit
+    position of each correction bit and the (block, band index) it
+    refines, the bit position of each new coefficient's sign and its
+    (block, band index)). A symbol's run counts only coefficients that are
+    still zero, and every nonzero one it passes reads one correction bit;
+    so with each block's running counts of both kinds, one symbol is one
+    lookup, and the correction bits are gathered afterwards."""
+    n_blocks, band = hist.shape
+    nz_cum = np.zeros((n_blocks, band + 1), np.int64)
+    np.cumsum(hist, axis=1, out=nz_cum[:, 1:])
+    nz_list = nz_cum.reshape(-1).tolist()
+    zero_blk, zero_j = np.nonzero(~hist)
+    zero_off = np.searchsorted(zero_blk, np.arange(n_blocks + 1)).tolist()
+    zero_j = zero_j.tolist()
+    peek = sc.peek
+    restarts = sc.restart_bits()
+    per_mcu = sc.per_mcu
+    corr = []  # (block, first band index, end band index, first bit)
+    new_pos, new_blk, new_j = [], [], []
+    w = band + 1
+    p = 0
+    eobrun = 0
+    try:
+        for b in range(n_blocks):
+            if b in restarts:
+                p = restarts[b]
+                eobrun = 0
+            act = tables[b % per_mcu]
+            row = b * w
+            j = 0
+            if not eobrun:
+                while j < band:
+                    c = act[p]
+                    s = c >> 8
+                    p += c & 255
+                    r = s >> 4
+                    if not s & 15 and r != 15:
+                        eobrun = (1 << r) + (
+                            int(peek[p - r]) >> (16 - r) if r else 0)
+                        break
+                    # the (r + 1)-th coefficient still zero from j on
+                    zi = zero_off[b] + (j - nz_list[row + j]) + r
+                    if zi >= zero_off[b + 1]:
+                        if s & 15:
+                            raise JpegError(f"{sc.name}: corrupt JPEG data "
+                                            f"(refinement past the band)")
+                        t = band
+                    else:
+                        t = zero_j[zi]
+                    n = nz_list[row + t] - nz_list[row + j]
+                    corr.append((b, j, t, p))
+                    if s & 15:
+                        new_pos.append(p - 1)
+                        new_blk.append(b)
+                        new_j.append(t)
+                    p += n
+                    j = t + 1
+            if eobrun:
+                n = nz_list[row + band] - nz_list[row + j]
+                corr.append((b, j, band, p))
+                p += n
+                eobrun -= 1
+            if b % per_mcu == per_mcu - 1:
+                sc.check_end(p)
+    except IndexError:
+        raise JpegError(f"{sc.name}: corrupt JPEG entropy data") from None
+    # every correction range's nonzero coefficients, in band order
+    nz_blk, nz_j = np.nonzero(hist)
+    nz_off = np.searchsorted(nz_blk, np.arange(n_blocks))
+    corr = np.asarray(corr, np.int64).reshape(-1, 4)
+    cb, j0, j1, p0 = corr.T
+    first = nz_off[cb] + nz_cum[cb, j0]
+    count = nz_cum[cb, j1] - nz_cum[cb, j0]
+    k = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count,
+                                                count)
+    at = np.repeat(first, count) + k
+    bit_pos = np.repeat(p0, count) + k
+    return (bit_pos, nz_blk[at], nz_j[at], np.asarray(new_pos, np.int64),
+            np.asarray(new_blk, np.int64), np.asarray(new_j, np.int64))
+
+
+def _decode_scan(fr, scan_comps, spectral, data, seg_starts, name):
+    """Decode one scan into fr.coef (per component, (block rows, block
+    cols, 64) zig-zag coefficients): a sequential scan, or a progressive
+    scan's DC or AC band, first or refining (spectral = Ss, Se, Ah, Al)."""
+    ss, se, ah, al = spectral
+    if fr.progressive:
+        dc_scan = ss == 0
+        if (se != 0 if dc_scan else (ss > se or se > 63
+                                     or len(scan_comps) != 1)) \
+                or (ah and al != ah - 1) or al > 13:
+            raise JpegError(f"{name}: invalid progressive scan (Ss {ss}, "
+                            f"Se {se}, Ah {ah}, Al {al})")
+    else:
+        ss, se, ah, al = 0, 63, 0, 0
+    per_mcu, comp_of, rows, cols = _scan_blocks(fr, scan_comps)
+    if len(scan_comps) > 1 and per_mcu > 10:
+        raise JpegError(f"{name}: {per_mcu} blocks in an MCU (at most 10)")
+    sc = _Scan(fr, data, seg_starts, len(comp_of), per_mcu, name)
+    tds = np.array([c["td"] for c in scan_comps])
+    tas = np.array([c["ta"] for c in scan_comps])
+    coefs = [fr.coef[c["id"]] for c in scan_comps]
+
+    def scatter(sel_blocks, k, vals, add=False):
+        """Write (or add) zig-zag coefficient k of the given scan blocks."""
+        for si, coef in enumerate(coefs):
+            m = comp_of[sel_blocks] == si
+            b = sel_blocks[m]
+            kk = k[m] if np.ndim(k) else k
+            v = vals[m]
+            if add:
+                coef[rows[b], cols[b], kk] += v
+            else:
+                coef[rows[b], cols[b], kk] = v
+
+    blocks = np.arange(sc.n_blocks)
+    if ah == 0:
+        with_dc = ss == 0
+        first_ac = max(ss, 1)
+        tables = [(memoryview(sc.table(0, int(tds[si]))) if with_dc else None,
+                   memoryview(sc.table(1, int(tas[si]), fr.progressive))
+                   if se >= first_ac else None)
+                  for si in comp_of[:per_mcu]]
+        dc_pos, ac_pos, ac_k, ac_blk = _first_scan(
+            sc, tables, with_dc, first_ac, se if se >= first_ac else 0,
+            fr.progressive)
+        if with_dc:
+            diff = sc.values(dc_pos, 0, tds[comp_of])
+            dc = _dc_predict(diff, comp_of, sc.interval(), len(scan_comps))
+            scatter(blocks, 0, dc << al)
+        if len(ac_pos):
+            vals = sc.values(ac_pos, 1, tas[comp_of[ac_blk]], fr.progressive)
+            scatter(ac_blk, ac_k, vals << al)
+    elif ss == 0:
+        # DC refinement: one bit a block
+        pos = _dc_refine_bits(sc)
+        if sc.n_blocks:
+            sc.check_end(int(pos[-1]) + 1)
+        bits = (sc.peek[pos].astype(np.int64) >> 15) & 1
+        scatter(blocks, 0, bits << al, add=True)
+    else:
+        coef = coefs[0]
+        band = coef[rows, cols, ss:se + 1]
+        tables = [memoryview(sc.table(1, int(tas[0]), True))]
+        bit_pos, cb, cj, new_pos, nb, nj = _ac_refine(sc, tables, band != 0)
+        p1 = 1 << al
+        bits = (sc.peek[bit_pos].astype(np.int64) >> 15) & 1
+        old = band[cb, cj]
+        fix = (bits == 1) & ((old & p1) == 0)
+        band[cb[fix], cj[fix]] += np.where(old[fix] >= 0, p1, -p1)
+        sign = (sc.peek[new_pos].astype(np.int64) >> 15) & 1
+        band[nb, nj] = np.where(sign == 1, p1, -p1)
+        coef[rows, cols, ss:se + 1] = band
+    if fr.progressive:
+        for c in scan_comps:
+            fr.coef_bits[c["id"]][ss:se + 1] = al
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """A JPEG's bytes as (H, W, 3) uint8 RGB, or (H, W) uint8 for a
     greyscale file (see the module docstring for what is read). A file
-    cut short or otherwise malformed raises ValueError naming it."""
+    cut short or otherwise malformed raises ValueError naming it; a kind
+    of file the decoder leaves out raises NotImplementedError naming it."""
     buf = np.frombuffer(bytes(data), np.uint8)
     if bytes(buf[:2]) != SOI:
         raise JpegError(f"{name}: not a JPEG")
     try:
         return _reconstruct(_parse(buf, name), name)
-    except JpegError:
+    except (JpegError, NotImplementedError):
         raise
     except (IndexError, KeyError, ValueError, struct.error) as exc:
         raise JpegError(f"{name}: malformed JPEG ({exc})") from None
+
+
+# SOF markers: 0xC0 baseline, 0xC1 extended sequential, 0xC2 progressive
+# (Huffman); the others are refused by name
+_SOF_REFUSED = {0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
+                0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical (SOF7)",
+                0xC9: "arithmetic-coded (SOF9)",
+                0xCA: "arithmetic-coded (SOF10)",
+                0xCB: "arithmetic-coded (SOF11)",
+                0xCD: "arithmetic-coded hierarchical (SOF13)",
+                0xCE: "arithmetic-coded hierarchical (SOF14)",
+                0xCF: "arithmetic-coded hierarchical (SOF15)"}
+
+
+def _frame_header(fr, marker, body, name):
+    prec, h, w, nf = struct.unpack(">BHHB", body[:6])
+    if prec != 8:
+        raise NotImplementedError(
+            f"{name}: {prec}-bit JPEG samples are not decoded (PIL "
+            f"refuses them too)")
+    if h == 0:
+        raise NotImplementedError(
+            f"{name}: JPEG height set by DNL is not decoded (PIL refuses "
+            f"it too)")
+    if nf not in (1, 3, 4):
+        raise NotImplementedError(
+            f"{name}: JPEG with {nf} components (PIL reads 1, 3 and 4)")
+    fr.progressive = marker == 0xC2
+    fr.width, fr.height = w, h
+    for k in range(nf):
+        cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
+        fr.comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
+    hmax = max(c["h"] for c in fr.comps)
+    vmax = max(c["v"] for c in fr.comps)
+    if any(not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4)
+           or hmax % c["h"] or vmax % c["v"] for c in fr.comps):
+        raise NotImplementedError(
+            f"{name}: JPEG sampling factors "
+            f"{[(c['h'], c['v']) for c in fr.comps]} (libjpeg reads 1-4 "
+            f"that divide the largest)")
+    mcux = -(-w // (8 * hmax))
+    mcuy = -(-h // (8 * vmax))
+    for c in fr.comps:
+        fr.coef[c["id"]] = np.zeros((mcuy * c["v"], mcux * c["h"], 64),
+                                    np.int64)
+        fr.coef_bits[c["id"]] = np.full(64, -1, np.int64)
 
 
 def _parse(buf, name):
@@ -657,39 +951,15 @@ def _parse(buf, name):
         length = int(buf[i]) << 8 | int(buf[i + 1])
         body = bytes(buf[i + 2:i + length])
         i += length
-        if marker in (0xC0, 0xC1):
-            prec, h, w, nf = struct.unpack(">BHHB", body[:6])
-            if prec != 8:
-                raise NotImplementedError(
-                    f"{name}: {prec}-bit JPEG samples are not decoded")
-            if h == 0:
-                raise NotImplementedError(f"{name}: JPEG height set by DNL")
-            if nf not in (1, 3):
-                raise NotImplementedError(
-                    f"{name}: JPEG with {nf} components (only greyscale and "
-                    f"YCbCr are decoded)")
-            fr.width, fr.height = w, h
-            for k in range(nf):
-                cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
-                fr.comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
-            hmax = max(c["h"] for c in fr.comps)
-            vmax = max(c["v"] for c in fr.comps)
-            if any(not (1 <= c["h"] <= 2 and 1 <= c["v"] <= 2)
-                   or hmax % c["h"] or vmax % c["v"] for c in fr.comps):
-                raise NotImplementedError(
-                    f"{name}: JPEG sampling factors "
-                    f"{[(c['h'], c['v']) for c in fr.comps]}")
-            mcux = -(-w // (8 * hmax))
-            mcuy = -(-h // (8 * vmax))
-            for c in fr.comps:
-                fr.coef[c["id"]] = np.zeros((mcuy * c["v"], mcux * c["h"],
-                                             64), np.int64)
-        elif 0xC2 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            kind = "progressive (SOF2)" if marker == 0xC2 else (
-                f"SOF{marker - 0xC0}")
+        if marker in (0xC0, 0xC1, 0xC2):
+            if fr.width is not None:
+                raise JpegError(f"{name}: a second frame header")
+            _frame_header(fr, marker, body, name)
+        elif marker in _SOF_REFUSED:
             raise NotImplementedError(
-                f"{name}: {kind} JPEG is not decoded (baseline and "
-                f"extended-sequential only)")
+                f"{name}: {_SOF_REFUSED[marker]} JPEG is not decoded "
+                f"(baseline, extended-sequential and progressive Huffman "
+                f"files are)")
         elif marker == 0xC4:
             j = 0
             while j < len(body):
@@ -713,6 +983,12 @@ def _parse(buf, name):
                 fr.quant[tq] = table
         elif marker == 0xDD:
             fr.restart = struct.unpack(">H", body[:2])[0]
+        elif marker == 0xDC:
+            raise NotImplementedError(
+                f"{name}: JPEG height set by DNL is not decoded (PIL "
+                f"refuses it too)")
+        elif marker == 0xE0 and body[:5] == b"JFIF\x00":
+            fr.jfif = True
         elif marker == 0xEE and body[:5] == b"Adobe":
             fr.adobe_transform = body[11]
         elif marker == 0xDA:
@@ -724,14 +1000,57 @@ def _parse(buf, name):
             for k in range(ns):
                 cid, t = body[1 + 2 * k], body[2 + 2 * k]
                 scan_comps.append(dict(by_id[cid], td=t >> 4, ta=t & 15))
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             scan, seg_starts, i = _parse_scan_data(buf, i)
-            _decode_scan(fr, scan_comps, scan, seg_starts, name)
+            _decode_scan(fr, scan_comps, (ss, se, a >> 4, a & 15), scan,
+                         seg_starts, name)
     if fr.width is None:
         raise JpegError(f"{name}: no frame header")
     return fr
 
 
+def _colour_space(fr, name):
+    """libjpeg's reading of the file's colour space (jdapimin.c
+    default_decompress_parms): "grey", "ycc", "rgb", "cmyk" or "ycck"."""
+    ids = tuple(c["id"] for c in fr.comps)
+    if len(ids) == 1:
+        return "grey"
+    if len(ids) == 3:
+        if fr.jfif:
+            return "ycc"
+        if fr.adobe_transform is not None:
+            return "rgb" if fr.adobe_transform == 0 else "ycc"
+        return "rgb" if ids == (82, 71, 66) else "ycc"
+    return "ycck" if fr.adobe_transform not in (None, 0) else "cmyk"
+
+
+def _muldiv255(a, b):
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def cmyk_to_rgb(cmyk):
+    """Decoded CMYK samples -> the RGB of PIL's convert("RGBA"): PIL reads
+    a CMYK JPEG inverted (Adobe's polarity, raw mode CMYK;I), then takes
+    each channel to k - (255 - c) * k / 255 in its fixed point."""
+    c = cmyk.astype(np.int64)
+    k = c[..., 3:4]
+    return np.clip(k - _muldiv255(255 - c[..., :3], k), 0, 255).astype(
+        np.uint8)
+
+
 def _reconstruct(fr, name):
+    if fr.progressive:
+        # libjpeg smooths the blocks of a file whose scans leave low AC
+        # coefficients unrefined (jdcoefct.c smoothing_ok); no complete
+        # file does
+        bits = [fr.coef_bits[c["id"]] for c in fr.comps]
+        if all(b[0] >= 0 for b in bits) and any(
+                (b[1:_SMOOTHED_COEFS] != 0).any() for b in bits):
+            raise NotImplementedError(
+                f"{name}: progressive JPEG whose scans leave coefficients "
+                f"1-{_SMOOTHED_COEFS - 1} unrefined (libjpeg's block "
+                f"smoothing is not decoded)")
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
     planes = []
@@ -750,8 +1069,15 @@ def _reconstruct(fr, name):
         dh = -(-fr.height * c["v"] // vmax)
         up = upsample(plane[:dh, :dw], hmax // c["h"], vmax // c["v"])
         planes.append(up[:fr.height, :fr.width])
-    if len(planes) == 1:
+    space = _colour_space(fr, name)
+    if space == "grey":
         return planes[0].astype(np.uint8)
-    if fr.adobe_transform == 0:
+    if space == "rgb":
         return np.stack(planes, -1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
+    if space == "ycc":
+        return _ycc_to_rgb(*planes)
+    if space == "ycck":
+        # libjpeg's ycck_cmyk_convert: CMY = 255 - RGB of the YCC planes
+        cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int64)
+        planes = [cmy[..., 0], cmy[..., 1], cmy[..., 2], planes[3]]
+    return cmyk_to_rgb(np.stack(planes, -1))

@@ -19,7 +19,8 @@
 // candidate O(n * bins * levels) loop. Exposed as a plain C ABI for ctypes.
 //
 // Built at first use by voidin_tpu_torch/native/__init__.py:
-//   c++ -O3 -shared -fPIC -std=c++17 bvh_builder.cpp -o libvoidin_bvh_<hash>.so
+//   c++ -O3 -shared -fPIC -std=c++17 bvh_builder.cpp texture_packer.cpp \
+//       -o libvoidin_native_<hash>.so
 
 #include <cstdint>
 #include <cstring>

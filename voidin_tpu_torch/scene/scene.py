@@ -15,7 +15,10 @@ a JAX SceneData, so both packages render the very same state.
 back on the host, under the same names (``io/snapshot.py`` saves them).
 
 ``World.device(with_tlas=True)`` also builds the TLAS over the instances'
-world AABBs (``TlasData``), which the raytraced shadows walk.
+world AABBs (``TlasData``), which the raytraced shadows walk. The texture
+pool is packed on the host (``TexturePool.host_arrays``: the native C++
+packer of ``native/``, as the JAX package's default, numpy without it)
+whatever the device.
 
 ``World.skins`` holds the scene's skinning regions (``scene/skin.py``
 SkinData); ``SceneData.skins`` carries them to the device, leaves keyed

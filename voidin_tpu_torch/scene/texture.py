@@ -11,6 +11,12 @@ Texels stay in their source encoding; sRGB decode runs after filtering.
 Sampler semantics follow the reference default sampler (app.rs:43-56):
 repeat addressing, bilinear filtering, linear mip blending.
 
+The pool packs each texture on the host through the native C++ packer
+(``native.pack_texture``, the JAX package's default; its deepest mip words
+follow its float32 accumulation) and, where the library is unavailable or
+``VOIDIN_NATIVE=0``, through numpy (``_pack_numpy``, within a few u8 steps
+of it, equal in each level's own texels at mip levels 0-3).
+
 Left out here (the TPU package keeps them): the 4x4 tap-block tables and
 the 16 B split twins, both gather-economy layouts.
 """
@@ -193,7 +199,12 @@ class TexturePool:
         return len(self.images) - 1
 
     def host_arrays(self) -> dict:
-        """Packed quad table + metadata as numpy (the device leaves)."""
+        """Packed quad table + metadata as numpy (the device leaves). Each
+        texture goes through the native packer (native.pack_texture) and,
+        where the library is unavailable, through _pack_numpy, as JAX's
+        TexturePool.device does."""
+        from .. import native
+
         # Size the pool to the largest actual texture (pow2).
         largest = max(max(i.shape[0], i.shape[1]) for i in self.images)
         S = 1
@@ -201,7 +212,6 @@ class TexturePool:
             S *= 2
         S = min(S, self.base_size)
         sizes = _mip_sizes(S)
-        offsets = np.cumsum([0] + [s * s for s in sizes])[:-1]
         total = int(sum(s * s for s in sizes))
         T = len(self.images)
         quads = np.zeros((T, total, 32), np.uint8)
@@ -211,37 +221,44 @@ class TexturePool:
             h, w = img.shape[:2]
             wh[t] = (w, h)
             max_lod[t] = max(0, int(np.floor(np.log2(max(min(w, h), 1)))))
-            levels = [img.astype(np.float32)]
-            while min(levels[-1].shape[0], levels[-1].shape[1]) > 1:
-                levels.append(_downsample2x2(levels[-1]))
-            for li, s in enumerate(sizes):
-                if li >= len(levels):
-                    # propagate the 1x1 tail
-                    row = quads[t, offsets[li - 1]]
-                    sj = sizes[li]
-                    quads[t, offsets[li]: offsets[li] + sj * sj] = row
-                    continue
-                level = levels[li]
-                lh, lw = level.shape[:2]
-                parent = levels[min(li + 1, len(levels) - 1)]
-                par_rs = _upsample_to_child(parent, lh, lw)
-                lvl_u8 = (level + 0.5).astype(np.uint8)
-                par_u8 = (par_rs + 0.5).astype(np.uint8)
-                q = np.concatenate(
-                    [_quad_rows(lvl_u8, wrap=True),
-                     _quad_rows(par_u8, wrap=True)],
-                    axis=-1,
-                )
-                block = quads[t, offsets[li]: offsets[li] + s * s].reshape(
-                    s, s, 32
-                )
-                block[:lh, :lw] = q[:s, :s]
+            packed = native.pack_texture(img, S, total)
+            quads[t] = packed if packed is not None else _pack_numpy(img, S)
         return dict(
             quads=quads.reshape(T * total, 32),
             size=wh,
             max_lod=max_lod,
             srgb=np.asarray(self.srgb_flags, bool),
         )
+
+
+def _pack_numpy(img: np.ndarray, base: int) -> np.ndarray:
+    """The numpy packer: one (h, w, 4) u8 texture's texel-quad mip chain as
+    (total, 32) u8 rows at pool size `base` (the fallback of
+    native.pack_texture)."""
+    sizes = _mip_sizes(base)
+    offsets = np.cumsum([0] + [s * s for s in sizes])[:-1]
+    out = np.zeros((int(sum(s * s for s in sizes)), 32), np.uint8)
+    levels = [img.astype(np.float32)]
+    while min(levels[-1].shape[0], levels[-1].shape[1]) > 1:
+        levels.append(_downsample2x2(levels[-1]))
+    for li, s in enumerate(sizes):
+        if li >= len(levels):
+            # propagate the 1x1 tail
+            out[offsets[li]: offsets[li] + s * s] = out[offsets[li - 1]]
+            continue
+        level = levels[li]
+        lh, lw = level.shape[:2]
+        parent = levels[min(li + 1, len(levels) - 1)]
+        par_rs = _upsample_to_child(parent, lh, lw)
+        lvl_u8 = (level + 0.5).astype(np.uint8)
+        par_u8 = (par_rs + 0.5).astype(np.uint8)
+        q = np.concatenate(
+            [_quad_rows(lvl_u8, wrap=True), _quad_rows(par_u8, wrap=True)],
+            axis=-1,
+        )
+        block = out[offsets[li]: offsets[li] + s * s].reshape(s, s, 32)
+        block[:lh, :lw] = q[:s, :s]
+    return out
 
 
 def pool_from_numpy(h: dict, device) -> TexturePoolData:
