@@ -146,20 +146,30 @@ native/texture_packer.cpp, the host C++ compiler), then:
      of TexturePool.host_arrays and of World.device(), the words where
      the two pools differ,
      held to tests/test_io.py:154-165's gate); every image fixture of
-     tests/data/torch_images (progressive, CMYK, YCCK, 4:1:1 and 4:4:0
-     JPEGs, Adam7 and 16-bit PNGs) decoded to its stored PIL pixels (PNG
-     word for word, JPEG within 1 level), with its host ms and ms per
-     megapixel. No kernel runs in it.
-Phases 5-8 and 10-17 print the median ms/frame of frames 3-12 (CUDA
+     tests/data/torch_images (progressive, CMYK, YCCK, 4:1:1 and 4:4:0,
+     lossless, arithmetic-coded and block-smoothed JPEGs, Adam7 and
+     16-bit PNGs) decoded to its stored PIL pixels (PNG word for word,
+     JPEG within 1 level), with its host ms and ms per megapixel, the
+     512x512 progressive files (Huffman and arithmetic) split by scan
+     kind; a 512x512 RGB lossless file at predictors 1 and 7 decoded to
+     its source samples word for word, timed. No kernel runs in it.
+ 19. the import scene of phase 15 with its embedded image a lossless, an
+     arithmetic-coded progressive and a block-smoothed progressive JPEG
+     fixture (jpeg_import_phases): each decoded within its bound of PIL's
+     stored pixels (lossless word for word) and found in the imported
+     texture pool, K1 base and the fused LTC kernel held against their
+     twins on its first frame's inputs, then 12 frames at 1920x1080
+     (overflow 0, both kernels once a frame).
+Phases 5-8, 10-17 and 19 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
 its 1-table shape under one_table and the ring frame's fetch under ring,
 the shadow kernel's with its scale-2 rays under scale2, the closest-hit
 kernel's with config 5's rays under config5, K1's and the fused LTC
-kernel's with each preset's, the import scene's and the App's inputs under
-paths, the fused kernel's also on area_light_scale 2's; their launches
-count phase 16's App frames and phase 17's runs too),
+kernel's with each preset's, the import scenes' and the App's inputs
+under paths, the fused kernel's also on area_light_scale 2's; their launches
+count phase 16's App frames and phases 17's and 19's runs too),
 then the card line, then the
 result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
@@ -2326,17 +2336,21 @@ def main():
     stamp("phase 17 (the sharded frame, debug_bounds, area_light_scale)")
     host_phases(dev, card)
     stamp("phase 18 (texture packer, image decoding)")
+    jpeg_launches, jpeg_paths = jpeg_import_phases(dev, card)
+    stamp("phase 19 (the import scene with lossless, arithmetic and "
+          "smoothed JPEGs)")
     for name in ("fine_raster_pairs", "ltc_rect"):
         rows[name]["paths"] = {**preset_paths.get(name, {}),
                                **import_paths.get(name, {}),
-                               **app_paths.get(name, {})}
+                               **app_paths.get(name, {}),
+                               **jpeg_paths.get(name, {})}
     rows["ltc_rect"]["paths"][
         f"area_light_scale 2 ({WIDTH}x{SHARD_HEIGHT})"] = als_row
 
     path_launches = dict(
         fine_raster_pairs=(ns_launches["k1"] + preset_launches["k1"]
                            + import_launches["k1"] + app_launches["k1"]
-                           + shard_launches["k1"]),
+                           + shard_launches["k1"] + jpeg_launches["k1"]),
         fine_raster_pairs_track2=masked_launches["k1_track2"],
         fine_raster_pairs_payload=payload_launches["k1_payload"],
         fine_raster_blocks=block_launches["k2"],
@@ -2345,7 +2359,8 @@ def main():
         lut_fetch_bf16=bf16_launches["k3_bf16"],
         ltc_rect=(ns_launches["ltc_rect"] + preset_launches["ltc_rect"]
                   + import_launches["ltc_rect"]
-                  + app_launches["ltc_rect"] + shard_launches["ltc_rect"]),
+                  + app_launches["ltc_rect"] + shard_launches["ltc_rect"]
+                  + jpeg_launches["ltc_rect"]),
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         shadow_trace=rt_launches + shard_launches["shadow_trace"],
         closest_hit=closest_launches,
@@ -2734,7 +2749,8 @@ def host_phases(dev, card):
     PACKER_STEPS' gate); every committed
     image fixture decodes to its stored PIL pixels (PNG word for word,
     JPEG within 1 level, tests/test_torch_image_formats.py's bounds), with
-    its host ms and, for the 512x512 progressive file, ms per megapixel."""
+    its host ms and ms per megapixel (lossless JPEG word for word too), the
+    512x512 progressive files by scan kind; then lossless_round_trip."""
     from voidin_tpu_torch import native
     from voidin_tpu_torch.framework import presets
 
@@ -2764,7 +2780,7 @@ def host_phases(dev, card):
     for path in paths:
         name = os.path.basename(path)
         got, want, ms = decode_fixture(path)
-        tol = 0 if name.endswith(".png") else 1
+        tol = 0 if name.endswith(".png") or name.startswith("lossless") else 1
         if got.shape != want.shape:
             fail(f"{name}: decoded {got.shape}, PIL's pixels {want.shape}")
         diff = np.abs(got.astype(np.int16) - want)
@@ -2776,9 +2792,117 @@ def host_phases(dev, card):
               f"{ms:.1f} ms ({ms / mp:.1f} ms per megapixel), "
               f"{int((diff > 0).sum())} values differ from PIL's (bound "
               f"{tol})", flush=True)
-        if name.startswith("progressive") and mp >= 0.25:
+        if name.endswith("_512.jpg"):
             print(f"phase 18, {name} by scan kind (host ms): "
                   f"{progressive_split(path)}", flush=True)
+    lossless_round_trip()
+
+
+LOSSLESS_SIZE = 512
+
+
+def lossless_round_trip():
+    """Lossless decode rate: the 512x512 smooth image of the 512x512
+    fixtures as RGB lossless JPEG at 4:4:4, point transform 0, restarts
+    every 8 rows, written here by tests/torch_image_writers.py, at
+    predictors 1 (row cumulative sums) and 7 (anti-diagonal steps): each
+    decode must give the source samples word for word (the card's host
+    has no PIL to compare with); prints host ms and ms per megapixel."""
+    from tests.torch_image_writers import lossless_jpeg_bytes
+    from tools.torch_image_fixtures import smooth_image
+    from voidin_tpu_torch.io.image import decode_image
+
+    img = smooth_image(LOSSLESS_SIZE, LOSSLESS_SIZE)
+    for predictor in (1, 7):
+        data = lossless_jpeg_bytes([img[..., i] for i in range(3)],
+                                   predictor=predictor, restart_rows=8)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = decode_image(data, f"lossless predictor {predictor}")
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got[..., :3], img):
+            fail(f"the lossless {LOSSLESS_SIZE}x{LOSSLESS_SIZE} file at "
+                 f"predictor {predictor} does not decode to its source")
+        ms = float(np.median(times))
+        print(f"phase 18, lossless {LOSSLESS_SIZE}x{LOSSLESS_SIZE} RGB 4:4:4 "
+              f"predictor {predictor} ({len(data)} B): decoded in "
+              f"{ms:.1f} ms ({ms / (LOSSLESS_SIZE ** 2 / 1e6):.1f} ms per "
+              f"megapixel), every sample its source's", flush=True)
+
+
+# --- phase 19: the import scene with each kind of JPEG F6 closed --------
+JPEG_IMPORTS = (("lossless", "lossless_420_restart.jpg"),
+                ("arithmetic progressive", "arith_progressive_420_512.jpg"),
+                ("block-smoothed progressive", "smooth_cut3.jpg"))
+
+
+def jpeg_import_phases(dev, card):
+    """Phase 19: the import scene of phase 15 three times, its embedded
+    image a lossless, an arithmetic-coded progressive and a block-smoothed
+    progressive JPEG fixture. For each: the decoded image equals PIL's
+    stored pixels (lossless word for word, the others within 1 level),
+    the imported texture pool holds it, K1 base and the fused LTC kernel
+    equal their twins on the first frame's inputs (hold_path_kernels),
+    and FRAMES frames at WIDTHxHEIGHT render with overflow 0, one K1 and
+    one fused LTC launch a frame. Returns (the launches by counter summed
+    over the three runs, {kernel row name: {"import <kind>": row}})."""
+    import tempfile
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework.renderer import Renderer
+    from voidin_tpu_torch.io.gltf import GltfAnimator
+    from voidin_tpu_torch.io.image import load_image
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=1 << 16,
+                       pair_capacity=1 << 19)
+    cam = pt.Camera(**IMPORT_CAMERA, aspect=WIDTH / HEIGHT)
+    launches, paths = {}, {}
+    for kind, name in JPEG_IMPORTS:
+        path = os.path.join(root, FIXTURE_DIR, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        got, want, ms = decode_fixture(path)
+        tol = 0 if kind == "lossless" else 1
+        diff = np.abs(got.astype(np.int16) - want)
+        if got.shape != want.shape or diff.max() > tol:
+            fail(f"phase 19, {name}: the decoded image strays from PIL's "
+                 f"pixels (bound {tol})")
+        with tempfile.TemporaryDirectory() as tmp:
+            files = write_import_scene(tmp, image=data)
+            t0 = time.perf_counter()
+            world, doc = import_world(pt, files, "glb")
+            t_import = (time.perf_counter() - t0) * 1e3
+        if not any(i.shape == got.shape and (i == got).all()
+                   for i in world.textures.images):
+            fail(f"phase 19, {name}: the texture pool lacks the image")
+        animator = GltfAnimator(doc)
+        scene = world.device(dev)
+        label = f"import {kind}"
+        for k, row in hold_path_kernels(
+                label, lambda: Renderer(scene, cfg).render(
+                    cam, joint_mats=import_joint_mats(animator, 0)),
+                ("k1", "ltc_rect"), card).items():
+            paths.setdefault(k, {})[label] = row
+        r = Renderer(scene, cfg)
+        reset_launches()
+        out, times, mem = run_frames(r, cam, label,
+                                     lambda i: import_joint_mats(animator, i))
+        got_launches = expect_launches(label, dict(k1=FRAMES,
+                                                   ltc_rect=FRAMES))
+        for k, n in got_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"phase 19, {label} ({name}, {got.shape[1]}x{got.shape[0]}, "
+              f"decoded in {ms:.1f} ms, {int((diff > 0).sum())} values "
+              f"differ from PIL's, bound {tol}; scene imported in "
+              f"{t_import:.1f} ms) {WIDTH}x{HEIGHT}: median "
+              f"{float(np.median(times[2:])):.3f} ms/frame over frames "
+              f"3-{FRAMES} ({card}); {mem}; image mean {out.mean():.4f} "
+              f"std {out.std():.4f}", flush=True)
+        del r, scene
+    return launches, paths
 
 
 def avi_frames(data):
@@ -3337,15 +3461,18 @@ Kd 0.2 0.7 0.3
 """
 
 
-def write_import_scene(directory):
+def write_import_scene(directory, image=None):
     """Writes the import scene into `directory`: scene.glb (the glTF of
     import_gltf_document with its buffer and image in the BIN chunk),
     scene.gltf (the same with both as data URIs), pyramid.obj and
-    pyramid.mtl. Returns their paths by kind (glb, gltf, obj)."""
+    pyramid.mtl. `image`: the bytes of a JPEG to embed in place of the
+    scene's palette PNG. Returns their paths by kind (glb, gltf, obj)."""
     import base64
     import struct
 
-    doc, blob, image = import_gltf_document()
+    doc, blob, image_png = import_gltf_document()
+    image = image_png if image is None else image
+    mime = "image/jpeg" if image[:2] == b"\xff\xd8" else "image/png"
     paths = {k: os.path.join(directory, f"scene.{k}")
              for k in ("glb", "gltf")}
     paths["obj"] = os.path.join(directory, "pyramid.obj")
@@ -3354,7 +3481,7 @@ def write_import_scene(directory):
     text = dict(doc, buffers=[dict(
         byteLength=len(blob), uri="data:application/octet-stream;base64,"
         + base64.b64encode(blob).decode())], images=[dict(
-            uri="data:image/png;base64," + base64.b64encode(image).decode())])
+            uri=f"data:{mime};base64," + base64.b64encode(image).decode())])
     with open(paths["gltf"], "w") as f:
         json.dump(text, f)
 
@@ -3370,7 +3497,7 @@ def write_import_scene(directory):
     js = json.dumps(dict(doc, bufferViews=views,
                          buffers=[dict(byteLength=len(body))],
                          images=[dict(bufferView=len(views) - 1,
-                                      mimeType="image/png")])).encode()
+                                      mimeType=mime)])).encode()
     js += b" " * (-len(js) % 4)
     glb = (struct.pack("<II", len(js), 0x4E4F534A) + js
            + struct.pack("<II", len(body), 0x004E4942) + bytes(body))

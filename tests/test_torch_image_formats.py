@@ -15,10 +15,24 @@
   tests/torch_image_writers.py: sampling factors 1-4 (true 4:1:1, 4:4:0,
   mixed, one scan a component), Adobe RGB, CMYK and YCCK; CMYK as PIL
   writes it too.
-- Refusal parity: what PIL refuses (12-bit samples, SOF5-7, a height set
+- Lossless JPEG (SOF3), word for word, each predictor: greyscale at point
+  transforms 0 and 2 (PIL and the port give the source samples at 0),
+  RGB at 4:4:4 and 4:2:0 with restarts, one scan a component at mixed
+  factors, CMYK.
+- Arithmetic-coded JPEG (SOF9 and SOF10), with and without a DAC marker
+  and restarts: PIL decodes each word for word as the Huffman file of the
+  same coefficients (so the writer is right), and the port's decode
+  equals its decode of that Huffman file and PIL's within one level.
+- Block smoothing: progressive files whose scans leave coefficients 1-9
+  unrefined (PIL's file cut after each of its scans, DC-only files, bands
+  never refined, arithmetic-coded, components two blocks wide and
+  components short of their last iMCU row), within one level of PIL.
+- Refusal parity: what PIL refuses (12-bit samples, hierarchical SOF5-7
+  and SOF13-15, arithmetic lossless SOF11, 12-bit lossless, a lossless
+  file in YCbCr or YCCK or with restarts inside an MCU row, a height set
   by DNL, 2 components, interleaved MCUs of more than 10 blocks) the port
-  refuses with an error naming the file; arithmetic-coded and lossless
-  files stay refused by name.
+  refuses with an error naming the file; WebP, GIF, BMP and TIFF, which
+  PIL reads, the port refuses naming the file and the format.
 - The committed fixtures of tools/torch_image_fixtures.py: PIL still gives
   the stored pixels, and the port decodes each to them.
 """
@@ -36,8 +50,11 @@ from voidin_tpu_torch.io import jpeg
 from voidin_tpu_torch.io.image import decode_image, decode_png, load_image
 
 from tests.test_torch_recorder import sample_image
-from tests.torch_image_writers import (jpeg_bytes, png_bytes, set_height,
-                                       set_precision, set_sof)
+from tests.torch_image_writers import (arith_jpeg_bytes, jpeg_bytes,
+                                       lossless_jpeg_bytes, png_bytes,
+                                       progressive_jpeg_bytes, set_height,
+                                       set_precision, set_sof,
+                                       simple_progression)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "data", "torch_images")
 PIXELS = ".rgba.png"
@@ -171,18 +188,62 @@ def test_progressive_jpeg_cases(case):
     assert_jpeg_like_pil(pil_jpeg(img, progressive=True, **kw), case)
 
 
-def test_unrefined_progressive_file_refused():
-    """A file whose scans stop before its low AC coefficients are refined
-    (here cut after the first three of libjpeg's ten scans) is one libjpeg
-    smooths (jdcoefct.c do_block_smoothing): the port refuses it by name
-    rather than give other pixels. A whole file leaves nothing unrefined,
-    so smoothing never acts on it (the tests above hold it to PIL)."""
+def _scans(data):
+    return [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+
+
+@pytest.mark.parametrize("n_scans", range(1, 10))
+def test_cut_progressive_file_smoothed(n_scans):
+    """PIL's progressive file cut after its first n scans (of libjpeg's
+    ten) and closed: its scans leave coefficients 1-9 unrefined, so
+    libjpeg smooths its blocks (jdcoefct.c decompress_smooth_data), and so
+    does the port."""
     data = pil_jpeg(sample_image(40, 56), progressive=True, quality=80)
-    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    sos = _scans(data)
     assert len(sos) == 10  # libjpeg's YCbCr progression script
-    cut = data[:sos[3]] + b"\xff\xd9"
-    with pytest.raises(NotImplementedError, match="cut.jpg.*unrefined"):
-        jpeg.decode_jpeg(cut, "cut.jpg")
+    assert_jpeg_like_pil(data[:sos[n_scans]] + b"\xff\xd9",
+                         f"cut after {n_scans} scans")
+
+
+EVERY = [0, 1, 2]
+SMOOTHING_CASES = {
+    # (image size, factors, scan script, arithmetic-coded)
+    "dc_only_420": ((33, 41), [(2, 2), (1, 1), (1, 1)],
+                    [(EVERY, 0, 0, 0, 0)], False),
+    "dc_only_444_al2": ((21, 30), [(1, 1)] * 3, [(EVERY, 0, 0, 0, 2)],
+                        False),
+    "dc_refined": ((26, 35), [(2, 1), (1, 1), (1, 1)],
+                   [(EVERY, 0, 0, 0, 2), (EVERY, 0, 0, 2, 1),
+                    (EVERY, 0, 0, 1, 0)], False),
+    "bands_never_refined": ((33, 41), [(2, 2), (1, 1), (1, 1)],
+                            [(EVERY, 0, 0, 0, 1), ([0], 1, 5, 0, 2),
+                             ([0], 6, 63, 0, 1), ([1], 1, 63, 0, 1),
+                             ([2], 1, 2, 0, 3)], False),
+    "luma_only_ac": ((24, 40), [(1, 2), (1, 1), (1, 1)],
+                     [(EVERY, 0, 0, 0, 0), ([0], 1, 63, 0, 0)], False),
+    "two_blocks_wide": ((16, 16), [(1, 1)] * 3,
+                        [(EVERY, 0, 0, 0, 1), ([0], 1, 9, 0, 1)], False),
+    "short_last_imcu_row": ((55, 30), [(2, 2), (1, 1), (1, 1)],
+                            [(EVERY, 0, 0, 0, 0)], False),
+    "arithmetic_dc_only": ((29, 37), [(2, 2), (1, 1), (1, 1)],
+                           [(EVERY, 0, 0, 0, 1)], True),
+    "arithmetic_unrefined": ((29, 37), [(1, 1)] * 3,
+                             [(EVERY, 0, 0, 0, 1), ([0], 1, 63, 0, 2),
+                              ([1], 1, 63, 0, 1)], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SMOOTHING_CASES))
+def test_unrefined_scripts_smoothed(case):
+    """Progressive scripts that stop short: DC alone (the DC too is then
+    estimated), successive-approximation bands never refined, the AC of
+    one component only; components two blocks wide and components whose
+    last iMCU row is short (libjpeg reads the dummy rows under them)."""
+    size, factors, script, arith = SMOOTHING_CASES[case]
+    ycc = _planes(*size)[1]
+    data = (arith_jpeg_bytes(ycc, factors, 85, script=script) if arith
+            else progressive_jpeg_bytes(ycc, factors, script, quality=85))
+    assert_jpeg_like_pil(data, case)
 
 
 # --------------------------------------- JPEG layouts PIL cannot write
@@ -284,6 +345,114 @@ def test_pil_cmyk_matches_pil(kw):
                          f"cmyk {kw}")
 
 
+# ---------------------------------------------------- lossless JPEG
+
+
+def _lossless(**kw):
+    img = sample_image(17, 23)
+    return lossless_jpeg_bytes([img[..., i] for i in range(3)], **kw)
+
+
+LOSSLESS_LAYOUTS = {
+    "rgb": dict(),
+    "rgb_ids": dict(ids=[82, 71, 66]),
+    "adobe_rgb": dict(adobe=0, pt=1),
+    "rgb_420_restart": dict(factors=[(2, 2), (1, 1), (1, 1)],
+                            restart_rows=2),
+    "rgb_422_restart_every_row": dict(factors=[(2, 1), (1, 1), (1, 1)],
+                                      restart_rows=1, pt=3),
+    "scan_a_component": dict(factors=[(1, 2), (1, 1), (2, 1)],
+                             interleaved=False, restart_rows=3),
+    "scan_a_component_411": dict(factors=[(4, 1), (1, 1), (1, 1)],
+                                 interleaved=False),
+}
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_matches_pil(predictor):
+    """Every layout at this predictor, word for word: greyscale at point
+    transforms 0 (the source samples, in PIL and in the port) and 2, RGB
+    (libjpeg-turbo takes a lossless file without a marker for RGB and
+    upsamples it by replication), and CMYK."""
+    grey = sample_image(13, 17)[..., 0]
+    for pt in (0, 2):
+        data = lossless_jpeg_bytes([grey], predictor=predictor, pt=pt)
+        want = pil_rgba(data)
+        np.testing.assert_array_equal(want[..., 0], grey >> pt << pt)
+        np.testing.assert_array_equal(decode_image(data, "grey"), want)
+    for name, kw in LOSSLESS_LAYOUTS.items():
+        data = _lossless(predictor=predictor, **kw)
+        np.testing.assert_array_equal(decode_image(data, name),
+                                      pil_rgba(data), err_msg=name)
+    img = sample_image(17, 23)
+    k = np.linspace(0, 255, 23).astype(np.uint8)[None].repeat(17, 0)
+    data = lossless_jpeg_bytes([img[..., i] for i in range(3)] + [k],
+                               [(2, 2), (1, 1), (1, 1), (2, 2)], predictor,
+                               adobe=0)
+    np.testing.assert_array_equal(decode_image(data, "cmyk"),
+                                  pil_rgba(data))
+
+
+# ------------------------------------------------- arithmetic coding
+
+ARITH_MODES = {
+    "sof9": dict(),
+    "sof9_dac": dict(conditioning=(2, 5, 3)),
+    "sof9_restart": dict(restart=2),
+    "sof9_dac_restart": dict(conditioning=(0, 0, 63), restart=1),
+    "sof10": dict(script=simple_progression(3)),
+    "sof10_dac_restart": dict(script=simple_progression(3), restart=3,
+                              conditioning=(1, 3, 10)),
+    "sof10_spectral_only": dict(script=[(EVERY, 0, 0, 0, 0),
+                                        ([0], 1, 9, 0, 0),
+                                        ([0], 10, 63, 0, 0),
+                                        ([1], 1, 63, 0, 0),
+                                        ([2], 1, 63, 0, 0)]),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(ARITH_MODES))
+def test_arithmetic_matches_pil(mode):
+    """At 4:4:4, 4:2:0 and mixed factors: PIL decodes the file word for
+    word as the Huffman file of the same coefficients (the writer's
+    check), the port's decode equals its decode of that Huffman file, and
+    PIL's pixels within one level."""
+    _, ycc = _planes(37, 45)
+    for factors in ([(1, 1)] * 3, [(2, 2), (1, 1), (1, 1)],
+                    [(2, 1), (1, 1), (1, 2)]):
+        data = arith_jpeg_bytes(ycc, factors, 85, **ARITH_MODES[mode])
+        huffman = jpeg_bytes(ycc, factors, 85)
+        label = f"{mode} {factors}"
+        np.testing.assert_array_equal(pil_rgba(data), pil_rgba(huffman),
+                                      err_msg=label)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data, label),
+                                      jpeg.decode_jpeg(huffman, label))
+        assert_jpeg_like_pil(data, label)
+
+
+def test_arithmetic_grey_and_cmyk_match_pil():
+    """One component (libjpeg's greyscale script) and four (CMYK without
+    a marker, the fourth at 2x2 like the first): as the Huffman file."""
+    img = sample_image(30, 19)
+    k = np.linspace(0, 255, 19).astype(np.uint8)[None].repeat(30, 0)
+    cmyk = [img[..., 0], img[..., 1], img[..., 2], k]
+    every = [0, 1, 2, 3]
+    cases = [([img[..., 1]], [(1, 1)], dict()),
+             ([img[..., 1]], [(1, 1)],
+              dict(script=simple_progression(1), restart=2)),
+             (cmyk, [(2, 2), (1, 1), (1, 1), (2, 2)], dict(jfif=False)),
+             (cmyk, [(1, 1)] * 4, dict(jfif=False, restart=4, script=[
+                 (every, 0, 0, 0, 1)] + [([c], 1, 63, 0, 0) for c in every]
+                 + [(every, 0, 0, 1, 0)]))]
+    for planes, factors, kw in cases:
+        data = arith_jpeg_bytes(planes, factors, 90, **kw)
+        huffman = jpeg_bytes(planes, factors, 90, jfif=kw.get("jfif", True))
+        np.testing.assert_array_equal(pil_rgba(data), pil_rgba(huffman))
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data, "a"),
+                                      jpeg.decode_jpeg(huffman, "h"))
+        assert_jpeg_like_pil(data, f"{len(planes)} components {list(kw)}")
+
+
 # ------------------------------------------------------------- refusals
 
 
@@ -291,11 +460,30 @@ def _baseline():
     return pil_jpeg(sample_image(16, 24), quality=80)
 
 
+def _restart_inside_row(data):
+    """A lossless file whose restart interval (7 MCUs) ends inside an MCU
+    row of 23."""
+    i = data.index(b"\xff\xdd")
+    return data[:i + 4] + struct.pack(">H", 7) + data[i + 6:]
+
+
 REFUSED_BY_PIL = {
     "12bit": lambda d: set_precision(d, 12),
     "sof5": lambda d: set_sof(d, 0xC5),
     "sof6": lambda d: set_sof(d, 0xC6),
     "sof7": lambda d: set_sof(d, 0xC7),
+    "sof11": lambda d: set_sof(_lossless(), 0xCB),
+    "sof13": lambda d: set_sof(d, 0xCD),
+    "sof14": lambda d: set_sof(d, 0xCE),
+    "sof15": lambda d: set_sof(d, 0xCF),
+    "lossless_12bit": lambda d: set_precision(_lossless(), 12),
+    "lossless_jfif_ycc": lambda d: _lossless(jfif=True),
+    "lossless_adobe_ycc": lambda d: _lossless(adobe=1),
+    "lossless_ycck": lambda d: lossless_jpeg_bytes(
+        list(_planes(9, 11)[1]) + [np.full((9, 11), 40, np.uint8)],
+        adobe=2),
+    "lossless_restart_inside_row": lambda d: _restart_inside_row(
+        _lossless(restart_rows=1)),
     "dnl": lambda d: set_height(d, 0),
     "2_components": lambda d: jpeg_bytes(list(_planes()[1][:2]),
                                          [(1, 1)] * 2),
@@ -312,13 +500,17 @@ def test_refuses_what_pil_refuses(case):
         decode_image(data, f"{case}.jpg")
 
 
-@pytest.mark.parametrize("marker", [0xC3, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE,
-                                    0xCF])
-def test_lossless_and_arithmetic_refused(marker):
-    """No tool here writes these files, so no test can hold them to PIL:
-    they stay refused, by name."""
-    with pytest.raises(NotImplementedError, match="x.jpg.*(lossless|arith)"):
-        jpeg.decode_jpeg(set_sof(_baseline(), marker), "x.jpg")
+@pytest.mark.parametrize("fmt", ["WEBP", "GIF", "BMP", "TIFF"])
+def test_other_formats_refused_by_name(fmt):
+    """Formats PIL opens for the JAX package (a glTF image, a texture file)
+    and the port does not decode: refused naming the file and the format,
+    not taken for a broken PNG."""
+    b = io.BytesIO()
+    Image.fromarray(sample_image(8, 8)).save(b, format=fmt)
+    assert pil_rgba(b.getvalue()).shape == (8, 8, 4)
+    name = {"WEBP": "WebP"}.get(fmt, fmt)
+    with pytest.raises(NotImplementedError, match=f"x.img: {name}"):
+        decode_image(b.getvalue(), "x.img")
 
 
 def test_damaged_progressive_files():
@@ -339,7 +531,35 @@ def test_damaged_progressive_files():
             assert "damaged.jpg" in str(exc)
 
 
+def test_damaged_lossless_and_arithmetic_files():
+    """The same for lossless and arithmetic-coded files (sequential and
+    progressive, with restarts)."""
+    _, ycc = _planes(20, 30)
+    rng = np.random.default_rng(3)
+    for data in (_lossless(restart_rows=2, predictor=5),
+                 arith_jpeg_bytes(ycc, [(2, 2), (1, 1), (1, 1)], restart=2),
+                 arith_jpeg_bytes(ycc, [(1, 1)] * 3, restart=3,
+                                  script=simple_progression(3))):
+        damaged = [data[:cut] for cut in range(3, len(data), 41)]
+        for _ in range(25):
+            b = bytearray(data)
+            b[int(rng.integers(2, len(b)))] = int(rng.integers(0, 256))
+            damaged.append(bytes(b))
+        for d in damaged:
+            try:
+                jpeg.decode_jpeg(d, "damaged.jpg")
+            except (ValueError, NotImplementedError) as exc:
+                assert "damaged.jpg" in str(exc)
+
+
 # ------------------------------------------------------------- fixtures
+
+
+def fixture_bound(path):
+    """The largest difference from PIL's pixels a fixture's decode may
+    have: none for PNG and lossless JPEG, one level for other JPEG."""
+    name = os.path.basename(path)
+    return 0 if name.endswith(".png") or name.startswith("lossless") else 1
 
 
 def fixture_files():
@@ -349,18 +569,19 @@ def fixture_files():
 
 def test_fixture_set_is_whole():
     names = [os.path.basename(p) for p in fixture_files()]
-    assert len(names) == 18 and "progressive_420_512.jpg" in names
+    assert len(names) == 26 and "progressive_420_512.jpg" in names
+    assert "arith_progressive_420_512.jpg" in names
     assert all(os.path.exists(os.path.join(FIXTURES, n + PIXELS))
                for n in names)
     assert sum(os.path.getsize(p) for p in glob.glob(
-        os.path.join(FIXTURES, "*"))) < 400_000
+        os.path.join(FIXTURES, "*"))) < 600_000
 
 
 @pytest.mark.parametrize("path", fixture_files(), ids=os.path.basename)
 def test_fixture_matches_pil_and_port(path):
     """PIL still gives the stored pixels (so they cannot drift from PIL),
-    and the port decodes the file to them: PNG word for word, JPEG within
-    one level, through load_image."""
+    and the port decodes the file to them: PNG and lossless JPEG word for
+    word, other JPEG within one level, through load_image."""
     with open(path, "rb") as f:
         data = f.read()
     stored = load_image(path + PIXELS)
@@ -369,7 +590,7 @@ def test_fixture_matches_pil_and_port(path):
     assert got.shape == stored.shape
     diff = np.abs(got - stored)
     print(f"{os.path.basename(path)}: {(diff > 0).sum()} values differ")
-    assert diff.max() <= (0 if path.endswith(".png") else 1)
+    assert diff.max() <= fixture_bound(path)
 
 
 def test_progressive_512_fixture_shape():
@@ -380,3 +601,16 @@ def test_progressive_512_fixture_shape():
     h, w = struct.unpack(">HH", data[i + 5:i + 9])
     comps = [data[i + 11 + 3 * c] for c in range(3)]
     assert (h, w) == (512, 512) and comps == [0x22, 0x11, 0x11]
+
+
+def test_arithmetic_512_fixture_shape():
+    """The 512x512 file that phase 18 of chip_smoke.py times: arithmetic
+    progressive (SOF10), 4:2:0, libjpeg's ten-scan script."""
+    path = os.path.join(FIXTURES, "arith_progressive_420_512.jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    i = data.index(b"\xff\xca")
+    h, w = struct.unpack(">HH", data[i + 5:i + 9])
+    comps = [data[i + 11 + 3 * c] for c in range(3)]
+    assert (h, w) == (512, 512) and comps == [0x22, 0x11, 0x11]
+    assert len(_scans(data)) == 10

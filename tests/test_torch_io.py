@@ -7,9 +7,10 @@ snapshot, image) against the JAX package's io modules.
   node-transform document of tests/test_skin.py:219 through
   scene_instances; GltfAnimator's joint matrices equal to JAX's at several
   times, on that scene and on tests/test_skin.py's synthetic skeleton; the
-  skinned glTF frame within 5e-3 of JAX's; a progressive JPEG image
-  imported as JAX imports it, a missing image file replaced by WHITE with
-  a warning, as JAX does. Both packages on the numpy BVH builder and
+  skinned glTF frame within 5e-3 of JAX's; progressive, lossless,
+  arithmetic-coded and block-smoothed JPEG images imported as JAX imports
+  them, a missing image file replaced by WHITE with a warning, as JAX
+  does. Both packages on the numpy BVH builder and
   texture packer, and on the native ones.
 - PNG: colour types 0 (grey), 3 (palette, with and without tRNS) and 4
   (grey + alpha), 16-bit and Adam7 decode to the RGBA of PIL's
@@ -40,6 +41,7 @@ from voidin_tpu_torch.core import mathx
 from voidin_tpu_torch.framework import presets as t_presets
 from voidin_tpu_torch.framework.renderer import Renderer
 from voidin_tpu_torch.io import gltf as t_gltf
+from voidin_tpu_torch.io import jpeg
 from voidin_tpu_torch.io import obj as t_obj
 from voidin_tpu_torch.io.image import decode_png, load_image
 from voidin_tpu_torch.io.snapshot import (SNAPSHOT_VERSION, load_scene,
@@ -52,6 +54,8 @@ from tests.test_skin import _synthetic_gltf
 from tests.test_torch_presets import assert_worlds_equal
 from tests.test_torch_recorder import sample_image
 from tests.test_torch_scene import load_jax_native
+from tests.torch_image_writers import (arith_jpeg_bytes, lossless_jpeg_bytes,
+                                       simple_progression)
 
 torch.set_num_threads(2)
 BUDGET = 5e-3
@@ -191,17 +195,42 @@ def _with_image(scene_files, tmp_path, image):
     return path
 
 
-def test_gltf_jpeg_image_refused(scene_files, tmp_path):
-    """A progressive JPEG image (once refused by the port) imports as JAX
-    imports it through PIL: the glTF importer of both packages builds the
-    same World, its texture pool on both packages' default packer, and
-    load_image gives PIL's convert("RGBA") pixels."""
-    load_jax_native()
-    b = io.BytesIO()
+def _jpeg_image(kind):
+    """A JPEG image of each kind the port once refused, at tens of pixels:
+    PIL's progressive file, lossless (SOF3), arithmetic sequential (SOF9)
+    and progressive (SOF10), and a progressive file cut short, which
+    libjpeg block-smooths."""
     img = sample_image(24, 40)
+    planes = [img[..., i] for i in range(3)]
+    ycc = list(jpeg._rgb_to_ycc(img))
+    b = io.BytesIO()
     Image.fromarray(img).save(b, format="JPEG", progressive=True)
+    if kind == "progressive":
+        return b.getvalue()
+    if kind == "lossless":
+        return lossless_jpeg_bytes(planes, [(2, 2), (1, 1), (1, 1)],
+                                   predictor=7, restart_rows=3)
+    if kind == "sof9":
+        return arith_jpeg_bytes(ycc, [(2, 2), (1, 1), (1, 1)],
+                                conditioning=(1, 2, 8), restart=2)
+    if kind == "sof10":
+        return arith_jpeg_bytes(ycc, [(2, 1), (1, 1), (1, 1)],
+                                script=simple_progression(3))
+    data = b.getvalue()
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[:sos[4]] + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("kind", ["progressive", "lossless", "sof9", "sof10",
+                                  "smoothed"])
+def test_gltf_jpeg_image_imports_as_jax(kind, scene_files, tmp_path):
+    """A JPEG image the port once refused imports as JAX imports it
+    through PIL: the glTF importer of both packages builds the same World,
+    its texture pool on both packages' default packer, and load_image
+    gives PIL's convert("RGBA") pixels."""
+    load_jax_native()
     with open(tmp_path / "albedo.jpg", "wb") as f:
-        f.write(b.getvalue())
+        f.write(_jpeg_image(kind))
     path = _with_image(scene_files, tmp_path, {"uri": "albedo.jpg"})
     jw, tw = vt.World(), pt.World()
     j_gltf.GltfDocument.import_file(jw, path)

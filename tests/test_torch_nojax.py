@@ -346,11 +346,12 @@ def test_presets_and_import_open_nothing_of_the_jax_package(tmp_path):
 
 def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
     """With jax, flax and PIL unimportable, under the audit hook: every
-    committed image fixture (progressive, CMYK, YCCK, 4:1:1 and 4:4:0
-    JPEGs, Adam7 and 16-bit PNGs) decodes through load_image to its stored
-    PIL pixels, and a texture pool packs through the native packer (its
-    library compiled from the port's own C++ sources) and through numpy
-    under VOIDIN_NATIVE=0. No module of the JAX package or PIL is imported
+    committed image fixture (progressive, CMYK, YCCK, 4:1:1 and 4:4:0,
+    lossless, arithmetic-coded and block-smoothed JPEGs, Adam7 and 16-bit
+    PNGs) decodes through load_image to its stored PIL pixels (PNG and
+    lossless JPEG word for word), and a texture pool packs through the
+    native packer (its library compiled from the port's own C++ sources)
+    and through numpy under VOIDIN_NATIVE=0. No module of the JAX package or PIL is imported
     and no file under voidin_tpu/ is opened."""
     code = textwrap.dedent("""
         import glob, os, sys
@@ -375,13 +376,14 @@ def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
         fixtures = sorted(p for p in glob.glob(os.path.join(
             ROOT, "tests", "data", "torch_images", "*"))
             if not p.endswith(".rgba.png"))
-        assert len(fixtures) == 18
+        assert len(fixtures) == 26
         for path in fixtures:
             got = load_image(path).astype(np.int64)
             want = load_image(path + ".rgba.png").astype(np.int64)
             assert got.shape == want.shape, path
-            assert np.abs(got - want).max() <= (0 if path.endswith(".png")
-                                                else 1), path
+            exact = (path.endswith(".png")
+                     or os.path.basename(path).startswith("lossless"))
+            assert np.abs(got - want).max() <= (0 if exact else 1), path
         pool = TexturePool(256)
         pool.add(np.random.default_rng(0).integers(0, 256, (200, 130, 4),
                                                    dtype=np.uint8))

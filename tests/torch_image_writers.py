@@ -13,6 +13,14 @@ write.
   (io/jpeg.py ``quant_table``, ``huffman_codes``, ``_fdct``,
   ``_pack_bits``); ``set_precision`` and ``set_sof`` rewrite a file's
   frame header to make the files PIL refuses.
+- ``progressive_jpeg_bytes``: the same coefficients as Huffman progressive
+  scans (DC first and refinement, AC first) by a script that may stop
+  short, the files libjpeg block-smooths.
+- ``arith_jpeg_bytes``: the same coefficients arithmetic-coded (SOF9, or
+  SOF10 by a script such as ``simple_progression``, libjpeg's own), with
+  a DAC marker and restarts, coded by a port of libjpeg's jcarith.c.
+- ``lossless_jpeg_bytes``: lossless JPEG (SOF3) at predictors 1-7, point
+  transforms, restarts, 1-4 components and sampling factors.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import zlib
 import numpy as np
 
 from voidin_tpu_torch.io import jpeg
+from voidin_tpu_torch.io import jpeg_arith as arith
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -114,10 +123,13 @@ def _box_down(plane, fx, fy):
     return (p.sum(axis=(1, 3)) + fx * fy // 2) // (fx * fy)
 
 
-def _entropy(zz, comp, table_of):
+def _entropy(zz, comp, table_of, dc=True, ss=1, se=63):
     """Huffman-code (N, 64) zig-zag blocks in stream order with the Annex K
-    tables (table_of[i]: 0 luma, 1 chroma), DC predicted per component:
-    the scan's stuffed bytes (io/jpeg.py encode_jpeg's coder)."""
+    tables (table_of[i]: 0 luma, 1 chroma): each block's DC difference
+    from the previous block of its component (`dc`), then its band ss..se
+    (none where se < ss) by run and size with ZRLs, and EOB where the band
+    ends in zeros: the scan's stuffed bytes (io/jpeg.py encode_jpeg's
+    coder; a progressive file's EOB is a run of one block)."""
     diff = np.empty(len(zz), np.int64)
     for c in np.unique(comp):
         sel = comp == c
@@ -134,14 +146,16 @@ def _entropy(zz, comp, table_of):
         mag_bits = np.where(mag < 0, mag + (1 << size) - 1, mag)
         return (code << size) | mag_bits, length + size
 
+    n = len(zz)
     dc_size = jpeg._bit_length(diff)
     dc_val, dc_len = coded(dc_codes, table_of, dc_size, diff, dc_size)
-    blk, k = np.nonzero(zz[:, 1:])
-    k = k + 1
+    keep = np.full(n, dc)
+    blk, k = np.nonzero(zz[:, ss:se + 1])
+    k = k + ss
     ac = zz[blk, k]
     first = np.ones(len(blk), bool)
     first[1:] = blk[1:] != blk[:-1]
-    prev_k = np.where(first, 0, np.concatenate([[0], k[:-1]]))
+    prev_k = np.where(first, ss - 1, np.concatenate([[0], k[:-1]]))
     run = k - prev_k - 1
     size = jpeg._bit_length(ac)
     ac_val, ac_len = coded(ac_codes, table_of[blk], (run & 15) << 4 | size,
@@ -152,105 +166,565 @@ def _entropy(zz, comp, table_of):
                              np.full(len(zrl_blk), 0xF0), 0, 0)
     last = np.ones(len(blk), bool)
     last[:-1] = blk[1:] != blk[:-1]
-    last_k = np.zeros(len(zz), np.int64)
+    last_k = np.full(n, ss - 1)
     last_k[blk[last]] = k[last]
-    eob_blk = np.flatnonzero(last_k < 63)
+    eob_blk = np.flatnonzero(last_k < se) if se >= ss else np.zeros(0, int)
     eob_val, eob_len = coded(ac_codes, table_of[eob_blk],
                              np.zeros(len(eob_blk), np.int64), 0, 0)
-    key = np.concatenate([np.arange(len(zz)) * 256, zrl_blk * 256
+    key = np.concatenate([np.arange(n)[keep] * 256, zrl_blk * 256
                           + np.repeat(2 * k - 1, n_zrl), blk * 256 + 2 * k,
                           eob_blk * 256 + 255])
     perm = np.argsort(key, kind="stable")
     data = jpeg._pack_bits(
-        np.concatenate([dc_val, zrl_val, ac_val, eob_val])[perm],
-        np.concatenate([dc_len, zrl_len, ac_len, eob_len])[perm])
+        np.concatenate([dc_val[keep], zrl_val, ac_val, eob_val])[perm],
+        np.concatenate([dc_len[keep], zrl_len, ac_len, eob_len])[perm])
+    return _stuff(data)
+
+
+def _stuff(data):
+    """Entropy-coded bytes with a 0x00 after every 0xFF."""
+    data = np.asarray(data, np.uint8)
     return np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
 
 
-def jpeg_bytes(planes, factors, quality=90, adobe=None, jfif=True,
-               ids=None, interleaved=True):
-    """A baseline JPEG of full-size (H, W) uint8 sample planes, one a
-    component, each sampled at its (h, v) factors (1-4; box-averaged to
-    ceil(W h / hmax) x ceil(H v / vmax)). Component 0 takes the Annex K
-    luma tables, the others the chroma ones. `adobe`: an Adobe marker's
-    colour transform (0 none, 1 YCbCr, 2 YCCK) or None; `ids`: the
-    component ids (1, 2, ... by default); `interleaved=False` writes one
-    scan a component."""
-    planes = [np.asarray(p, np.uint8) for p in planes]
-    height, width = planes[0].shape
-    hmax = max(h for h, _ in factors)
-    vmax = max(v for _, v in factors)
-    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-    ids = list(ids or range(1, len(planes) + 1))
-    tables = [jpeg.quant_table(jpeg.LUMA_QUANT, quality),
-              jpeg.quant_table(jpeg.CHROMA_QUANT, quality)]
-    coefs = []  # per component: (block rows, block cols, 64) zig-zag
-    for ci, (plane, (h, v)) in enumerate(zip(planes, factors)):
-        down = _box_down(plane, hmax // h, vmax // v)
-        dh, dw = down.shape
-        full = np.pad(down, ((0, mcuy * v * 8 - dh), (0, mcux * h * 8 - dw)),
-                      mode="edge")
-        blk = jpeg._blocks(full.astype(np.float32) - 128.0)
-        f = jpeg._fdct(blk.reshape(-1, 64))
-        q = tables[min(ci, 1)].astype(np.float32)
-        quant = np.copysign(np.floor(np.abs(f) / q + 0.5), f)
-        coefs.append(quant[:, jpeg.ZIGZAG].astype(np.int64).reshape(
-            blk.shape[0], blk.shape[1], 64))
-
-    def scan(comps):
-        if len(comps) == 1:
-            ci = comps[0]
-            h, v = factors[ci]
-            bw = -(-(-(-width * h // hmax)) // 8)
-            bh = -(-(-(-height * v // vmax)) // 8)
-            zz = coefs[ci][:bh, :bw].reshape(-1, 64)
-            comp = np.full(len(zz), ci)
-        else:
-            parts, comp = [], []
-            for ci in comps:
-                h, v = factors[ci]
-                c = coefs[ci].reshape(mcuy, v, mcux, h, 64).transpose(
-                    0, 2, 1, 3, 4).reshape(mcuy * mcux, v * h, 64)
-                parts.append(c)
-                comp += [ci] * (v * h)
-            zz = np.concatenate(parts, axis=1).reshape(-1, 64)
-            comp = np.tile(comp, mcuy * mcux)
-        sos = bytes([len(comps)]) + b"".join(
-            bytes([ids[ci], 0x00 if ci == 0 else 0x11]) for ci in comps)
-        return (jpeg._segment(0xDA, sos + b"\x00\x3f\x00")
-                + _entropy(zz, comp, np.minimum(comp, 1)))
-
+def _start(jfif, adobe):
+    """SOI, a JFIF marker if `jfif`, an Adobe marker of colour transform
+    `adobe` (0 none, 1 YCbCr, 2 YCCK) unless None."""
     out = [jpeg.SOI]
     if jfif:
-        out.append(jpeg._segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00"
-                                 b"\x01\x00\x00"))
+        out.append(jpeg._segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01"
+                                 b"\x00\x01\x00\x00"))
     if adobe is not None:
         out.append(jpeg._segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
                                  + bytes([adobe])))
-    for ti, t in enumerate(tables):
-        out.append(jpeg._segment(0xDB, bytes([ti])
-                                 + bytes(t[jpeg.ZIGZAG].astype(np.uint8))))
-    out.append(jpeg._segment(0xC0, struct.pack(
-        ">BHHB", 8, height, width, len(planes)) + b"".join(
-            bytes([ids[ci], h << 4 | v, min(ci, 1)])
-            for ci, (h, v) in enumerate(factors))))
+    return out
+
+
+class _Image:
+    """The quantized coefficients of full-size (H, W) uint8 sample planes,
+    one a component, each sampled at its (h, v) factors (1-4; box-averaged
+    to ceil(W h / hmax) x ceil(H v / vmax)) and coded with the Annex K
+    tables at `quality` (component 0 the luma table, the others the chroma
+    one): `coefs[c]` (block rows, block cols, 64) zig-zag over the MCU
+    grid, its padding the edge samples repeated."""
+
+    def __init__(self, planes, factors, quality=90):
+        planes = [np.asarray(p, np.uint8) for p in planes]
+        self.height, self.width = planes[0].shape
+        self.factors = list(factors)
+        self.hmax = max(h for h, _ in factors)
+        self.vmax = max(v for _, v in factors)
+        self.mcux = -(-self.width // (8 * self.hmax))
+        self.mcuy = -(-self.height // (8 * self.vmax))
+        self.tables = [jpeg.quant_table(jpeg.LUMA_QUANT, quality),
+                       jpeg.quant_table(jpeg.CHROMA_QUANT, quality)]
+        self.coefs = []
+        for ci, (plane, (h, v)) in enumerate(zip(planes, factors)):
+            down = _box_down(plane, self.hmax // h, self.vmax // v)
+            dh, dw = down.shape
+            full = np.pad(down, ((0, self.mcuy * v * 8 - dh),
+                                 (0, self.mcux * h * 8 - dw)), mode="edge")
+            blk = jpeg._blocks(full.astype(np.float32) - 128.0)
+            f = jpeg._fdct(blk.reshape(-1, 64))
+            q = self.tables[min(ci, 1)].astype(np.float32)
+            quant = np.copysign(np.floor(np.abs(f) / q + 0.5), f)
+            self.coefs.append(quant[:, jpeg.ZIGZAG].astype(np.int64).reshape(
+                blk.shape[0], blk.shape[1], 64))
+
+    def scan_blocks(self, comps):
+        """(N, 64) zig-zag blocks of a scan of components `comps` in stream
+        order, each block's component, and blocks an MCU: one component
+        covers its own ceil(width / 8) x ceil(height / 8) blocks, several
+        the MCU grid (h x v blocks of each, row-major, in each MCU)."""
+        if len(comps) == 1:
+            ci = comps[0]
+            h, v = self.factors[ci]
+            bw = -(-(-(-self.width * h // self.hmax)) // 8)
+            bh = -(-(-(-self.height * v // self.vmax)) // 8)
+            zz = self.coefs[ci][:bh, :bw].reshape(-1, 64)
+            return zz, np.full(len(zz), ci), 1
+        parts, comp = [], []
+        for ci in comps:
+            h, v = self.factors[ci]
+            parts.append(self.coefs[ci].reshape(
+                self.mcuy, v, self.mcux, h, 64).transpose(0, 2, 1, 3, 4)
+                .reshape(self.mcuy * self.mcux, v * h, 64))
+            comp += [ci] * (v * h)
+        zz = np.concatenate(parts, axis=1).reshape(-1, 64)
+        return zz, np.tile(comp, self.mcuy * self.mcux), len(comp)
+
+    def header(self, sof, ids=None, jfif=True, adobe=None, precision=8):
+        """SOI, the JFIF and Adobe markers, both quantization tables and
+        the frame header of marker `sof`."""
+        ids = list(ids or range(1, len(self.coefs) + 1))
+        out = _start(jfif, adobe)
+        for ti, t in enumerate(self.tables):
+            out.append(jpeg._segment(0xDB, bytes([ti]) + bytes(
+                t[jpeg.ZIGZAG].astype(np.uint8))))
+        out.append(jpeg._segment(sof, struct.pack(
+            ">BHHB", precision, self.height, self.width, len(self.coefs))
+            + b"".join(bytes([ids[ci], h << 4 | v, min(ci, 1)])
+                       for ci, (h, v) in enumerate(self.factors))))
+        return out, ids
+
+
+def _huffman_tables():
+    out = []
     for cls, tabs in ((0, (jpeg.DC_LUMA, jpeg.DC_CHROMA)),
                       (1, (jpeg.AC_LUMA, jpeg.AC_CHROMA))):
         for ti, (counts, symbols) in enumerate(tabs):
             out.append(jpeg._segment(0xC4, bytes([cls << 4 | ti])
                                      + bytes(counts) + bytes(symbols)))
+    return out
+
+
+def _sos(ids, comps, ss, se, ah, al):
+    return jpeg._segment(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([ids[ci], 0x00 if ci == 0 else 0x11]) for ci in comps)
+        + bytes([ss, se, ah << 4 | al]))
+
+
+def jpeg_bytes(planes, factors, quality=90, adobe=None, jfif=True,
+               ids=None, interleaved=True):
+    """A baseline JPEG of full-size (H, W) uint8 sample planes, one a
+    component, each sampled at its (h, v) factors (see _Image). `adobe`:
+    an Adobe marker's colour transform (0 none, 1 YCbCr, 2 YCCK) or None;
+    `ids`: the component ids (1, 2, ... by default); `interleaved=False`
+    writes one scan a component."""
+    im = _Image(planes, factors, quality)
+    out, ids = im.header(0xC0, ids, jfif, adobe)
+    out += _huffman_tables()
     n = len(planes)
     for comps in ([list(range(n))] if interleaved else [[c] for c in
                                                          range(n)]):
-        out.append(scan(comps))
+        zz, comp, _ = im.scan_blocks(comps)
+        out.append(_sos(ids, comps, 0, 63, 0, 0)
+                   + _entropy(zz, comp, np.minimum(comp, 1)))
     out.append(b"\xff\xd9")
     return b"".join(out)
 
 
+def _shift(v, al):
+    """Coefficients after the point transform Al (T.81 G.1.2.1: the DC an
+    arithmetic shift, AC divided rounding toward zero)."""
+    return np.sign(v) * (np.abs(v) >> al)
+
+
+def simple_progression(n_comps):
+    """libjpeg's jpeg_simple_progression script for 1 or 3 components:
+    (components, Ss, Se, Ah, Al) a scan."""
+    if n_comps == 1:
+        return [([0], 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([0], 6, 63, 0, 2),
+                ([0], 1, 63, 2, 1), ([0], 0, 0, 1, 0), ([0], 1, 63, 1, 0)]
+    every = list(range(n_comps))
+    return [(every, 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([2], 1, 63, 0, 1),
+            ([1], 1, 63, 0, 1), ([0], 6, 63, 0, 2), ([0], 1, 63, 2, 1),
+            (every, 0, 0, 1, 0), ([2], 1, 63, 1, 0), ([1], 1, 63, 1, 0),
+            ([0], 1, 63, 1, 0)]
+
+
+def progressive_jpeg_bytes(planes, factors, script, quality=90, ids=None):
+    """A Huffman progressive JPEG (SOF2) of the scans `script` lists, each
+    (components, Ss, Se, Ah, Al): DC first and refinement scans and AC
+    first scans (the files a script that stops early writes, whose AC
+    coefficients libjpeg's block smoothing estimates); an AC refinement
+    scan is not written."""
+    im = _Image(planes, factors, quality)
+    out, ids = im.header(0xC2, ids)
+    out += _huffman_tables()
+    for comps, ss, se, ah, al in script:
+        zz, comp, _ = im.scan_blocks(comps)
+        if ss == 0 and ah:
+            bits = (zz[:, 0] >> al) & 1
+            data = _stuff(jpeg._pack_bits(bits, np.ones(len(bits), np.int64))
+                          ) if len(bits) else b""
+        elif ss == 0:
+            data = _entropy(zz[:, :1] >> al, comp, np.minimum(comp, 1),
+                            ss=1, se=0)
+        elif ah == 0:
+            data = _entropy(_shift(zz, al), comp, np.minimum(comp, 1),
+                            dc=False, ss=ss, se=se)
+        else:
+            raise NotImplementedError("AC refinement scans are not written")
+        out.append(_sos(ids, comps, ss, se, ah, al) + data)
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# ----------------------------------------------------- arithmetic coding
+
+
+class _QMEncoder:
+    """libjpeg's jcarith.c arith_encode and finish_pass (T.81 D.1): `encode(
+    bins, k, bit)` codes one decision with statistics bin bins[k] (state |
+    MPS << 7, as io/jpeg_arith.py reads them); `finish()` returns the
+    interval's stuffed bytes."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = (
+            0, 0x10000, 0, 0, 11, -1)
+
+    def _byte(self, v):
+        self.out.append(v)
+        if v == 0xFF:
+            self.out.append(0)
+
+    def _zeros(self):
+        self.out.extend(b"\x00" * self.zc)
+        self.zc = 0
+
+    def _flush_stack(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._byte(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out.extend(b"\xff\x00" * self.sc)
+            self.sc = 0
+
+    def _carry(self):
+        if self.buffer >= 0:
+            self._zeros()
+            self._byte(self.buffer + 1)
+        self.zc += self.sc
+        self.sc = 0
+
+    def encode(self, bins, k, bit):
+        sv = bins[k]
+        qe, nl, nm = arith._STATES[sv & 0x7F]
+        self.a -= qe
+        if bit != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            bins[k] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            bins[k] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_stack()
+                    self.buffer = temp
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0x8000000:
+            self._carry()
+        else:
+            self._flush_stack()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._byte((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._byte((self.c >> 11) & 0xFF)
+        return bytes(self.out)
+
+
+def _arith_ac_mag(enc, st, k, v, kx_bin):
+    """An AC value's magnitude (|value| - 1 = v) from bin st[k]."""
+    m = 0
+    if v:
+        enc.encode(st, k, 1)
+        m = 1
+        v2 = v >> 1
+        if v2:
+            enc.encode(st, k, 1)
+            m = 2
+            k = kx_bin
+            v2 >>= 1
+            while v2:
+                enc.encode(st, k, 1)
+                m <<= 1
+                k += 1
+                v2 >>= 1
+    enc.encode(st, k, 0)
+    k += 14
+    while m > 1:
+        m >>= 1
+        enc.encode(st, k, 1 if v & m else 0)
+
+
+def _arith_dc(enc, st, state, si, value, lower, upper):
+    """One DC value (Figure F.4) against its component's prediction and
+    context in `state` (lists last, ctx)."""
+    last, ctx = state
+    s0 = ctx[si]
+    v = value - last[si]
+    if v == 0:
+        enc.encode(st, s0, 0)
+        ctx[si] = 0
+        return
+    last[si] = value
+    enc.encode(st, s0, 1)
+    sign = int(v < 0)
+    enc.encode(st, s0 + 1, sign)
+    k = s0 + 2 + sign
+    v = abs(v) - 1
+    m = 0
+    if v:
+        enc.encode(st, k, 1)
+        m = 1
+        k = 20
+        v2 = v >> 1
+        while v2:
+            enc.encode(st, k, 1)
+            m <<= 1
+            k += 1
+            v2 >>= 1
+    enc.encode(st, k, 0)
+    if m < (1 << lower) >> 1:
+        ctx[si] = 0
+    elif m > (1 << upper) >> 1:
+        ctx[si] = 12 + 4 * sign
+    else:
+        ctx[si] = 4 + 4 * sign
+    k += 14
+    while m > 1:
+        m >>= 1
+        enc.encode(st, k, 1 if v & m else 0)
+
+
+def _arith_ac_first(enc, st, fixed, block, ss, se, kx):
+    """One block's band ss..se of point-transformed coefficients (Figure
+    F.5)."""
+    nz = np.flatnonzero(block[ss:se + 1])
+    ke = ss + int(nz[-1]) if len(nz) else ss - 1
+    k = ss
+    while k <= ke:
+        b = 3 * (k - 1)
+        enc.encode(st, b, 0)
+        while block[k] == 0:
+            enc.encode(st, b + 1, 0)
+            b += 3
+            k += 1
+        enc.encode(st, b + 1, 1)
+        v = int(block[k])
+        enc.encode(fixed, 0, int(v < 0))
+        _arith_ac_mag(enc, st, b + 2, abs(v) - 1, 189 if k <= kx else 217)
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(enc, st, fixed, block, ss, se, al):
+    """One block's refinement of band ss..se at bit Al (Figure G.10, as
+    jcarith.c codes it) from its full coefficients."""
+    mag = np.abs(block)
+    cur = mag >> al
+    nz = np.flatnonzero(cur[1:se + 1])
+    ke = int(nz[-1]) + 1 if len(nz) else 0
+    nzx = np.flatnonzero((mag >> (al + 1))[1:ke + 1])
+    kex = int(nzx[-1]) + 1 if len(nzx) else 0
+    k = ss - 1
+    while k < ke:
+        b = 3 * k
+        if k >= kex:
+            enc.encode(st, b, 0)
+        while True:
+            k += 1
+            v = int(cur[k])
+            if v:
+                if v >> 1:
+                    enc.encode(st, b + 2, v & 1)
+                else:
+                    enc.encode(st, b + 1, 1)
+                    enc.encode(fixed, 0, int(block[k] < 0))
+                break
+            enc.encode(st, b + 1, 0)
+            b += 3
+    if k < se:
+        enc.encode(st, 3 * k, 1)
+
+
+def arith_jpeg_bytes(planes, factors, quality=90, script=None,
+                     conditioning=None, restart=0, ids=None, jfif=True):
+    """An arithmetic-coded JPEG of the coefficients jpeg_bytes codes for
+    the same arguments: sequential (SOF9, one interleaved scan) when
+    `script` is None, else progressive (SOF10) by `script` (see
+    simple_progression). `conditioning`: (L, U, Kx) written in a DAC
+    marker for tables 0 and 1 (None: no marker, the defaults 0, 1, 5);
+    `restart`: a restart interval in MCUs (0: none)."""
+    im = _Image(planes, factors, quality)
+    out, ids = im.header(0xC9 if script is None else 0xCA, ids, jfif)
+    lower, upper, kx = conditioning or arith.DEFAULT_CONDITIONING
+    if conditioning is not None:
+        out.append(jpeg._segment(0xCC, bytes([0x00, upper << 4 | lower,
+                                              0x01, upper << 4 | lower,
+                                              0x10, kx, 0x11, kx])))
+    if restart:
+        out.append(jpeg._segment(0xDD, struct.pack(">H", restart)))
+    progressive = script is not None
+    every = list(range(len(planes)))
+    for comps, ss, se, ah, al in script or [(every, 0, 63, 0, 0)]:
+        zz, comp, per_mcu = im.scan_blocks(comps)
+        step = restart * per_mcu or len(zz)
+        fixed = [arith.FIXED_STATE]
+        data = []
+        for start in range(0, len(zz), step):
+            if start:
+                data.append(bytes([0xFF, 0xD0 + (start // step - 1) % 8]))
+            enc = _QMEncoder()
+            dc_st = [[0] * arith.DC_BINS for _ in range(2)]
+            ac_st = [[0] * arith.AC_BINS for _ in range(2)]
+            state = ([0] * len(every), [0] * len(every))
+            for b in range(start, min(start + step, len(zz))):
+                t = min(int(comp[b]), 1)
+                blk = zz[b]
+                if progressive and ss == 0 and ah:
+                    enc.encode(fixed, 0, int(blk[0] >> al) & 1)
+                    continue
+                if ss == 0:
+                    _arith_dc(enc, dc_st[t], state, int(comp[b]),
+                              int(blk[0] >> al), lower, upper)
+                if progressive and ss == 0:
+                    continue
+                if ah:
+                    _arith_ac_refine(enc, ac_st[t], fixed, blk, ss, se, al)
+                else:
+                    _arith_ac_first(enc, ac_st[t], fixed, _shift(blk, al),
+                                    max(ss, 1), se, kx)
+            data.append(enc.finish())
+        out.append(_sos(ids, comps, ss, se, ah, al) + b"".join(data))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# ------------------------------------------------------------- lossless
+
+# A DC-class Huffman table for the difference categories 0-16 (16: the
+# difference 32768, no extra bits)
+LOSSLESS_TABLE = ([0, 1, 5] + [1] * 11 + [0, 0], list(range(17)))
+
+
+def _predict(x, psv, first_rows, pt):
+    """Each 8-bit sample's prediction (T.81 H.1.2.1, libjpeg's jdlossls.c):
+    a row in `first_rows` predicts its first sample by 2^(8 - Pt - 1) and
+    the others from the left; every other row predicts its first sample
+    from above and the others by predictor `psv` (1-7) from the left (a),
+    above (b) and upper-left (c) samples."""
+    h, w = x.shape
+    pred = np.zeros((h, w), np.int64)
+    a = np.zeros_like(pred)
+    b = np.zeros_like(pred)
+    c = np.zeros_like(pred)
+    a[:, 1:] = x[:, :-1]
+    b[1:] = x[:-1]
+    c[1:, 1:] = x[:-1, :-1]
+    pred = {1: a, 2: b, 3: c, 4: a + b - c, 5: a + ((b - c) >> 1),
+            6: b + ((a - c) >> 1), 7: (a + b) >> 1}[psv].copy()
+    pred[:, 0] = b[:, 0]
+    for r in first_rows:
+        pred[r, 1:] = x[r, :-1]
+        pred[r, 0] = 1 << (8 - pt - 1)
+    return pred
+
+
+def lossless_jpeg_bytes(planes, factors=None, predictor=1, pt=0,
+                        restart_rows=0, ids=None, jfif=False, adobe=None,
+                        interleaved=True):
+    """A lossless JPEG (SOF3, Huffman) of full-size (H, W) uint8 sample
+    planes, one a component, each sampled at its (h, v) factors (1-4,
+    box-averaged; default 1x1) and shifted right by the point transform
+    `pt`, coded with `predictor` (1-7). `restart_rows`: a restart interval
+    of that many MCU rows (libjpeg reads a lossless file's restarts only
+    at row boundaries); the rows after each restart start over as the
+    scan's first row does. One interleaved scan, or one scan a component.
+    `jfif` / `adobe` / `ids`: the markers and component ids that choose
+    the colour space (io/jpeg.py _colour_space)."""
+    planes = [np.asarray(p, np.uint8) for p in planes]
+    factors = list(factors or [(1, 1)] * len(planes))
+    height, width = planes[0].shape
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    ids = list(ids or range(1, len(planes) + 1))
+    samples = [(_box_down(p, hmax // h, vmax // v) >> pt)
+               for p, (h, v) in zip(planes, factors)]
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    out = _start(jfif, adobe)
+    out.append(jpeg._segment(0xC3, struct.pack(
+        ">BHHB", 8, height, width, len(planes)) + b"".join(
+            bytes([ids[ci], h << 4 | v, 0])
+            for ci, (h, v) in enumerate(factors))))
+    counts, symbols = LOSSLESS_TABLE
+    out.append(jpeg._segment(0xC4, bytes([0]) + bytes(counts)
+                             + bytes(symbols)))
+    codes = jpeg._code_arrays(LOSSLESS_TABLE)
+    scans = [list(range(len(planes)))] if interleaved else [
+        [c] for c in range(len(planes))]
+    for comps in scans:
+        one = len(comps) == 1
+        per = []  # per component: its differences, MCU by MCU
+        for ci in comps:
+            x = samples[ci].astype(np.int64)
+            h, v = (1, 1) if one else factors[ci]
+            # the rows that start over: the first, and the first of each
+            # iMCU row (factors[ci][1] rows) in which a restart falls
+            vc = factors[ci][1]
+            first = {r // vc * vc for r in range(
+                0, x.shape[0], restart_rows * v or x.shape[0])}
+            d = (x - _predict(x, predictor, first, pt)) & 0xFFFF
+            # the scan's sample grid, dummy samples past the image coded 0
+            gy, gx = x.shape if one else (mcuy * v, mcux * h)
+            g = np.zeros((gy, gx), np.int64)
+            g[:x.shape[0], :x.shape[1]] = np.where(d >= 0x8000, d - 0x10000,
+                                                   d)
+            per.append(g.reshape(gy // v, v, gx // h, h).transpose(
+                0, 2, 1, 3).reshape(-1, v * h))
+        diffs = np.concatenate(per, axis=1).reshape(-1)
+        mcus_per_row = gx if one else mcux
+        per_mcu = sum(p.shape[1] for p in per)
+        size = np.where(diffs == -0x8000, 16, jpeg._bit_length(diffs))
+        extra = np.where(size == 16, 0, size)
+        mag = np.where(diffs < 0, diffs + (1 << extra) - 1, diffs)
+        vals = codes[0][size] << extra | np.where(size == 16, 0, mag)
+        lens = codes[1][size] + extra
+        if restart_rows:
+            out.append(jpeg._segment(0xDD, struct.pack(
+                ">H", restart_rows * mcus_per_row)))
+        step = restart_rows * mcus_per_row * per_mcu or len(diffs)
+        body = []
+        for i, start in enumerate(range(0, len(diffs), step)):
+            if i:
+                body.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+            body.append(_stuff(jpeg._pack_bits(vals[start:start + step],
+                                               lens[start:start + step])))
+        out.append(jpeg._segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([ids[ci], 0x00]) for ci in comps)
+            + bytes([predictor, 0, pt])) + b"".join(body))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+_SOF_MARKERS = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
 def _sof_at(data: bytes) -> int:
-    """Byte index of the frame header's marker (0xFF, 0xC0-0xC2)."""
+    """Byte index of the frame header's marker (0xFF, SOF0-15)."""
     i = 2
-    while data[i + 1] not in (0xC0, 0xC1, 0xC2):
+    while data[i + 1] not in _SOF_MARKERS:
         i += 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
     return i
 

@@ -18,7 +18,14 @@ RGBA, every row Sub-filtered; the port's decode_png reads it exactly):
   RGB JPEGs, which PIL cannot write: tests/torch_image_writers.py's
   baseline writer makes them, PIL decodes them;
 - Adam7 and 16-bit PNGs of every colour type (16-bit grey clamped at 255,
-  16-bit RGB with a tRNS key), written by the same test module.
+  16-bit RGB with a tRNS key), written by the same test module;
+- lossless JPEG (SOF3: grey at predictor 7; RGB at 4:2:0 with a restart
+  interval) and arithmetic-coded JPEG (SOF9 at 4:2:0 with a DAC marker
+  and restarts; SOF10 at 4:4:4, and at 4:2:0 and 512x512), which PIL
+  reads but cannot write: the same test module writes them;
+- progressive JPEGs that libjpeg's block smoothing acts on: PIL's own
+  progressive file cut after 3 of its 10 scans, a DC-only file, and one
+  whose Al > 0 bands are never refined.
 
 The files are made from fixed seeds. ``--check`` writes nothing: it
 re-decodes every fixture there with PIL and exits non-zero where PIL's
@@ -63,7 +70,10 @@ def fixtures():
     """{file name: bytes} of every fixture."""
     from PIL import Image
 
-    from tests.torch_image_writers import jpeg_bytes, png_bytes
+    from tests.torch_image_writers import (arith_jpeg_bytes, jpeg_bytes,
+                                           lossless_jpeg_bytes, png_bytes,
+                                           progressive_jpeg_bytes,
+                                           simple_progression)
     from voidin_tpu_torch.io.jpeg import _rgb_to_ycc
 
     def pil_jpeg(img, mode=None, **kw):
@@ -78,6 +88,11 @@ def fixtures():
     ycc = list(_rgb_to_ycc(tex))
     k = np.linspace(0, 255, 53).astype(np.uint8)[None].repeat(37, 0)
     rng = np.random.default_rng(1)
+    rgb = [tex[..., i] for i in range(3)]
+    every = [0, 1, 2]
+    pil_progressive = pil_jpeg(tex, progressive=True, quality=80)
+    sos = [i for i in range(len(pil_progressive) - 1)
+           if pil_progressive[i:i + 2] == b"\xff\xda"]
     out = {
         "progressive_420_512.jpg": pil_jpeg(smooth_image(512, 512),
                                             progressive=True, quality=90),
@@ -118,6 +133,28 @@ def fixtures():
             rng.integers(0, 16, (10, 23, 1)), 4, 3, interlace=True,
             plte=rng.integers(0, 256, (16, 3)),
             trns=bytes(rng.integers(0, 256, 9).astype(np.uint8)), seed=8),
+        "lossless_grey_p7.jpg": lossless_jpeg_bytes([tex[..., 1]],
+                                                    predictor=7),
+        "lossless_420_restart.jpg": lossless_jpeg_bytes(
+            rgb, [(2, 2), (1, 1), (1, 1)], predictor=6, pt=1,
+            restart_rows=2),
+        "arith_420_dac.jpg": arith_jpeg_bytes(
+            ycc, [(2, 2), (1, 1), (1, 1)], quality=80,
+            conditioning=(1, 4, 12), restart=3),
+        "arith_progressive_444.jpg": arith_jpeg_bytes(
+            ycc, [(1, 1)] * 3, quality=85, script=simple_progression(3)),
+        "arith_progressive_420_512.jpg": arith_jpeg_bytes(
+            list(_rgb_to_ycc(smooth_image(512, 512))),
+            [(2, 2), (1, 1), (1, 1)], quality=90,
+            script=simple_progression(3)),
+        "smooth_cut3.jpg": pil_progressive[:sos[3]] + b"\xff\xd9",
+        "smooth_dc_only.jpg": progressive_jpeg_bytes(
+            ycc, [(2, 2), (1, 1), (1, 1)], [(every, 0, 0, 0, 0)],
+            quality=75),
+        "smooth_unrefined_al.jpg": progressive_jpeg_bytes(
+            ycc, [(2, 1), (1, 1), (1, 1)],
+            [(every, 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([0], 6, 63, 0, 1),
+             ([1], 1, 63, 0, 1), ([2], 1, 63, 0, 2)], quality=85),
     }
     return out
 

@@ -229,10 +229,23 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return samples
 
 
+# Image formats PIL opens for the JAX package that the port does not
+# decode, by their leading bytes
+_UNREAD_FORMATS = ((b"RIFF", 8, b"WEBP", "WebP"), (b"GIF87a", 0, b"", "GIF"),
+                   (b"GIF89a", 0, b"", "GIF"), (b"BM", 0, b"", "BMP"),
+                   (b"II*\x00", 0, b"", "TIFF"), (b"MM\x00*", 0, b"", "TIFF"))
+
+
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """A PNG's or a JPEG's bytes as (H, W, 4) uint8 RGBA, as PIL's
     convert("RGBA") gives it (JPEG: io/jpeg.decode_jpeg, grey replicated
-    into RGB, opaque alpha)."""
+    into RGB, opaque alpha). WebP, GIF, BMP and TIFF, which PIL also
+    opens, raise NotImplementedError naming the file and the format."""
+    for magic, at, tag, fmt in _UNREAD_FORMATS:
+        if data[:len(magic)] == magic and data[at:at + len(tag)] == tag:
+            raise NotImplementedError(
+                f"{name}: {fmt} image is not decoded (PIL reads it; the "
+                f"port reads PNG and JPEG)")
     if data[:2] != jpeg.SOI:
         return decode_png(data, name)
     rgb = jpeg.decode_jpeg(data, name)

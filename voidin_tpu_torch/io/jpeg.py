@@ -10,29 +10,36 @@ The port's hosts have no PIL, so this module carries a codec of its own:
   RGB -> YCbCr, chroma at 4:2:0 (PIL's default) averaged with libjpeg's
   alternating bias, the standard Annex K Huffman tables. The DCT is float; the entropy coder works on arrays of
   all the symbols of the image at once (no Python loop per coefficient).
-* ``decode_jpeg`` reads every 8-bit Huffman-coded file PIL reads:
-  baseline, extended-sequential and progressive (SOF0 / SOF1 / SOF2);
-  greyscale, YCbCr, RGB, CMYK and YCCK; sampling factors 1-4 in each
-  direction that divide the largest (4:4:4, 4:2:2, 4:2:0, 4:4:0, true
-  4:1:1, ...); interleaved and single-component scans, Huffman tables
-  redefined between scans, restart intervals, any size. Progressive files
-  take DC and AC first and refinement scans: spectral selection,
-  successive approximation, EOB runs and the refinement scans' correction
-  bits. It follows libjpeg(-turbo)'s defaults, so its pixels match PIL's:
-  the integer ("islow") IDCT with its range-limit table; the fancy
+* ``decode_jpeg`` reads every 8-bit file PIL reads: baseline,
+  extended-sequential and progressive (SOF0 / SOF1 / SOF2), lossless
+  (SOF3), and arithmetic-coded sequential and progressive (SOF9 / SOF10,
+  io/jpeg_arith.py, with the DAC marker's conditioning); greyscale,
+  YCbCr, RGB, CMYK and YCCK; sampling factors 1-4 in each direction that
+  divide the largest (4:4:4, 4:2:2, 4:2:0, 4:4:0, true 4:1:1, ...);
+  interleaved and single-component scans, Huffman tables redefined
+  between scans, restart intervals, any size. Progressive files take DC
+  and AC first and refinement scans: spectral selection, successive
+  approximation, EOB runs and the refinement scans' correction bits. It
+  follows libjpeg(-turbo)'s defaults, so its pixels match PIL's: the
+  integer ("islow") IDCT with its range-limit table; block smoothing of a
+  progressive file whose scans leave any of coefficients 1-9 not fully
+  known (a file cut short, a DC-only or unrefined script): libjpeg-turbo
+  3's estimate from the 5x5 neighbourhood of DC values; the fancy
   (triangle) upsamplers for h2v1 and h2v2 on components wider than 2 and
   for h1v2, replication otherwise, edge rows and columns repeated;
   libjpeg's reading of the colour space (JFIF, then the Adobe transform,
   then the component ids) and its fixed-point YCbCr -> RGB; and a CMYK
   file read as PIL reads it (inverted, Adobe's polarity) and taken to RGB
-  by PIL's CMYK -> RGBA.
-* Refused with NotImplementedError naming the file: what PIL refuses too
-  (12-bit samples, hierarchical SOF5-7, a height set by DNL, 2
-  components), and what no tool here can write to hold the decoder to
-  PIL: lossless (SOF3) and arithmetic-coded (SOF9-11, SOF13-15) files, and
-  a progressive file whose scans leave coefficients 1-9 unrefined, which
-  libjpeg would smooth (no whole file does). An interleaved MCU of more
-  than 10 blocks raises ValueError, as libjpeg refuses it.
+  by PIL's CMYK -> RGBA. A lossless file's predictors 1-7 and point
+  transform are undone as libjpeg-turbo does, its components upsampled by
+  replication and its colours left as they are (RGB without a marker).
+* Refused with NotImplementedError naming the file, as PIL refuses them:
+  12-bit (and any other than 8-bit) samples, hierarchical (SOF5-7,
+  SOF13-15) and arithmetic-coded lossless (SOF11) files, a height set by
+  DNL, 2 components, a lossless file in YCbCr or YCCK (libjpeg-turbo does
+  not convert a lossless file's colours) or whose restart interval is not
+  a whole number of MCU rows. An interleaved MCU of more than 10 blocks
+  raises ValueError, as libjpeg refuses it.
 
 The Huffman decode walks the symbols in a Python loop, but every bit
 position's code length and symbol is looked up for all positions at once
@@ -41,7 +48,11 @@ progressive first scans). A progressive AC refinement scan also reads one
 correction bit for every nonzero coefficient a symbol passes: its loop
 finds where a symbol lands from each block's running counts of zero and
 nonzero coefficients, one lookup a symbol, and the correction bits are
-gathered afterwards in one pass.
+gathered afterwards in one pass. A lossless scan walks its samples the
+same way, one table read a sample, then undoes predictors 1, 2 and 4 as
+cumulative sums and the others one anti-diagonal at a time. An
+arithmetic-coded scan decodes one binary decision a Python call
+(io/jpeg_arith.py).
 """
 
 from __future__ import annotations
@@ -49,6 +60,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from voidin_tpu_torch.io import jpeg_arith
 
 SOI = b"\xff\xd8"
 
@@ -413,19 +426,24 @@ def _interleave(a, b, axis):
     return out.reshape(shape)
 
 
-def upsample(plane: np.ndarray, fx: int, fy: int) -> np.ndarray:
+def upsample(plane: np.ndarray, fx: int, fy: int,
+             fancy: bool = True) -> np.ndarray:
     """libjpeg's upsampling of a (downsampled_height, downsampled_width)
     component by (fx, fy): the fancy triangle filters for 2x1, 2x2 and
-    1x2 (edges replicated), plain replication otherwise."""
+    1x2 (edges replicated), plain replication otherwise, and everywhere
+    without `fancy` (a lossless file: libjpeg-turbo upsamples fancily
+    only when a data unit is wider than one sample)."""
     p = plane.astype(np.int64)
-    fancy = p.shape[1] > 2
     if (fx, fy) == (1, 1):
         return p
+    if not fancy:
+        return np.repeat(np.repeat(p, fy, axis=0), fx, axis=1)
+    fancy = p.shape[1] > 2
     if (fx, fy) == (2, 1) and fancy:
         left, right = _clamp_shift(p, 1)
         return _interleave((3 * p + left + 1) >> 2, (3 * p + right + 2) >> 2,
                            1)
-    if (fx, fy) == (1, 2):
+    if (fx, fy) == (1, 2):  # h1v2_fancy_upsample at any width
         up, down = _clamp_shift(p, 0)
         return _interleave((3 * p + up + 1) >> 2, (3 * p + down + 2) >> 2, 0)
     if (fx, fy) == (2, 2) and fancy:
@@ -463,7 +481,7 @@ def _decode_lut(counts, symbols, dc: bool, eob_runs: bool = False):
     lut = np.full(1 << 16, _BAD << 8 | 1, np.int32)
     for s, (code, n) in huffman_codes(counts, symbols).items():
         if dc:
-            extra = s
+            extra = s if s < 16 else 0  # lossless category 16: no bits
         elif s & 15 or not eob_runs:
             extra = s & 15
         else:
@@ -472,9 +490,9 @@ def _decode_lut(counts, symbols, dc: bool, eob_runs: bool = False):
     return lut
 
 
-# Scans of successive approximation leave coefficients 1-9 of a component
-# unrefined below this many bits (libjpeg-turbo's jdcoefct.c SAVED_COEFS):
-# libjpeg then smooths the blocks (do_block_smoothing).
+# libjpeg-turbo's block smoothing estimates zig-zag coefficients 1 to
+# this less one where a progressive file leaves them unrefined (jdcoefct.c
+# SAVED_COEFS)
 _SMOOTHED_COEFS = 10
 
 
@@ -492,10 +510,14 @@ class _Frame:
         self.adobe_transform = None
         self.jfif = False
         self.progressive = False
+        self.arithmetic = False
+        self.lossless = False
+        self.conditioning = {}  # table id -> [L, U, Kx] (DAC marker)
         self.width = self.height = None
         self.comps = []  # dicts id, h, v, tq in frame-header order
         self.coef = {}  # component id -> coefficients
         self.coef_bits = {}  # component id -> (64,) int
+        self.samples = {}  # lossless: component id -> (rows, cols) uint8
 
 
 def _parse_scan_data(data, start):
@@ -523,18 +545,19 @@ def _parse_scan_data(data, start):
     return tail[:end][keep], seg_starts, start + end
 
 
-def _scan_blocks(fr, scan_comps):
+def _scan_blocks(fr, scan_comps, unit=8):
     """A scan's blocks in stream order: (blocks per MCU, each block's index
     into scan_comps, its block row and column in its component). A
     single-component scan covers that component's own ceil(width / 8) x
     ceil(height / 8) blocks, one block an MCU; an interleaved scan covers
-    the MCU grid, each component's h x v blocks row-major in each MCU."""
+    the MCU grid, each component's h x v blocks row-major in each MCU. A
+    lossless file's data unit is one sample (`unit` 1)."""
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
     if len(scan_comps) == 1:
         c = scan_comps[0]
-        bw = -(-(-(-fr.width * c["h"] // hmax)) // 8)
-        bh = -(-(-(-fr.height * c["v"] // vmax)) // 8)
+        bw = -(-(-(-fr.width * c["h"] // hmax)) // unit)
+        bh = -(-(-(-fr.height * c["v"] // vmax)) // unit)
         rows, cols = np.divmod(np.arange(bw * bh), bw)
         return 1, np.zeros(bw * bh, np.int64), rows, cols
     per = [(si, by, bx) for si, c in enumerate(scan_comps)
@@ -542,8 +565,8 @@ def _scan_blocks(fr, scan_comps):
     si, by, bx = (np.array(v) for v in zip(*per))
     hs = np.array([scan_comps[i]["h"] for i in si])
     vs = np.array([scan_comps[i]["v"] for i in si])
-    mcux = -(-fr.width // (8 * hmax))
-    mcuy = -(-fr.height // (8 * vmax))
+    mcux = -(-fr.width // (unit * hmax))
+    mcuy = -(-fr.height // (unit * vmax))
     my, mx = np.divmod(np.arange(mcux * mcuy), mcux)
     rows = (my[:, None] * vs + by).reshape(-1)
     cols = (mx[:, None] * hs + bx).reshape(-1)
@@ -794,7 +817,11 @@ def _ac_refine(sc, tables, hist):
 def _decode_scan(fr, scan_comps, spectral, data, seg_starts, name):
     """Decode one scan into fr.coef (per component, (block rows, block
     cols, 64) zig-zag coefficients): a sequential scan, or a progressive
-    scan's DC or AC band, first or refining (spectral = Ss, Se, Ah, Al)."""
+    scan's DC or AC band, first or refining (spectral = Ss, Se, Ah, Al),
+    Huffman- or arithmetic-coded; a lossless scan into fr.samples."""
+    if fr.lossless:
+        _lossless_scan(fr, scan_comps, spectral, data, seg_starts, name)
+        return
     ss, se, ah, al = spectral
     if fr.progressive:
         dc_scan = ss == 0
@@ -808,10 +835,21 @@ def _decode_scan(fr, scan_comps, spectral, data, seg_starts, name):
     per_mcu, comp_of, rows, cols = _scan_blocks(fr, scan_comps)
     if len(scan_comps) > 1 and per_mcu > 10:
         raise JpegError(f"{name}: {per_mcu} blocks in an MCU (at most 10)")
+    coefs = [fr.coef[c["id"]] for c in scan_comps]
+    if fr.arithmetic:
+        bounds = [int(b) for b in seg_starts] + [len(data)]
+        jpeg_arith.decode_scan(
+            coefs, comp_of, rows, cols, per_mcu, (ss, se, ah, al),
+            fr.progressive, [(c["td"], c["ta"]) for c in scan_comps],
+            fr.conditioning, [data[a:b].tobytes() for a, b in
+                              zip(bounds[:-1], bounds[1:])], fr.restart)
+        if fr.progressive:
+            for c in scan_comps:
+                fr.coef_bits[c["id"]][ss:se + 1] = al
+        return
     sc = _Scan(fr, data, seg_starts, len(comp_of), per_mcu, name)
     tds = np.array([c["td"] for c in scan_comps])
     tas = np.array([c["ta"] for c in scan_comps])
-    coefs = [fr.coef[c["id"]] for c in scan_comps]
 
     def scatter(sel_blocks, k, vals, add=False):
         """Write (or add) zig-zag coefficient k of the given scan blocks."""
@@ -868,6 +906,102 @@ def _decode_scan(fr, scan_comps, spectral, data, seg_starts, name):
             fr.coef_bits[c["id"]][ss:se + 1] = al
 
 
+def _lossless_rows(d, psv, init):
+    """Runs of rows of a lossless component from their differences `d`
+    (runs, rows, cols), each run's first row predicted from the left after
+    `init`, its first column from above, the rest by predictor `psv` (T.81
+    H.1.2.1, libjpeg's jdlossls.c), modulo 2^16. Predictors 1, 2 and 4 are
+    cumulative sums; the others go one anti-diagonal at a time, every run
+    at once (a sample's left, upper and upper-left neighbours lie on the
+    two diagonals before it)."""
+    _, n, w = d.shape
+    x = np.empty_like(d)
+    x[:, 0] = init + np.cumsum(d[:, 0], axis=-1)
+    x[:, 1:, 0] = x[:, :1, 0] + np.cumsum(d[:, 1:, 0], axis=1)
+    if psv == 1:
+        x[:, 1:, 1:] = x[:, 1:, :1] + np.cumsum(d[:, 1:, 1:], axis=2)
+    elif psv == 2:
+        x[:, 1:] = x[:, :1] + np.cumsum(d[:, 1:], axis=1)
+    elif psv == 4:
+        x = init + np.cumsum(np.cumsum(d, axis=1), axis=2)
+    else:
+        x &= 0xFFFF
+        for diag in range(2, n + w - 1):
+            i = np.arange(max(1, diag - w + 1), min(n - 1, diag - 1) + 1)
+            c = diag - i
+            ra, rb, rc = x[:, i, c - 1], x[:, i - 1, c], x[:, i - 1, c - 1]
+            pred = {3: rc, 5: ra + ((rb - rc) >> 1),
+                    6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv]
+            x[:, i, c] = (d[:, i, c] + pred) & 0xFFFF
+    return x & 0xFFFF
+
+
+def _lossless_scan(fr, scan_comps, spectral, data, seg_starts, name):
+    """Decode one lossless (SOF3) scan into fr.samples, as libjpeg-turbo's
+    jdlhuff.c / jddiffct.c / jdlossls.c do: each sample's difference
+    (Huffman categories 0-16, 16 meaning 32768 without extra bits), then
+    undifferenced row by row by the predictor Ss, scaled by the point
+    transform Al. The scan's first row, and the first row of each iMCU
+    row in which a restart falls, start over: the initial prediction
+    2^(P - Pt - 1), then the left neighbour. libjpeg restarts only at MCU
+    row boundaries and refuses other intervals; so does this decoder."""
+    psv, se, ah, pt = spectral
+    if not 1 <= psv <= 7 or se or ah or pt >= 8:
+        raise JpegError(f"{name}: invalid lossless scan (predictor {psv}, "
+                        f"Se {se}, Ah {ah}, Pt {pt})")
+    one = len(scan_comps) == 1
+    per_mcu, comp_of, rows, cols = _scan_blocks(fr, scan_comps, unit=1)
+    if not one and per_mcu > 10:
+        raise JpegError(f"{name}: {per_mcu} samples in an MCU (at most 10)")
+    hmax = max(c["h"] for c in fr.comps)
+    mcu_cols = (fr.samples[scan_comps[0]["id"]].shape[1] if one
+                else -(-fr.width // hmax))
+    if fr.restart % mcu_cols:
+        raise NotImplementedError(
+            f"{name}: lossless JPEG restart interval of {fr.restart} MCUs, "
+            f"not a whole number of MCU rows of {mcu_cols} (PIL refuses it "
+            f"too)")
+    sc = _Scan(fr, data, seg_starts, len(comp_of), per_mcu, name)
+    tds = np.array([c["td"] for c in scan_comps])
+    tables = [(memoryview(sc.table(0, int(tds[si]))), None)
+              for si in comp_of[:per_mcu]]
+    pos = _first_scan(sc, tables, True, 1, 0, False)[0]
+    comb = np.zeros(len(pos), np.int64)
+    for si, tid in enumerate(tds):
+        sel = comp_of == si
+        comb[sel] = sc.table(0, int(tid))[pos[sel]]
+    size = comb >> 8
+    if len(size) and size.max() > 16:
+        raise JpegError(f"{name}: corrupt JPEG data (difference category)")
+    extra = np.where(size == 16, 0, size)
+    bits = sc.peek[pos + (comb & 255) - extra].astype(np.int64) >> (
+        16 - extra)
+    diff = np.where(size == 16, 32768, np.where(
+        bits >= (1 << np.maximum(extra - 1, 0)), bits,
+        bits - (1 << extra) + 1))
+    restart_rows = fr.restart // mcu_cols
+    for si, c in enumerate(scan_comps):
+        out = fr.samples[c["id"]]
+        n, w = out.shape
+        sel = comp_of == si
+        grid = np.zeros((rows[sel].max() + 1, cols[sel].max() + 1), np.int64)
+        grid[rows[sel], cols[sel]] = diff[sel]
+        # the rows that start over: the first, and the first of each iMCU
+        # row (v rows of the component) in which a restart falls (an MCU
+        # row is one sample row of a single-component scan, v otherwise)
+        v = c["v"]
+        step = restart_rows * (1 if one else v) or n
+        starts = sorted({r // v * v for r in range(0, n, step)}) + [n]
+        runs = list(zip(starts[:-1], starts[1:]))
+        # every run stacked, the short ones padded below with zeros
+        d = np.zeros((len(runs), max(b - a for a, b in runs), w), np.int64)
+        for j, (r0, r1) in enumerate(runs):
+            d[j, :r1 - r0] = grid[r0:r1, :w]
+        x = _lossless_rows(d, psv, 1 << (8 - pt - 1))
+        for j, (r0, r1) in enumerate(runs):
+            out[r0:r1] = (x[j, :r1 - r0] << pt) & 0xFF
+
+
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """A JPEG's bytes as (H, W, 3) uint8 RGB, or (H, W) uint8 for a
     greyscale file (see the module docstring for what is read). A file
@@ -884,13 +1018,14 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise JpegError(f"{name}: malformed JPEG ({exc})") from None
 
 
-# SOF markers: 0xC0 baseline, 0xC1 extended sequential, 0xC2 progressive
-# (Huffman); the others are refused by name
-_SOF_REFUSED = {0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
-                0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical (SOF7)",
-                0xC9: "arithmetic-coded (SOF9)",
-                0xCA: "arithmetic-coded (SOF10)",
-                0xCB: "arithmetic-coded (SOF11)",
+# SOF markers read: 0xC0 baseline, 0xC1 extended sequential, 0xC2
+# progressive, 0xC3 lossless (Huffman), 0xC9 sequential and 0xCA
+# progressive (arithmetic). libjpeg-turbo has no hierarchical mode and no
+# arithmetic-coded lossless one, so PIL refuses the others, as this does.
+_SOF_READ = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
+_SOF_REFUSED = {0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)",
+                0xC7: "hierarchical (SOF7)",
+                0xCB: "arithmetic-coded lossless (SOF11)",
                 0xCD: "arithmetic-coded hierarchical (SOF13)",
                 0xCE: "arithmetic-coded hierarchical (SOF14)",
                 0xCF: "arithmetic-coded hierarchical (SOF15)"}
@@ -909,7 +1044,9 @@ def _frame_header(fr, marker, body, name):
     if nf not in (1, 3, 4):
         raise NotImplementedError(
             f"{name}: JPEG with {nf} components (PIL reads 1, 3 and 4)")
-    fr.progressive = marker == 0xC2
+    fr.progressive = marker in (0xC2, 0xCA)
+    fr.arithmetic = marker in (0xC9, 0xCA)
+    fr.lossless = marker == 0xC3
     fr.width, fr.height = w, h
     for k in range(nf):
         cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
@@ -925,6 +1062,10 @@ def _frame_header(fr, marker, body, name):
     mcux = -(-w // (8 * hmax))
     mcuy = -(-h // (8 * vmax))
     for c in fr.comps:
+        if fr.lossless:
+            fr.samples[c["id"]] = np.zeros(
+                (-(-h * c["v"] // vmax), -(-w * c["h"] // hmax)), np.uint8)
+            continue
         fr.coef[c["id"]] = np.zeros((mcuy * c["v"], mcux * c["h"], 64),
                                     np.int64)
         fr.coef_bits[c["id"]] = np.full(64, -1, np.int64)
@@ -951,15 +1092,27 @@ def _parse(buf, name):
         length = int(buf[i]) << 8 | int(buf[i + 1])
         body = bytes(buf[i + 2:i + length])
         i += length
-        if marker in (0xC0, 0xC1, 0xC2):
+        if marker in _SOF_READ:
             if fr.width is not None:
                 raise JpegError(f"{name}: a second frame header")
             _frame_header(fr, marker, body, name)
         elif marker in _SOF_REFUSED:
             raise NotImplementedError(
-                f"{name}: {_SOF_REFUSED[marker]} JPEG is not decoded "
-                f"(baseline, extended-sequential and progressive Huffman "
-                f"files are)")
+                f"{name}: {_SOF_REFUSED[marker]} JPEG is not decoded (PIL "
+                f"refuses it too)")
+        elif marker == 0xCC:
+            for j in range(0, len(body) - 1, 2):
+                index, val = body[j], body[j + 1]
+                if index >= 32:
+                    raise JpegError(f"{name}: bad DAC table index {index}")
+                cond = fr.conditioning.setdefault(
+                    index & 15, list(jpeg_arith.DEFAULT_CONDITIONING))
+                if index >= 16:
+                    cond[2] = val
+                elif val & 15 > val >> 4:
+                    raise JpegError(f"{name}: bad DAC value {val}")
+                else:
+                    cond[0], cond[1] = val & 15, val >> 4
         elif marker == 0xC4:
             j = 0
             while j < len(body):
@@ -1020,7 +1173,8 @@ def _colour_space(fr, name):
             return "ycc"
         if fr.adobe_transform is not None:
             return "rgb" if fr.adobe_transform == 0 else "ycc"
-        return "rgb" if ids == (82, 71, 66) else "ycc"
+        # without a marker libjpeg-turbo takes a lossless file for RGB
+        return "rgb" if ids == (82, 71, 66) or fr.lossless else "ycc"
     return "ycck" if fr.adobe_transform not in (None, 0) else "cmyk"
 
 
@@ -1039,37 +1193,148 @@ def cmyk_to_rgb(cmyk):
         np.uint8)
 
 
+# libjpeg-turbo's block smoothing (jdcoefct.c decompress_smooth_data): a
+# progressive file whose scans leave any of the zig-zag coefficients 1-9
+# not known to full precision gets them estimated, where still zero, from
+# the 5x5 neighbourhood of quantized DC values around each block: the
+# kernels below, rows top to bottom, keyed by zig-zag index (libjpeg's
+# DC01-DC25 read row by row). With no AC bit known at all (every
+# coef_bits[1-9] -1) the Gaussian-like "change DC" kernels estimate all
+# nine and the DC itself; otherwise the first five take the kernels after
+# Section K.8 of T.81.
+_K01 = np.array([[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5])
+_K02 = np.array([[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5])
+_SMOOTH_KEEP_DC = {
+    1: _K01, 2: _K01.T, 3: _K02.T, 5: _K02,
+    4: np.array([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5,
+                 [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+}
+_C01 = np.array([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3],
+                 [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+                 [-1, -1, 0, 1, 1]])
+_C20 = np.array([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+                 [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]])
+_C03 = np.array([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+                 [0, 1, 0, -1, 0], [0] * 5])
+_C12 = np.array([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0],
+                 [0] * 5])
+_SMOOTH_CHANGE_DC = {
+    1: _C01, 2: _C01.T, 3: _C20, 5: _C20.T, 6: _C03, 7: _C12, 8: _C12.T,
+    9: _C03.T,
+    4: np.array([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5,
+                 [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]]),
+    0: np.array([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                 [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                 [-2, -6, -8, -6, -2]]),
+}
+
+
+def _smoothing_rows(n_rows, v, mcu_rows):
+    """Per block row, the 5 block rows jdcoefct.c reads around it (two
+    above to two below), as its buffer pointers fall: it counts a
+    component's rows per iMCU row (v of them, or what is left in the
+    last), so below a component that does not fill its last iMCU row the
+    rows of the iMCU row before it read the dummy rows under the image,
+    and the last iMCU row's first row may take its row above for the one
+    two above."""
+    out = []
+    for r in range(n_rows):
+        m, br = divmod(r, v)
+        rows = v if m < mcu_rows - 1 else (n_rows % v or v)
+        at, count = m * rows + br, rows * mcu_rows
+        prev = r - 1 if at > 0 else r
+        nxt = r + 1 if at < count - 1 else r
+        out.append((r - 2 if at > 1 else prev, prev, r, nxt,
+                    r + 2 if at < count - 2 else nxt))
+    return np.array(out, np.int64).reshape(-1, 5)
+
+
+def _smoothing_cols(n_cols):
+    """Per block column, the 5 columns of jdcoefct.c's sliding DC registers
+    (two left to two right), clamped at the image."""
+    return np.clip(np.arange(n_cols)[:, None] + np.arange(-2, 3), 0,
+                   n_cols - 1)
+
+
+def _smoothed(fr, c):
+    """Component c's zig-zag coefficients (block rows, block cols, 64)
+    after libjpeg-turbo's block smoothing of its real blocks."""
+    coef, bits = fr.coef[c["id"]], fr.coef_bits[c["id"]]
+    hmax = max(x["h"] for x in fr.comps)
+    vmax = max(x["v"] for x in fr.comps)
+    n_rows = -(-(-(-fr.height * c["v"] // vmax)) // 8)
+    n_cols = -(-(-(-fr.width * c["h"] // hmax)) // 8)
+    dc = coef[..., 0]
+    win = dc[_smoothing_rows(n_rows, c["v"], -(-fr.height // (8 * vmax)))[
+        :, None, :, None], _smoothing_cols(n_cols)[None, :, None, :]]
+    q = fr.quant[c["tq"]][ZIGZAG[:10]]
+    change_dc = bool((bits[1:10] == -1).all())
+    out = coef.copy()
+    real = out[:n_rows, :n_cols]
+    for k, kern in (_SMOOTH_CHANGE_DC if change_dc
+                    else _SMOOTH_KEEP_DC).items():
+        num = q[0] * (win * kern).sum(axis=(2, 3))
+        pred = (((int(q[k]) << 7) + np.abs(num)) // (int(q[k]) << 8))
+        if k == 0:
+            real[..., 0] = np.where(num >= 0, pred, -pred)
+            continue
+        al = int(bits[k])
+        if not al:
+            continue
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        keep = real[..., k] != 0
+        real[..., k] = np.where(keep, real[..., k],
+                                np.where(num >= 0, pred, -pred))
+    return out
+
+
+def _smoothing_ok(fr):
+    """jdcoefct.c smoothing_ok: a progressive file in which every
+    component's DC is at least partly known, whose quantizers of the DC
+    and the first nine AC coefficients are nonzero, and whose scans leave
+    any of those nine coefficients not known to full precision."""
+    if not fr.progressive:
+        return False
+    for c in fr.comps:
+        q = fr.quant.get(c["tq"])
+        if q is None or not q[ZIGZAG[:10]].all() \
+                or fr.coef_bits[c["id"]][0] < 0:
+            return False
+    return any((fr.coef_bits[c["id"]][1:_SMOOTHED_COEFS] != 0).any()
+               for c in fr.comps)
+
+
 def _reconstruct(fr, name):
-    if fr.progressive:
-        # libjpeg smooths the blocks of a file whose scans leave low AC
-        # coefficients unrefined (jdcoefct.c smoothing_ok); no complete
-        # file does
-        bits = [fr.coef_bits[c["id"]] for c in fr.comps]
-        if all(b[0] >= 0 for b in bits) and any(
-                (b[1:_SMOOTHED_COEFS] != 0).any() for b in bits):
-            raise NotImplementedError(
-                f"{name}: progressive JPEG whose scans leave coefficients "
-                f"1-{_SMOOTHED_COEFS - 1} unrefined (libjpeg's block "
-                f"smoothing is not decoded)")
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
+    space = _colour_space(fr, name)
+    if fr.lossless and space in ("ycc", "ycck"):
+        raise NotImplementedError(
+            f"{name}: lossless JPEG in {space.upper()} (libjpeg-turbo does "
+            f"not convert a lossless file's colours: PIL refuses it too)")
+    smooth = _smoothing_ok(fr)
     planes = []
     for c in fr.comps:
+        dw = -(-fr.width * c["h"] // hmax)
+        dh = -(-fr.height * c["v"] // vmax)
+        if fr.lossless:
+            up = upsample(fr.samples[c["id"]], hmax // c["h"],
+                          vmax // c["v"], fancy=False)
+            planes.append(up[:fr.height, :fr.width])
+            continue
         if c["tq"] not in fr.quant:
             raise JpegError(f"{name}: undefined quantization table "
                              f"{c['tq']}")
-        coef = fr.coef[c["id"]]
+        coef = _smoothed(fr, c) if smooth else fr.coef[c["id"]]
         by, bx = coef.shape[:2]
         nat = np.zeros((by * bx, 64), np.int64)
         nat[:, ZIGZAG] = coef.reshape(-1, 64)
         pix = idct_islow(nat * fr.quant[c["tq"]])
         plane = pix.reshape(by, bx, 8, 8).swapaxes(1, 2).reshape(
             by * 8, bx * 8)
-        dw = -(-fr.width * c["h"] // hmax)
-        dh = -(-fr.height * c["v"] // vmax)
         up = upsample(plane[:dh, :dw], hmax // c["h"], vmax // c["v"])
         planes.append(up[:fr.height, :fr.width])
-    space = _colour_space(fr, name)
     if space == "grey":
         return planes[0].astype(np.uint8)
     if space == "rgb":
