@@ -7,7 +7,8 @@ kernel on the golden rt_shadows frame's rays at both scales and on the
 adversarial ray sets of chip_smoke.shadow_edge_case; the closest-hit
 kernel on those sets, on a tree deeper than its stack and on the
 bvh_trace example's primary rays with a step limit and per-ray t_max;
-K3 on the ring-light frame's own uvs) against their PyTorch twins, and of
+K3 on a ring disk's horizon uvs; the fused LTC ring kernel f32 and bf16,
+one- and two-sided) against their PyTorch twins, and of
 the frame on the card against the CPU path, on the pair and block paths,
 with slim_rec + kernel_payload, with raytraced shadows, skinned, for the
 ring light, for the presets (configs 4 and 7) and for the imported glTF
@@ -33,8 +34,10 @@ import voidin_tpu_torch as pt
 from voidin_tpu_torch.framework.renderer import Renderer, build_world
 from voidin_tpu_torch.ops import fine_raster as t_fr
 from voidin_tpu_torch.ops import ltc_rect as t_ltc
+from voidin_tpu_torch.ops import ltc_ring as t_ring
 from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.passes import cull, raster, resolve
+from voidin_tpu_torch.passes import shading as t_shading
 from voidin_tpu_torch.passes.raster import RasterConfig
 from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
@@ -418,8 +421,9 @@ def test_closest_hit_kernel_on_primary_rays(cuda, max_steps, per_ray):
 
 
 def test_lut_fetch_kernel_on_ring_uvs(cuda):
-    """K3 on the 5-channel uvs ltc_matrix hands it in a 320x184 ring
-    frame: within 1e-6 of its twin."""
+    """K3 on the horizon uvs a disk evaluation hands it through
+    shading._lut_scale on a 320x184 ring G-buffer: one launch, within 1e-6
+    of its twin (a twin never runs on this card path)."""
     seen, real = [], t_lut.lut_fetch
 
     def capture(*args, **kwargs):
@@ -427,28 +431,104 @@ def test_lut_fetch_kernel_on_ring_uvs(cuda):
         return real(*args, **kwargs)
 
     scene = ring_light.ring_world().device(cuda)
+    gb, _aux, cam = ring_light.gbuffer(scene, 320, 184)
+    nor, rd, pos = _ring_fields(scene, gb, cam)
+    minv = torch.eye(3, device=cuda).expand(nor.shape + (3,))
+    pts = torch.from_numpy(t_shading.disk_points3(
+        *(ring_light.LIGHT[k] for k in ("disk_center", "disk_dirx",
+                                        "disk_diry", "halfx",
+                                        "halfy")))).to(cuda)
+    before = t_lut.LAUNCHES
     t_lut.lut_fetch = capture
     try:
-        ring_light.render(scene, 320, 184)
+        t_shading.ltc_evaluate_disk(scene, nor, rd, pos, minv, pts)
     finally:
         t_lut.lut_fetch = real
-    assert len(seen) == 1
+    assert len(seen) == 1 and t_lut.LAUNCHES == before + 1
     (tables, uv), kwargs = seen[0]
-    assert len(tables) == 5 and uv.is_cuda
+    assert len(tables) == 1 and uv.is_cuda
     got = t_lut.lut_fetch(tables, uv, **kwargs)
     want = t_lut.lut_fetch_reference(tables, uv, **kwargs)
     assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-6
 
 
+def _ring_fields(scene, gb, cam):
+    """shade_ring_light's nor, rd and pos of a G-buffer."""
+    nor = t_shading.encoding.decode_octahedral_32(gb.normal_uv[..., 0])
+    pos = t_shading.world_position_from_depth(gb.depth, cam.clip_to_world)
+    cam_pos = torch.as_tensor(np.asarray(cam.position, np.float32)[:3],
+                              device=pos.device)
+    return nor, t_shading.fastmath.normalize(cam_pos - pos), pos
+
+
+def _ring_args(device, seed=0, h=96, w=160):
+    """Seeded fields around the demo's ring light (half of them facing
+    away, one row at 1e12) and the light's (2, 3, 3) disk corners."""
+    rng = np.random.default_rng(seed)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    nor = unit(rng.standard_normal((h, w, 3)))
+    pos = rng.uniform([-6.0, -1.0, -12.0], [6.0, 3.0, 0.0], (h, w, 3))
+    pos[3:4] = 1e12
+    rd = unit(np.asarray(ring_light.CAMERA["position"], np.float64) - pos)
+    points = t_ring.ring_points3(*(ring_light.LIGHT[k] for k in (
+        "disk_center", "disk_dirx", "disk_diry", "halfx", "halfy")))
+    ltc1, ltc2 = load_ltc_tables()
+    fields = [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+              for a in (nor, rd, pos)]
+    return fields + [0.3, points] + [
+        torch.from_numpy(np.asarray(a, np.float32)).to(device)
+        for a in (ltc1, ltc2)]
+
+
+@pytest.mark.parametrize("bf16,two_sided", [(False, True), (True, True),
+                                             (False, False)])
+def test_ltc_ring_kernel_matches_twin(cuda, bf16, two_sided):
+    """The fused ring kernel against the eager chain on the card: one
+    count of its variant, every word equal or within the ring tests'
+    REL_TOL of the largest term (atan2f / cosf of one library on both
+    sides), NaN where the twin has NaN."""
+    args = _ring_args(cuda)
+    names = ("LAUNCHES", "LAUNCHES_BF16")
+    before = [getattr(t_ring, n) for n in names]
+    kw = dict(two_sided=two_sided, bf16=bf16)
+    got = t_ring.ltc_ring_terms(*args, **kw)
+    want = t_ring.ltc_ring_terms_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(t_ring, n) for n in names] == [before[0] + (not bf16),
+                                                  before[1] + bf16]
+    for a, b in zip(got, want):
+        assert a.shape == (96, 160)
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        fin = torch.isfinite(b)
+        inf = ~fin & ~torch.isnan(b)
+        assert torch.equal(a[inf], b[inf])
+        scale = max(float(b[fin].abs().max()), 1.0)
+        assert float((a[fin] - b[fin]).abs().max()) <= 1e-5 * scale
+    assert (want[0] != 0).any() and (want[1] != 0).any()
+
+
+def test_ltc_ring_kernel_empty_launches_nothing(cuda):
+    args = _ring_args(cuda, h=0)
+    before = (t_ring.LAUNCHES, t_ring.LAUNCHES_BF16)
+    got = t_ring.ltc_ring_terms(*args)
+    assert [tuple(a.shape) for a in got] == [(0, 160)] * 2
+    assert (t_ring.LAUNCHES, t_ring.LAUNCHES_BF16) == before
+
+
 def test_ring_light_on_card_matches_cpu(cuda):
+    """The ring frame: K1 and the fused ring kernel once on the card, K3
+    never; the CPU runs the twins."""
     imgs = []
     for device in (cuda, torch.device("cpu")):
-        before = (t_fr.LAUNCHES, t_lut.LAUNCHES)
+        before = (t_fr.LAUNCHES, t_ring.LAUNCHES, t_lut.LAUNCHES)
         imgs.append(ring_light.render(ring_light.ring_world().device(device),
                                       160, 96).cpu().numpy())
         launched = device.type == "cuda"
-        assert (t_fr.LAUNCHES, t_lut.LAUNCHES) == (before[0] + launched,
-                                                   before[1] + launched)
+        assert (t_fr.LAUNCHES, t_ring.LAUNCHES, t_lut.LAUNCHES) == (
+            before[0] + launched, before[1] + launched, before[2])
     assert np.isfinite(imgs[0]).all()
     assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
 

@@ -31,8 +31,9 @@
   and SOF13-15, arithmetic lossless SOF11, 12-bit lossless, a lossless
   file in YCbCr or YCCK or with restarts inside an MCU row, a height set
   by DNL, 2 components, interleaved MCUs of more than 10 blocks) the port
-  refuses with an error naming the file; WebP, GIF, BMP and TIFF, which
-  PIL reads, the port refuses naming the file and the format.
+  refuses with an error naming the file; PIL's own WebP, GIF, BMP and
+  TIFF files, once refused by name, decode to PIL's pixels (those
+  formats in depth: tests/test_torch_image_more.py).
 - The committed fixtures of tools/torch_image_fixtures.py: PIL still gives
   the stored pixels, and the port decodes each to them.
 """
@@ -49,6 +50,7 @@ from PIL import Image
 from voidin_tpu_torch.io import jpeg
 from voidin_tpu_torch.io.image import decode_image, decode_png, load_image
 
+import chip_smoke
 from tests.test_torch_recorder import sample_image
 from tests.torch_image_writers import (arith_jpeg_bytes, jpeg_bytes,
                                        lossless_jpeg_bytes, png_bytes,
@@ -503,14 +505,15 @@ def test_refuses_what_pil_refuses(case):
 @pytest.mark.parametrize("fmt", ["WEBP", "GIF", "BMP", "TIFF"])
 def test_other_formats_refused_by_name(fmt):
     """Formats PIL opens for the JAX package (a glTF image, a texture file)
-    and the port does not decode: refused naming the file and the format,
-    not taken for a broken PNG."""
+    besides PNG and JPEG, which the port refused by name until it decoded
+    them: PIL's own file of each now decodes to PIL's pixels word for
+    word, found by its leading bytes, not taken for a broken PNG (the
+    forms it still refuses by name: tests/test_torch_image_more.py)."""
     b = io.BytesIO()
     Image.fromarray(sample_image(8, 8)).save(b, format=fmt)
     assert pil_rgba(b.getvalue()).shape == (8, 8, 4)
-    name = {"WEBP": "WebP"}.get(fmt, fmt)
-    with pytest.raises(NotImplementedError, match=f"x.img: {name}"):
-        decode_image(b.getvalue(), "x.img")
+    np.testing.assert_array_equal(decode_image(b.getvalue(), "x.img"),
+                                  pil_rgba(b.getvalue()))
 
 
 def test_damaged_progressive_files():
@@ -557,9 +560,9 @@ def test_damaged_lossless_and_arithmetic_files():
 
 def fixture_bound(path):
     """The largest difference from PIL's pixels a fixture's decode may
-    have: none for PNG and lossless JPEG, one level for other JPEG."""
-    name = os.path.basename(path)
-    return 0 if name.endswith(".png") or name.startswith("lossless") else 1
+    have: one level for lossy JPEG, none for PNG, lossless JPEG, WebP,
+    GIF, BMP and TIFF (chip_smoke.fixture_bound)."""
+    return chip_smoke.fixture_bound(os.path.basename(path))
 
 
 def fixture_files():
@@ -569,19 +572,22 @@ def fixture_files():
 
 def test_fixture_set_is_whole():
     names = [os.path.basename(p) for p in fixture_files()]
-    assert len(names) == 26 and "progressive_420_512.jpg" in names
+    assert len(names) == 64 and "progressive_420_512.jpg" in names
     assert "arith_progressive_420_512.jpg" in names
+    assert "webp_lossy_512.webp" in names
+    assert {n.rsplit(".", 1)[1] for n in names} == {"jpg", "png", "webp",
+                                                    "gif", "bmp", "tif"}
     assert all(os.path.exists(os.path.join(FIXTURES, n + PIXELS))
                for n in names)
     assert sum(os.path.getsize(p) for p in glob.glob(
-        os.path.join(FIXTURES, "*"))) < 600_000
+        os.path.join(FIXTURES, "*"))) < 1_100_000
 
 
 @pytest.mark.parametrize("path", fixture_files(), ids=os.path.basename)
 def test_fixture_matches_pil_and_port(path):
     """PIL still gives the stored pixels (so they cannot drift from PIL),
-    and the port decodes the file to them: PNG and lossless JPEG word for
-    word, other JPEG within one level, through load_image."""
+    and the port decodes the file to them through load_image: lossy JPEG
+    within one level, every other file word for word."""
     with open(path, "rb") as f:
         data = f.read()
     stored = load_image(path + PIXELS)

@@ -243,6 +243,34 @@ def test_gltf_jpeg_image_imports_as_jax(kind, scene_files, tmp_path):
                for i in tw.textures.images)
 
 
+@pytest.mark.parametrize("kind", ["lossy_alpha", "lossless"])
+def test_gltf_webp_texture_imports_as_jax(kind, tmp_path):
+    """A .glb whose only image is a WebP in its BIN chunk, each texture
+    taking it through EXT_texture_webp with no core source (both packages
+    read image 0, as the extension's fallback leaves them): the JAX
+    importer (PIL) and the port's build the same World, with PIL's
+    convert("RGBA") of the WebP among the texture pool's images."""
+    load_jax_native()
+    img = np.concatenate([sample_image(24, 40), np.arange(
+        24 * 40, dtype=np.uint8).reshape(24, 40, 1)], -1)
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, format="WEBP", **(
+        dict(lossless=True) if kind == "lossless" else dict(quality=70)))
+    files = chip_smoke.write_import_scene(str(tmp_path), image=b.getvalue())
+    with open(files["glb"], "rb") as f:
+        glb = f.read()
+    doc = json.loads(glb[20:20 + int.from_bytes(glb[12:16], "little")])
+    assert doc["extensionsRequired"] == ["EXT_texture_webp"]
+    assert all("source" not in t for t in doc["textures"])
+    assert doc["images"][0]["mimeType"] == "image/webp"
+    jw, _ = chip_smoke.import_world(vt, files, "glb")
+    tw, _ = chip_smoke.import_world(pt, files, "glb")
+    assert_worlds_equal(jw, tw)
+    want = np.asarray(Image.open(b).convert("RGBA"))
+    assert any(i.shape == want.shape and (i == want).all()
+               for i in tw.textures.images)
+
+
 def test_gltf_missing_image_falls_back_to_white(scene_files, tmp_path):
     path = _with_image(scene_files, tmp_path, {"uri": "gone.png"})
     for mod, pkg in ((t_gltf, pt), (j_gltf, vt)):

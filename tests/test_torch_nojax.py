@@ -16,6 +16,7 @@ from voidin_tpu_torch.framework.renderer import Renderer, build_world
 from voidin_tpu_torch.ops import closest_hit as t_ch
 from voidin_tpu_torch.ops import fine_raster as t_fr
 from voidin_tpu_torch.ops import ltc_rect as t_ltc
+from voidin_tpu_torch.ops import ltc_ring as t_ring
 from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.ops import shadow_trace as t_st
 from voidin_tpu_torch.passes.raster import RasterConfig
@@ -186,6 +187,8 @@ def test_cuda_device_without_a_card_raises():
     with pytest.raises((RuntimeError, AssertionError)):
         t_ltc.ltc_rect_terms(*_ltc_inputs("cuda"))
     with pytest.raises((RuntimeError, AssertionError)):
+        t_ring.ltc_ring_terms(*_ring_inputs("cuda"))
+    with pytest.raises((RuntimeError, AssertionError)):
         t_st.occluded(*_trace_inputs("cuda"))
     with pytest.raises((RuntimeError, AssertionError)):
         t_ch.closest_hit(*_closest_inputs("cuda"))
@@ -199,6 +202,18 @@ def _ltc_inputs(device):
 
     return (z(4, 6, 3), z(4, 6, 3), z(4, 6, 3), z(4, 6), z(1, 4, 3),
             z(64, 64, 4), z(64, 64, 4))
+
+
+def _ring_inputs(device):
+    """(nor, rd, pos, roughness, points, ltc1, ltc2) of 4x6 pixels and the
+    ring demo's disks on `device`."""
+    def z(*shape):
+        return torch.zeros(*shape, device=device)
+
+    points = t_ring.ring_points3([0, 4, -2], [1, 0, 0], [0, 0.2, -1], 2.5,
+                                 2.5)
+    return (z(4, 6, 3), z(4, 6, 3), z(4, 6, 3), 0.3, points, z(64, 64, 4),
+            z(64, 64, 4))
 
 
 def _trace_inputs(device):
@@ -231,6 +246,8 @@ def test_wrappers_take_no_other_device():
                         torch.zeros(4, 2, device="meta"))
     with pytest.raises(ValueError):
         t_ltc.ltc_rect_terms(*_ltc_inputs("meta"))
+    with pytest.raises(ValueError):
+        t_ring.ltc_ring_terms(*_ring_inputs("meta"))
     with pytest.raises(ValueError):
         t_st.occluded(*_trace_inputs("meta"))
     with pytest.raises(ValueError):
@@ -348,8 +365,9 @@ def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
     """With jax, flax and PIL unimportable, under the audit hook: every
     committed image fixture (progressive, CMYK, YCCK, 4:1:1 and 4:4:0,
     lossless, arithmetic-coded and block-smoothed JPEGs, Adam7 and 16-bit
-    PNGs) decodes through load_image to its stored PIL pixels (PNG and
-    lossless JPEG word for word), and a texture pool packs through the
+    PNGs, WebP, GIF, BMP and TIFF) decodes through load_image to its
+    stored PIL pixels (lossy JPEG within one level, every other file word
+    for word), and a texture pool packs through the
     native packer (its library compiled from the port's own C++ sources)
     and through numpy under VOIDIN_NATIVE=0. No module of the JAX package or PIL is imported
     and no file under voidin_tpu/ is opened."""
@@ -371,19 +389,21 @@ def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
         import numpy as np, torch
         torch.set_num_threads(2)
         from voidin_tpu_torch import native
+        from voidin_tpu_torch.io import bmp, gif, tiff, vp8_tables, webp
         from voidin_tpu_torch.io.image import load_image
+        from voidin_tpu_torch.ops import ltc_ring
         from voidin_tpu_torch.scene.texture import TexturePool
         fixtures = sorted(p for p in glob.glob(os.path.join(
             ROOT, "tests", "data", "torch_images", "*"))
             if not p.endswith(".rgba.png"))
-        assert len(fixtures) == 26
+        assert len(fixtures) == 64
         for path in fixtures:
             got = load_image(path).astype(np.int64)
             want = load_image(path + ".rgba.png").astype(np.int64)
             assert got.shape == want.shape, path
-            exact = (path.endswith(".png")
-                     or os.path.basename(path).startswith("lossless"))
-            assert np.abs(got - want).max() <= (0 if exact else 1), path
+            lossy = (path.endswith(".jpg")
+                     and not os.path.basename(path).startswith("lossless"))
+            assert np.abs(got - want).max() <= (1 if lossy else 0), path
         pool = TexturePool(256)
         pool.add(np.random.default_rng(0).integers(0, 256, (200, 130, 4),
                                                    dtype=np.uint8))

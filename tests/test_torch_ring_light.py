@@ -35,6 +35,7 @@ from voidin_tpu.passes import shading as j_shading
 import voidin_tpu_torch as pt
 from voidin_tpu_torch.examples import ring_light as pt_ring
 from voidin_tpu_torch.io.image import load_image
+from voidin_tpu_torch.ops import ltc_ring as t_ring
 from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.passes import shading as t_shading
 from voidin_tpu_torch.passes.gbuffer import GBuffer
@@ -163,6 +164,97 @@ def test_shade_ring_light_matches_jax(ring):
                                       albedo=r["aux"].albedo)
     err = _close(hdr, jhdr)
     print(f"ring HDR max abs diff vs JAX {err:.3e}")
+
+
+def _seeded_fields(seed, shape=(H, W)):
+    """Seeded numpy pixel fields around the ring light: unit normals
+    facing up-ish, points on and above the ground, the unit vector toward
+    the demo camera."""
+    rng = np.random.default_rng(seed)
+    nor = rng.normal(size=shape + (3,)) + [0.0, 1.5, 0.0]
+    nor /= np.linalg.norm(nor, axis=-1, keepdims=True)
+    pos = rng.uniform([-6.0, -1.0, -12.0], [6.0, 3.0, 0.0], shape + (3,))
+    rd = np.asarray(pt_ring.CAMERA["position"], np.float64) - pos
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return [torch.from_numpy(a.astype(np.float32)) for a in (nor, rd, pos)]
+
+
+@pytest.mark.parametrize("two_sided", [True, False])
+def test_ltc_ring_terms_reference_matches_jax(ring, two_sided):
+    """The fused kernel's twin (ops/ltc_ring.py) on seeded 160x96 fields
+    against the JAX package's ltc_evaluate_ring2 * t2.x (spec) and its
+    full disk under the identity (diff), within REL_TOL (measured 2.6e-7).
+    JAX's disks get the port's LTC matrix, as in
+    test_disk_ring_and_polygon_match_jax: the two packages' matrix fetches
+    agree to 1e-6 (test_ltc_matrix_matches_jax), and a few ill-conditioned
+    ellipses of random fields amplify that (JAX's own matrix: up to 8.7e-4
+    on 7 of 15,360 pixels at seed 8)."""
+    r = ring
+    L = pt_ring.LIGHT
+    nor, rd, pos = _seeded_fields(7)
+    args = (L["disk_center"], L["disk_dirx"], L["disk_diry"], L["halfx"],
+            L["halfy"])
+    spec, diff = t_ring.ltc_ring_terms_reference(
+        nor, rd, pos, 0.3, t_ring.ring_points3(*args), r["ps"].ltc1,
+        r["ps"].ltc2, two_sided=two_sided)
+    rough = torch.full(nor.shape[:-1], 0.3)
+    minv, _, t2 = t_shading.ltc_matrix(r["ps"], nor, rd, rough)
+    jspec = _jax(j_shading.ltc_evaluate_ring2, r, nor, rd, pos, minv, *args,
+                 two_sided=two_sided) * t2[..., 0].numpy()
+    ident = jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32), minv.shape)
+    jdiff = _jax(j_shading.ltc_evaluate_disk, r, nor, rd, pos, ident,
+                 j_shading.disk_points3(*args), two_sided=two_sided)
+    assert float(np.abs(np.asarray(jspec)).max()) > 0
+    _close(spec, jspec)
+    _close(diff, jdiff)
+
+
+def test_shade_ring_light_unchanged_by_the_move(ring, monkeypatch):
+    """shade_ring_light through ltc_ring_terms gives, word for word, the
+    frame of the chain it ran before: shading.ltc_matrix, then
+    ltc_evaluate_ring2 (times t2.x) and the identity's full disk, each
+    disk's tap through _lut_scale."""
+    r = ring
+    L = pt_ring.LIGHT
+    kw = dict(albedo=_t(r["aux"].albedo), **L)
+    got = t_shading.shade_ring_light(r["ps"], r["pgb"], r["pcam"], **kw)
+
+    def old_chain(nor, rd, pos, roughness, points, ltc1, ltc2,
+                  two_sided=True, bf16=False):
+        args = (L["disk_center"], L["disk_dirx"], L["disk_diry"],
+                L["halfx"], L["halfy"])
+        np.testing.assert_array_equal(points, t_ring.ring_points3(*args))
+        rough = torch.full(nor.shape[:-1], float(roughness))
+        minv, _, t2 = t_shading.ltc_matrix(r["ps"], nor, rd, rough)
+        ident = torch.eye(3).expand(minv.shape)
+        spec = t_shading.ltc_evaluate_ring2(
+            r["ps"], nor, rd, pos, minv, *args,
+            two_sided=two_sided) * t2[..., 0]
+        diff = t_shading.ltc_evaluate_disk(
+            r["ps"], nor, rd, pos, ident,
+            torch.from_numpy(t_shading.disk_points3(*args)),
+            two_sided=two_sided)
+        return spec, diff
+
+    monkeypatch.setattr(t_ring, "ltc_ring_terms", old_chain)
+    want = t_shading.shade_ring_light(r["ps"], r["pgb"], r["pcam"], **kw)
+    assert got.std() > 0
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+
+
+def test_lut_scale_on_cpu_is_the_twin(ring):
+    """_lut_scale routes through lut_fetch: on a CPU tensor that is K3's
+    twin, word for word, with no launch counted."""
+    rng = np.random.default_rng(5)
+    uv = torch.from_numpy(rng.uniform(-0.1, 1.1, (H, W, 2))
+                          .astype(np.float32))
+    before = (t_lut.LAUNCHES, t_lut.LAUNCHES_BF16)
+    got = t_shading._lut_scale(ring["ps"], uv)
+    want = t_lut.lut_fetch_reference([ring["ps"].ltc2[..., 3]], uv)[0]
+    assert (t_lut.LAUNCHES, t_lut.LAUNCHES_BF16) == before
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
 
 
 def test_ltc_apply_texture_matches_jax():

@@ -1,5 +1,6 @@
 """Test-only image writers for the files PIL cannot write, so that the
-port's decoders (voidin_tpu_torch/io/image.py, io/jpeg.py) can be held to
+port's decoders (voidin_tpu_torch/io/image.py, jpeg.py, webp.py, gif.py,
+bmp.py, tiff.py) can be held to
 PIL's pixels on them: tests/test_torch_image_formats.py and
 tools/torch_image_fixtures.py use them, and PIL then decodes what they
 write.
@@ -21,6 +22,23 @@ write.
   a DAC marker and restarts, coded by a port of libjpeg's jcarith.c.
 - ``lossless_jpeg_bytes``: lossless JPEG (SOF3) at predictors 1-7, point
   transforms, restarts, 1-4 components and sampling factors.
+- ``bmp_bytes``: BMP with every header size, 1-32 bits, palettes,
+  bitfields, RLE8 / RLE4 (with a delta escape) and top-down rows.
+- ``gif_bytes``: GIF87a / 89a with global and local palettes, the
+  interlace, transparency, a frame at an offset on a larger screen, and
+  LZW (``_lzw_codes``) that clears a full table or keeps it full.
+- ``tiff_bytes``: one-IFD TIFF at 1-16 bits, any photometric, extra
+  samples, II / MM, strips or tiles, chunky or planar, FillOrder 2,
+  LZW (and the old LSB-first style), Deflate, PackBits, predictor 2,
+  and the tags of the forms the port refuses.
+- ``webp_anim_bytes`` / ``riff_chunks`` / ``webp_file``: WebP containers
+  built from the chunks of PIL's still files (an animation whose first
+  frame sits at an offset over a background colour).
+- ``vp8_variant``: PIL's lossy WebP re-coded through ``BoolEncoder`` (RFC
+  6386's boolean encoder) with VP8 header fields libwebp's encoder never
+  sets through PIL (simple loop filter, sharpness, loop-filter deltas,
+  token partitions, relative segment values), every macroblock decision
+  carried over as the port's decoder reads it.
 """
 
 from __future__ import annotations
@@ -746,3 +764,648 @@ def set_height(data: bytes, height: int) -> bytes:
     """The file with its frame header's height set (0: defined by DNL)."""
     i = _sof_at(data)
     return data[:i + 5] + struct.pack(">H", height) + data[i + 7:]
+
+
+# --- BMP ------------------------------------------------------------------
+
+def _bmp_rle(idx, rle4, delta_row=None):
+    """RLE8 / RLE4 stream of (h, w) indices, stored bottom row first: runs
+    of equal pixels as encoded runs, mixed stretches of >= 3 pixels as
+    absolute runs (word-aligned), an end of line after each row and an end
+    of bitmap; `delta_row` (stored order) is skipped by a delta escape
+    followed by two pad bytes, which PIL's decoder reads as the move."""
+    out = bytearray()
+    h, w = idx.shape
+    for r, row in enumerate(idx[::-1]):
+        if r == delta_row:
+            out += bytes((0, 2, 0, 0, 0, 1))
+            continue
+        x = 0
+        while x < w:
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or w - x < 3:
+                v = row[x]
+                out += bytes((run, (v << 4 | v) if rle4 else v))
+                x += run
+                continue
+            n = 3
+            def run_starts(i):
+                return i + 2 < w and row[i] == row[i + 1] == row[i + 2]
+
+            while (x + n < w and n < (254 if rle4 else 255)
+                   and not run_starts(x + n)):
+                n += 1
+            if rle4 and n % 2:
+                n -= 1  # PIL drops the odd pixel of an RLE4 absolute run
+            if n < 3:
+                out += bytes((1, row[x] << 4 if rle4 else row[x]))
+                x += 1
+                continue
+            vals = row[x:x + n]
+            body = (bytes(int(vals[i]) << 4 | int(vals[i + 1])
+                          for i in range(0, n, 2)) if rle4
+                    else bytes(int(v) for v in vals))
+            out += bytes((0, n)) + body
+            if len(body) % 2:
+                out += b"\x00"
+            x += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def bmp_bytes(pixels, bits, header=40, compression=0, palette=None,
+              masks=None, top_down=False, colors=None, delta_row=None):
+    """A BMP file: `pixels` (h, w) indices for bits <= 8 (`palette` (n, 3)
+    RGB), (h, w) uint16 / uint32 words for 16 / 32 bits, (h, w, 3) RGB for
+    24. `header` 12 (OS/2 core, 3-byte palette entries), 40, 52, 56, 64,
+    108 or 124; `compression` 0 (BI_RGB), 1 / 2 (RLE8 / RLE4), 3
+    (BI_BITFIELDS, `masks` (r, g, b[, a]): in the header from 52 bytes on,
+    after a 40-byte one) or 6 (BI_ALPHABITFIELDS); `colors` the header's
+    palette count (default the palette's length)."""
+    pixels = np.asarray(pixels)
+    h, w = pixels.shape[:2]
+    if compression in (1, 2):
+        body = _bmp_rle(pixels, compression == 2, delta_row)
+    else:
+        if bits < 8:
+            per = 8 // bits
+            padded = np.zeros((h, -(-w // per) * per), np.uint8)
+            padded[:, :w] = pixels
+            v = padded.reshape(h, -1, per).astype(np.uint16)
+            rows = np.zeros(v.shape[:2], np.uint16)
+            for k in range(per):
+                rows |= v[..., k] << (8 - bits * (k + 1))
+            rows = rows.astype(np.uint8)
+        elif bits == 8:
+            rows = pixels.astype(np.uint8)
+        elif bits == 16:
+            rows = pixels.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+        elif bits == 24:
+            rows = pixels[..., ::-1].astype(np.uint8).reshape(h, 3 * w)
+        else:
+            rows = pixels.astype("<u4").view(np.uint8).reshape(h, 4 * w)
+        stride = ((w * bits + 31) >> 3) & ~3
+        full = np.zeros((h, stride), np.uint8)
+        full[:, :rows.shape[1]] = rows
+        body = (full if top_down else full[::-1]).tobytes()
+    pal = b""
+    n_colors = 0
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        n_colors = len(palette)
+        ent = palette[:, ::-1]
+        if header != 12:
+            ent = np.concatenate([ent, np.zeros((n_colors, 1), np.uint8)], 1)
+        pal = ent.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, compression, len(body), 2835, 2835,
+                           n_colors if colors is None else colors, 0)
+        extra = b""
+        if masks is not None:
+            extra = struct.pack(f"<{len(masks)}I", *masks)
+        if header >= 52:
+            info += (extra + bytes(header))[:header - 40]
+            extra = b""
+        else:
+            info += bytes(header - 40)
+        info += extra
+    offset = 14 + len(info) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+    return head + info + pal + body
+
+
+# --- GIF ------------------------------------------------------------------
+
+def _lzw_codes(symbols, min_bits, early, deferred=False):
+    """LZW code stream of `symbols` as (code, width) pairs, starting with
+    a clear code. `early` widens one code early (TIFF); otherwise when the
+    next free code reaches 1 << width (GIF, old-style TIFF). A full table
+    gets a clear code, or with `deferred` stays full (GIF's deferred
+    clear)."""
+    clear = 1 << min_bits
+    eoi = clear + 1
+    out = []
+    width = min_bits + 1
+    table = {}
+    nxt = clear + 2
+
+    def reset():
+        nonlocal table, nxt, width
+        table = {(s,): s for s in range(clear)}
+        nxt = clear + 2
+        width = min_bits + 1
+
+    reset()
+    out.append((clear, width))
+    cur = ()
+    for s in symbols:
+        cand = cur + (int(s),)
+        if cand in table:
+            cur = cand
+            continue
+        out.append((table[cur], width))
+        if nxt < 4096:
+            table[cand] = nxt
+            nxt += 1
+            # the entry just added is nxt - 1: TIFF widens after entry
+            # 2**width - 1, GIF and old-style TIFF after entry 2**width
+            if nxt - 1 + int(early) == 1 << width and width < 12:
+                width += 1
+            if early and nxt >= 4094:
+                out.append((clear, width))
+                reset()
+        elif not deferred:
+            out.append((clear, width))
+            reset()
+        cur = (int(s),)
+    if cur:
+        out.append((table[cur], width))
+    out.append((eoi, width))
+    return out
+
+
+def _pack_lsb(codes):
+    acc = nbits = 0
+    out = bytearray()
+    for code, width in codes:
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def _pack_msb(codes):
+    acc = nbits = 0
+    out = bytearray()
+    for code, width in codes:
+        acc = acc << width | code
+        nbits += width
+        while nbits >= 8:
+            out.append(acc >> (nbits - 8) & 0xFF)
+            nbits -= 8
+    if nbits:
+        out.append(acc << (8 - nbits) & 0xFF)
+    return bytes(out)
+
+
+def _sub_blocks(data):
+    out = bytearray()
+    for i in range(0, len(data), 255):
+        chunk = data[i:i + 255]
+        out += bytes((len(chunk),)) + chunk
+    return bytes(out + b"\x00")
+
+
+def gif_bytes(idx, min_bits=8, global_palette=None, local_palette=None,
+              screen=None, origin=(0, 0), interlace=False, transparency=None,
+              deferred_clear=False, background=0, version=b"GIF89a",
+              second_frame=None):
+    """A GIF whose first frame is the (h, w) indices `idx` at `origin` on
+    a `screen` (w, h) (default the frame's size), with a global and / or
+    local palette ((n, 3), n a power of two from 2), the 4-pass interlace,
+    a transparency index (graphic control extension) and LZW codes of
+    `min_bits` bits that clear the table when it fills, or with
+    `deferred_clear` keep coding with the full table. `second_frame`
+    appends another frame of the same size (decoders read the first)."""
+    idx = np.asarray(idx)
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+
+    def table_bits(p):
+        n = len(p)
+        return n.bit_length() - 2
+
+    out = bytearray(version + struct.pack("<HH", sw, sh))
+    flags = 0
+    if global_palette is not None:
+        flags = 0x80 | 0x70 | table_bits(global_palette)
+    out += bytes((flags, background, 0))
+    if global_palette is not None:
+        out += np.asarray(global_palette, np.uint8).tobytes()
+
+    def frame(ix, x0, y0, trns, pal):
+        fo = bytearray()
+        if trns is not None:
+            fo += b"!\xf9\x04" + bytes((1,)) + b"\x00\x00" + bytes(
+                (trns, 0))
+        fh, fw = ix.shape
+        lflags = 0x40 if interlace else 0
+        if pal is not None:
+            lflags |= 0x80 | table_bits(pal)
+        fo += b"," + struct.pack("<HHHHB", x0, y0, fw, fh, lflags)
+        if pal is not None:
+            fo += np.asarray(pal, np.uint8).tobytes()
+        rows = ix
+        if interlace:
+            order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                    np.arange(2, fh, 4), np.arange(1, fh, 2)])
+            rows = ix[order]
+        codes = _lzw_codes(rows.reshape(-1), min_bits, early=False,
+                           deferred=deferred_clear)
+        fo += bytes((min_bits,)) + _sub_blocks(_pack_lsb(codes))
+        return bytes(fo)
+
+    out += frame(idx, origin[0], origin[1], transparency, local_palette)
+    if second_frame is not None:
+        out += frame(np.asarray(second_frame), 0, 0, None, None)
+    return bytes(out + b";")
+
+
+# --- TIFF -----------------------------------------------------------------
+
+def _packbits(data):
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 2:
+            out += bytes(((257 - run) & 0xFF, data[i]))
+            i += run
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n
+                                             and data[j] == data[j + 1]):
+            j += 1
+        out += bytes((j - i - 1,)) + bytes(data[i:j])
+        i = j
+    return bytes(out)
+
+
+def _tiff_compress(raw, compression, old_lzw=False):
+    if compression == 1:
+        return raw
+    if compression == 5:
+        if old_lzw:
+            return _pack_lsb(_lzw_codes(raw, 8, early=False))
+        return _pack_msb(_lzw_codes(raw, 8, early=True))
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 32773:
+        return _packbits(raw)
+    return raw  # a payload for a form the reader refuses
+
+
+def _pack_samples(block, bits, order):
+    """(rows, cols, spp) unsigned samples -> row-padded bytes."""
+    rows, cols, spp = block.shape
+    if bits == 8:
+        return block.astype(np.uint8).tobytes()
+    if bits == 16:
+        return block.astype(order + "u2").tobytes()
+    flat = block.reshape(rows, cols * spp).astype(np.uint32)
+    nbits = cols * spp * bits
+    out = np.zeros((rows, (nbits + 7) // 8 * 8), np.uint8)
+    for b in range(bits):
+        out[:, np.arange(cols * spp) * bits + b] = (
+            flat >> (bits - 1 - b) & 1)
+    return np.packbits(out, axis=1).tobytes()
+
+
+def tiff_bytes(samples, bits, photometric, byteorder="II", compression=1,
+               predictor=1, planar=1, rows_per_strip=None, tile=None,
+               extra=None, colormap=None, fillorder=1, old_lzw=False,
+               sample_format=None, orientation=None):
+    """A one-IFD TIFF of `samples` (h, w, spp) unsigned ints at `bits`
+    bits a sample: `photometric` 0-5 (3 takes `colormap` (3, 2**bits)
+    16-bit entries), `extra` the ExtraSamples values, `compression` 1,
+    5 (LZW; `old_lzw` the LSB-first old style), 8 / 32946 (Deflate),
+    32773 (PackBits) or any other number (its payload left raw),
+    `predictor` 2 (horizontal differencing at 8 and 16 bits),
+    `planar` 2 for one plane a sample, strips of `rows_per_strip` or
+    tiles of `tile` (tw, th) (edge tiles padded), FillOrder 2 (bits of
+    every stored byte reversed), a SampleFormat and an Orientation tag
+    where given. `byteorder` "II" or "MM"."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, spp = samples.shape
+    order = "<" if byteorder == "II" else ">"
+
+    def diff(block):
+        if predictor != 2:
+            return block
+        d = block.astype(np.int64)
+        d[:, 1:] -= block[:, :-1].astype(np.int64)
+        return d & ((1 << bits) - 1)
+
+    planes = [samples] if planar == 1 else [samples[..., k:k + 1]
+                                             for k in range(spp)]
+    chunks = []
+    if tile is None:
+        rps = rows_per_strip or h
+        for plane in planes:
+            for y in range(0, h, rps):
+                chunks.append(_pack_samples(diff(plane[y:y + rps]), bits,
+                                            order))
+    else:
+        tw, th = tile
+        for plane in planes:
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    blk = np.zeros((th, tw, plane.shape[2]), plane.dtype)
+                    part = plane[y:y + th, x:x + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(_pack_samples(diff(blk), bits, order))
+    chunks = [_tiff_compress(c, compression, old_lzw) for c in chunks]
+    if fillorder == 2:
+        rev = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
+                            axis=1)[:, ::-1]
+        lut = np.packbits(rev, axis=1)[:, 0]
+        chunks = [lut[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
+
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [planar])}
+    if fillorder != 1:
+        tags[266] = (3, [fillorder])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra is not None:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, list(np.asarray(colormap).reshape(-1)))
+    if sample_format is not None:
+        tags[339] = (3, [sample_format] * spp)
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    if tile is None:
+        tags[278] = (4, [rows_per_strip or h])
+        off_tag, cnt_tag = 273, 279
+    else:
+        tags[322] = (4, [tile[0]])
+        tags[323] = (4, [tile[1]])
+        off_tag, cnt_tag = 324, 325
+    data_start = 8
+    offsets = []
+    blob = bytearray()
+    for c in chunks:
+        offsets.append(data_start + len(blob))
+        blob += c
+        if len(blob) % 2:
+            blob += b"\x00"
+    tags[off_tag] = (4, offsets)
+    tags[cnt_tag] = (4, [len(c) for c in chunks])
+    ifd_at = data_start + len(blob)
+    n = len(tags)
+    ext_at = ifd_at + 2 + 12 * n + 4
+    ifd = bytearray(struct.pack(order + "H", n))
+    ext = bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        fmt = "H" if typ == 3 else "I"
+        body = struct.pack(order + fmt * len(vals), *vals)
+        if len(body) <= 4:
+            field = body + bytes(4 - len(body))
+        else:
+            field = struct.pack(order + "I", ext_at + len(ext))
+            ext += body
+            if len(ext) % 2:
+                ext += b"\x00"
+        ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + field
+    ifd += struct.pack(order + "I", 0)
+    head = (b"II*\x00" if byteorder == "II" else b"MM\x00*") + struct.pack(
+        order + "I", ifd_at)
+    return head + bytes(blob) + bytes(ifd) + bytes(ext)
+
+
+# --- WebP -----------------------------------------------------------------
+
+def riff_chunks(data: bytes):
+    """[(fourcc, body)] of a WebP file's chunks."""
+    out = []
+    pos, end = 12, 8 + struct.unpack_from("<I", data, 4)[0]
+    while pos + 8 <= end:
+        tag = data[pos:pos + 4]
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((tag, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _chunk_le(tag: bytes, body: bytes) -> bytes:
+    return tag + struct.pack("<I", len(body)) + body + b"\x00" * (
+        len(body) & 1)
+
+
+def webp_file(chunks) -> bytes:
+    """A RIFF WebP file of [(fourcc, body)] chunks."""
+    body = b"WEBP" + b"".join(_chunk_le(t, b) for t, b in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_anim_bytes(frames, canvas, background=(0, 0, 0, 0), alpha=True):
+    """An animated WebP: `frames` [(image chunks of a still WebP (ALPH +
+    'VP8 ' or 'VP8L'), (x, y) even offset, (w, h))] on a `canvas` (w, h)
+    with ANIM's `background` colour (r, g, b, a) — which decoders of the
+    first frame ignore — and the VP8X alpha flag."""
+    cw, ch = canvas
+    flags = 0x02 | (0x10 if alpha else 0)
+    vp8x = bytes((flags, 0, 0, 0)) + (cw - 1).to_bytes(3, "little") + (
+        ch - 1).to_bytes(3, "little")
+    r, g, b, a = background
+    out = [(b"VP8X", vp8x), (b"ANIM", bytes((b, g, r, a)) + b"\x00\x00")]
+    for chunks, (x, y), (w, h) in frames:
+        head = ((x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+                + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+                + (100).to_bytes(3, "little") + b"\x00")
+        out.append((b"ANMF", head + b"".join(_chunk_le(t, bd)
+                                             for t, bd in chunks)))
+    return webp_file(out)
+
+
+# --- VP8 header variants --------------------------------------------------
+
+class BoolEncoder:
+    """The VP8 boolean encoder (RFC 6386 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range = 255
+        self.bottom = 0
+        self.bit_count = 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while i >= 0 and self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob, bit):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if self.bit_count == 0:
+                self.out.append((self.bottom >> 24) & 0xFF)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v, n):
+        for i in range(n - 1, -1, -1):
+            self.put(128, (v >> i) & 1)
+
+    def signed(self, v, n):
+        self.value(abs(v), n)
+        self.put(128, int(v < 0))
+
+    def flag_signed(self, v, n):
+        self.put(128, int(v != 0))
+        if v:
+            self.signed(v, n)
+
+    def flush(self):
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def vp8_variant(webp: bytes, simple=None, sharpness=None, n_parts=None,
+                lf_deltas=None, relative_segments=False) -> bytes:
+    """A lossy WebP (no alpha) re-coded with header fields libwebp's
+    encoder never sets through PIL: the simple loop filter, a sharpness,
+    reference / mode loop-filter deltas ((ref[4], mode[4])), 2-8 token
+    partitions (rows dealt out by mb_y & (n - 1)), segment quantizers and
+    filter strengths relative to the frame's. Every macroblock decision is
+    carried over as decoded (the port's decoder, recording each boolean
+    decision and its probability), so the pixels change only through the
+    changed fields."""
+    from voidin_tpu_torch.io import webp as W
+
+    chunk = dict(riff_chunks(webp))[b"VP8 "]
+
+    class Recorder(W._Bool):
+        """Logs each decision; in partition 0 notes where the quantizer
+        fields start (after the header's only 2-bit value, the partition
+        count) and the base quantizer index (the 7-bit value after it)."""
+
+        def __init__(self, data):
+            super().__init__(data)
+            self.log = []
+            self.quant_start = self.base_q = None
+
+        def bit(self, prob):
+            b = super().bit(prob)
+            self.log.append((prob, b))
+            return b
+
+        def value_bits(self, n):
+            v = super().value_bits(n)
+            if n == 2 and self.quant_start is None:
+                self.quant_start = len(self.log)
+            elif n == 7 and self.quant_start is not None \
+                    and self.base_q is None:
+                self.base_q = v
+            return v
+
+    class Rows(list):
+        """The token partitions, noting where each macroblock row starts."""
+        starts = []
+
+        def __getitem__(self, i):
+            part = super().__getitem__(i)
+            Rows.starts.append((i, len(part.log)))
+            return part
+
+    frames = []
+
+    class Frame(W._VP8Frame):
+        def __init__(self, data):
+            super().__init__(data)
+            self.header_end = len(self.br.log)
+            self.parts = Rows(self.parts)
+            frames.append(self)
+
+    saved = W._Bool, W._VP8Frame
+    W._Bool, W._VP8Frame = Recorder, Frame
+    Rows.starts = []
+    try:
+        W._decode_vp8_planes(chunk)
+    finally:
+        W._Bool, W._VP8Frame = saved
+    fr = frames[0]
+    # each row's token decisions
+    rows = []
+    for k, (p, start) in enumerate(Rows.starts):
+        log = list.__getitem__(fr.parts, p).log
+        nxt = [s for q, s in Rows.starts[k + 1:] if q == p]
+        rows.append(log[start:nxt[0] if nxt else len(log)])
+
+    enc = BoolEncoder()
+    enc.put(128, 0)
+    enc.put(128, 0)
+    enc.put(128, fr.use_segment)
+    if fr.use_segment:
+        enc.put(128, fr.update_map)
+        enc.put(128, 1)  # segment data follows
+        rel = relative_segments
+        enc.put(128, 0 if rel else fr.absolute)
+        base = fr.br.base_q
+        for q in fr.seg_q:
+            enc.flag_signed(q - base if rel and fr.absolute else q, 7)
+        for f in fr.seg_f:
+            enc.flag_signed(f - fr.level if rel and fr.absolute else f, 6)
+        if fr.update_map:
+            for p in fr.seg_probs:
+                enc.put(128, int(p != 255))
+                if p != 255:
+                    enc.value(p, 8)
+    enc.put(128, fr.simple if simple is None else int(simple))
+    enc.value(fr.level, 6)
+    enc.value(fr.sharpness if sharpness is None else sharpness, 3)
+    ref, mode = ((fr.ref_lf, fr.mode_lf) if lf_deltas is None
+                 else lf_deltas)
+    use = fr.use_lf_delta or lf_deltas is not None
+    enc.put(128, int(use))
+    if use:
+        enc.put(128, 1)
+        for v in list(ref) + list(mode):
+            enc.flag_signed(v, 6)
+    parts = n_parts or list.__len__(fr.parts)
+    enc.value(parts.bit_length() - 1, 2)
+    # the rest of partition 0 as decoded: quantizers, probabilities, modes
+    for prob, b in fr.br.log[fr.br.quant_start:]:
+        enc.put(prob, b)
+    part0 = enc.flush()
+    tokens = []
+    for k in range(parts):
+        te = BoolEncoder()
+        for y, row in enumerate(rows):
+            if y & (parts - 1) == k:
+                for prob, b in row:
+                    te.put(prob, b)
+        tokens.append(te.flush())
+    bits = (chunk[0] | chunk[1] << 8 | chunk[2] << 16) & 0x1F
+    tag = bits | len(part0) << 5
+    sizes = b"".join(len(t).to_bytes(3, "little") for t in tokens[:-1])
+    body = (tag.to_bytes(3, "little") + chunk[3:10] + part0 + sizes
+            + b"".join(tokens))
+    return webp_file([(b"VP8 ", body)])
+

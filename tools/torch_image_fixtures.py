@@ -3,8 +3,9 @@
     python3 tools/torch_image_fixtures.py [--check]
 
 The JAX package reads every texture through PIL
-(``Image.open(path).convert("RGBA")``); the port decodes PNG and JPEG
-itself (voidin_tpu_torch/io/image.py, io/jpeg.py). The host of the card
+(``Image.open(path).convert("RGBA")``); the port decodes PNG, JPEG, WebP,
+GIF, BMP and baseline TIFF itself (voidin_tpu_torch/io/image.py, jpeg.py,
+webp.py, gif.py, bmp.py, tiff.py). The host of the card
 has no PIL, so this script writes, where PIL exists, one file of each
 class the port reads beyond baseline JPEG and plain PNG into
 ``tests/data/torch_images/``, and beside each ``<file>`` the RGBA
@@ -25,7 +26,24 @@ RGBA, every row Sub-filtered; the port's decode_png reads it exactly):
   reads but cannot write: the same test module writes them;
 - progressive JPEGs that libjpeg's block smoothing acts on: PIL's own
   progressive file cut after 3 of its 10 scans, a DC-only file, and one
-  whose Al > 0 bands are never refined.
+  whose Al > 0 bands are never refined;
+- WebP (more_formats): PIL's lossy, lossy with alpha, lossless, lossless
+  with alpha, palette, animated and 512x512 lossy files, the writer's
+  animation whose first frame sits at an offset over a background
+  colour, and PIL's lossy file re-coded by the writer with the simple
+  loop filter and sharpness, and with 4 token partitions, loop-filter
+  deltas and relative segment values (``vp8_variant``);
+- GIF: PIL's (global palette; transparency) and the writer's (a local
+  palette and a first frame smaller than the screen, the interlace, a
+  palette shorter than the indices);
+- BMP: PIL's (8-bit palette, 24-bit, 1-bit) and the writer's (RLE8 with
+  a delta, RLE4, 5-6-5 bitfields, 16-bit BI_RGB, the OS/2 core header, a
+  top-down V5 with alpha bitfields, 32-bit BI_RGB);
+- TIFF: PIL's with each compression it writes (none, LZW, Deflate,
+  PackBits) and the writer's (tiles with predictor 2, big-endian planar
+  Deflate strips, old-style LZW, a 4-bit palette, CMYK, big-endian 16-bit
+  grey with predictor 2, 1-bit WhiteIsZero with FillOrder 2, associated
+  alpha, 16-bit RGB with Orientation 6).
 
 The files are made from fixed seeds. ``--check`` writes nothing: it
 re-decodes every fixture there with PIL and exits non-zero where PIL's
@@ -155,6 +173,139 @@ def fixtures():
             ycc, [(2, 1), (1, 1), (1, 1)],
             [(every, 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([0], 6, 63, 0, 1),
              ([1], 1, 63, 0, 1), ([2], 1, 63, 0, 2)], quality=85),
+    }
+    out.update(more_formats(tex))
+    return out
+
+
+def more_formats(tex):
+    """{file name: bytes} of the WebP, GIF, BMP and TIFF fixtures: PIL's
+    own writer where it writes the form, tests/torch_image_writers.py
+    where it does not."""
+    from PIL import Image
+
+    from tests.torch_image_writers import (bmp_bytes, gif_bytes, riff_chunks,
+                                           tiff_bytes, vp8_variant,
+                                           webp_anim_bytes)
+
+    rng = np.random.default_rng(7)
+    h, w = tex.shape[:2]
+    alpha = (np.indices((h, w)).sum(0) * 5 % 256).astype(np.uint8)
+    rgba = np.concatenate([tex, alpha[..., None]], -1)
+
+    def pil(img, fmt, mode=None, **kw):
+        im = Image.fromarray(img)
+        if mode:
+            im = im.convert(mode)
+        b = io.BytesIO()
+        im.save(b, format=fmt, **kw)
+        return b.getvalue()
+
+    def still(img, **kw):
+        return [c for c in riff_chunks(pil(img, "WEBP", **kw))
+                if c[0] in (b"ALPH", b"VP8 ", b"VP8L")]
+
+    frames = [Image.fromarray(rgba), Image.fromarray(rgba[::-1])]
+    b = io.BytesIO()
+    frames[0].save(b, format="WEBP", save_all=True, append_images=frames[1:],
+                   duration=80, quality=70)
+    pal16 = rng.integers(0, 256, (16, 3))
+    idx16 = rng.integers(0, 16, (h, w))
+    idx16[5:15, 10:40] = 3
+    pal256 = rng.integers(0, 256, (256, 3))
+    assoc = rgba.astype(np.int64)
+    assoc[..., :3] = assoc[..., :3] * assoc[..., 3:] // 255
+    out = {
+        # WebP: PIL writes each still form and the animation
+        "webp_lossy.webp": pil(tex, "WEBP", quality=80),
+        "webp_lossy_alpha.webp": pil(rgba, "WEBP", quality=75),
+        "webp_lossless.webp": pil(tex, "WEBP", lossless=True),
+        "webp_lossless_alpha.webp": pil(rgba, "WEBP", lossless=True,
+                                        exact=True),
+        "webp_lossless_palette.webp": pil(
+            pal16[idx16 % 5].astype(np.uint8), "WEBP", lossless=True),
+        "webp_animated.webp": b.getvalue(),
+        "webp_lossy_512.webp": pil(smooth_image(512, 512), "WEBP",
+                                   quality=90),
+        # an animation whose first frame sits at an offset on a larger
+        # canvas, over a background colour decoders ignore
+        # VP8 header fields PIL's encoder never sets, re-coded from PIL's
+        # lossy file by the writer: the simple loop filter with sharpness,
+        # and 4 token partitions with loop-filter deltas and relative
+        # segment values
+        "webp_vp8_simple_filter.webp": vp8_variant(
+            pil(tex, "WEBP", quality=60), simple=True, sharpness=5),
+        "webp_vp8_partitions_deltas.webp": vp8_variant(
+            pil(tex, "WEBP", quality=60), n_parts=4, sharpness=2,
+            lf_deltas=((-9, 2, 0, 1), (14, -3, 0, 2)),
+            relative_segments=True),
+        "webp_anim_offset.webp": webp_anim_bytes(
+            [(still(rgba[:20, :30], lossless=True), (6, 4), (30, 20)),
+             (still(rgba, quality=60), (0, 0), (w, h))], (w, h),
+            background=(255, 0, 0, 255)),
+        # GIF: PIL's (global palette; transparency), then the writer's
+        "gif_pil.gif": pil(pal256[idx16].astype(np.uint8), "GIF"),
+        "gif_pil_transparency.gif": pil(idx16.astype(np.uint8), "GIF",
+                                        transparency=3),
+        "gif_local_small_frame.gif": gif_bytes(
+            idx16[:20, :30], 4, global_palette=pal16[::-1],
+            local_palette=pal16, screen=(w, h), origin=(9, 7),
+            transparency=5),
+        "gif_interlaced.gif": gif_bytes(idx16, 4, global_palette=pal16,
+                                        interlace=True),
+        "gif_short_palette.gif": gif_bytes(
+            rng.integers(0, 256, (h, w)), 8, global_palette=pal16[:4]),
+        # BMP: PIL's (8-bit palette, 24-bit, 1-bit), then the writer's
+        "bmp_pil_palette.bmp": pil(pal256[idx16].astype(np.uint8), "BMP",
+                                   mode="P"),
+        "bmp_pil_rgb.bmp": pil(tex, "BMP"),
+        "bmp_pil_1bit.bmp": pil(tex, "BMP", mode="1"),
+        "bmp_rle8.bmp": bmp_bytes(idx16, 8, compression=1, palette=pal256,
+                                  delta_row=6),
+        "bmp_rle4.bmp": bmp_bytes(idx16, 4, compression=2, palette=pal16),
+        "bmp_bitfields_565.bmp": bmp_bytes(
+            rng.integers(0, 65536, (h, w)), 16, compression=3,
+            masks=(0xF800, 0x7E0, 0x1F)),
+        "bmp_rgb555.bmp": bmp_bytes(rng.integers(0, 65536, (h, w)), 16),
+        "bmp_os2.bmp": bmp_bytes(idx16, 4, header=12, palette=pal16),
+        "bmp_v5_topdown_alpha.bmp": bmp_bytes(
+            rgba[..., 3].astype(np.uint32) << 24
+            | rgba[..., 0].astype(np.uint32) << 16
+            | rgba[..., 1].astype(np.uint32) << 8 | rgba[..., 2], 32,
+            header=124, compression=3,
+            masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000), top_down=True),
+        "bmp_32_rgb.bmp": bmp_bytes(rng.integers(0, 2 ** 32, (h, w),
+                                                 dtype=np.uint64), 32),
+        # TIFF: PIL's writer with each compression it writes, then the
+        # writer's layouts
+        "tiff_pil_raw.tif": pil(tex, "TIFF"),
+        "tiff_pil_lzw.tif": pil(rgba, "TIFF", compression="tiff_lzw"),
+        "tiff_pil_deflate.tif": pil(tex, "TIFF",
+                                    compression="tiff_adobe_deflate"),
+        "tiff_pil_packbits.tif": pil(tex, "TIFF", mode="L",
+                                     compression="packbits"),
+        "tiff_tiles_predictor.tif": tiff_bytes(tex, 8, 2, compression=5,
+                                               predictor=2, tile=(16, 16)),
+        "tiff_planar_mm.tif": tiff_bytes(tex, 8, 2, byteorder="MM",
+                                         compression=8, planar=2,
+                                         rows_per_strip=8),
+        "tiff_old_lzw.tif": tiff_bytes(tex, 8, 2, compression=5,
+                                       old_lzw=True),
+        "tiff_palette4.tif": tiff_bytes(
+            idx16, 4, 3, compression=32773,
+            colormap=rng.integers(0, 65536, (3, 16))),
+        "tiff_cmyk.tif": tiff_bytes(rng.integers(0, 256, (h, w, 4)), 8, 5,
+                                    compression=5),
+        "tiff_grey16_mm.tif": tiff_bytes(rng.integers(0, 600, (h, w)), 16,
+                                         1, byteorder="MM", compression=8,
+                                         predictor=2),
+        "tiff_miniswhite_1bit.tif": tiff_bytes(
+            rng.integers(0, 2, (h, w)), 1, 0, fillorder=2),
+        "tiff_rgba_associated.tif": tiff_bytes(assoc, 8, 2, compression=8,
+                                               extra=(1,)),
+        "tiff_rgb16_orientation.tif": tiff_bytes(
+            rng.integers(0, 65536, (h, w, 3)), 16, 2, compression=5,
+            orientation=6),
     }
     return out
 

@@ -1,6 +1,6 @@
 """Where a frame of the PyTorch + CUDA port spends its time, on one GPU.
 
-    python3 tools/torch_stage_split.py [--frames 10] [--presets]
+    python3 tools/torch_stage_split.py [--frames 10] [--presets] [--ring]
 
 Renders the north-star frame (build_world(10_000, seed=0), 1920x1080,
 capacities 2^19, moving instances, TAA), the same frame on the block path
@@ -14,10 +14,10 @@ chip_smoke.knot_joint_mats) through Renderer.render, overflow 0 on
 every frame, with CUDA events around each pass of render_frame (the skin
 stage, apply_skins with its BLAS refit, and the TLAS refit), and the
 ring-light frame of examples/ring_light.py at 1920x1080 (its shading with
-K3's call and the three disk evaluations), and the BASELINE presets 2,
+the fused LTC ring kernel's call), and the BASELINE presets 2,
 4, 6 and 7 at chip_smoke.PRESET_RUNS' full sizes, wired as
 chip_smoke.preset_renderer wires them (config 4 posed by its animator;
---presets renders these alone), around
+--presets renders these alone, --ring the ring-light frame alone), around
 the resolve's per-pixel field evaluations (the dense (H, W) pass and the
 flat fallback batch), around the fused LTC kernel's call inside shade and
 around the shadow-ray kernel's call inside shade_raytraced (the ray
@@ -47,8 +47,8 @@ import voidin_tpu_torch as pt  # noqa: E402
 from voidin_tpu_torch.framework import renderer as renderer_mod  # noqa: E402
 from voidin_tpu_torch.examples import ring_light  # noqa: E402
 from voidin_tpu_torch.ops import fine_raster as fr  # noqa: E402
-from voidin_tpu_torch.ops import lut_fetch  # noqa: E402
 from voidin_tpu_torch.ops import ltc_rect  # noqa: E402
+from voidin_tpu_torch.ops import ltc_ring  # noqa: E402
 from voidin_tpu_torch.ops import shadow_trace  # noqa: E402
 from voidin_tpu_torch.passes import raster, resolve  # noqa: E402
 
@@ -73,10 +73,7 @@ STAGES = [
     (renderer_mod.shading_pass, "shade_raytraced", "shade, raytraced"),
     (shadow_trace, "occluded", "  shadow rays, kernel"),
     (renderer_mod.shading_pass, "shade_ring_light", "shade, ring light"),
-    (renderer_mod.shading_pass, "ltc_matrix", "  LTC matrix"),
-    (lut_fetch, "lut_fetch", "    K3 LUT fetch"),
-    (renderer_mod.shading_pass, "ltc_evaluate_disk",
-     "  disk evaluation, each of 3"),
+    (ltc_ring, "ltc_ring_terms", "  LTC ring, fused kernel"),
     (renderer_mod.taa_pass, "taa", "taa"),
     (renderer_mod.post_pass, "postprocess", "postprocess"),
     (ring_light, "postprocess", "postprocess"),
@@ -227,10 +224,16 @@ def main():
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--presets", action="store_true",
                     help="split the presets 2, 4, 6 and 7 alone")
+    ap.add_argument("--ring", action="store_true",
+                    help="split the ring-light frame alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     card = chip_smoke.card_line()
+    if args.ring:
+        instrument()
+        ring_split(args.frames, card)
+        return
     if args.presets:
         instrument()
         for n in PRESET_SPLITS:

@@ -141,6 +141,9 @@ def load() -> ctypes.CDLL:
         for fn in (lib.voidin_ltc_rect, lib.voidin_ltc_rect_bf16):
             fn.restype = i
             fn.argtypes = [p, p, p, p, p, i, p, p, i64, p, p, p]
+        for fn in (lib.voidin_ltc_ring, lib.voidin_ltc_ring_bf16):
+            fn.restype = i
+            fn.argtypes = [p, p, p, ctypes.c_float, p, i, p, p, i64, p, p, p]
         lib.voidin_shadow_trace.restype = i
         lib.voidin_shadow_trace.argtypes = [p, i, p, p, p, p, p, i64,
                                             ctypes.c_float, i, p, p, p]

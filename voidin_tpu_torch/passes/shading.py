@@ -29,11 +29,13 @@ shadow ray walked through the TLAS by the traversal kernel
 ``shade_ring_light`` is the ring_light demo's shading (JAX
 ``shade_ring_light``, src/bin/ring_light.wgsl:340-440) with the EXACT
 clipped-disk LTC evaluation (``ltc_evaluate_disk``: ellipse
-eigen-decomposition, cubic solve, horizon-clipped sphere LUT); its
-``ltc_matrix`` fetches its 5 LUT channels through kernel K3
-(ops/lut_fetch.py), one launch a frame. Also here: the polygon evaluation
-(``ltc_evaluate_polygon``, ``ring_points``) and the textured-light lookup
-(``ltc_apply_texture``), which no frame calls.
+eigen-decomposition, cubic solve, horizon-clipped sphere LUT); its LTC
+matrix, the annulus and the diffuse disk (each disk with its own LUT tap)
+come from one launch of the fused LTC ring kernel (ops/ltc_ring.py) a
+frame. ``ltc_matrix``, ``ltc_evaluate_disk`` / ``_ring2`` and the polygon
+evaluation (``ltc_evaluate_polygon``, ``ring_points``) fetch through kernel
+K3 (ops/lut_fetch.py); they and the textured-light lookup
+(``ltc_apply_texture``) run on no frame.
 """
 
 from __future__ import annotations
@@ -42,8 +44,14 @@ import numpy as np
 import torch
 
 from ..core import encoding, fastmath
-from ..ops import ltc_rect, lut_fetch, shadow_trace
+from ..ops import ltc_rect, ltc_ring, lut_fetch, shadow_trace
 from ..ops.ltc_rect import LUT_BIAS, LUT_SCALE, integrate_edge
+# the ring's disk math lives beside its fused kernel; disk_points3 and
+# _solve_cubic stay importable from here, their home before the kernel
+from ..ops.ltc_ring import disk_points3, ring_points3  # noqa: F401
+from ..ops.ltc_ring import guard as _guard
+from ..ops.ltc_ring import relu as _relu
+from ..ops.ltc_ring import solve_cubic as _solve_cubic  # noqa: F401
 from ..rt import traverse
 from ..scene.material import LIGHT_MATERIAL
 from ..scene.scene import SceneData
@@ -328,24 +336,13 @@ def _norm(v):
     return fastmath.sqrt(fastmath.dot_fma(v, v))
 
 
-def _relu(x):
-    """jnp.maximum(x, 0.0): +0 for a zero of either sign (torch.clamp
-    keeps -0, which flips atan2 downstream), NaN kept."""
-    return torch.clamp(x, min=0.0) + 0.0
-
-
-def _guard(x, eps):
-    """where(|x| > eps, x, eps)"""
-    return torch.where(x.abs() > eps, x, eps)
-
-
 def _lut_scale(scene: SceneData, uv):
     """The horizon-clipped sphere's form-factor scale, LTC2 channel 3, at
-    `uv`: the plain bilinear tap the JAX package computes in jnp
-    (sample_lut_bilinear_mxu; LTC_LUT_BF16 honoured)."""
-    return lut_fetch.lut_fetch_reference([scene.ltc2[..., 3]], uv,
-                                         bf16=LTC_LUT_BF16)[0]
-
+    `uv`: one launch of kernel K3 (ops/lut_fetch.py; the twin on CPU
+    tensors), as the JAX package's sample_lut_bilinear_mxu reaches its
+    Pallas K3 (LTC_LUT_BF16 honoured)."""
+    return lut_fetch.lut_fetch([scene.ltc2[..., 3]], uv,
+                               bf16=LTC_LUT_BF16)[0]
 
 def ltc_matrix(scene: SceneData, nor, view, roughness):
     """ltc.wgsl:160-177: the inverse-M matrix and the LTC2 texel. Its 5
@@ -410,184 +407,27 @@ def ltc_apply_texture(scene: SceneData, tex_id, p0, p1, p2):
     return col
 
 
-def _solve_cubic(c0, c1, c2, c3=1.0):
-    """Real roots of c3 x^3 + c2 x^2 + c1 x + c0, branchless: the
-    split-algorithm form (Blinn / Peters, "How to solve a cubic equation,
-    revisited") of the reference's clipped-disk LTC
-    (src/bin/ring_light.wgsl:101-187): the largest root from algorithm A,
-    the smallest from algorithm D, the middle from their product, each a
-    homogeneous (num, den) pair. Returns the roots with [1] the middle one
-    (the reference's partial sort)."""
-    B = c2 / c3 / 3.0
-    C = c1 / c3 / 3.0
-    D = c0 / c3
-    # Hessian and discriminant
-    d1 = C - B * B
-    d2 = D - C * B
-    d3 = B * D - C * C
-    disc = _relu(4.0 * d1 * d3 - d2 * d2)
-    sq_disc = fastmath.sqrt(disc)
-
-    # algorithm A (largest root)
-    d_a = -2.0 * B * d1 + d2
-    theta_a = torch.atan2(sq_disc, -d_a) / 3.0
-    sc_a = 2.0 * fastmath.sqrt(_relu(-d1))
-    x1a = sc_a * torch.cos(theta_a)
-    x3a = sc_a * torch.cos(theta_a + 2.0 * np.pi / 3.0)
-    xl = torch.where(x1a + x3a > 2.0 * B, x1a, x3a)
-    xl_num, xl_den = xl - B, torch.ones_like(xl) * c3
-
-    # algorithm D (smallest root)
-    d_d = -D * d2 + 2.0 * C * d3
-    theta_d = torch.atan2(D * sq_disc, -d_d) / 3.0
-    sc_d = 2.0 * fastmath.sqrt(_relu(-d3))
-    x1d = sc_d * torch.cos(theta_d)
-    x3d = sc_d * torch.cos(theta_d + 2.0 * np.pi / 3.0)
-    xs = torch.where(x1d + x3d < 2.0 * C, x1d, x3d)
-    xs_num, xs_den = -D, xs + C
-
-    e = xl_den * xs_den
-    f = -xl_num * xs_den - xl_den * xs_num
-    g = xl_num * xs_num
-    xm_num, xm_den = C * f - B * g, -B * f + C * e
-
-    rx = xs_num / _guard(xs_den, 1e-20)
-    ry = xm_num / _guard(xm_den, 1e-20)
-    rz = xl_num / _guard(xl_den, 1e-20)
-    # partial sort (ring_light.wgsl:178-184): [1] is the middle root
-    x_small = (rx < ry) & (rx < rz)
-    z_small = (rz < rx) & (rz < ry)
-    r0 = torch.where(x_small, ry, rx)
-    r1 = torch.where(x_small, rx, torch.where(z_small, rz, ry))
-    r2 = torch.where(z_small, ry, rz)
-    return r0, r1, r2
-
-
-def _ltc_basis(nor, view, mminv):
-    """mminv @ [T1; T2; N], the view-aligned tangent frame's rows."""
-    t1v = fastmath.normalize(view - nor * fastmath.sum3(view * nor)[..., None])
-    t2v = fastmath.cross(nor, t1v)
-    basis = torch.stack([t1v, t2v, nor], dim=-2)  # rows T1, T2, N
-    return fastmath.mat3_mat3(mminv, basis)
-
-
 def ltc_evaluate_disk(scene: SceneData, nor, view, pos, mminv, points3,
                       two_sided=False):
-    """EXACT clipped-disk (ellipse) LTC evaluation: the analytic sphere
-    form factor of the cosine-space ellipse (ltc_evaluate_ring,
-    ring_light.wgsl:189-305: ellipse eigen-decomposition, cubic solve,
-    tabulated horizon-clipped sphere). points3: (3, 3) corners (-ex-ey,
+    """EXACT clipped-disk (ellipse) LTC evaluation (ltc_evaluate_ring,
+    ring_light.wgsl:189-305; ops/ltc_ring.py evaluate_disk) with its
+    horizon tap through K3 (_lut_scale). points3: (3, 3) corners (-ex-ey,
     +ex-ey, +ex+ey) of the disk's bounding rect; pixel fields (..., 3)."""
-    minv = _ltc_basis(nor, view, mminv)
-    rel = points3[..., None, :, :] - pos[..., None, :]  # (..., 3, 3)
-    l0 = fastmath.mat3_vec(minv, rel[..., 0, :])
-    l1 = fastmath.mat3_vec(minv, rel[..., 1, :])
-    l2 = fastmath.mat3_vec(minv, rel[..., 2, :])
-
-    c = 0.5 * (l0 + l2)
-    v1 = 0.5 * (l1 - l2)
-    v2 = 0.5 * (l1 - l0)
-
-    front = fastmath.sum3(fastmath.cross(v1, v2) * c) >= 0.0
-    occlusion = (torch.ones_like(front, dtype=torch.float32) if two_sided
-                 else front.to(torch.float32))
-
-    d11 = fastmath.sum3(v1 * v1)
-    d22 = fastmath.sum3(v2 * v2)
-    d12 = fastmath.sum3(v1 * v2)
-    skew = d12.abs() / fastmath.sqrt(
-        torch.clamp(d11 * d22, min=1e-20)) > 1e-4
-
-    # eigen-decomposition branch (branchless: both paths, then select)
-    tr = d11 + d22
-    det = fastmath.sqrt(_relu(d11 * d22 - d12 * d12))
-    u = 0.5 * fastmath.sqrt(_relu(tr - 2.0 * det))
-    w = 0.5 * fastmath.sqrt(_relu(tr + 2.0 * det))
-    e_max = (u + w) * (u + w)
-    e_min = (u - w) * (u - w)
-    big11 = (d11 > d22)[..., None]
-    v1e = torch.where(
-        big11,
-        d12[..., None] * v1 + (e_max - d11)[..., None] * v2,
-        d12[..., None] * v2 + (e_max - d22)[..., None] * v1,
-    )
-    v2e = torch.where(
-        big11,
-        d12[..., None] * v1 + (e_min - d11)[..., None] * v2,
-        d12[..., None] * v2 + (e_min - d22)[..., None] * v1,
-    )
-    a_e = 1.0 / torch.clamp(e_max, min=1e-20)
-    b_e = 1.0 / torch.clamp(e_min, min=1e-20)
-    # aligned branch
-    a_s = 1.0 / torch.clamp(d11, min=1e-20)
-    b_s = 1.0 / torch.clamp(d22, min=1e-20)
-
-    a = torch.where(skew, a_e, a_s)
-    b = torch.where(skew, b_e, b_s)
-    sk = skew[..., None]
-    v1 = torch.where(sk, fastmath.normalize(v1e),
-                     v1 * fastmath.sqrt(a_s)[..., None])
-    v2 = torch.where(sk, fastmath.normalize(v2e),
-                     v2 * fastmath.sqrt(b_s)[..., None])
-
-    v3 = fastmath.cross(v1, v2)
-    flip = (fastmath.sum3(c * v3) < 0.0)[..., None]
-    v3 = torch.where(flip, -v3, v3)
-
-    ll = fastmath.sum3(v3 * c)
-    ll_safe = _guard(ll, 1e-20)
-    x0 = fastmath.sum3(v1 * c) / ll_safe
-    y0 = fastmath.sum3(v2 * c) / ll_safe
-
-    a = a * ll * ll
-    b = b * ll * ll
-
-    c0 = a * b
-    c1 = a * b * (1.0 + x0 * x0 + y0 * y0) - a - b
-    c2 = 1.0 - a * (1.0 + x0 * x0) - b * (1.0 + y0 * y0)
-    e1, e2, e3 = _solve_cubic(c0, c1, c2)
-
-    avg_x = a * x0 / _guard(a - e2, 1e-20)
-    avg_y = b * y0 / _guard(b - e2, 1e-20)
-    # rotate = columns (V1, V2, V3): avg_world = V1 ax + V2 ay + V3 az
-    avg_dir = fastmath.normalize(v1 * avg_x[..., None] + v2 * avg_y[..., None]
-                                 + v3 * torch.ones_like(x0)[..., None])
-
-    l1f = fastmath.sqrt(_relu(-e2 / _guard(e3, 1e-20)))
-    l2f = fastmath.sqrt(_relu(-e2 / _guard(e1, 1e-20)))
-    form = l1f * l2f / fastmath.sqrt((1.0 + l1f * l1f) * (1.0 + l2f * l2f))
-
-    uv = torch.stack([avg_dir[..., 2] * 0.5 + 0.5, form], dim=-1)
-    uv = uv * LUT_SCALE + LUT_BIAS
-    return form * _lut_scale(scene, uv) * occlusion
-
-
-def disk_points3(center, dirx, diry, halfx, halfy):
-    """(3, 3) f32 numpy corner triple (-ex-ey, +ex-ey, +ex+ey) of a disk's
-    bounding rect (init_disk_points, ring_light.wgsl:69-80)."""
-    center = np.asarray(center, np.float32)
-    ex = float(halfx) * np.asarray(dirx, np.float32)
-    ey = float(halfy) * np.asarray(diry, np.float32)
-    return np.stack([center - ex - ey, center + ex - ey, center + ex + ey])
+    return ltc_ring.evaluate_disk(nor, view, pos, mminv, points3,
+                                  lambda uv: _lut_scale(scene, uv),
+                                  two_sided)
 
 
 def ltc_evaluate_ring2(scene: SceneData, nor, view, pos, mminv, center, dirx,
                        diry, halfx, halfy, two_sided=False):
     """Annulus = full disk minus a shrunk inner disk (ltc_evaluate_ring2,
-    ring_light.wgsl:307-321): the outer disk is the UN-grown `disk` (the
-    grown disk1 is dead code in the reference), the inner shrinks by
-    clamp(0.5, 0.05, 0.95 * half)."""
-    r, eps = 0.5, 0.05
-    dx = float(np.clip(r, eps, 0.95 * halfx))
-    dy = float(np.clip(r, eps, 0.95 * halfy))
-    dev = pos.device
-    p_out = torch.from_numpy(disk_points3(center, dirx, diry, halfx,
-                                          halfy)).to(dev)
-    p_in = torch.from_numpy(disk_points3(center, dirx, diry, halfx - dx,
-                                         halfy - dy)).to(dev)
-    return (ltc_evaluate_disk(scene, nor, view, pos, mminv, p_out, two_sided)
-            - ltc_evaluate_disk(scene, nor, view, pos, mminv, p_in,
-                                two_sided))
+    ring_light.wgsl:307-321; ops/ltc_ring.py ring_points3), each disk
+    through ltc_evaluate_disk."""
+    pts = torch.from_numpy(ring_points3(center, dirx, diry, halfx,
+                                        halfy)).to(pos.device)
+    return ltc_ring.evaluate_ring2(nor, view, pos, mminv, pts,
+                                   lambda uv: _lut_scale(scene, uv),
+                                   two_sided)
 
 
 def ltc_evaluate_polygon(scene: SceneData, nor, view, pos, mminv, points,
@@ -597,7 +437,7 @@ def ltc_evaluate_polygon(scene: SceneData, nor, view, pos, mminv, points,
     factor is linear in the edge integral) that the exact disk replaced.
     points: (P, 3), counter-clockwise."""
     P = points.shape[-2]
-    minv = _ltc_basis(nor, view, mminv)
+    minv = ltc_ring.ltc_basis(nor, view, mminv)
     rel = points[..., None, :, :] - pos[..., None, :]  # (..., P, 3)
     Ln = [fastmath.normalize(fastmath.mat3_vec(minv, rel[..., p, :]))
           for p in range(P)]
@@ -653,7 +493,8 @@ def shade_ring_light(scene: SceneData, gbuffer, camera,
       the annulus);
     * color = spec + diffuse (scolor = dcolor = 1; albedo unused).
 
-    Returns (H, W, 3) HDR."""
+    Both LTC terms come from ops/ltc_ring.py ltc_ring_terms (the fused
+    kernel on a CUDA tensor). Returns (H, W, 3) HDR."""
     depth = gbuffer.depth
     material_id = gbuffer.material.long()
     dev = depth.device
@@ -677,19 +518,10 @@ def shade_ring_light(scene: SceneData, gbuffer, camera,
     diry = np.asarray(disk_diry, np.float32)
     dn = np.cross(dirx, diry)
 
-    rough = torch.full(depth.shape, float(roughness), dtype=torch.float32,
-                       device=dev)
-    minv, _t1, t2 = ltc_matrix(scene, nor, rd, rough)
-    identity = torch.eye(3, dtype=torch.float32, device=dev).expand(
-        minv.shape)
-
-    spec = ltc_evaluate_ring2(scene, nor, rd, pos, minv, center, dirx, diry,
-                              halfx, halfy, two_sided=two_sided) * t2[..., 0]
-    diff = ltc_evaluate_disk(
-        scene, nor, rd, pos, identity,
-        torch.from_numpy(disk_points3(center, dirx, diry, halfx,
-                                      halfy)).to(dev),
-        two_sided=two_sided)
+    spec, diff = ltc_ring.ltc_ring_terms(
+        nor, rd, pos, roughness,
+        ring_points3(center, dirx, diry, halfx, halfy), scene.ltc1,
+        scene.ltc2, two_sided=two_sided, bf16=LTC_LUT_BF16)
     lit = _relu(spec + diff)[..., None].expand(
         depth.shape + (3,))
 
