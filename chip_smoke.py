@@ -457,6 +457,7 @@ def launch_counters():
                 ltc_ring=(lg, "LAUNCHES"),
                 ltc_ring_bf16=(lg, "LAUNCHES_BF16"),
                 shadow_trace=(st, "LAUNCHES"),
+                shadow_pack=(st, "LAUNCHES_PACK"),
                 closest_hit=(ch, "LAUNCHES"))
 
 
@@ -1042,9 +1043,10 @@ def shadow_bound(n_lanes, n_rays, counts, table, inst, tri_pos):
     return bound_ms(n_bytes, n_ops)
 
 
-def frame_shadow_rays(pt, scene, cfg, cam, scale):
+def frame_shadow_rays(pt, scene, cfg, cam, scale, joint_mats=None):
     """The shadow-ray kernel's arguments as shade_raytraced hands them over
-    in one frame of `scene` at `cam` (TAA off): (args, kwargs)."""
+    in one frame of `scene` at `cam` (TAA off; a skinned scene posed by
+    `joint_mats`): (args, kwargs)."""
     from voidin_tpu_torch.framework.renderer import Renderer
     from voidin_tpu_torch.ops import shadow_trace as st
 
@@ -1058,7 +1060,7 @@ def frame_shadow_rays(pt, scene, cfg, cam, scale):
     st.occluded = capture
     try:
         Renderer(scene, cfg, enable_taa=False, enable_rt_shadows=True,
-                 rt_shadow_scale=scale).render(cam)
+                 rt_shadow_scale=scale).render(cam, joint_mats=joint_mats)
     finally:
         st.occluded = real
     return seen[0]
@@ -1076,6 +1078,63 @@ def shadow_trace_check(args, kwargs):
     want, counts = traverse.occluded_reference(*args, **kwargs)
     torch.cuda.synchronize()
     return got, want, counts, int((got.hit != want.hit).sum())
+
+
+TAIL_RAYS = 1024  # the longest walks that shadow_walk_profile times alone
+
+
+def shadow_walk_profile(args, kwargs, label, card):
+    """What sets the shadow kernel's time on one ray set: the node visits a
+    ray (the twin's walk: max, 99.9th percentile, mean over the active
+    rays), the kernel's device time on every active ray, on the TAIL_RAYS
+    rays with the most visits alone, on the one with the most alone and on
+    no active ray (the launch over every lane), and the kernel's registers
+    and resident blocks. Returns
+    the numbers as a dict."""
+    import torch
+
+    from voidin_tpu_torch.ops import shadow_trace as st
+    from voidin_tpu_torch.rt import traverse
+
+    n = args[4].shape[0]
+    dev = args[4].device
+    act = kwargs.get("active")
+    if act is None:
+        act = torch.ones(n, dtype=torch.bool, device=dev)
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
+    traverse.occluded_reference(*args, **kwargs, visits_out=visits)
+    v = visits[act].double()
+    top = torch.topk(torch.where(act, visits, -1), min(TAIL_RAYS, n)).indices
+    tail = torch.zeros(n, dtype=torch.bool, device=dev)
+    tail[top] = True
+    tail &= act
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    longest = torch.zeros(n, dtype=torch.bool, device=dev)
+    longest[top[0]] = True
+    ms = {}
+    for what, mask in (("all", act), ("tail", tail), ("none", none),
+                       ("longest", longest)):
+        kw = dict(kwargs, active=mask)
+        ms[what] = device_ms(lambda: st.occluded(*args, **kw), 20,
+                             "shadow_trace")
+    out = dict(visits_max=int(v.max()),
+               visits_p999=float(torch.quantile(v.float().cpu(), 0.999)),
+               visits_mean=float(v.mean()),
+               tail_visits_min=int(visits[top].min()),
+               device_ms_all=ms["all"], device_ms_tail=ms["tail"],
+               device_ms_none=ms["none"], device_ms_longest=ms["longest"],
+               **st.kernel_attributes(args[1], args[2].shape[0]))
+    print(f"shadow_trace walk profile ({label}): node visits a ray max "
+          f"{out['visits_max']}, 99.9th percentile {out['visits_p999']:.1f}, "
+          f"mean {out['visits_mean']:.2f}; device ms on every active ray "
+          f"{fmt_ms(ms['all'])}, on the {TAIL_RAYS} longest walks alone "
+          f"(>= {out['tail_visits_min']} visits) {fmt_ms(ms['tail'])}, on "
+          f"no active ray {fmt_ms(ms['none'])}, on the longest walk alone "
+          f"{fmt_ms(ms['longest'])}; registers "
+          f"{out['registers']}, local {out['local_bytes']} B, "
+          f"{out['blocks_per_sm']} blocks of {out['threads']} an SM, shared "
+          f"{out['shared_bytes']} B ({card})", flush=True)
+    return out
 
 
 def rt_phases(dev, card):
@@ -1163,9 +1222,10 @@ def rt_phases(dev, card):
         cfg = r.config
         reset_launches()
         out, times, mem = run_frames(r, cam, label)
-        got = expect_launches(label, dict(k1=FRAMES, shadow_trace=FRAMES))
+        got = expect_launches(label, dict(k1=FRAMES, shadow_trace=FRAMES,
+                                          shadow_pack=FRAMES))
         if scale == 1:
-            launches = got["shadow_trace"]
+            launches = got
         frame_ms[scale] = float(np.median(times[2:]))
         print(f"config 5 {WIDTH}x{HEIGHT} rt_shadow_scale {scale}: median "
               f"{frame_ms[scale]:.3f} ms/frame over frames 3-{FRAMES} "
@@ -1185,12 +1245,16 @@ def rt_phases(dev, card):
                         lambda: traverse.occluded_reference(*args, **kwargs),
                         1, shadow_bound(n_lanes, n_rays, counts, args[0],
                                         args[2], args[3]), float(differ > 0))
+        row.update(walk=shadow_walk_profile(args, kwargs,
+                                            f"config 5, scale {scale}", card))
         row.update(lanes=n_lanes, rays=n_rays, hits=int(got.hit.sum()),
                    node_visits=counts.node_visits,
                    instance_entries=counts.instance_entries,
                    triangle_tests=counts.triangle_tests,
                    frame_ms=frame_ms[scale])
         out_rows[scale] = row
+        if scale == 1:
+            pack_row = shadow_pack_check(args, card)
         print(f"shadow_trace (config 5, scale {scale}): {n_rays} active rays "
               f"of {n_lanes} lanes, hits "
               f"{row['hits']}, differing hits {differ}, exhausted kernel "
@@ -1199,8 +1263,60 @@ def rt_phases(dev, card):
         if differ or int(got.exhausted) or int(want.exhausted):
             fail(f"shadow_trace disagrees with its twin on the config-5 "
                  f"rays at scale {scale}")
+        if scale == 2:
+            shadow_step_limits(args, kwargs, card)
     row = dict(out_rows[1], scale2=out_rows[2])
-    return row, launches
+    return row, pack_row, launches
+
+
+def shadow_pack_check(args, card):
+    """The packing kernel (ops/shadow_trace.py pack_rows) against its twin,
+    rt/traverse.py pack_shadow_rows, on one frame's tables: every word of
+    the four outputs, timed as kernel_phases times the others; it moves
+    each input and output byte once."""
+    import torch
+
+    from voidin_tpu_torch.ops import shadow_trace as st
+    from voidin_tpu_torch.rt import traverse
+
+    tables = args[:4]
+    got = st.pack_rows(*tables)
+    want = traverse.pack_shadow_rows(*tables)
+    torch.cuda.synchronize()
+    differ = sum(words_differ(getattr(got, f), getattr(want, f))
+                 for f in ("top", "blas", "tris"))
+    n_bytes = 4 * sum(t.numel() for t in (*tables[:1], *tables[2:],
+                                          want.top, want.blas, want.tris))
+    row = timed_row(lambda: st.pack_rows(*tables), "pack_shadow_rows", 50,
+                    lambda: traverse.pack_shadow_rows(*tables), 50,
+                    bound_ms(n_bytes, 6 * tables[3].shape[0]),
+                    float(differ > 0))
+    print(f"pack_shadow_rows (config 5 tables: {tables[1]} TLAS, "
+          f"{want.blas.shape[0]} BLAS, {want.tris.shape[0]} triangle rows): "
+          f"{differ} words differ from the twin; {timing(row)} ({card})",
+          flush=True)
+    if differ:
+        fail("pack_shadow_rows disagrees with its twin")
+    return row
+
+
+STEP_LIMITS = (1, 8, 32)
+
+
+def shadow_step_limits(args, kwargs, card):
+    """The kernel against its twin on one ray set cut at small step limits:
+    the same hits and the same count of rays still walking."""
+    for steps in STEP_LIMITS:
+        kw = dict(kwargs, max_steps=steps)
+        got, want, _, differ = shadow_trace_check(args, kw)
+        print(f"shadow_trace at max_steps {steps}: differing hits {differ}, "
+              f"exhausted kernel {int(got.exhausted)} twin "
+              f"{int(want.exhausted)}, dropped pushes kernel "
+              f"{int(got.overflow)} twin {int(want.overflow)} ({card})",
+              flush=True)
+        if differ or int(got.exhausted) != int(want.exhausted) \
+                or int(got.overflow) or int(want.overflow):
+            fail(f"shadow_trace disagrees with its twin at max_steps {steps}")
 
 
 def closest_bound(n_rays, counts, tlas, blas, inst, tri_pos):
@@ -1415,7 +1531,8 @@ def skin_phases(dev, card):
     reset_launches()
     out, times, mem = run_frames(r, p.camera, "skinned config 5",
                                  knot_joint_mats)
-    expect_launches("skinned config 5", dict(k1=FRAMES, shadow_trace=FRAMES))
+    expect_launches("skinned config 5", dict(k1=FRAMES, shadow_trace=FRAMES,
+                                             shadow_pack=FRAMES))
     ms = float(np.median(times[2:]))
     n_inst = int((scene.instances.mesh_id == knot).sum())
     print(f"skinned config 5 {WIDTH}x{HEIGHT} (the knot a 2-joint skin of "
@@ -1424,6 +1541,16 @@ def skin_phases(dev, card):
           f"3-{FRAMES} ({card}); {mem}; shadow rays {int(r.aux['rt_rays'])}, "
           f"exhausted {int(r.aux['rt_exhausted'])}; image mean "
           f"{out.mean():.4f} std {out.std():.4f}", flush=True)
+    args, kwargs = frame_shadow_rays(pt, scene, r.config, p.camera, 1,
+                                     knot_joint_mats(FRAMES - 1))
+    got, want, counts, differ = shadow_trace_check(args, kwargs)
+    print(f"shadow_trace (skinned config 5, last pose): "
+          f"{int(kwargs['active'].sum())} active rays, hits "
+          f"{int(got.hit.sum())}, differing hits {differ}, exhausted kernel "
+          f"{int(got.exhausted)} twin {int(want.exhausted)}; {counts} "
+          f"({card})", flush=True)
+    if differ or int(got.exhausted) or int(want.exhausted):
+        fail("shadow_trace disagrees with its twin on the skinned frame")
     jm = torch.from_numpy(knot_joint_mats(FRAMES - 1)).to(dev)
     meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm)
     tlas = skin_mod.refit_tlas(scene.tlas, meshes, scene.instances)
@@ -2397,7 +2524,8 @@ def main():
         fail("the bf16 LUT masked frame strays from the f32 frame")
 
     stamp("phases 5-9 (the 1080p frames)")
-    rows["shadow_trace"], rt_launches = rt_phases(dev, card)
+    rows["shadow_trace"], rows["shadow_pack"], rt_launches = rt_phases(dev,
+                                                                      card)
     stamp("phase 10 (raytraced shadows)")
     rows["closest_hit"], closest_launches = closest_phases(dev, card)
     stamp("phase 11 (closest hit)")
@@ -2446,7 +2574,10 @@ def main():
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         ltc_ring=ring_launches["ltc_ring"],
         ltc_ring_bf16=ring_launches["ltc_ring_bf16"],
-        shadow_trace=rt_launches + shard_launches["shadow_trace"],
+        shadow_trace=(rt_launches["shadow_trace"]
+                      + shard_launches["shadow_trace"]),
+        shadow_pack=(rt_launches["shadow_pack"]
+                     + shard_launches["shadow_pack"]),
         closest_hit=closest_launches,
     )
     meta = dict(
@@ -2475,6 +2606,9 @@ def main():
         # no TPU kernel: the JAX package's stackless traversal in plain jnp
         shadow_trace=("voidin_tpu_torch/csrc/shadow_trace.cu",
                       "voidin_tpu/rt/traverse.py:616"),
+        # no TPU kernel: the threaded table the JAX walk packs in plain jnp
+        shadow_pack=("voidin_tpu_torch/csrc/shadow_trace.cu",
+                     "voidin_tpu/rt/traverse.py:858"),
         closest_hit=("voidin_tpu_torch/csrc/closest_hit.cu",
                      "voidin_tpu/rt/traverse.py:889"),
     )
@@ -2632,7 +2766,8 @@ def shard_phases(dev, card, cards_only=False):
             if int(r.aux["overflow"]) or int(r.aux["rt_exhausted"]):
                 fail(f"config 5 sharded, {label}: overflow or exhausted rays")
         add(expect_launches(f"config 5 {WIDTH}x{H}, {label}", dict(
-            k1=n * SHARD_RT_FRAMES, shadow_trace=n * SHARD_RT_FRAMES)))
+            k1=n * SHARD_RT_FRAMES, shadow_trace=n * SHARD_RT_FRAMES,
+            shadow_pack=n * SHARD_RT_FRAMES)))
         imgs[label] = img
     differ = words_differ(imgs["2 slabs"], imgs["unsharded"])
     print(f"config 5 {WIDTH}x{H} raytraced, 2 slabs: words differing from "
@@ -2792,9 +2927,11 @@ def packer_gate(label, pool, native_q, numpy_q):
 
 def fixture_bound(name):
     """The largest difference from PIL's pixels a fixture's decode may
-    have: one level for lossy JPEG (libjpeg's IDCT and upsampling differ
-    from the port's by a rounding), none for every other file."""
-    lossy_jpeg = name.endswith(".jpg") and not name.startswith("lossless")
+    have: one level for lossy JPEG, in a JPEG file or a JPEG-in-TIFF one
+    (libjpeg's IDCT and upsampling differ from the port's by a rounding),
+    none for every other file."""
+    lossy_jpeg = (name.endswith(".jpg") and not name.startswith("lossless")
+                  or name.startswith(("f8_jpeg", "f8_ojpeg")))
     return 1 if lossy_jpeg else 0
 
 
@@ -2842,16 +2979,26 @@ def host_phases(dev, card):
     numpy fallback here); configs 6 and 7 at phase 14's sizes pack their
     TexturePool through each packer (host ms of host_arrays and of
     World.device on the card, the words where the pools differ, held to
-    PACKER_STEPS' gate); every committed
-    image fixture decodes to its stored PIL pixels (PNG word for word,
-    JPEG within 1 level, tests/test_torch_image_formats.py's bounds), with
-    its host ms and ms per megapixel (lossless JPEG word for word too), the
-    512x512 progressive files by scan kind; then lossless_round_trip."""
+    PACKER_STEPS' gate); the lzma module must import (LZMA-in-TIFF);
+    every committed image fixture decodes to its stored PIL pixels (PNG
+    and TIFF word for word, JPEG and JPEG-in-TIFF within 1 level,
+    fixture_bound), with its host ms and ms per megapixel (the 512x512
+    ZSTD, LZMA, G4 and JPEG-in-TIFF files among them), the 512x512
+    progressive files by scan kind; then lossless_round_trip."""
     from voidin_tpu_torch import native
     from voidin_tpu_torch.framework import presets
 
     if native.packer() != "native":
         fail("the native texture packer did not build on this host")
+    try:
+        import lzma
+    except ImportError:
+        lzma = None
+    print(f"phase 18: the standard library's lzma module (LZMA-in-TIFF) "
+          f"{'imports' if lzma else 'is missing'} on the card's host",
+          flush=True)
+    if lzma is None:
+        fail("no lzma module: LZMA-compressed TIFF cannot be decoded")
     print(f"phase 18: texture packer {native.packer()} "
           f"({os.path.basename(native.library_path())}); host ms on the "
           f"card's host ({card})", flush=True)

@@ -370,6 +370,36 @@ def test_shadow_trace_kernel_edge_sets(cuda, kind):
     assert t_st.LAUNCHES == before + (1 if len(o) else 0)
 
 
+@pytest.mark.parametrize("kind", SHADOW_EDGE_CASES[:3])
+def test_shadow_pack_kernel_matches_twin(cuda, kind):
+    """The packing kernel (one launch a frame) writes every word of
+    rt/traverse.py pack_shadow_rows's tables."""
+    world = shadow_edge_case(pt, kind)[0]
+    tables = t_trav.scene_rays_threaded(world.device(cuda, with_tlas=True))
+    before = t_st.LAUNCHES_PACK
+    got = t_st.pack_rows(*tables)
+    want = t_trav.pack_shadow_rows(*tables)
+    assert t_st.LAUNCHES_PACK == before + 1 and got.n_inst == want.n_inst
+    for field in ("top", "blas", "tris"):
+        assert torch.equal(getattr(got, field).view(torch.int32),
+                           getattr(want, field).view(torch.int32))
+
+
+@pytest.mark.parametrize("steps", [1, 4, 16])
+def test_shadow_trace_kernel_step_limits(cuda, steps):
+    """Cut at a small step limit, the kernel's walk stops where its twin's
+    does: the same hits and the same count of rays still walking."""
+    world, o, d, act = shadow_edge_case(pt, "box")
+    scene = world.device(cuda, with_tlas=True)
+    args = t_trav.scene_rays_threaded(scene) + (
+        torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda))
+    kwargs = dict(active=torch.from_numpy(act).to(cuda),
+                  max_leaf=scene.meshes.bvh_max_leaf, max_steps=steps)
+    got, want, _counts, differ = shadow_trace_check(args, kwargs)
+    assert differ == 0 and int(got.exhausted) == int(want.exhausted)
+    assert steps > 4 or int(want.exhausted) > 0
+
+
 @pytest.mark.parametrize("scale", [1, 2])
 def test_rt_frame_on_card_matches_cpu(cuda, scale):
     imgs = []

@@ -18,9 +18,9 @@ held to PIL's pixels word for word on files made here from seeds:
   16 / 24 / 32 bits, bitfields, RLE8 / RLE4 with deltas, top-down rows,
   and what PIL refuses refused naming the file;
 - TIFF: photometric 0-3 and 5 at 1-16 bits, extra samples, II / MM,
-  strips and tiles, chunky and planar, FillOrder 2, every supported
-  compression and predictor 2, Orientation, and each form of ROADMAP.md
-  F8 refused by NotImplementedError naming the file and the form.
+  strips and tiles, chunky and planar, FillOrder 2, every baseline
+  compression and predictor 2, and Orientation (the forms of ROADMAP.md
+  F8: tests/test_torch_tiff_f8.py).
 """
 
 import io
@@ -427,42 +427,6 @@ def test_tiff_pil_written_match_pil(mode, compression):
     b = io.BytesIO()
     img.save(b, format="TIFF", compression=compression)
     assert_like_pil(b.getvalue())
-
-
-# F8: forms PIL reads through libtiff that the port refuses by name
-F8_FORMS = {
-    "ccitt_rle": (dict(compression=2), "CCITT"),
-    "ccitt_g3": (dict(compression=3), "CCITT G3"),
-    "ccitt_g4": (dict(compression=4), "CCITT G4"),
-    "old_jpeg": (dict(compression=6), "JPEG-in-TIFF"),
-    "jpeg": (dict(compression=7), "JPEG-in-TIFF"),
-    "lzma": (dict(compression=34925), "LZMA"),
-    "zstd": (dict(compression=50000), "ZSTD"),
-    "webp": (dict(compression=50001), "WebP-in-TIFF"),
-    "float_predictor": (dict(predictor=3), "floating-point predictor"),
-    "signed": (dict(sample_format=2), "signed integer"),
-    "float": (dict(sample_format=3), "floating-point"),
-    "ycbcr": (dict(photometric=6), "YCbCr"),
-    "cielab": (dict(photometric=8), "CIELab"),
-    "bigtiff": ({}, "BigTIFF"),
-    "planar_16bit_uncompressed": (dict(planar=2, bits=16),
-                                  "uncompressed planar RGB at 16 bits"),
-}
-
-
-@pytest.mark.parametrize("form", sorted(F8_FORMS))
-def test_tiff_f8_forms_refused_by_name(form):
-    kw, label = F8_FORMS[form]
-    kw = dict(kw)
-    photo = kw.pop("photometric", 2)
-    bits = kw.pop("bits", 8)
-    rng = np.random.default_rng(13)
-    data = tiff_bytes(rng.integers(0, 1 << bits, (H, W, 3)), bits, photo,
-                      **kw)
-    if form == "bigtiff":
-        data = b"II+\x00" + data[4:]
-    with pytest.raises(NotImplementedError, match=f"f8.tif: .*{label}"):
-        decode_image(data, "f8.tif")
 
 
 def test_tiff_unknown_layouts_refused_naming_the_file():

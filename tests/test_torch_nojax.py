@@ -365,9 +365,10 @@ def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
     """With jax, flax and PIL unimportable, under the audit hook: every
     committed image fixture (progressive, CMYK, YCCK, 4:1:1 and 4:4:0,
     lossless, arithmetic-coded and block-smoothed JPEGs, Adam7 and 16-bit
-    PNGs, WebP, GIF, BMP and TIFF) decodes through load_image to its
-    stored PIL pixels (lossy JPEG within one level, every other file word
-    for word), and a texture pool packs through the
+    PNGs, WebP, GIF, BMP and TIFF, the TIFF long tail's ZSTD, CCITT,
+    JPEG-in-TIFF and CIELab among them) decodes through load_image to its
+    stored PIL pixels (lossy JPEG and JPEG-in-TIFF within one level, every
+    other file word for word), and a texture pool packs through the
     native packer (its library compiled from the port's own C++ sources)
     and through numpy under VOIDIN_NATIVE=0. No module of the JAX package or PIL is imported
     and no file under voidin_tpu/ is opened."""
@@ -389,20 +390,22 @@ def test_decoders_and_texture_packer_open_nothing_of_the_jax_package():
         import numpy as np, torch
         torch.set_num_threads(2)
         from voidin_tpu_torch import native
-        from voidin_tpu_torch.io import bmp, gif, tiff, vp8_tables, webp
+        from voidin_tpu_torch.io import (bmp, ccitt, cielab, gif, tiff,
+                                         vp8_tables, webp, zstd)
         from voidin_tpu_torch.io.image import load_image
         from voidin_tpu_torch.ops import ltc_ring
         from voidin_tpu_torch.scene.texture import TexturePool
         fixtures = sorted(p for p in glob.glob(os.path.join(
             ROOT, "tests", "data", "torch_images", "*"))
             if not p.endswith(".rgba.png"))
-        assert len(fixtures) == 64
+        assert len(fixtures) == 84
         for path in fixtures:
             got = load_image(path).astype(np.int64)
             want = load_image(path + ".rgba.png").astype(np.int64)
             assert got.shape == want.shape, path
-            lossy = (path.endswith(".jpg")
-                     and not os.path.basename(path).startswith("lossless"))
+            name = os.path.basename(path)
+            lossy = (path.endswith(".jpg") and not name.startswith("lossless")
+                     or name.startswith(("f8_jpeg", "f8_ojpeg")))
             assert np.abs(got - want).max() <= (1 if lossy else 0), path
         pool = TexturePool(256)
         pool.add(np.random.default_rng(0).integers(0, 256, (200, 130, 4),

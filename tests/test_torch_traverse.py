@@ -196,3 +196,42 @@ def test_occluded_on_the_cpu_runs_the_twin(knot_scenes):
     want, _ = _port_walk(ps, o, d, active)
     assert t_st.LAUNCHES == before
     np.testing.assert_array_equal(got.hit.numpy(), want.hit.numpy())
+
+
+def test_shadow_rows_unpack_to_the_threaded_table(knot_scenes):
+    """pack_shadow_rows, the shadow kernel's layout: its rows unpack to
+    pack_threaded_table's (boxes, children, TLAS leaves' instances, BLAS
+    left_first and counts; a TLAS node's second child is its first child's
+    exit link), the instance rows keep the inverse transform and the
+    BLAS root and first triangle, and the triangle edges are v1 - v0 and
+    v2 - v0 bit for bit."""
+    _, ps, _ = knot_scenes
+    table, n_tlas, inst, tri_pos = t_trav.scene_rays_threaded(ps)
+    rows = t_trav.pack_shadow_rows(table, n_tlas, inst, tri_pos)
+    tl = rows.top[:(n_tlas + 1) * 8].view(n_tlas + 1, 8)
+    tl_i = tl.view(torch.int32)
+    t = table[:n_tlas]
+    assert torch.equal(tl[:n_tlas, 0:3], t[:, 0:3])
+    assert torch.equal(tl[:n_tlas, 4:7], t[:, 4:7])
+    assert torch.equal(tl_i[:n_tlas, 3].float(), t[:, 3])
+    internal = t[:, 3] >= 0
+    left = t[internal, 3].long()
+    assert torch.equal(tl_i[:n_tlas, 7][internal].float(), t[left, 7] - 1.0)
+    assert (tl_i[:n_tlas, 7][~internal] == -1).all()
+    assert tl_i[n_tlas, 3] == 0 and tl_i[n_tlas, 7] == t_trav.NO_CHILD
+    ir = rows.top[(n_tlas + 1) * 8:].view(rows.n_inst, 16)
+    assert torch.equal(ir[:, :12], inst[:, :12])
+    assert torch.equal(ir[:, 12:14].view(torch.int32).float(), inst[:, 16:18])
+    b = table[n_tlas:]
+    blas_i = rows.blas.view(torch.int32)
+    assert torch.equal(rows.blas[:, 0:3], b[:, 0:3])
+    assert torch.equal(rows.blas[:, 4:7], b[:, 4:7])
+    assert torch.equal(blas_i[:, 3].float(), b[:, 3])
+    assert torch.equal(blas_i[:, 7].float(), b[:, 8])
+    v0, v1, v2 = tri_pos[:, 0:3], tri_pos[:, 3:6], tri_pos[:, 6:9]
+    assert torch.equal(rows.tris[:, 0:3], v0)
+    assert torch.equal(rows.tris[:, 3:6].view(torch.int32),
+                       (v1 - v0).view(torch.int32))
+    assert torch.equal(rows.tris[:, 6:9].view(torch.int32),
+                       (v2 - v0).view(torch.int32))
+    assert (rows.tris[:, 9:] == 0).all()

@@ -27,10 +27,14 @@ write.
 - ``gif_bytes``: GIF87a / 89a with global and local palettes, the
   interlace, transparency, a frame at an offset on a larger screen, and
   LZW (``_lzw_codes``) that clears a full table or keeps it full.
-- ``tiff_bytes``: one-IFD TIFF at 1-16 bits, any photometric, extra
-  samples, II / MM, strips or tiles, chunky or planar, FillOrder 2,
-  LZW (and the old LSB-first style), Deflate, PackBits, predictor 2,
-  and the tags of the forms the port refuses.
+- ``tiff_bytes``: one-IFD TIFF or BigTIFF (``tiff_container``) at 1-32
+  bits, float and signed samples, any photometric, chunky YCbCr units at
+  any subsampling, extra samples, II / MM, strips or tiles, chunky or
+  planar, FillOrder 2, LZW (and the old LSB-first style), Deflate,
+  PackBits, LZMA, predictors 2 and 3, and any other tags;
+  ``jpeg_tiff_bytes`` (JPEG-in-TIFF, tables in JPEGTables or each
+  strip), ``ojpeg_tiff_bytes`` (old-style JPEG from a JFIF stream) and
+  ``webp_tiff_bytes`` (WebP-in-TIFF), which PIL cannot write.
 - ``webp_anim_bytes`` / ``riff_chunks`` / ``webp_file``: WebP containers
   built from the chunks of PIL's still files (an animation whose first
   frame sits at an offset over a background colour).
@@ -1054,16 +1058,24 @@ def _tiff_compress(raw, compression, old_lzw=False):
         return zlib.compress(raw, 6)
     if compression == 32773:
         return _packbits(raw)
+    if compression == 34925:
+        import lzma
+
+        return lzma.compress(raw, format=lzma.FORMAT_XZ)
     return raw  # a payload for a form the reader refuses
 
 
 def _pack_samples(block, bits, order):
-    """(rows, cols, spp) unsigned samples -> row-padded bytes."""
+    """(rows, cols, spp) samples -> row-padded bytes: unsigned ints at 1-32
+    bits, or a float32 / int32 array at 32 bits as it is."""
     rows, cols, spp = block.shape
     if bits == 8:
         return block.astype(np.uint8).tobytes()
     if bits == 16:
         return block.astype(order + "u2").tobytes()
+    if bits == 32:
+        kind = {"f": "f4", "i": "i4"}.get(block.dtype.kind, "u4")
+        return block.astype(order + kind).tobytes()
     flat = block.reshape(rows, cols * spp).astype(np.uint32)
     nbits = cols * spp * bits
     out = np.zeros((rows, (nbits + 7) // 8 * 8), np.uint8)
@@ -1073,42 +1085,143 @@ def _pack_samples(block, bits, order):
     return np.packbits(out, axis=1).tobytes()
 
 
+def _float_predict(raw, rows, cols, spp, nbytes, order):
+    """libtiff's floating-point predictor (3) on a chunk: each row's samples
+    split into byte planes, most significant first, then differenced byte
+    by byte at a stride of the samples a pixel."""
+    a = np.frombuffer(raw, np.uint8).reshape(rows, cols * spp, nbytes)
+    if order == "<":
+        a = a[..., ::-1]
+    planes = a.transpose(0, 2, 1).reshape(rows, -1).astype(np.int64)
+    d = planes.copy()
+    d[:, spp:] -= planes[:, :-spp]
+    return (d & 0xFF).astype(np.uint8).tobytes()
+
+
+def ycbcr_units(samples, sub):
+    """libtiff's chunky YCbCr layout for subsampling `sub` (h, v): for each
+    h x v block of (H, W, 3) samples, its h * v Y samples row by row, then
+    the Cb and Cr of its top-left pixel; edge blocks padded by
+    replication. (rows of units, bytes a row)."""
+    sh, sv = sub
+    h, w, _ = samples.shape
+    ph, pw = -(-h // sv) * sv, -(-w // sh) * sh
+    pad = np.pad(samples, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+    blk = pad.reshape(ph // sv, sv, pw // sh, sh, 3).transpose(0, 2, 1, 3, 4)
+    y = blk[..., 0].reshape(ph // sv, pw // sh, sv * sh)
+    c = blk[:, :, 0, 0, 1:]
+    return np.concatenate([y, c], -1).astype(np.uint8).reshape(ph // sv, -1)
+
+
+def tiff_container(chunks, tags, byteorder="II", bigtiff=False):
+    """A one-IFD TIFF (or BigTIFF, version 43 with 8-byte offsets, counts
+    and LONG8 offset fields) of the stored `chunks` and `tags` {tag: (type,
+    values)}; the chunks' offsets and byte counts are added as
+    StripOffsets / StripByteCounts unless TileWidth is among the tags."""
+    order = "<" if byteorder == "II" else ">"
+    tags = dict(tags)
+    off_tag, cnt_tag = (324, 325) if 322 in tags else (273, 279)
+    data_start = 16 if bigtiff else 8
+    offsets = []
+    blob = bytearray()
+    for c in chunks:
+        offsets.append(data_start + len(blob))
+        blob += c
+        if len(blob) % 2:
+            blob += b"\x00"
+    long_t = 16 if bigtiff else 4
+    tags[off_tag] = (long_t, offsets)
+    tags[cnt_tag] = (long_t, [len(c) for c in chunks])
+    ifd_at = data_start + len(blob)
+    n = len(tags)
+    entry, field_size = (20, 8) if bigtiff else (12, 4)
+    ext_at = ifd_at + (8 if bigtiff else 2) + entry * n + field_size
+    ifd = bytearray(struct.pack(order + ("Q" if bigtiff else "H"), n))
+    ext = bytearray()
+    fmts = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 8: "h", 9: "i",
+            10: "i", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        if isinstance(vals, (bytes, bytearray)):
+            vals = list(vals)
+        if typ in (5, 10):  # rationals as (numerator, denominator) pairs
+            count = len(vals) // 2
+        else:
+            count = len(vals)
+        body = struct.pack(order + fmts[typ] * len(vals), *vals)
+        if len(body) <= field_size:
+            field = body + bytes(field_size - len(body))
+        else:
+            field = struct.pack(order + ("Q" if bigtiff else "I"),
+                                ext_at + len(ext))
+            ext += body
+            if len(ext) % 2:
+                ext += b"\x00"
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHI"), tag, typ,
+                           count) + field
+    ifd += struct.pack(order + ("Q" if bigtiff else "I"), 0)
+    magic = b"II" if byteorder == "II" else b"MM"
+    if bigtiff:
+        head = magic + struct.pack(order + "HHHQ", 43, 8, 0, ifd_at)
+    else:
+        head = magic + struct.pack(order + "HI", 42, ifd_at)
+    return head + bytes(blob) + bytes(ifd) + bytes(ext)
+
+
 def tiff_bytes(samples, bits, photometric, byteorder="II", compression=1,
                predictor=1, planar=1, rows_per_strip=None, tile=None,
                extra=None, colormap=None, fillorder=1, old_lzw=False,
-               sample_format=None, orientation=None):
+               sample_format=None, orientation=None, bigtiff=False,
+               ycbcr=None, tags=None):
     """A one-IFD TIFF of `samples` (h, w, spp) unsigned ints at `bits`
-    bits a sample: `photometric` 0-5 (3 takes `colormap` (3, 2**bits)
-    16-bit entries), `extra` the ExtraSamples values, `compression` 1,
-    5 (LZW; `old_lzw` the LSB-first old style), 8 / 32946 (Deflate),
-    32773 (PackBits) or any other number (its payload left raw),
-    `predictor` 2 (horizontal differencing at 8 and 16 bits),
-    `planar` 2 for one plane a sample, strips of `rows_per_strip` or
-    tiles of `tile` (tw, th) (edge tiles padded), FillOrder 2 (bits of
-    every stored byte reversed), a SampleFormat and an Orientation tag
-    where given. `byteorder` "II" or "MM"."""
+    bits a sample (or a float32 / int32 array at 32 bits): `photometric`
+    0-8 (3 takes `colormap` (3, 2**bits) 16-bit entries), `extra` the
+    ExtraSamples values, `compression` 1, 5 (LZW; `old_lzw` the LSB-first
+    old style), 8 / 32946 (Deflate), 32773 (PackBits), 34925 (LZMA) or any
+    other number (its payload left raw), `predictor` 2 (horizontal
+    differencing at 8, 16 and 32 bits) or 3 (floating point), `planar` 2
+    for one plane a sample, strips of `rows_per_strip` or tiles of `tile`
+    (tw, th) (edge tiles padded), FillOrder 2 (bits of every stored byte
+    reversed), a SampleFormat and an Orientation tag where given, BigTIFF
+    with `bigtiff`, chunky YCbCr units at subsampling `ycbcr` (h, v) (the
+    YCbCrSubsampling tag written; rows a strip in units), and any other
+    `tags` {tag: (type, values)}. `byteorder` "II" or "MM"."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
     h, w, spp = samples.shape
     order = "<" if byteorder == "II" else ">"
+    per = spp if planar == 1 else 1
 
     def diff(block):
         if predictor != 2:
             return block
+        if block.dtype.kind in "fi" and bits == 32:
+            block = block.view(np.uint32)  # difference the words' bits
         d = block.astype(np.int64)
         d[:, 1:] -= block[:, :-1].astype(np.int64)
         return d & ((1 << bits) - 1)
 
+    def pack(block):
+        raw = _pack_samples(diff(block), bits, order)
+        if predictor == 3:
+            raw = _float_predict(raw, block.shape[0], block.shape[1], per,
+                                 bits // 8, order)
+        return raw
+
     planes = [samples] if planar == 1 else [samples[..., k:k + 1]
                                              for k in range(spp)]
     chunks = []
-    if tile is None:
+    if ycbcr is not None:
+        units = ycbcr_units(samples, ycbcr)
+        rps = -(-(rows_per_strip or h) // ycbcr[1])
+        chunks = [units[y:y + rps].tobytes()
+                  for y in range(0, units.shape[0], rps)]
+    elif tile is None:
         rps = rows_per_strip or h
         for plane in planes:
             for y in range(0, h, rps):
-                chunks.append(_pack_samples(diff(plane[y:y + rps]), bits,
-                                            order))
+                chunks.append(pack(plane[y:y + rps]))
     else:
         tw, th = tile
         for plane in planes:
@@ -1117,7 +1230,7 @@ def tiff_bytes(samples, bits, photometric, byteorder="II", compression=1,
                     blk = np.zeros((th, tw, plane.shape[2]), plane.dtype)
                     part = plane[y:y + th, x:x + tw]
                     blk[:part.shape[0], :part.shape[1]] = part
-                    chunks.append(_pack_samples(diff(blk), bits, order))
+                    chunks.append(pack(blk))
     chunks = [_tiff_compress(c, compression, old_lzw) for c in chunks]
     if fillorder == 2:
         rev = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
@@ -1125,59 +1238,124 @@ def tiff_bytes(samples, bits, photometric, byteorder="II", compression=1,
         lut = np.packbits(rev, axis=1)[:, 0]
         chunks = [lut[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
 
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
-            259: (3, [compression]), 262: (3, [photometric]),
-            277: (3, [spp]), 284: (3, [planar])}
+    long_t = 16 if bigtiff else 4
+    out = {256: (long_t, [w]), 257: (long_t, [h]), 258: (3, [bits] * spp),
+           259: (3, [compression]), 262: (3, [photometric]),
+           277: (3, [spp]), 284: (3, [planar])}
     if fillorder != 1:
-        tags[266] = (3, [fillorder])
+        out[266] = (3, [fillorder])
     if predictor != 1:
-        tags[317] = (3, [predictor])
+        out[317] = (3, [predictor])
     if extra is not None:
-        tags[338] = (3, list(extra))
+        out[338] = (3, list(extra))
     if colormap is not None:
-        tags[320] = (3, list(np.asarray(colormap).reshape(-1)))
+        out[320] = (3, list(np.asarray(colormap).reshape(-1)))
     if sample_format is not None:
-        tags[339] = (3, [sample_format] * spp)
+        out[339] = (3, [sample_format] * spp)
     if orientation is not None:
-        tags[274] = (3, [orientation])
+        out[274] = (3, [orientation])
+    if ycbcr is not None:
+        out[530] = (3, list(ycbcr))
     if tile is None:
-        tags[278] = (4, [rows_per_strip or h])
-        off_tag, cnt_tag = 273, 279
+        out[278] = (long_t, [rows_per_strip or h])
     else:
-        tags[322] = (4, [tile[0]])
-        tags[323] = (4, [tile[1]])
-        off_tag, cnt_tag = 324, 325
-    data_start = 8
-    offsets = []
-    blob = bytearray()
-    for c in chunks:
-        offsets.append(data_start + len(blob))
-        blob += c
-        if len(blob) % 2:
-            blob += b"\x00"
-    tags[off_tag] = (4, offsets)
-    tags[cnt_tag] = (4, [len(c) for c in chunks])
-    ifd_at = data_start + len(blob)
-    n = len(tags)
-    ext_at = ifd_at + 2 + 12 * n + 4
-    ifd = bytearray(struct.pack(order + "H", n))
-    ext = bytearray()
-    for tag in sorted(tags):
-        typ, vals = tags[tag]
-        fmt = "H" if typ == 3 else "I"
-        body = struct.pack(order + fmt * len(vals), *vals)
-        if len(body) <= 4:
-            field = body + bytes(4 - len(body))
-        else:
-            field = struct.pack(order + "I", ext_at + len(ext))
-            ext += body
-            if len(ext) % 2:
-                ext += b"\x00"
-        ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + field
-    ifd += struct.pack(order + "I", 0)
-    head = (b"II*\x00" if byteorder == "II" else b"MM\x00*") + struct.pack(
-        order + "I", ifd_at)
-    return head + bytes(blob) + bytes(ifd) + bytes(ext)
+        out[322] = (long_t, [tile[0]])
+        out[323] = (long_t, [tile[1]])
+    out.update(tags or {})
+    return tiff_container(chunks, out, byteorder, bigtiff)
+
+
+def _jpeg_segments(stream):
+    """[(marker, segment bytes)] of a JPEG stream up to its first SOS; the
+    SOS and what follows it as the last item (marker 0xDA)."""
+    out, i = [], 2
+    while i < len(stream):
+        marker = stream[i + 1]
+        if marker == 0xDA:
+            out.append((marker, stream[i:]))
+            break
+        n = struct.unpack(">H", stream[i + 2:i + 4])[0]
+        out.append((marker, stream[i:i + 2 + n]))
+        i += 2 + n
+    return out
+
+
+def jpeg_tiff_bytes(planes, photometric, rows_per_strip, factors=None,
+                    quality=85, split_tables=True, tile=None):
+    """A JPEG-in-TIFF (compression 7) file of full-size (H, W) uint8
+    planes (1 grey, or 3: RGB for photometric 2, YCbCr for 6), each strip
+    (or `tile` (tw, th), edge tiles padded) a baseline JPEG of those
+    planes at `factors` (jpeg_bytes, no JFIF marker); with `split_tables`
+    its quantization and Huffman tables go to JPEGTables (347) and the
+    strips are abbreviated streams, as libtiff writes them. A photometric
+    6 file carries YCbCrSubsampling from the factors."""
+    planes = [np.asarray(p) for p in planes]
+    h, w = planes[0].shape
+    factors = factors or [(1, 1)] * len(planes)
+    if tile is None:
+        boxes = [(y, 0, min(rows_per_strip, h - y), w)
+                 for y in range(0, h, rows_per_strip)]
+    else:
+        tw, th = tile
+        boxes = [(y, x, th, tw) for y in range(0, h, th)
+                 for x in range(0, w, tw)]
+    chunks, tables = [], b""
+    for y, x, bh, bw in boxes:
+        parts = []
+        for p in planes:
+            blk = np.zeros((bh, bw), np.uint8)
+            part = p[y:y + bh, x:x + bw]
+            blk[:part.shape[0], :part.shape[1]] = part
+            parts.append(blk)
+        stream = jpeg_bytes(parts, factors, quality, jfif=False)
+        if split_tables:
+            segs = _jpeg_segments(stream)
+            tables = b"\xff\xd8" + b"".join(
+                seg for m, seg in segs if m in (0xDB, 0xC4)) + b"\xff\xd9"
+            stream = b"\xff\xd8" + b"".join(
+                seg for m, seg in segs if m not in (0xDB, 0xC4))
+        chunks.append(stream)
+    n = len(planes)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * n),
+            259: (3, [7]), 262: (3, [photometric]), 277: (3, [n]),
+            284: (3, [1])}
+    if tile is None:
+        tags[278] = (4, [rows_per_strip])
+    else:
+        tags[322], tags[323] = (4, [tile[0]]), (4, [tile[1]])
+    if tables:
+        tags[347] = (7, tables)
+    if photometric == 6:
+        hmax = max(f[0] for f in factors)
+        vmax = max(f[1] for f in factors)
+        tags[530] = (3, [hmax // factors[1][0], vmax // factors[1][1]])
+    return tiff_container(chunks, tags)
+
+
+def ojpeg_tiff_bytes(stream, width, height, subsampling=(2, 2),
+                     tags=None):
+    """An old-style JPEG-in-TIFF (compression 6) file: one JPEG stream
+    (a whole JFIF file), pointed at by JPEGInterchangeFormat (513) and its
+    length (514) and by the one strip, photometric 6 and the stream's
+    YCbCrSubsampling, as writers of the old form made them."""
+    out = {256: (4, [width]), 257: (4, [height]), 258: (3, [8, 8, 8]),
+           259: (3, [6]), 262: (3, [6]), 277: (3, [3]), 278: (4, [height]),
+           284: (3, [1]), 513: (4, [8]), 514: (4, [len(stream)]),
+           530: (3, list(subsampling))}
+    out.update(tags or {})
+    return tiff_container([stream], out)
+
+
+def webp_tiff_bytes(strips, width, height, rows_per_strip, alpha=False):
+    """A WebP-in-TIFF (compression 50001) file whose strips are the given
+    WebP files, RGB or RGBA (`alpha`, ExtraSamples 2)."""
+    n = 4 if alpha else 3
+    tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8] * n),
+            259: (3, [50001]), 262: (3, [2]), 277: (3, [n]),
+            278: (4, [rows_per_strip]), 284: (3, [1])}
+    if alpha:
+        tags[338] = (3, [2])
+    return tiff_container(list(strips), tags)
 
 
 # --- WebP -----------------------------------------------------------------

@@ -175,6 +175,7 @@ def fixtures():
              ([1], 1, 63, 0, 1), ([2], 1, 63, 0, 2)], quality=85),
     }
     out.update(more_formats(tex))
+    out.update(f8_formats(tex))
     return out
 
 
@@ -308,6 +309,84 @@ def more_formats(tex):
             orientation=6),
     }
     return out
+
+
+F8_SIZE = 512  # the files phase 18 of chip_smoke.py times per megapixel
+
+
+def f8_formats(tex):
+    """The TIFF forms PIL opens through libtiff beyond baseline TIFF
+    (ROADMAP.md F8): PIL's files where PIL writes the form, the writer's
+    where it cannot; 512x512 ZSTD, LZMA, G4 and JPEG-in-TIFF files of the
+    smooth field, which phase 18 times."""
+    from PIL import Image
+
+    from tests.torch_image_writers import (jpeg_tiff_bytes,
+                                           ojpeg_tiff_bytes, tiff_bytes)
+
+    rng = np.random.default_rng(14)
+    h, w = tex.shape[:2]
+
+    def pil(img, mode=None, **kw):
+        im = Image.fromarray(img)
+        if mode:
+            im = im.convert(mode)
+        b = io.BytesIO()
+        im.save(b, format="TIFF", **kw)
+        return b.getvalue()
+
+    big = smooth_image(F8_SIZE, F8_SIZE)
+    ycc = np.asarray(Image.fromarray(tex).convert("YCbCr"))
+    b = io.BytesIO()
+    Image.fromarray(tex).save(b, format="JPEG", quality=85)
+    floats = (rng.normal(100, 120, (h, w))).astype(np.float32)
+    return {
+        "f8_zstd_512.tif": pil(big, "L", compression="zstd"),
+        "f8_lzma_512.tif": pil(big, "L", compression="lzma"),
+        "f8_g4_512.tif": pil(big, "1", compression="group4"),
+        "f8_jpeg_512.tif": pil(big, compression="jpeg", quality=85),
+        "f8_pil_bigtiff.tif": pil(tex, compression="tiff_lzw",
+                                    big_tiff=True),
+        "f8_bigtiff_tiles.tif": tiff_bytes(
+            tex, 8, 2, compression=8, tile=(16, 16), bigtiff=True),
+        "f8_float_pred3_zstd.tif": pil(floats, "F", compression="zstd",
+                                         tiffinfo={317: 3}),
+        "f8_int32_lzma.tif": pil(floats.astype(np.int32), "I",
+                                   compression="lzma"),
+        "f8_signed16_mm.tif": tiff_bytes(
+            rng.integers(0, 65536, (h, w)), 16, 1, byteorder="MM",
+            compression=5, sample_format=2),
+        "f8_g3_2d_fill2.tif": pil(tex, "1", compression="group3",
+                                    tiffinfo={292: 5, 266: 2}),
+        "f8_ccitt_rle_whiteiszero.tif": pil(
+            tex, "1", compression="tiff_ccitt", tiffinfo={262: 0}),
+        "f8_jpeg_ycbcr_tables.tif": jpeg_tiff_bytes(
+            [ycc[..., k] for k in range(3)], 6, 16,
+            ((2, 2), (1, 1), (1, 1))),
+        "f8_ojpeg_420.tif": ojpeg_tiff_bytes(b.getvalue(), w, h, (2, 2)),
+        "f8_ycbcr_lzw_42.tif": tiff_bytes(
+            ycc, 8, 6, compression=5, ycbcr=(4, 2),
+            tags={532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240,
+                            1])}),
+        # uncompressed YCbCr, which PIL's raw reader reads as RGBX,
+        # running on past the strip into the bytes after it
+        "f8_ycbcr_raw_misread.tif": tiff_bytes(
+            ycc, 8, 6, ycbcr=(2, 2)) + bytes(range(256)) * 24,
+        "f8_cielab_lzw.tif": tiff_bytes(
+            rng.integers(0, 256, (h, w, 3)), 8, 8, compression=5),
+        "f8_planar_rgb16_tiles.tif": tiff_bytes(
+            rng.integers(0, 65536, (h, w, 3)), 16, 2, planar=2,
+            tile=(16, 16)),
+        "f8_planar_grey4.tif": tiff_bytes(
+            rng.integers(0, 16, (h, w)), 4, 1, planar=2) + bytes(2048),
+        "f8_planar_rgba_tiles.tif": tiff_bytes(
+            np.concatenate([tex, tex[..., :1]], -1), 8, 2, planar=2,
+            tile=(16, 16)),
+        "f8_planar_palette_extra.tif": tiff_bytes(
+            rng.integers(0, 256, (12, w, 2)), 8, 3, planar=2, tile=(16, 16),
+            colormap=rng.integers(0, 65536, (3, 256)), extra=(0,),
+            compression=8),
+    }
 
 
 def pil_pixels(data):

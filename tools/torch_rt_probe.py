@@ -6,8 +6,9 @@ Builds the port's kernels (nvcc, printing -Xptxas -v), then runs
 chip_smoke.rt_phases: the golden rt_shadows scene on the card, the
 shadow-ray kernel against its twin on the adversarial ray sets, and the
 config-5 frame at 1920x1080 at rt_shadow_scale 1 and 2 (12 frames each)
-with the kernel against its twin on each scale's rays, timed. Prints the
-card line and the shadow_trace row as JSON. `--root DIR` takes
+with the kernel against its twin on each scale's rays, timed, and the
+packing kernel against its twin. Prints the card line and the rows as
+JSON. `--root DIR` takes
 voidin_tpu_torch from DIR (a parent's unpacked tree) and this tree's
 chip_smoke.py. Exits non-zero on a failed gate or without a card.
 """
@@ -42,8 +43,9 @@ def main():
     _build.build(verbose=True)
     _build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
-    row, launches = cs.rt_phases(torch.device("cuda:0"), card)
-    print(json.dumps(dict(shadow_trace=row, launches=launches)))
+    row, pack_row, launches = cs.rt_phases(torch.device("cuda:0"), card)
+    print(json.dumps(dict(shadow_trace=row, shadow_pack=pack_row,
+                          launches=launches)))
     print(card, flush=True)
 
 

@@ -6,7 +6,8 @@
 //
 // Two roundings of a sum of products live here. The shadow walk's twin
 // (occluded_reference) sums in jnp.sum's order, ((a0 b0 + a1 b1) + a2 b2),
-// and transforms rays with plain products (dot, tri_hit). The closest-hit
+// and transforms rays with plain products (dot; shadow_trace.cu
+// tri_hit_row). The closest-hit
 // twin (closest_hit_reference) reproduces JAX's closest_hit bit for bit,
 // and XLA compiles that jitted loop body with fused multiply-adds: each
 // jnp.sum(a * b) becomes fma(a2, b2, fma(a1, b1, a0 b0)) and each row of
@@ -86,27 +87,39 @@ __device__ __forceinline__ bool slab(V3 o, V3 inv, V3 bmin, V3 bmax,
   return hi >= lo && lo < t_max && hi > 0.0f;
 }
 
-// rt/traverse.py _tri_hit: backface-culled Moller-Trumbore
-// (intersections.wgsl:26-45) on one (9,) corner row.
-__device__ __forceinline__ bool tri_hit(V3 o, V3 d,
-                                        const float* __restrict__ tri,
-                                        float t_max) {
-  const V3 v0 = {__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2)};
-  const V3 v1 = {__ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5)};
-  const V3 v2 = {__ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8)};
-  const V3 e1 = v_sub(v1, v0);
-  const V3 e2 = v_sub(v2, v0);
-  const V3 uvec = cross(d, e2);
-  const float det = dot(e1, uvec);
-  const float inv_det = __frcp_rn(fabsf(det) > 1e-20f ? det : 1e-20f);
-  const V3 orig = v_sub(o, v0);
-  const float u = mul(inv_det, dot(orig, uvec));
-  const V3 vvec = cross(orig, e1);
-  const float v = mul(inv_det, dot(d, vvec));
-  const float t = mul(inv_det, dot(e2, vvec));
-  return det >= 1e-10f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-         add(u, v) <= 1.0f && t > 0.0f && t < t_max;
+// max.NaN / min.NaN (sm_80 on): one instruction each, NaN in either
+// operand gives NaN, as max_nan / min_nan give it. Of +0 and -0 they may
+// pick the other sign; the slab's values only meet comparisons, where the
+// two are equal, so its hit and its entry distance order do not change.
+__device__ __forceinline__ float max_nan1(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
+__device__ __forceinline__ float min_nan1(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The slab test with the distance at which the ray enters the box (*lo),
+// in one-instruction NaN-propagating min / max.
+__device__ __forceinline__ bool slab_lo(V3 o, V3 inv, V3 bmin, V3 bmax,
+                                        float t_max, float* lo_out) {
+  const float x1 = mul(sub(bmin.x, o.x), inv.x);
+  const float y1 = mul(sub(bmin.y, o.y), inv.y);
+  const float z1 = mul(sub(bmin.z, o.z), inv.z);
+  const float x2 = mul(sub(bmax.x, o.x), inv.x);
+  const float y2 = mul(sub(bmax.y, o.y), inv.y);
+  const float z2 = mul(sub(bmax.z, o.z), inv.z);
+  const float hi = min_nan1(min_nan1(max_nan1(x1, x2), max_nan1(y1, y2)),
+                            max_nan1(z1, z2));
+  const float lo = max_nan1(max_nan1(min_nan1(x1, x2), min_nan1(y1, y2)),
+                            min_nan1(z1, z2));
+  *lo_out = lo;
+  return hi >= lo && lo < t_max && hi > 0.0f;
+}
+
 // fastmath._fma: fma(a, b, c) in f64, rounded once to f32
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
   return __double2float_rn(

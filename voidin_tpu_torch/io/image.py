@@ -12,7 +12,7 @@ quirks included (16-bit grey clamped at 255, tRNS keys compared by their
 low byte). A layout the format does not define raises ValueError naming
 the file. ``decode_image`` and ``load_image`` also read JPEG through
 ``io/jpeg.py``, WebP through ``io/webp.py``, GIF through ``io/gif.py``,
-BMP through ``io/bmp.py`` and baseline TIFF through ``io/tiff.py`` (see
+BMP through ``io/bmp.py`` and TIFF and BigTIFF through ``io/tiff.py`` (see
 their docstrings for what each reads and what it refuses).
 ``encode_png`` gives a PNG's bytes (the web viewer's frames) at a zlib
 level of the caller's choice.
@@ -231,12 +231,6 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return samples
 
 
-# Image files PIL opens for the JAX package that the port refuses by their
-# leading bytes (ROADMAP.md F8; the other F8 forms are TIFF tags, refused
-# in io/tiff.py)
-_UNREAD_FORMATS = ((b"II+\x00", 0, b"", "BigTIFF"),
-                   (b"MM\x00+", 0, b"", "BigTIFF"))
-
 # The decoders of the formats PIL opens besides PNG and JPEG, by their
 # leading bytes
 _DECODERS = ((b"RIFF", 8, b"WEBP", webp.decode_webp),
@@ -244,7 +238,9 @@ _DECODERS = ((b"RIFF", 8, b"WEBP", webp.decode_webp),
              (b"GIF89a", 0, b"", gif.decode_gif),
              (b"BM", 0, b"", bmp.decode_bmp),
              (b"II*\x00", 0, b"", tiff.decode_tiff),
-             (b"MM\x00*", 0, b"", tiff.decode_tiff))
+             (b"MM\x00*", 0, b"", tiff.decode_tiff),
+             (b"II+\x00", 0, b"", tiff.decode_tiff),
+             (b"MM\x00+", 0, b"", tiff.decode_tiff))
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -253,15 +249,9 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     PNG (decode_png), JPEG (io/jpeg.decode_jpeg, grey replicated into RGB,
     opaque alpha), WebP (io/webp.py: the first frame of lossy, lossless,
     alpha and animated files), GIF (io/gif.py: the first frame), BMP
-    (io/bmp.py) and baseline TIFF (io/tiff.py: the first IFD), each found
-    by its leading bytes. BigTIFF and the TIFF forms of ROADMAP.md F8
-    raise NotImplementedError naming the file and the form; a file none
-    of them reads raises ValueError naming it."""
-    for magic, at, tag, fmt in _UNREAD_FORMATS:
-        if data[:len(magic)] == magic and data[at:at + len(tag)] == tag:
-            raise NotImplementedError(
-                f"{name}: {fmt} image is not decoded (PIL reads it; the "
-                f"port reads PNG, JPEG, WebP, GIF, BMP and baseline TIFF)")
+    (io/bmp.py) and TIFF or BigTIFF (io/tiff.py: the first IFD), each
+    found by its leading bytes; a file none of them reads raises
+    ValueError naming it."""
     for magic, at, tag, decode in _DECODERS:
         if data[:len(magic)] == magic and data[at:at + len(tag)] == tag:
             return decode(data, name)
@@ -275,7 +265,7 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Load a PNG, JPEG, WebP, GIF, BMP or baseline TIFF file as (H, W, 4)
+    """Load a PNG, JPEG, WebP, GIF, BMP or TIFF file as (H, W, 4)
     uint8 RGBA, as PIL's Image.open(path).convert("RGBA") gives it
     (decode_image)."""
     with open(path, "rb") as f:

@@ -1002,16 +1002,32 @@ def _lossless_scan(fr, scan_comps, spectral, data, seg_starts, name):
             out[r0:r1] = (x[j, :r1 - r0] << pt) & 0xFF
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def decode_jpeg(data: bytes, name: str = "<bytes>",
+                colour: str | None = None) -> np.ndarray:
     """A JPEG's bytes as (H, W, 3) uint8 RGB, or (H, W) uint8 for a
     greyscale file (see the module docstring for what is read). A file
     cut short or otherwise malformed raises ValueError naming it; a kind
-    of file the decoder leaves out raises NotImplementedError naming it."""
+    of file the decoder leaves out raises NotImplementedError naming it.
+    `colour` ("grey", "rgb", "ycc", "cmyk", "ycck") sets the colour space
+    in place of libjpeg's reading of the markers, as libtiff sets it for a
+    JPEG-in-TIFF stream."""
+    return _decode(data, name, lambda fr: _reconstruct(fr, name, colour))
+
+
+def decode_jpeg_planes(data: bytes, name: str = "<bytes>"):
+    """A JPEG's component planes as libjpeg gives them raw (no upsampling,
+    no colour conversion), each cropped to its share of the image, with
+    each component's (h, v) sampling factors: what libtiff's old-style
+    JPEG codec reads."""
+    return _decode(data, name, _raw_planes)
+
+
+def _decode(data, name, finish):
     buf = np.frombuffer(bytes(data), np.uint8)
     if bytes(buf[:2]) != SOI:
         raise JpegError(f"{name}: not a JPEG")
     try:
-        return _reconstruct(_parse(buf, name), name)
+        return finish(_parse(buf, name))
     except (JpegError, NotImplementedError):
         raise
     except (IndexError, KeyError, ValueError, struct.error) as exc:
@@ -1305,10 +1321,35 @@ def _smoothing_ok(fr):
                for c in fr.comps)
 
 
-def _reconstruct(fr, name):
+def _component_plane(fr, c, smooth, name):
+    """One component's samples, cropped to its share of the image."""
+    hmax = max(k["h"] for k in fr.comps)
+    vmax = max(k["v"] for k in fr.comps)
+    dw = -(-fr.width * c["h"] // hmax)
+    dh = -(-fr.height * c["v"] // vmax)
+    if c["tq"] not in fr.quant:
+        raise JpegError(f"{name}: undefined quantization table {c['tq']}")
+    coef = _smoothed(fr, c) if smooth else fr.coef[c["id"]]
+    by, bx = coef.shape[:2]
+    nat = np.zeros((by * bx, 64), np.int64)
+    nat[:, ZIGZAG] = coef.reshape(-1, 64)
+    pix = idct_islow(nat * fr.quant[c["tq"]])
+    plane = pix.reshape(by, bx, 8, 8).swapaxes(1, 2).reshape(by * 8, bx * 8)
+    return plane[:dh, :dw]
+
+
+def _raw_planes(fr):
+    if fr.lossless:
+        raise JpegError("lossless JPEG has no raw planes")
+    smooth = _smoothing_ok(fr)
+    return ([_component_plane(fr, c, smooth, "") for c in fr.comps],
+            [(c["h"], c["v"]) for c in fr.comps])
+
+
+def _reconstruct(fr, name, colour=None):
     hmax = max(c["h"] for c in fr.comps)
     vmax = max(c["v"] for c in fr.comps)
-    space = _colour_space(fr, name)
+    space = colour or _colour_space(fr, name)
     if fr.lossless and space in ("ycc", "ycck"):
         raise NotImplementedError(
             f"{name}: lossless JPEG in {space.upper()} (libjpeg-turbo does "
@@ -1316,24 +1357,13 @@ def _reconstruct(fr, name):
     smooth = _smoothing_ok(fr)
     planes = []
     for c in fr.comps:
-        dw = -(-fr.width * c["h"] // hmax)
-        dh = -(-fr.height * c["v"] // vmax)
         if fr.lossless:
             up = upsample(fr.samples[c["id"]], hmax // c["h"],
                           vmax // c["v"], fancy=False)
             planes.append(up[:fr.height, :fr.width])
             continue
-        if c["tq"] not in fr.quant:
-            raise JpegError(f"{name}: undefined quantization table "
-                             f"{c['tq']}")
-        coef = _smoothed(fr, c) if smooth else fr.coef[c["id"]]
-        by, bx = coef.shape[:2]
-        nat = np.zeros((by * bx, 64), np.int64)
-        nat[:, ZIGZAG] = coef.reshape(-1, 64)
-        pix = idct_islow(nat * fr.quant[c["tq"]])
-        plane = pix.reshape(by, bx, 8, 8).swapaxes(1, 2).reshape(
-            by * 8, bx * 8)
-        up = upsample(plane[:dh, :dw], hmax // c["h"], vmax // c["v"])
+        up = upsample(_component_plane(fr, c, smooth, name),
+                      hmax // c["h"], vmax // c["v"])
         planes.append(up[:fr.height, :fr.width])
     if space == "grey":
         return planes[0].astype(np.uint8)

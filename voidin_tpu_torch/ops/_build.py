@@ -145,8 +145,13 @@ def load() -> ctypes.CDLL:
             fn.restype = i
             fn.argtypes = [p, p, p, ctypes.c_float, p, i, p, p, i64, p, p, p]
         lib.voidin_shadow_trace.restype = i
-        lib.voidin_shadow_trace.argtypes = [p, i, p, p, p, p, p, i64,
+        lib.voidin_shadow_trace.argtypes = [p, i, i, p, p, p, p, p, i,
                                             ctypes.c_float, i, p, p, p]
+        lib.voidin_pack_shadow_rows.restype = i
+        lib.voidin_pack_shadow_rows.argtypes = [p, i, i, p, i, p, i, p, p, p,
+                                                p]
+        lib.voidin_shadow_trace_attrs.restype = i
+        lib.voidin_shadow_trace_attrs.argtypes = [i, i, p]
         lib.voidin_closest_hit.restype = i
         lib.voidin_closest_hit.argtypes = [p, p, p, p, p, p, p, i64, i, p, p,
                                            p, p, p]

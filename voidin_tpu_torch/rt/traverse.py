@@ -7,25 +7,23 @@ the first intersection closer than t_max,
 src/bin/raytraced_shadows.wgsl:96-102). The JAX package walks the tree in
 lock-step ``lax.while_loop``s: a per-ray stack loop (``occluded``), a
 packet stack loop (``occluded_packets``) and a stackless packet walk over
-exit links (``occluded_threaded``), all with the same hits. The port walks
-each ray on its own over the exit-link table of ``occluded_threaded``
-(``pack_threaded_table``): the hand-written kernel in
-``csrc/shadow_trace.cu``, reached through ``ops/shadow_trace.py occluded``,
-and its plain version here, ``occluded_reference``.
+exit links (``occluded_threaded``), all with the same hits. The port
+takes the table of ``occluded_threaded`` (``pack_threaded_table``) and
+repacks it every frame (the skinned scene refits its boxes) into the
+layout of its walk (``pack_shadow_rows``): the hand-written kernel in
+``csrc/shadow_trace.cu``, reached through ``ops/shadow_trace.py
+occluded``, and its plain version here, ``occluded_reference``.
 
-A per-ray walk gives the packet walks' hits: a packet visits the union of
-its lanes' paths, but a lane's hit is decided by its own slab test at the
-leaf and its own triangle test, and a ray that passes a leaf's slab passes
-every ancestor's (child boxes lie inside their parents, and
-``(b - o) * inv`` is monotone in ``b``), so the extra visits add no hit.
-
-The walk: ``cur`` encodes TLAS node t as t+1 and pool BLAS node b as
--(b+1), 0 = done. At a node the ray runs the slab test (world space at
-TLAS nodes, object space inside a BLAS): an internal node hit goes to its
-first child, a miss to its exit link; a TLAS leaf hit transforms the ray
-by the instance's inverse, saves the leaf's exit in ``resume`` and enters
-the BLAS root; a BLAS leaf hit tests its triangles; a BLAS exit of 0
-resumes at the saved TLAS exit. No stack, so nothing overflows.
+The walk is any hit, so its order decides only how soon a ray stops.
+Each step slab-tests both children of a node whose box the ray passed
+(their rows lie side by side) and keeps a stack of the second child when
+both pass, nearer box first; see ``occluded_reference``. A ray reaches a
+leaf only through ancestors whose boxes it passed, as in the JAX walks;
+the packet walks visit the union of their lanes' paths, but a lane's hit
+is decided by its own slab test at the leaf and its own triangle test,
+and a ray that passes a leaf's slab passes every ancestor's (child boxes
+lie inside their parents, and ``(b - o) * inv`` is monotone in ``b``), so
+the orders give the same hits.
 
 Closest hit (JAX ``closest_hit``, the src/bin/bvh_trace.wgsl demo) cannot
 stop at a hit, and its slab tests bound by the best t so far, so its node
@@ -49,17 +47,28 @@ from ..core import checks, fastmath
 MAX_DIST = 1e30
 STACK = 48  # closest_hit's per-ray stack entries
 MAX_LEAF = 8  # builder leaves are <= 3 except degenerate fallbacks
-# The walk visits each node at most once per instance it enters, and
-# enters each instance at most once: a ray takes at most n_tlas + the sum of
-# the instances' BLAS sizes steps. 2^17 covers that for config 5 (81 + 20 x
-# 2,676 + 20 x 914 + 2 = 71,883) and every scene the tests render; rays
-# that reach it are counted (OcclusionResult.exhausted, aux rt_exhausted).
+# The shadow walk expands each node at most once per instance it enters,
+# and enters each instance at most once: a ray takes at most n_tlas + the
+# sum of the instances' BLAS sizes steps. 2^17 covers that for config 5
+# (81 + 20 x 2,676 + 20 x 914 + 2 = 71,883) and every scene the tests
+# render; rays that reach it are counted (OcclusionResult.exhausted, aux
+# rt_exhausted).
 MAX_STEPS = 1 << 17
+# the shadow walk's (occluded_reference, csrc/shadow_trace.cu) entries:
+# kind << KIND_SHIFT | index, kind BLAS_KIND (the first of a node's two
+# child rows, pool row), TLAS_KIND (a TLAS node) or INST_KIND (an
+# instance); its stack holds SHADOW_STACK entries, one for each level of
+# a TLAS path plus a BLAS path, and both builders stop splitting at depth
+# 61, so it does not fill
+KIND_SHIFT = 30
+BLAS_KIND, TLAS_KIND, INST_KIND = 0, 1, 2
+NO_CHILD = -2  # the virtual TLAS root's missing second child
+SHADOW_STACK = 128
 
 
 class OcclusionResult(NamedTuple):
     hit: torch.Tensor  # (R,) bool
-    overflow: torch.Tensor  # () i32, always 0: the walk has no stack
+    overflow: torch.Tensor  # () i32 pushes dropped on a full stack
     exhausted: torch.Tensor  # () i32, rays still live at max_steps
 
 
@@ -205,18 +214,24 @@ def _slab(o, inv_d, bmin, bmax, t_max):
     """intersections.wgsl:13-24 — hit iff tmax' >= tmin', tmin' < t,
     tmax' > 0. maximum / minimum / amin / amax let NaN through, as jnp's
     do."""
+    return _slab_lo(o, inv_d, bmin, bmax, t_max)[0]
+
+
+def _slab_lo(o, inv_d, bmin, bmax, t_max):
+    """_slab and tmin', the distance at which the ray enters the box."""
     tx1 = (bmin - o) * inv_d
     tx2 = (bmax - o) * inv_d
     hi = torch.amin(torch.maximum(tx1, tx2), dim=-1)
     lo = torch.amax(torch.minimum(tx1, tx2), dim=-1)
-    return (hi >= lo) & (lo < t_max) & (hi > 0.0)
+    return (hi >= lo) & (lo < t_max) & (hi > 0.0), lo
 
 
-def _tri_hit(o, d, v0, v1, v2, t_max):
+def _tri_hit_edges(o, d, v0, e1, e2, t_max):
     """Backface-culled Moller-Trumbore (intersections.wgsl:26-45), with
-    jnp.cross's rounding (fastmath.cross) and jnp.sum's order."""
-    e1 = v1 - v0
-    e2 = v2 - v0
+    jnp.cross's rounding (fastmath.cross) and jnp.sum's order, on a
+    triangle given by its corner v0 and its edges e1 = v1 - v0 and e2 =
+    v2 - v0 (the shadow rows' layout; JAX subtracts the same f32
+    corners)."""
     uvec = fastmath.cross(d, e2)
     det = fastmath.sum3(e1 * uvec)
     inv_det = 1.0 / torch.where(det.abs() > 1e-20, det, 1e-20)
@@ -233,7 +248,7 @@ def _tri_t(o, d, v0, v1, v2):
     """Hit distance, -1 on a miss (JAX traverse.py _tri_t), rounded as the
     JAX closest_hit loop rounds it: XLA fuses each jnp.sum(a * b) of the
     jitted loop body into a chain of fused multiply-adds
-    (fastmath.dot_fma), where _tri_hit's twin keeps plain sums."""
+    (fastmath.dot_fma), where _tri_hit_edges keeps plain sums."""
     e1 = v1 - v0
     e2 = v2 - v0
     uvec = fastmath.cross(d, e2)
@@ -249,95 +264,224 @@ def _tri_t(o, d, v0, v1, v2):
     return torch.where(ok, t, -1.0)
 
 
+class ShadowRows(NamedTuple):
+    """The shadow kernel's layout of a scene (pack_shadow_rows). Integer
+    words are int32 bits in the f32 rows."""
+
+    top: torch.Tensor  # (n_tlas + 1) * 8 TLAS words, then n_inst * 16
+    n_tlas: int
+    n_inst: int
+    blas: torch.Tensor  # (Bb, 8) [min3, ref, max3, count]
+    tris: torch.Tensor  # (T, 12) [v0, e1, e2, 0, 0, 0]
+
+
+def _bits(x):
+    """f32 holding small integers -> the same integers as int32 bits in
+    f32 words."""
+    return x.to(torch.int32).view(torch.float32)
+
+
+def pack_shadow_rows(table, n_tlas, instance_rows, tri_pos):
+    """The threaded tables of scene_rays_threaded in the layout the shadow
+    kernel walks (ShadowRows), with every integer as int32 bits:
+
+    - TLAS rows, 32 B: [min3, left, max3, right] for an internal node
+      (right = the exit link of the left child, its sibling), [min3,
+      -(instance + 1), max3, -1] for a leaf; then a virtual root
+      (n_tlas) whose one child is the root (left 0, right NO_CHILD);
+    - instance rows, 64 B: the inverse transform's first 12 words, the
+      mesh's BLAS root (pool row), its first triangle row, 2 zeros;
+    - BLAS rows, 32 B: [min3, left_first, max3, count] (mesh-local
+      left_first; leaf iff count > 0; an internal node's children are
+      the adjacent rows left_first and left_first + 1);
+    - triangle rows, 48 B: [v0, e1, e2, 0, 0, 0] with e1 = v1 - v0 and
+      e2 = v2 - v0, the subtractions JAX's _tri_hit makes.
+
+    The tables' exit links are not needed: the walk keeps a stack."""
+    dev = table.device
+    t, b = table[:n_tlas], table[n_tlas:]
+    a = t[:, 3]
+    internal = a >= 0.0
+    left = checks.check_index(torch.where(internal, a, 0.0).to(torch.int64),
+                              n_tlas, "rt.node")
+    right = torch.where(internal,
+                        t[left.clamp(0, max(n_tlas - 1, 0)), 7] - 1.0, -1.0)
+    root = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    root[0, 7] = NO_CHILD  # a fill, not a copy from the host (no sync)
+    tl = torch.cat([torch.cat([t[:, 0:3], _bits(a)[:, None], t[:, 4:7],
+                               _bits(right)[:, None]], 1),
+                    root.view(torch.float32)], 0)
+    n_inst = instance_rows.shape[0]
+    inst = torch.cat([instance_rows[:, :12], _bits(instance_rows[:, 16:18]),
+                      torch.zeros(n_inst, 2, device=dev)], 1)
+    blas = torch.cat([b[:, 0:3], _bits(b[:, 3])[:, None], b[:, 4:7],
+                      _bits(b[:, 8])[:, None]], 1).contiguous()
+    v0 = tri_pos[:, 0:3]
+    tris = torch.cat([v0, tri_pos[:, 3:6] - v0, tri_pos[:, 6:9] - v0,
+                      torch.zeros(tri_pos.shape[0], 3, device=dev)], 1)
+    top = torch.cat([tl.reshape(-1), inst.reshape(-1)]).contiguous()
+    return ShadowRows(top, n_tlas, n_inst, blas, tris.contiguous())
+
+
+def _entry(kind, idx):
+    return (kind << KIND_SHIFT) | idx
+
+
 def occluded_reference(table, n_tlas, instance_rows, tri_pos, origins,
                        directions, t_max=1.0, max_steps=MAX_STEPS,
-                       active=None, max_leaf=MAX_LEAF):
-    """Plain PyTorch version of csrc/shadow_trace.cu: every ray's stackless
-    walk, run in lock-step over the live rays (one node per ray and
-    step) until no ray is live or `max_steps` steps are taken. Rays are
-    (R, 3) origins and (R, 3) directions, not normalized: t_max is in units
-    of |direction|. Inactive rays (`active` False) do not walk and do not
-    hit. Returns (OcclusionResult, WalkCounts)."""
+                       active=None, max_leaf=MAX_LEAF, visits_out=None):
+    """Plain PyTorch version of csrc/shadow_trace.cu: every ray's walk over
+    pack_shadow_rows's layout, run in lock-step over the live rays (one
+    step per ray and step) until no ray is live or `max_steps` steps are
+    taken. Rays are (R, 3) origins and (R, 3) directions, not normalized:
+    t_max is in units of |direction|. Inactive rays (`active` False) do
+    not walk and do not hit. `visits_out`, an optional (R,) int64 tensor,
+    gets each ray's slab tests added. Returns (OcclusionResult,
+    WalkCounts).
+
+    A step takes the ray's current entry, a node whose box it passed (or
+    an instance it enters), and slab-tests that node's children: a TLAS
+    node's two children in world space (the virtual root's one child, the
+    root, first); for an instance, the ray moved into its object space
+    (fastmath.mat4_point / mat3_vec) and its BLAS root; a BLAS node's two
+    children in object space. Each child hit in order: an internal node
+    or an instance becomes an entry; a BLAS leaf has its triangles tested
+    at once (_tri_hit_edges), and the first hit ends the walk. Of two new
+    entries the one whose box the ray enters first (the slab's tmin'; the
+    first child on a tie) is next and the other is pushed on the ray's
+    stack (SHADOW_STACK entries; a push onto a full stack is dropped and
+    counted in `overflow`); with none, the next comes off the stack, and
+    an empty stack ends the walk. Every node a ray reaches has had every
+    ancestor's box test pass, as in JAX's walks, so the hits are theirs."""
     dev = origins.device
     R = origins.shape[0]
     i64 = torch.int64
-    tm = torch.as_tensor(t_max, dtype=torch.float32,
-                         device=dev).expand(R)
-    inv0 = inv_direction(directions)
-    hit = torch.zeros(R, dtype=torch.bool, device=dev)
-    cur = torch.ones(R, dtype=i64, device=dev)
-    resume = torch.zeros(R, dtype=i64, device=dev)
-    tri_base = torch.zeros(R, dtype=i64, device=dev)
-    bvh_base = torch.zeros(R, dtype=i64, device=dev)
-    co, cd, cinv = origins.clone(), directions.clone(), inv0.clone()
-    live = torch.arange(R, device=dev)
+    rows = pack_shadow_rows(table, n_tlas, instance_rows, tri_pos)
+    tl = rows.top[:(n_tlas + 1) * 8].view(n_tlas + 1, 8)
+    tl_i = tl.view(torch.int32).to(i64)
+    inst = rows.top[(n_tlas + 1) * 8:].view(rows.n_inst, 16)
+    inst_i = inst.view(torch.int32).to(i64)
+    blas, tris = rows.blas, rows.tris
+    blas_i = blas.view(torch.int32).to(i64)
+    n_blas = blas.shape[0]
+    ids = torch.arange(R, device=dev)
     if active is not None:
-        live = live[active]
-    visits = entries = tests = 0
+        ids = ids[active]
+    n = ids.numel()
+    o, d = origins[ids], directions[ids]
+    inv0 = inv_direction(d)
+    tm = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
+    co, cd, cinv = o.clone(), d.clone(), inv0.clone()
+    tri_base = torch.zeros(n, dtype=i64, device=dev)
+    bvh_base = torch.zeros(n, dtype=i64, device=dev)
+    cur = torch.full((n,), _entry(TLAS_KIND, n_tlas), dtype=i64, device=dev)
+    stack = torch.zeros(n, 8, dtype=i64, device=dev)
+    sp = torch.zeros(n, dtype=i64, device=dev)
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    live = torch.arange(n, device=dev)
+    visits = entries = tests = overflow = 0
     steps = 0
     while live.numel() and steps < max_steps:
         steps += 1
         c = cur[live]
-        is_blas = c < 0
-        row = table[checks.check_index(
-            torch.where(is_blas, n_tlas - c - 1, c - 1), table.shape[0],
-            "rt.node")]
-        a, exit_enc = row[:, 3], row[:, 7].to(i64)
-        count = torch.where(is_blas, row[:, 8], 0.0).to(i64)
-        blas3 = is_blas[:, None]
-        shit = _slab(torch.where(blas3, co[live], origins[live]),
-                     torch.where(blas3, cinv[live], inv0[live]),
-                     row[:, 0:3], row[:, 4:7], tm[live])
-        visits += live.numel()
+        kind, idx = c >> KIND_SHIFT, c & ((1 << KIND_SHIFT) - 1)
+        is_t, is_i = kind == TLAS_KIND, kind == INST_KIND
 
-        # TLAS leaf hit: enter the instance
-        enter = shit & ~is_blas & (a < 0.0)
-        e = live[enter]
+        # instance entries: the ray in the instance's object space
+        e = live[is_i]
         if e.numel():
-            irow = instance_rows[checks.check_index(
-                (-a[enter] - 1.0).to(i64), instance_rows.shape[0],
-                "rt.instance")]
-            inv_t = irow[:, :16].reshape(-1, 4, 4)
-            co[e] = fastmath.mat4_point(inv_t, origins[e])
-            cd[e] = fastmath.mat3_vec(inv_t[:, :3, :3], directions[e])
+            ir = checks.check_index(idx[is_i], rows.n_inst, "rt.instance")
+            m = inst[ir, :12].reshape(-1, 3, 4)
+            co[e] = fastmath.mat4_point(m, o[e])
+            cd[e] = fastmath.mat3_vec(m[:, :, :3], d[e])
             cinv[e] = inv_direction(cd[e])
-            bvh_base[e] = irow[:, 16].to(i64)
-            tri_base[e] = irow[:, 17].to(i64)
-            resume[e] = exit_enc[enter]
+            bvh_base[e] = inst_i[ir, 12]
+            tri_base[e] = inst_i[ir, 13]
             entries += e.numel()
 
-        # BLAS leaf hit: its triangles, up to the first hit
-        leaf = shit & is_blas & (count > 0)
-        lr = live[leaf]
-        if lr.numel():
-            first = tri_base[lr] + a[leaf].to(i64)
-            cnt = count[leaf]
-            lh = torch.zeros(lr.numel(), dtype=torch.bool, device=dev)
-            for k in range(max_leaf):
-                m = k < cnt
-                tests += int((m & ~lh).sum())
-                tri = tri_pos[torch.where(m, first + k, 0)]
-                lh |= m & _tri_hit(co[lr], cd[lr], tri[:, 0:3], tri[:, 3:6],
-                                   tri[:, 6:9], tm[lr])
-            hit[lr] = lh
-
-        # next node: internal hit -> first child, TLAS leaf hit -> BLAS
-        # root, otherwise the exit link (a BLAS exit of 0 -> resume)
-        bb = bvh_base[live]
-        ai = a.to(i64)
-        exit_b = torch.where(exit_enc > 0, -(bb + exit_enc), resume[live])
-        nxt = torch.where(
-            shit & ~is_blas & (a >= 0.0), ai + 1,
-            torch.where(
-                enter, -(bb + 1),
-                torch.where(
-                    shit & is_blas & (count <= 0), -(bb + ai + 1),
-                    torch.where(is_blas, exit_b, exit_enc))))
+        # the (up to) two rows a step tests
+        node = idx.clamp(0, n_tlas).where(is_t, 0)
+        first = torch.where(is_t, tl_i[node, 3], 0)
+        second = torch.where(is_t, tl_i[node, 7], NO_CHILD)
+        b0 = torch.where(is_i, bvh_base[live], idx)
+        rows_t = [tl[checks.check_index(first.where(is_t, 0), n_tlas,
+                                        "rt.node")],
+                  tl[checks.check_index(second.where(is_t & (second >= 0),
+                                                     0), n_tlas, "rt.node")]]
+        blas_j = [checks.check_index(b0.where(~is_t, 0), n_blas, "rt.node"),
+                  checks.check_index((b0 + 1).where(~is_t & ~is_i, 0),
+                                     n_blas, "rt.node")]
+        two = torch.where(is_t, second >= 0, ~is_i)
+        ray_o = torch.where(is_t[:, None], o[live], co[live])
+        ray_inv = torch.where(is_t[:, None], inv0[live], cinv[live])
+        cand, hits, los = [], [], []
+        done = torch.zeros(live.numel(), dtype=torch.bool, device=dev)
+        for j in range(2):
+            row = torch.where(is_t[:, None], rows_t[j], blas[blas_j[j]])
+            row_i = row.view(torch.int32).to(i64)
+            tested = (j == 0) | two
+            h, lo = _slab_lo(ray_o, ray_inv, row[:, 0:3], row[:, 4:7],
+                             tm[live])
+            h = h & tested
+            los.append(lo)
+            visits += int(tested.sum())
+            if visits_out is not None:
+                visits_out.index_add_(0, ids[live], tested.to(i64))
+            ref, count = row_i[:, 3], row_i[:, 7]
+            leaf = h & ~is_t & (count > 0) & ~done
+            lr = torch.nonzero(leaf).flatten()
+            if lr.numel():
+                rr = live[lr]
+                first_tri = tri_base[rr] + ref[lr]
+                cnt = count[lr]
+                lh = torch.zeros(lr.numel(), dtype=torch.bool, device=dev)
+                for k in range(max_leaf):
+                    mk = k < cnt
+                    tests += int((mk & ~lh).sum())
+                    tri = tris[torch.where(mk, first_tri + k, 0)]
+                    lh |= mk & _tri_hit_edges(co[rr], cd[rr], tri[:, 0:3],
+                                              tri[:, 3:6], tri[:, 6:9],
+                                              tm[rr])
+                done[lr] |= lh
+            child = first if j == 0 else second
+            entry = torch.where(
+                is_t, torch.where(ref >= 0, _entry(TLAS_KIND, child.clamp(0)),
+                                  _entry(INST_KIND, (-ref - 1).clamp(0))),
+                _entry(BLAS_KIND, bvh_base[live] + ref.clamp(0)))
+            cand.append(entry)
+            hits.append(h & (is_t | (count <= 0)))
+        hit[live[done]] = True
+        h0, h1 = hits
+        both = h0 & h1 & ~done
+        # of two entries, the one whose box the ray enters first is next
+        swap = both & (los[1] < los[0])
+        cand = [torch.where(swap, cand[1], cand[0]),
+                torch.where(swap, cand[0], cand[1])]
+        sp_l = sp[live]
+        if both.any():
+            if int(sp_l.max()) >= stack.shape[1]:
+                grow = min(stack.shape[1], SHADOW_STACK - stack.shape[1])
+                stack = torch.cat([stack, torch.zeros_like(stack[:, :grow])],
+                                  1)
+            room = both & (sp_l < SHADOW_STACK)
+            overflow += int((both & ~room).sum())
+            pr = live[room]
+            stack[pr, sp_l[room]] = cand[1][room]
+            sp[pr] += 1
+        nxt = torch.where(h0, cand[0], cand[1])
+        has = (h0 | h1) & ~done
+        pop = ~has & ~done & (sp_l > 0)
+        if pop.any():
+            pr = live[pop]
+            sp[pr] -= 1
+            nxt[pop] = stack[pr, sp[pr]]
         cur[live] = nxt
-        live = live[(nxt != 0) & ~hit[live]]
+        live = live[(has | pop) & ~done]
+    out = torch.zeros(R, dtype=torch.bool, device=dev)
+    out[ids] = hit
     res = OcclusionResult(
-        hit=hit,
-        overflow=torch.zeros((), dtype=torch.int32, device=dev),
+        hit=out,
+        overflow=torch.tensor(overflow, dtype=torch.int32, device=dev),
         exhausted=torch.tensor(live.numel(), dtype=torch.int32, device=dev),
     )
     return res, WalkCounts(visits, entries, tests)
@@ -464,9 +608,10 @@ def check_threaded_table(table, n_tlas, instance_rows, tri_pos):
     """Hold every link column of the shadow kernel's tables
     (scene_rays_threaded) to the table sizes, raising IndexError under the
     twin's names: TLAS children and exit links and the instances' BLAS
-    roots ("rt.node"), TLAS leaves ("rt.instance"), BLAS children and
-    exit links ("rt.node", mesh-local, so held to the BLAS region), BLAS
-    leaf triangle ranges and the instances' first triangles
+    roots ("rt.node"), TLAS leaves ("rt.instance"), BLAS children (the
+    first and the second) and exit links ("rt.node", mesh-local, so held
+    to the BLAS region), BLAS leaf triangle ranges and the instances'
+    first triangles
     ("rt.tri_pos", which the JAX package does not check). What
     ops/shadow_trace.py runs before a launch in the bounds mode: a link
     that stays in its table but leaves its mesh is not caught."""
@@ -480,6 +625,7 @@ def check_threaded_table(table, n_tlas, instance_rows, tri_pos):
         (t[:, 7], n_tlas + 1, "rt.node"),
         (instance_rows[:, 16], n_blas, "rt.node"),
         (a_b, n_blas, "rt.node", ~(count > 0)),
+        (a_b + 1.0, n_blas, "rt.node", ~(count > 0)),
         (b[:, 7], n_blas + 1, "rt.node"),
         (count, n_tri + 1, "rt.tri_pos"),
         (instance_rows[:, 17], n_tri, "rt.tri_pos"),
