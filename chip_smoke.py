@@ -69,7 +69,10 @@ native/texture_packer.cpp, the host C++ compiler), then:
      with its camera's 1920x1080 primary rays through the example's trace
      (one launch), then kernel against twin on those rays (every t word,
      visit count and counter equal, nothing overflowed or exhausted),
-     timed; the example module at its own size (512x288);
+     timed, with the walk's profile (closest_walk_profile); every set
+     again at max_steps 1, 2, 3, 8 and 2048, the rays in order and in
+     pixel tiles (closest_paths_check); the example module at its own
+     size (512x288);
  12. the skinned frame (skin_phases): config 5 with its knot a 2-joint
      skin (weights by height) bent by a new pose each frame, raytraced
      shadows, 12 frames at 1920x1080 (overflow 0, rt_exhausted 0, K1 and
@@ -1332,23 +1335,121 @@ def closest_bound(n_rays, counts, tlas, blas, inst, tri_pos):
     return bound_ms(n_bytes, n_ops)
 
 
+def twin_kwargs(kwargs):
+    """closest_hit's keyword arguments without the kernel's `width`."""
+    return {k: v for k, v in kwargs.items() if k != "width"}
+
+
 def closest_hit_check(args, kwargs):
-    """The closest-hit kernel against its twin on one ray set: (kernel
-    result, twin result, twin walk counts, {output: differing words or
-    count difference})."""
+    """The closest-hit kernel against its twin on one ray set (the twin
+    takes `kwargs` but the kernel's `width`): (kernel result, twin result,
+    twin walk counts, {output: differing words or count difference})."""
     import torch
 
     from voidin_tpu_torch.ops import closest_hit as ch
     from voidin_tpu_torch.rt import traverse
 
     got = ch.closest_hit(*args, **kwargs)
-    want, counts = traverse.closest_hit_reference(*args, **kwargs)
+    want, counts = traverse.closest_hit_reference(*args, **twin_kwargs(
+        kwargs))
     torch.cuda.synchronize()
     return got, want, counts, dict(
         t=words_differ(got.t, want.t),
         visits=int((got.visits != want.visits).sum()),
         overflow=abs(int(got.overflow) - int(want.overflow)),
         exhausted=abs(int(got.exhausted) - int(want.exhausted)))
+
+
+CLOSEST_STEP_LIMITS = (1, 2, 3, 8, 2048)
+# rows of the edge sets' rays for the kernel's tile order: ragged tiles
+EDGE_WIDTH = 37
+
+
+def closest_paths_check(args, kwargs, width, label, card, twins=None):
+    """The closest-hit kernel with both of its thread orders, the rays in
+    order and in pixel tiles of rows of `width` (ops/closest_hit.py
+    closest_hit's width), against its twin at each of CLOSEST_STEP_LIMITS:
+    every t word, visit count and counter equal. `twins` may hold the
+    twin's result at some limits already. Prints one line; fails on a
+    difference."""
+    import torch
+
+    from voidin_tpu_torch.ops import closest_hit as ch
+    from voidin_tpu_torch.rt import traverse
+
+    twins = dict(twins or {})
+    parts = []
+    for steps in CLOSEST_STEP_LIMITS:
+        kw = dict(kwargs, max_steps=steps)
+        if steps not in twins:
+            twins[steps] = traverse.closest_hit_reference(*args, **kw)[0]
+        want = twins[steps]
+        for order, w in (("in order", None), ("in tiles", width)):
+            got = ch.closest_hit(*args, **kw, width=w)
+            torch.cuda.synchronize()
+            differ = dict(
+                t=words_differ(got.t, want.t),
+                visits=int((got.visits != want.visits).sum()),
+                overflow=int(got.overflow) - int(want.overflow),
+                exhausted=int(got.exhausted) - int(want.exhausted))
+            if any(differ.values()):
+                fail(f"closest_hit (rays {order}) disagrees with its twin on "
+                     f"{label} at max_steps {steps}: {differ}")
+        parts.append(f"{steps}: overflow {int(want.overflow)} exhausted "
+                     f"{int(want.exhausted)}")
+    print(f"closest_hit step limits ({label}), rays in order and in tiles "
+          f"of rows of {width}, equal to the twin: {'; '.join(parts)} "
+          f"({card})", flush=True)
+
+
+def closest_walk_profile(args, kwargs, visits, counts, label, card):
+    """What sets the closest-hit kernel's time on one ray set: the pops a
+    ray (`visits`, the kernel's, equal to the twin's: max, 99.9th
+    percentile, mean), the share of pops whose box the ray misses (the
+    twin's `counts`), the kernel's device time on every ray, on the
+    TAIL_RAYS rays with the most pops alone, on the one with the most alone
+    and on no active ray (the launch over every lane), and the kernel's
+    registers and resident blocks. Returns the numbers as a dict."""
+    import torch
+
+    from voidin_tpu_torch.ops import closest_hit as ch
+
+    n = visits.shape[0]
+    dev = visits.device
+    v = visits.double()
+    top = torch.topk(visits, min(TAIL_RAYS, n)).indices
+    masks = dict(tail=torch.zeros(n, dtype=torch.bool, device=dev),
+                 none=torch.zeros(n, dtype=torch.bool, device=dev),
+                 longest=torch.zeros(n, dtype=torch.bool, device=dev))
+    masks["tail"][top] = True
+    masks["longest"][top[0]] = True
+    ms = dict(all=device_ms(lambda: ch.closest_hit(*args, **kwargs), 20,
+                            "closest_hit"))
+    for what, mask in masks.items():
+        kw = dict(kwargs, active=mask)
+        ms[what] = device_ms(lambda: ch.closest_hit(*args, **kw), 20,
+                             "closest_hit")
+    out = dict(pops_max=int(v.max()),
+               pops_p999=float(torch.quantile(v.float().cpu(), 0.999)),
+               pops_mean=float(v.mean()),
+               missed_share=counts.missed_pops / max(counts.node_visits, 1),
+               tail_pops_min=int(visits[top].min()),
+               device_ms_all=ms["all"], device_ms_tail=ms["tail"],
+               device_ms_none=ms["none"], device_ms_longest=ms["longest"],
+               **ch.kernel_attributes())
+    print(f"closest_hit walk profile ({label}): pops a ray max "
+          f"{out['pops_max']}, 99.9th percentile {out['pops_p999']:.1f}, "
+          f"mean {out['pops_mean']:.2f}; pops that miss their box "
+          f"{counts.missed_pops} of {counts.node_visits} "
+          f"({100 * out['missed_share']:.1f}%); device ms on every ray "
+          f"{fmt_ms(ms['all'])}, on the {TAIL_RAYS} longest walks alone "
+          f"(>= {out['tail_pops_min']} pops) {fmt_ms(ms['tail'])}, on the "
+          f"longest walk alone {fmt_ms(ms['longest'])}, on no active ray "
+          f"{fmt_ms(ms['none'])}; registers {out['registers']}, local "
+          f"{out['local_bytes']} B, {out['blocks_per_sm']} blocks of "
+          f"{out['threads']} an SM, shared {out['shared_bytes']} B ({card})",
+          flush=True)
+    return out
 
 
 def closest_phases(dev, card):
@@ -1388,6 +1489,8 @@ def closest_phases(dev, card):
         if any(differ.values()) or int(got.overflow) or int(got.exhausted) \
                 or n_launch != (1 if len(o) else 0):
             fail(f"closest_hit disagrees with its twin on edge set {kind}")
+        closest_paths_check(args, kwargs, EDGE_WIDTH, f"edge set {kind}",
+                            card, {2048: want})
     world, o, d = staircase_case(pt)
     args = traverse.scene_rays(world.device(dev, with_tlas=True)) + tuple(
         torch.from_numpy(a).to(dev) for a in (o, d))
@@ -1397,6 +1500,7 @@ def closest_phases(dev, card):
           f"{differ} ({card})", flush=True)
     if any(differ.values()) or not int(got.overflow) > 0:
         fail("closest_hit disagrees with its twin where the stack overflows")
+    closest_paths_check(args, {}, 1, "the staircase", card, {2048: want})
 
     rows, launches = {}, None
     c5 = config5_preset(pt)
@@ -1415,22 +1519,27 @@ def closest_phases(dev, card):
         o, d = bvh_trace.primary_rays(WIDTH, HEIGHT, camera)
         args = traverse.scene_rays(scene) + (torch.from_numpy(o).to(dev),
                                              torch.from_numpy(d).to(dev))
-        kwargs = dict(t_max=bvh_trace.T_MAX)
+        kwargs = dict(t_max=bvh_trace.T_MAX, width=WIDTH)
         got, want, counts, differ = closest_hit_check(args, kwargs)
         path_differ = words_differ(res.t.reshape(-1), got.t)
         row = timed_row(lambda: ch.closest_hit(*args, **kwargs),
                         "closest_hit_kernel", 20,
-                        lambda: traverse.closest_hit_reference(*args,
-                                                               **kwargs), 1,
+                        lambda: traverse.closest_hit_reference(
+                            *args, **twin_kwargs(kwargs)), 1,
                         closest_bound(len(o), counts, *args[:4]),
                         float((got.t - want.t).abs().max()))
         hits = int((got.t < bvh_trace.T_MAX).sum())
         row.update(rays=len(o), hits=hits, node_visits=counts.node_visits,
                    instance_entries=counts.instance_entries,
                    triangle_tests=counts.triangle_tests,
+                   missed_pops=counts.missed_pops,
                    max_visits=int(got.visits.max()),
                    instances=int(scene.instances.count),
                    tlas_nodes=int(scene.tlas.tlas_min.shape[0]))
+        row.update(walk=closest_walk_profile(args, kwargs, got.visits,
+                                             counts, label, card))
+        closest_paths_check(args, twin_kwargs(kwargs), WIDTH, label, card,
+                            {2048: want})
         rows[label] = row
         print(f"closest_hit ({label}, {WIDTH}x{HEIGHT} primary rays, "
               f"{row['instances']} instances, TLAS of {row['tlas_nodes']} "

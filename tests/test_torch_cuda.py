@@ -415,8 +415,11 @@ def test_rt_frame_on_card_matches_cpu(cuda, scale):
     assert np.abs(imgs[0] - imgs[1]).mean() < 5e-3
 
 
+@pytest.mark.parametrize("width", [None, 37])
 @pytest.mark.parametrize("kind", SHADOW_EDGE_CASES + ("staircase",))
-def test_closest_hit_kernel_edge_sets(cuda, kind):
+def test_closest_hit_kernel_edge_sets(cuda, kind, width):
+    """Both thread orders: the rays in order, and in pixel tiles of rows
+    of `width` (ragged at the right and the bottom)."""
     if kind == "staircase":
         world, o, d = staircase_case(pt)
         act = np.ones(len(o), bool)
@@ -427,15 +430,17 @@ def test_closest_hit_kernel_edge_sets(cuda, kind):
         torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda))
     before = t_ch.LAUNCHES
     got, want, _counts, differ = closest_hit_check(
-        args, dict(active=torch.from_numpy(act).to(cuda)))
+        args, dict(active=torch.from_numpy(act).to(cuda), width=width))
     assert not any(differ.values()), differ
     assert int(got.exhausted) == 0
     assert (int(got.overflow) > 0) == (kind == "staircase")
     assert t_ch.LAUNCHES == before + (1 if len(o) else 0)
 
 
-@pytest.mark.parametrize("max_steps,per_ray", [(2048, False), (3, True)])
-def test_closest_hit_kernel_on_primary_rays(cuda, max_steps, per_ray):
+@pytest.mark.parametrize("max_steps,per_ray,width", [
+    (2048, False, 256), (3, True, 256), (1, False, 256), (2, True, None),
+    (2048, False, None)])
+def test_closest_hit_kernel_on_primary_rays(cuda, max_steps, per_ray, width):
     scene = bvh_trace.trace_world().device(cuda, with_tlas=True)
     o, d = bvh_trace.primary_rays(256, 144)
     t_max = 1e6
@@ -444,10 +449,27 @@ def test_closest_hit_kernel_on_primary_rays(cuda, max_steps, per_ray):
     args = t_trav.scene_rays(scene) + (torch.from_numpy(o).to(cuda),
                                        torch.from_numpy(d).to(cuda))
     got, want, _counts, differ = closest_hit_check(
-        args, dict(t_max=t_max, max_steps=max_steps))
+        args, dict(t_max=t_max, max_steps=max_steps, width=width))
     assert not any(differ.values()), differ
-    assert (int(got.exhausted) > 0) == (max_steps == 3)
-    assert (got.t < 1e6).any()
+    assert (int(got.exhausted) > 0) == (max_steps < 2048)
+    assert (got.t < 1e6).any() or max_steps < 3
+
+
+def test_closest_hit_kernel_on_the_longest_walks(cuda):
+    """The 1,024 rays with the most pops alone (an active mask), as
+    chip_smoke.closest_walk_profile times them."""
+    scene = bvh_trace.trace_world().device(cuda, with_tlas=True)
+    o, d = bvh_trace.primary_rays(256, 144)
+    args = t_trav.scene_rays(scene) + (torch.from_numpy(o).to(cuda),
+                                       torch.from_numpy(d).to(cuda))
+    visits = t_ch.closest_hit(*args, t_max=1e6, width=256).visits
+    active = torch.zeros(len(o), dtype=torch.bool, device=cuda)
+    active[torch.topk(visits, 1024).indices] = True
+    got, want, _counts, differ = closest_hit_check(
+        args, dict(t_max=1e6, active=active, width=256))
+    assert not any(differ.values()), differ
+    assert (got.visits[~active] == 0).all()
+    assert torch.equal(got.visits[active], visits[active])
 
 
 def test_lut_fetch_kernel_on_ring_uvs(cuda):

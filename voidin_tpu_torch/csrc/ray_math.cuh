@@ -32,15 +32,6 @@ __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
 }
 
-// jnp.maximum / jnp.minimum (and torch.maximum / minimum / amax / amin):
-// NaN in either operand gives NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
 struct V3 {
   float x, y, z;
 };
@@ -71,9 +62,27 @@ __device__ __forceinline__ V3 inv_direction(V3 d) {
   return {inv_guarded(d.x), inv_guarded(d.y), inv_guarded(d.z)};
 }
 
-// rt/traverse.py _slab (intersections.wgsl:13-24)
-__device__ __forceinline__ bool slab(V3 o, V3 inv, V3 bmin, V3 bmax,
-                                     float t_max) {
+// max.NaN / min.NaN (sm_80 on): jnp.maximum / jnp.minimum (and
+// torch.maximum / minimum / amax / amin) in one instruction each, NaN in
+// either operand gives NaN. Of +0 and -0 they may pick the other sign; the
+// slab's values only meet comparisons, where the two are equal, so its hit
+// and its entry distance order do not change.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// rt/traverse.py _slab_lo (intersections.wgsl:13-24): the slab test, hit
+// iff hi >= lo && lo < t_max && hi > 0, with the distance at which the ray
+// enters the box (*lo_out).
+__device__ __forceinline__ bool slab_lo(V3 o, V3 inv, V3 bmin, V3 bmax,
+                                        float t_max, float* lo_out) {
   const float x1 = mul(sub(bmin.x, o.x), inv.x);
   const float y1 = mul(sub(bmin.y, o.y), inv.y);
   const float z1 = mul(sub(bmin.z, o.z), inv.z);
@@ -84,38 +93,6 @@ __device__ __forceinline__ bool slab(V3 o, V3 inv, V3 bmin, V3 bmax,
       min_nan(min_nan(max_nan(x1, x2), max_nan(y1, y2)), max_nan(z1, z2));
   const float lo =
       max_nan(max_nan(min_nan(x1, x2), min_nan(y1, y2)), min_nan(z1, z2));
-  return hi >= lo && lo < t_max && hi > 0.0f;
-}
-
-// max.NaN / min.NaN (sm_80 on): one instruction each, NaN in either
-// operand gives NaN, as max_nan / min_nan give it. Of +0 and -0 they may
-// pick the other sign; the slab's values only meet comparisons, where the
-// two are equal, so its hit and its entry distance order do not change.
-__device__ __forceinline__ float max_nan1(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float min_nan1(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// The slab test with the distance at which the ray enters the box (*lo),
-// in one-instruction NaN-propagating min / max.
-__device__ __forceinline__ bool slab_lo(V3 o, V3 inv, V3 bmin, V3 bmax,
-                                        float t_max, float* lo_out) {
-  const float x1 = mul(sub(bmin.x, o.x), inv.x);
-  const float y1 = mul(sub(bmin.y, o.y), inv.y);
-  const float z1 = mul(sub(bmin.z, o.z), inv.z);
-  const float x2 = mul(sub(bmax.x, o.x), inv.x);
-  const float y2 = mul(sub(bmax.y, o.y), inv.y);
-  const float z2 = mul(sub(bmax.z, o.z), inv.z);
-  const float hi = min_nan1(min_nan1(max_nan1(x1, x2), max_nan1(y1, y2)),
-                            max_nan1(z1, z2));
-  const float lo = max_nan1(max_nan1(min_nan1(x1, x2), min_nan1(y1, y2)),
-                            min_nan1(z1, z2));
   *lo_out = lo;
   return hi >= lo && lo < t_max && hi > 0.0f;
 }

@@ -73,7 +73,7 @@ def trace(scene, width, height, camera=None):
     dev = scene.device
     res = closest_hit(*traverse.scene_rays(scene),
                       torch.from_numpy(o).to(dev),
-                      torch.from_numpy(d).to(dev), t_max=T_MAX)
+                      torch.from_numpy(d).to(dev), t_max=T_MAX, width=width)
     return res._replace(t=res.t.reshape(height, width),
                         visits=res.visits.reshape(height, width))
 

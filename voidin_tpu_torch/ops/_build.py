@@ -153,8 +153,10 @@ def load() -> ctypes.CDLL:
         lib.voidin_shadow_trace_attrs.restype = i
         lib.voidin_shadow_trace_attrs.argtypes = [i, i, p]
         lib.voidin_closest_hit.restype = i
-        lib.voidin_closest_hit.argtypes = [p, p, p, p, p, p, p, i64, i, p, p,
-                                           p, p, p]
+        lib.voidin_closest_hit.argtypes = [p, p, p, p, p, p, p, i64, i, i, p,
+                                           p, p, p, p]
+        lib.voidin_closest_hit_attrs.restype = i
+        lib.voidin_closest_hit_attrs.argtypes = [p]
         lib.voidin_error_string.restype = ctypes.c_char_p
         lib.voidin_error_string.argtypes = [i]
         _lib = lib

@@ -16,6 +16,8 @@ ops/shadow_trace.py does and for the same reason.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..core import checks
@@ -28,14 +30,17 @@ LAUNCHES = 0  # kernel launches (CUDA path only)
 
 def closest_hit(tlas_rows, blas_rows, instance_rows, tri_pos, origins,
                 directions, t_max=MAX_DIST, max_steps=2048,
-                active=None) -> ClosestHitResult:
+                active=None, width=None) -> ClosestHitResult:
     """Nearest hit of R rays: the tables of rt/traverse.py scene_rays,
     (R, 3) f32 `origins` and `directions` (not normalized; `t_max`, a
     float or (R,) f32, in units of |direction|), `active` an optional (R,)
-    bool mask. Returns ClosestHitResult: t (R,) f32 (t_max on a miss),
-    visits (R,) i32 (stack pops), overflow (pushes dropped on a full
-    stack) and exhausted (rays with a stack left after `max_steps` pops).
-    CPU tensors run the twin; CUDA tensors launch the kernel."""
+    bool mask. `width`, where the rays lie in rows of that many (an
+    image's primary rays in screen order), lets the kernel walk them in
+    pixel tiles, whose rays share more of their path; it changes no
+    result. Returns ClosestHitResult: t (R,) f32 (t_max on a miss), visits
+    (R,) i32 (stack pops), overflow (pushes dropped on a full stack) and
+    exhausted (rays with a stack left after `max_steps` pops). CPU tensors
+    run the twin; CUDA tensors launch the kernel."""
     if origins.device.type == "cpu":
         return closest_hit_reference(tlas_rows, blas_rows, instance_rows,
                                      tri_pos, origins, directions,
@@ -68,6 +73,8 @@ def closest_hit(tlas_rows, blas_rows, instance_rows, tri_pos, origins,
         t = t_max.expand(R).contiguous().clone()
     else:
         raise ValueError(f"t_max must be a float or ({R},) f32 on {dev}")
+    if width is not None and not 0 < int(width) < 1 << 31:
+        raise ValueError(f"width must be a positive int, not {width}")
     visits = torch.zeros(R, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     exhausted = torch.zeros((), dtype=torch.int32, device=dev)
@@ -88,9 +95,24 @@ def closest_hit(tlas_rows, blas_rows, instance_rows, tri_pos, origins,
             tlas_rows.data_ptr(), blas_rows.data_ptr(),
             instance_rows.data_ptr(), tri_pos.data_ptr(),
             origins.data_ptr(), directions.data_ptr(),
-            None if act is None else act.data_ptr(), R, int(max_steps),
+            None if act is None else act.data_ptr(), R,
+            0 if width is None else int(width), int(max_steps),
             t.data_ptr(), visits.data_ptr(), overflow.data_ptr(),
             exhausted.data_ptr(), stream)
     _build.check(lib, rc, "closest_hit")
     LAUNCHES += 1
     return ClosestHitResult(t, visits, overflow, exhausted)
+
+
+def kernel_attributes():
+    """The kernel's build and occupancy on the current card: registers a
+    thread, local memory bytes a thread, resident blocks an SM, threads a
+    block and shared memory bytes a block."""
+    from . import _build
+
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.voidin_closest_hit_attrs(ctypes.addressof(out)),
+                 "closest_hit")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads",
+                     "shared_bytes"), list(out)))

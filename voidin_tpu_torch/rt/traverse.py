@@ -86,6 +86,7 @@ class WalkCounts(NamedTuple):
     node_visits: int  # slab tests
     instance_entries: int  # ray transforms into a BLAS
     triangle_tests: int  # up to and including a ray's first hit
+    missed_pops: int = 0  # closest hit: pops whose slab test fails
 
 
 def pack_instance_rows(inv_transform, mesh_bvh_index, mesh_base_index,
@@ -522,7 +523,7 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
     if active is not None:
         sp = torch.where(active, sp, 0)
     overflow = 0
-    n_visits = entries = tests = 0
+    n_visits = entries = tests = missed = 0
 
     def push(rows, value):
         nonlocal overflow
@@ -548,6 +549,7 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
             entry[entry > 0] - 1, tlas_rows.shape[0], "rt.tlas_node")]
         hit = _slab(origins[tl], inv0[tl], trow[:, 0:3], trow[:, 4:7],
                     t[tl])
+        missed += int((~hit).sum())
         leaf = trow[:, 3] < 0.0
         inner = tl[hit & ~leaf]
         if inner.numel():
@@ -574,6 +576,7 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
         brow = blas_rows[checks.check_index(
             -entry[entry < 0] - 1, blas_rows.shape[0], "rt.blas_node")]
         hit = _slab(co[bl], cinv[bl], brow[:, 0:3], brow[:, 4:7], t[bl])
+        missed += int((~hit).sum())
         count = brow[:, 7].to(i64)
         left = brow[:, 3].to(i64)
         inner = hit & (count <= 0)
@@ -601,7 +604,7 @@ def closest_hit_reference(tlas_rows, blas_rows, instance_rows, tri_pos,
         overflow=torch.tensor(overflow, dtype=torch.int32, device=dev),
         exhausted=(sp > 0).sum().to(torch.int32),
     )
-    return res, WalkCounts(n_visits, entries, tests)
+    return res, WalkCounts(n_visits, entries, tests, missed)
 
 
 def check_threaded_table(table, n_tlas, instance_rows, tri_pos):
