@@ -169,7 +169,25 @@ native/texture_packer.cpp, the host C++ compiler), then:
      texture pool, K1 base and the fused LTC kernel held against their
      twins on its first frame's inputs, then 12 frames at 1920x1080
      (overflow 0, both kernels once a frame).
-Phases 5-8, 10-17 and 19 print the median ms/frame of frames 3-12 (CUDA
+ 20. record layouts and coherent resolves (record_phases): the north star
+     (no moving instances) at 1920x1080, 12 frames each of the default
+     config, inst_rec_f16, fused_resolve_rec + inst_rec_f16 (+
+     fused_inst_rec), sort_payload, two_stream_bin=False,
+     quad_rate_resolve (quad_edge_capacity 1 << 15, or the first frame's
+     edge quads rounded up), slot_resolve (run with TF32 matmuls allowed)
+     and planar_resolve, the block path without and with
+     fused_resolve_rec, and the masked scene's default, quad and slot
+     frames; each with K1 (K2 on the block path) and the fused LTC kernel
+     held against their twins on its first frame, its median ms/frame,
+     peak memory, resolve_gbuffer's own median ms (CUDA events), its
+     resolve overflow (0) and its first G-buffer's words against the
+     default frame's (0 where the JAX package holds the option
+     bit-identical; the f16 record within its budget and word for word
+     between its three layouts; single-stream binning equal in depth and
+     elsewhere only at K1's ties); then one masked frame with slim_rec,
+     which falls back to fused_resolve_rec + inst_rec_f16, word for word
+     the frame of that config.
+Phases 5-8, 10-17, 19 and 20 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
@@ -482,16 +500,17 @@ def expect_launches(label, want):
 
 def frame_setup(scene, cfg, cam=None):
     """Triangle setup of the first frame of `scene` at `cam` (default the
-    north-star camera), with the f16 instance record when cfg.slim_rec."""
+    north-star camera), with the f16 instance record the frame threads
+    (renderer.frame_inst_rec)."""
     import voidin_tpu_torch as pt
-    from voidin_tpu_torch.passes import cull, raster, resolve
+    from voidin_tpu_torch.framework.renderer import frame_inst_rec
+    from voidin_tpu_torch.passes import cull, raster
 
     uniform = (cam or north_star_camera(pt)).uniform()
     draws = cull.emit_draws(scene.meshes, scene.instances, uniform)
-    inst_rec = resolve._inst_rec_f16(scene) if cfg.slim_rec else None
     setup = raster.triangle_setup(scene.meshes, scene.instances, draws,
                                   uniform, cfg, materials=scene.materials,
-                                  inst_rec=inst_rec)
+                                  inst_rec=frame_inst_rec(scene, cfg))
     setup["draw_count"] = int(draws.count)
     return setup
 
@@ -646,14 +665,15 @@ def timing(r):
 
 
 def kernel_calls(render):
-    """The arguments of every call of K1 base (fine_raster_pairs) and of
-    the fused LTC kernel (ltc_rect_terms) while `render()` draws one
-    frame: {counter name: [(args, kwargs), ...]}, a kernel that the frame
-    did not call left out."""
+    """The arguments of every call of K1 (fine_raster_pairs), K2
+    (fine_raster_blocks) and the fused LTC kernel (ltc_rect_terms) while
+    `render()` draws one frame: {counter name: [(args, kwargs), ...]}, a
+    kernel that the frame did not call left out."""
     from voidin_tpu_torch.ops import fine_raster as fr
     from voidin_tpu_torch.ops import ltc_rect as lr
 
     wrapped = dict(k1=(fr, "fine_raster_pairs"),
+                   k2=(fr, "fine_raster_blocks"),
                    ltc_rect=(lr, "ltc_rect_terms"))
     reals = {k: getattr(m, a) for k, (m, a) in wrapped.items()}
     seen = {}
@@ -675,9 +695,9 @@ def kernel_calls(render):
 
 
 def main_path_inputs(render):
-    """The arguments of the first call of K1 base and of the fused LTC
-    kernel while `render()` draws one frame (kernel_calls): {counter
-    name: (args, kwargs)}."""
+    """The arguments of the first call of K1, K2 and the fused LTC kernel
+    while `render()` draws one frame (kernel_calls): {counter name:
+    (args, kwargs)}."""
     return {k: calls[0] for k, calls in kernel_calls(render).items()}
 
 
@@ -711,6 +731,36 @@ def hold_k1_call(label, args, kw, card):
     return r
 
 
+def hold_k2_call(label, args, kw, card):
+    """One recorded launch of K2 (its arguments `args`, `kw`) against its
+    twin: every output word equal, timed as kernel_phases times K2.
+    Returns its row."""
+    import torch
+
+    from voidin_tpu_torch.ops import fine_raster as fr
+
+    counts = args[1]
+    got = fr.fine_raster_blocks(*args, **kw)
+    ref = fr.fine_raster_blocks_reference(*args, **kw)
+    torch.cuda.synchronize()
+    differ = [words_differ(a, b) for a, b in zip(got, ref)]
+    r = timed_row(
+        lambda: fr.fine_raster_blocks(*args, **kw),
+        "fine_raster_blocks_kernel", 10,
+        lambda: fr.fine_raster_blocks_reference(*args, **kw), 1,
+        k1_bound(counts, 4 if kw.get("track2") else 2, tile_bytes=4),
+        float((got[0] - ref[0]).abs().max()))
+    r.update(records=int(counts.sum()), max_records=int(counts.max()),
+             differing_words=sum(differ))
+    print(f"{label}, K2 on its own blocks ({kw or 'base'}, K "
+          f"{args[0].shape[1]}): {r['records']} records over "
+          f"{counts.numel()} tiles, the fullest tile {r['max_records']}; "
+          f"differing words {differ}; {timing(r)} ({card})", flush=True)
+    if any(differ):
+        fail(f"{label}: K2 disagrees with its twin on its own blocks")
+    return r
+
+
 def hold_ltc_call(label, args, kw, card):
     """One recorded launch of the fused LTC kernel against its twin:
     every output word equal, timed as ltc_rect_phases times it; returns
@@ -741,19 +791,23 @@ def hold_ltc_call(label, args, kw, card):
 
 
 def hold_path_kernels(label, render, want, card):
-    """K1 base and the fused LTC kernel against their twins on the inputs
-    that one frame of `render()` hands them (main_path_inputs): every
-    output word equal, as kernel_phases and ltc_rect_phases hold them on
-    the north-star frame; `want` names the counters of the kernels that
-    the frame must call. Returns {kernel row name: its row on this
-    path}."""
+    """K1 (base or track2), K2 and the fused LTC kernel against their
+    twins on the inputs that one frame of `render()` hands them
+    (main_path_inputs): every output word equal, as kernel_phases and
+    ltc_rect_phases hold them on the north-star frame; `want` names the
+    counters of the kernels that the frame must call. Returns {kernel row
+    name: its row on this path}."""
     seen = main_path_inputs(render)
     if set(seen) != set(want):
         fail(f"{label}: the frame called {sorted(seen)}, expected "
              f"{sorted(want)}")
     rows = {}
     if "k1" in seen:
-        rows["fine_raster_pairs"] = hold_k1_call(label, *seen["k1"], card)
+        name = ("fine_raster_pairs_track2" if seen["k1"][1].get("track2")
+                else "fine_raster_pairs")
+        rows[name] = hold_k1_call(label, *seen["k1"], card)
+    if "k2" in seen:
+        rows["fine_raster_blocks"] = hold_k2_call(label, *seen["k2"], card)
     if "ltc_rect" in seen:
         rows["ltc_rect"] = hold_ltc_call(label, *seen["ltc_rect"], card)
     return rows
@@ -1850,17 +1904,18 @@ PRESET_RUNS = {
 }
 
 
-def preset_renderer(p, scene, width, height, mesh=None):
+def preset_renderer(p, scene, width, height, mesh=None, **options):
     """A Renderer for preset `p` wired as bench.py:458-501 wires it: the
     preset's capacities, cull / TAA / raytraced-shadow flags and moving
-    instances; row-sharded over `mesh` where given."""
+    instances, plus the RasterConfig `options`; row-sharded over `mesh`
+    where given."""
     from voidin_tpu_torch.framework.renderer import Renderer
     from voidin_tpu_torch.passes.raster import RasterConfig
 
     cfg = RasterConfig(width=width, height=height,
                        tri_capacity=p.tri_capacity,
                        pair_capacity=p.pair_capacity,
-                       tile_tri_capacity=p.tile_tri_capacity)
+                       tile_tri_capacity=p.tile_tri_capacity, **options)
     return Renderer(scene, cfg, enable_cull=p.enable_cull,
                     enable_taa=p.enable_taa,
                     enable_rt_shadows=p.enable_rt_shadows,
@@ -2657,11 +2712,17 @@ def main():
     jpeg_launches, jpeg_paths = image_import_phases(dev, card)
     stamp("phase 19 (the import scene with lossless, arithmetic and "
           "smoothed JPEGs and a WebP)")
+    record_launches, record_paths = record_phases(dev, card, masked_world,
+                                                  ns_k)
+    stamp("phase 20 (record layouts and coherent resolves)")
     for name in ("fine_raster_pairs", "ltc_rect"):
         rows[name]["paths"] = {**preset_paths.get(name, {}),
                                **import_paths.get(name, {}),
                                **app_paths.get(name, {}),
-                               **jpeg_paths.get(name, {})}
+                               **jpeg_paths.get(name, {}),
+                               **record_paths.get(name, {})}
+    for name in ("fine_raster_pairs_track2", "fine_raster_blocks"):
+        rows[name]["paths"] = record_paths.get(name, {})
     rows["ltc_rect"]["paths"][
         f"area_light_scale 2 ({WIDTH}x{SHARD_HEIGHT})"] = als_row
 
@@ -2669,17 +2730,19 @@ def main():
         fine_raster_pairs=(ns_launches["k1"] + preset_launches["k1"]
                            + import_launches["k1"] + app_launches["k1"]
                            + shard_launches["k1"] + jpeg_launches["k1"]
-                           + ring_launches["k1"]),
-        fine_raster_pairs_track2=masked_launches["k1_track2"],
+                           + ring_launches["k1"] + record_launches["k1"]),
+        fine_raster_pairs_track2=(masked_launches["k1_track2"]
+                                  + record_launches["k1_track2"]),
         fine_raster_pairs_payload=payload_launches["k1_payload"],
-        fine_raster_blocks=block_launches["k2"],
+        fine_raster_blocks=block_launches["k2"] + record_launches["k2"],
         fine_raster_blocks_track2=small_block_launches["k2_track2"],
         lut_fetch=ns_launches["k3"],
         lut_fetch_bf16=bf16_launches["k3_bf16"],
         ltc_rect=(ns_launches["ltc_rect"] + preset_launches["ltc_rect"]
                   + import_launches["ltc_rect"]
                   + app_launches["ltc_rect"] + shard_launches["ltc_rect"]
-                  + jpeg_launches["ltc_rect"]),
+                  + jpeg_launches["ltc_rect"]
+                  + record_launches["ltc_rect"]),
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         ltc_ring=ring_launches["ltc_ring"],
         ltc_ring_bf16=ring_launches["ltc_ring_bf16"],
@@ -3258,6 +3321,315 @@ def image_import_phases(dev, card):
               f"3-{FRAMES} ({card}); {mem}; image mean {out.mean():.4f} "
               f"std {out.std():.4f}", flush=True)
         del r, scene
+    return launches, paths
+
+
+# --- phase 20: record layouts and coherent resolves -----------------------
+# JAX's bench sizes quad_edge_capacity at 1 << 15 for the north star
+# (bench.py:668); a frame with more edge quads gets the next power of two
+# above its count (the capacities are sized per scene from the counters).
+QUAD_CAP = 1 << 15
+F16_ALBEDO = 1e-2  # tests/test_raster.py:560-562, the f16 record's budget
+F16_NORMAL = 2e-2  # tests/test_raster.py:563-569
+# (label, RasterConfig options, how the first frame's G-buffer is held
+# against the default frame's): "words", every word equal (the JAX
+# package's tests hold the option bit-identical); "f16", the f16 instance
+# record's budget (material, depth and uv words equal, normals within
+# F16_NORMAL, albedo within F16_ALBEDO); "ties", depth words equal and
+# other words differing only where K1's winner differs (single-stream
+# binning orders a tile's records otherwise, which decides K1's ties
+# between chunks).
+RECORD_SETS = (
+    ("inst_rec_f16", dict(inst_rec_f16=True), "f16"),
+    ("fused_resolve_rec + inst_rec_f16",
+     dict(fused_resolve_rec=True, inst_rec_f16=True), "f16"),
+    ("fused_resolve_rec + inst_rec_f16 + fused_inst_rec",
+     dict(fused_resolve_rec=True, inst_rec_f16=True, fused_inst_rec=True),
+     "f16"),
+    ("sort_payload", dict(sort_payload=True), "words"),
+    ("two_stream_bin=False", dict(two_stream_bin=False), "ties"),
+    ("quad_rate_resolve", dict(quad_rate_resolve=True), "words"),
+    ("slot_resolve", dict(slot_resolve=True), "words"),
+    ("planar_resolve", dict(planar_resolve=True), "words"),
+)
+MASKED_RECORD_SETS = (
+    ("masked quad_rate_resolve", dict(quad_rate_resolve=True), "words"),
+    ("masked slot_resolve", dict(slot_resolve=True), "words"),
+)
+
+
+class ResolveProbe:
+    """Wraps resolve.resolve_gbuffer while active: CUDA events around each
+    call, and the first call's VisBuffer ids, G-buffer and albedo kept."""
+
+    def __init__(self):
+        self.events, self.first = [], None
+
+    def __enter__(self):
+        from voidin_tpu_torch.passes import resolve
+
+        self.real = resolve.resolve_gbuffer
+
+        def call(scene, vis, config, **kw):
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            gb, aux = self.real(scene, vis, config, **kw)
+            end.record()
+            self.events.append((start, end))
+            if self.first is None:
+                self.first = dict(
+                    tri_id=vis.tri_id.clone(),
+                    normal_uv=gb.normal_uv.clone(),
+                    material=gb.material.clone(), depth=gb.depth.clone(),
+                    albedo=aux.albedo.clone(),
+                    overflow=None if aux.overflow is None
+                    else int(aux.overflow))
+            return gb, aux
+
+        resolve.resolve_gbuffer = call
+        return self
+
+    def __exit__(self, *exc):
+        from voidin_tpu_torch.passes import resolve
+
+        resolve.resolve_gbuffer = self.real
+
+    def ms(self):
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def edge_counts(tri_id, slot_k=16):
+    """Of a frame's (H, W) winner ids: the 2x2 quads that are not uniform
+    (quad_rate_resolve's edge batch) and the 8x16 tiles with more than
+    slot_k distinct ids (slot_resolve's per-tile fallback), and the
+    tiles."""
+    import torch
+
+    from voidin_tpu_torch.ops import fine_raster as fr
+
+    H, W = tri_id.shape
+    q = tri_id.reshape(H // 2, 2, W // 2, 2)
+    uniform = (q == q[:, :1, :, :1]).all(dim=3).all(dim=1)
+    t = tri_id.reshape(H // fr.TILE_H, fr.TILE_H, W // fr.TILE_W,
+                       fr.TILE_W).permute(0, 2, 1, 3).reshape(
+        -1, fr.TILE_PX)
+    s = torch.sort(t, dim=-1).values
+    distinct = 1 + (s[:, 1:] != s[:, :-1]).sum(dim=-1)
+    return int((~uniform).sum()), int((distinct > slot_k).sum()), t.shape[0]
+
+
+def capacity_for(count, floor):
+    """`floor`, or the next power of two at or above `count` beyond it."""
+    return floor if count <= floor else 1 << (count - 1).bit_length()
+
+
+def edge_capacities(tri_id):
+    """The edge capacities phase 20 runs a scene at, from its first
+    frame's winner ids: ({option: {its capacity field: n}}, edge quads,
+    tiles with more than 16 ids, tiles)."""
+    quads, over, tiles = edge_counts(tri_id)
+    sized = dict(
+        quad_rate_resolve=dict(quad_edge_capacity=capacity_for(
+            quads, QUAD_CAP)),
+        slot_resolve=dict(slot_edge_capacity=capacity_for(
+            over, max(tiles // 32, 64))))
+    return sized, quads, over, tiles
+
+
+def gbuffer_words(a, b, keys=("normal_uv", "material", "depth")):
+    """{field: words that differ} of two probes' first-frame G-buffers."""
+    return {k: words_differ(a[k], b[k]) for k in keys}
+
+
+def hold_record_set(label, mode, first, base, f16_base=None):
+    """The first frame's G-buffer of an option set against the default
+    frame's (`base`), by `mode` (RECORD_SETS). Prints the differing
+    words; fails where the mode is broken. Returns the differing words."""
+    from voidin_tpu_torch.core import encoding
+
+    differ = gbuffer_words(first, base)
+    line = f"phase 20, {label}: first frame's G-buffer words differing " \
+           f"from the default frame's {differ}"
+    if mode == "words":
+        ok = not any(differ.values())
+    elif mode == "f16":
+        n_a = encoding.decode_octahedral_32(first["normal_uv"][..., 0])
+        n_b = encoding.decode_octahedral_32(base["normal_uv"][..., 0])
+        dn = float((n_a - n_b).abs().max())
+        da = float((first["albedo"] - base["albedo"]).abs().max())
+        uv = words_differ(first["normal_uv"][..., 1],
+                          base["normal_uv"][..., 1])
+        line += (f"; normals max {dn:.3e} (budget {F16_NORMAL}), albedo "
+                 f"max {da:.3e} (budget {F16_ALBEDO}), uv words {uv}")
+        ok = (not differ["material"] and not differ["depth"] and not uv
+              and dn < F16_NORMAL and da < F16_ALBEDO)
+        if f16_base is not None:
+            same = gbuffer_words(first, f16_base,
+                                 ("normal_uv", "material", "depth",
+                                  "albedo"))
+            line += f"; words differing from the inst_rec_f16 frame's {same}"
+            ok = ok and not any(same.values())
+    else:  # "ties"
+        ids = first["tri_id"] != base["tri_id"]
+        px = ((first["normal_uv"] != base["normal_uv"]).any(dim=-1)
+              | (first["material"] != base["material"]))
+        outside = int((px & ~ids).sum())
+        line += (f"; K1 winners differ at {int(ids.sum())} pixels (ties), "
+                 f"G-buffer pixels differing elsewhere {outside}")
+        ok = not differ["depth"] and outside == 0
+    print(line, flush=True)
+    if not ok:
+        fail(f"phase 20, {label}: the G-buffer strays from the default "
+             f"frame's")
+    return differ
+
+
+def record_phases(dev, card, masked_world, ns_k):
+    """Phase 20: the JAX package's record layouts and coherent resolves on
+    the north star at WIDTHxHEIGHT (build_world(10_000), no moving
+    instances, so every run's first frame sees one scene) and the masked
+    scene, FRAMES frames a set through run_frames (overflow 0): the
+    default frame, each of RECORD_SETS, the block path without and with
+    fused_resolve_rec (K = ns_k), the masked default and
+    MASKED_RECORD_SETS; then one masked frame with slim_rec, which falls
+    back to fused_resolve_rec + inst_rec_f16 (the procedural presets are
+    all inside slim's envelope), word for word the frame of that config.
+    For each: K1 (K2 on the block path) and the fused LTC kernel held
+    against their twins on its first frame (hold_path_kernels), the median
+    ms/frame of frames 3-12, peak memory, resolve's own ms
+    (resolve_gbuffer by CUDA events; median of frames 3-12), its first
+    frame's overflow and its G-buffer held against the default frame's
+    (hold_record_set). Quad and slot capacities are sized from the
+    default frame's edge counts (edge_capacities). The slot set runs with
+    torch.backends.cuda.matmul.allow_tf32 on, which its select (a gather,
+    no matmul) does not read. Returns (launches by counter, {kernel
+    row name: {set: its row}})."""
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework.renderer import Renderer, build_world
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    world, _ = build_world(10_000, seed=0)
+    scenes = dict(north=world.device(dev), masked=masked_world.device(dev))
+    del world
+    caps = dict(north=CAP, masked=MASKED_PAIR_CAP)
+    launches, paths, table = {}, {}, []
+
+    def run(label, scene_key, opts, pair=True):
+        scene = scenes[scene_key]
+        cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
+                           pair_capacity=caps[scene_key], **opts)
+        track2 = scene.alpha_masked
+        k1 = "k1_track2" if track2 else "k1"
+        k2 = "k2_track2" if track2 else "k2"
+        raster = k1 if pair else k2
+        for k, row in hold_path_kernels(
+                label, lambda: Renderer(scene, cfg).render(
+                    north_star_camera(pt)),
+                ("k1" if pair else "k2", "ltc_rect"), card).items():
+            paths.setdefault(k, {})[label] = row
+        r = Renderer(scene, cfg)
+        reset_launches()
+        with ResolveProbe() as probe:
+            out, times, mem = run_frames(r, north_star_camera(pt), label)
+        got = expect_launches(label, {raster: FRAMES, "ltc_rect": FRAMES})
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        ms = float(np.median(times[2:]))
+        res = probe.ms()
+        res_ms = float(np.median(res[2:]))
+        ovf = probe.first["overflow"]
+        print(f"phase 20, {label} {WIDTH}x{HEIGHT}: median {ms:.3f} "
+              f"ms/frame over frames 3-{FRAMES}, resolve_gbuffer median "
+              f"{res_ms:.3f} ms (first frame {res[0]:.3f}) ({card}); "
+              f"{mem}; resolve overflow {ovf}", flush=True)
+        if ovf:
+            fail(f"phase 20, {label}: resolve's edge batch overflowed")
+        table.append((label, ms, res_ms))
+        del r
+        return probe.first
+
+    base = run("north-star default", "north", {})
+    sized, quads, over, tiles = edge_capacities(base["tri_id"])
+    print(f"phase 20, north star first frame: {quads} edge quads of "
+          f"{(HEIGHT // 2) * (WIDTH // 2)}, {over} of {tiles} tiles with "
+          f"more than 16 ids; capacities {sized}", flush=True)
+    f16_first = None
+    for label, opts, mode in RECORD_SETS:
+        opts = {**opts, **sized.get(next(iter(opts)), {})}
+        tf32 = "slot_resolve" in opts
+        if tf32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            first = run(label, "north", opts)
+            if tf32:
+                print(f"phase 20, {label} ran with allow_tf32 "
+                      f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        hold_record_set(label, mode, first, base,
+                        f16_base=f16_first if label != "inst_rec_f16"
+                        and mode == "f16" else None)
+        if label == "inst_rec_f16":
+            f16_first = first
+        del first
+    del f16_first
+
+    block = dict(backend="xla", tile_tri_capacity=ns_k)
+    block_base = run("block path default", "north", block, pair=False)
+    hold_record_set("block path fused_resolve_rec", "words",
+                    run("block path fused_resolve_rec", "north",
+                        dict(block, fused_resolve_rec=True), pair=False),
+                    block_base)
+    del block_base, base
+
+    masked = run("masked default", "masked", {})
+    sized, quads, over, tiles = edge_capacities(masked["tri_id"])
+    print(f"phase 20, masked first frame: {quads} edge quads, {over} "
+          f"tiles with more than 16 ids; capacities {sized}", flush=True)
+    for label, opts, mode in MASKED_RECORD_SETS:
+        opts = {**opts, **sized[next(iter(opts))]}
+        hold_record_set(label, mode, run(label, "masked", opts), masked)
+    del masked
+
+    # slim_rec outside its envelope: JAX's fallback, one frame
+    scene = scenes["masked"]
+    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
+                       pair_capacity=MASKED_PAIR_CAP)
+    r = Renderer(scene, dataclasses.replace(cfg, slim_rec=True,
+                                            kernel_payload=True))
+    c = r.config
+    if c.slim_rec or c.kernel_payload or not (c.fused_resolve_rec
+                                              and c.inst_rec_f16):
+        fail("phase 20: slim_rec outside its envelope did not fall back to "
+             "fused_resolve_rec + inst_rec_f16")
+    reset_launches()
+    got = r.render(north_star_camera(pt))
+    launches_slim = expect_launches("masked slim_rec fallback frame",
+                                    dict(k1_track2=1, ltc_rect=1))
+    for k, n in launches_slim.items():
+        launches[k] = launches.get(k, 0) + n
+    want = Renderer(scene, dataclasses.replace(
+        cfg, fused_resolve_rec=True, inst_rec_f16=True)).render(
+        north_star_camera(pt))
+    same = words_differ(got, want)
+    print(f"phase 20, masked slim_rec frame: the Renderer fell back to "
+          f"fused_resolve_rec + inst_rec_f16 (kernel_payload off), overflow "
+          f"{int(r.aux['overflow'])}; words differing from the frame of "
+          f"that config {same}", flush=True)
+    if same or int(r.aux["overflow"]) or not torch.isfinite(got).all():
+        fail("phase 20: the slim_rec fallback frame strays")
+    print("phase 20, ms/frame and resolve_gbuffer ms (median of frames "
+          f"3-{FRAMES}, {card}):", flush=True)
+    for label, ms, res_ms in table:
+        print(f"  {label:52s} frame {ms:8.3f}  resolve {res_ms:8.3f}",
+              flush=True)
+    del scenes, r
+    torch.cuda.empty_cache()
     return launches, paths
 
 

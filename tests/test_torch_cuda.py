@@ -15,7 +15,8 @@ ring light, for the presets (configs 4 and 7) and for the imported glTF
 scene; the App path (examples/model.py's scene through App.step, launches
 and the resize) on the card against the CPU, its recorded MJPEG-AVI read
 back by the port's JPEG decoder, and the profiler's CUDA-event timing;
-the native texture packer on the card's host. Marked
+the native texture packer on the card's host; the record layouts and
+coherent resolves against the default path on the card. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -865,3 +866,42 @@ def test_native_packer_on_the_card_host(cuda):
     assert on_card.is_cuda
     assert torch.equal(on_card.cpu(),
                        p.world.device("cpu").textures.quads)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(quad_rate_resolve=True),
+    dict(slot_resolve=True),
+    dict(planar_resolve=True),
+    dict(fused_resolve_rec=True),
+    dict(sort_payload=True),
+], ids=["quad", "slot", "planar", "fused", "sort_payload"])
+def test_record_options_on_card_keep_the_default_words(cuda, opts):
+    """On the card, the masked 320x184 scene (lazy alpha fallback, normal
+    maps): each option's G-buffer and material fields word for word the
+    default path's, resolve's overflow 0; with TF32 matmuls allowed,
+    which the slot select (a gather) does not read."""
+    world, _ = _foliage_world()
+    scene = world.device(cuda)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                    aspect=CFG.width / CFG.height).uniform()
+    draws = cull.emit_draws(scene.meshes, scene.instances, cam)
+
+    def resolve_with(cfg):
+        cfg = dataclasses.replace(cfg, alpha_mask=True)
+        vis = raster.rasterize(scene.meshes, scene.instances, draws, cam,
+                               cfg, materials=scene.materials)
+        return resolve.resolve_gbuffer(scene, vis, cfg)
+
+    base_gb, base_aux = resolve_with(CFG)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gb, aux = resolve_with(dataclasses.replace(CFG, **opts))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    for a, b in ((base_gb.normal_uv, gb.normal_uv),
+                 (base_gb.material, gb.material),
+                 (base_gb.depth, gb.depth), (base_aux.albedo, aux.albedo),
+                 (base_aux.emissive, aux.emissive), (base_aux.mr, aux.mr)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(aux.overflow) == 0 and int(aux.cut) > 0

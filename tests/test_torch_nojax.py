@@ -255,13 +255,13 @@ def test_wrappers_take_no_other_device():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(fused_resolve_rec=True),
-    dict(planar_resolve=True),
+    dict(tap_block=True),
+    dict(taa_inwindow=True),
     dict(taa_quad_history=True),
 ])
 def test_renderer_refuses_what_is_not_ported(kwargs):
     scene = pt.World().device("cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
         Renderer(scene, RasterConfig(width=32, height=16), **kwargs)
 
 

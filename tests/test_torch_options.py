@@ -166,26 +166,49 @@ def _normal_mapped_world(pkg):
 
 
 def test_slim_rec_outside_its_envelope_falls_back(golden):
-    """slim_rec on a normal-mapped scene: the Renderer switches it (and
-    kernel_payload) off and renders the default path, word for word the
-    frame without slim_rec, within the frame budget of the JAX package's
-    own fallback (fused_resolve_rec + inst_rec_f16); inside the envelope
-    slim_rec stays on."""
+    """slim_rec on a normal-mapped scene: the Renderer falls back as the
+    JAX package's does (renderer.py:315-333), to fused_resolve_rec +
+    inst_rec_f16 with kernel_payload off. The frame equals the port's
+    frame of that config word for word and JAX's fallback frame within
+    the frame budget, and its G-buffer has the words of JAX's resolve
+    under that config; inside the envelope slim_rec stays on."""
+    from voidin_tpu.passes import resolve as j_resolve
+
+    from voidin_tpu_torch.passes import cull, raster, resolve
+
+    from tests.test_torch_records import assert_gbuffer_words, jax_vis
+
     with unpermuted_worlds():
         js = _normal_mapped_world(vt).device(tap_blocks=False)
     assert not js.no_normal_maps
     ps = port_scene(js)
     jcam, cam = _cams()
     slim = dataclasses.replace(T_CFG, slim_rec=True, kernel_payload=True)
+    jax_r = JaxRenderer(js, dataclasses.replace(CFG, slim_rec=True),
+                        enable_taa=False)
     r = Renderer(ps, slim, enable_taa=False)
-    assert not r.config.slim_rec and not r.config.kernel_payload
+    fallback = dict(slim_rec=False, kernel_payload=False,
+                    fused_resolve_rec=True, inst_rec_f16=True)
+    for k, v in fallback.items():
+        assert getattr(r.config, k) == v, k
+        assert getattr(jax_r.config, k, False) == v, k
     got = r.render(cam).numpy()
     assert int(r.aux["overflow"]) == 0
-    default = Renderer(ps, T_CFG, enable_taa=False).render(cam).numpy()
-    np.testing.assert_array_equal(got, default)
-    want = np.asarray(JaxRenderer(js, dataclasses.replace(
-        CFG, slim_rec=True), enable_taa=False).render(jcam))
+    explicit = dataclasses.replace(T_CFG, fused_resolve_rec=True,
+                                   inst_rec_f16=True)
+    np.testing.assert_array_equal(
+        got, Renderer(ps, explicit, enable_taa=False).render(cam).numpy())
+    want = np.asarray(jax_r.render(jcam))
     diff = np.abs(got - want).mean()
     print(f"slim fallback: mean abs diff vs JAX {diff:.3e}")
     assert diff < BUDGET
+    uniform = cam.uniform()
+    draws = cull.emit_draws(ps.meshes, ps.instances, uniform)
+    vis = raster.rasterize(ps.meshes, ps.instances, draws, uniform,
+                           r.config, materials=ps.materials)
+    assert vis.resolve_rec.shape[-1] == 24
+    jg, _ = j_resolve.resolve_gbuffer(
+        js, jax_vis(vis), jcam.uniform(), jax_r.config)
+    tg, _ = resolve.resolve_gbuffer(ps, vis, r.config)
+    assert_gbuffer_words(jg, tg)
     assert Renderer(golden[1], slim, enable_taa=False).config.slim_rec

@@ -243,25 +243,39 @@ def test_payload_frame_equals_slim_frame_and_jax():
 
 def test_renderer_refuses_slim_outside_its_envelope():
     """Outside slim_rec's envelope (here a normal map) the Renderer
-    declines slim_rec and kernel_payload, where the JAX package falls
-    back to fused_resolve_rec + inst_rec_f16: it renders the default dense
-    path, word for word the frame without slim_rec."""
-    w = pt.World()
-    normal = w.textures.add(np.full((4, 4, 3), 128, np.uint8))
-    w.instances.add(np.eye(4, dtype=np.float32), 1,
-                    w.materials.add(normal=normal))
-    scene = w.device("cpu")
+    declines slim_rec and kernel_payload and falls back as the JAX
+    package's Renderer does on the same World, to fused_resolve_rec +
+    inst_rec_f16: its frame is word for word the port's frame of that
+    config."""
+    from voidin_tpu.framework.renderer import Renderer as JaxRenderer
+
+    def world(pkg):
+        w = pkg.World()
+        normal = w.textures.add(np.full((4, 4, 3), 128, np.uint8))
+        w.instances.add(np.eye(4, dtype=np.float32), 1,
+                        w.materials.add(normal=normal))
+        return w
+
+    scene = world(pt).device("cpu")
     assert not scene.no_normal_maps
     cfg = t_raster.RasterConfig(width=32, height=16, tri_capacity=1 << 8,
                                 pair_capacity=1 << 10)
     r = Renderer(scene, dataclasses.replace(cfg, slim_rec=True,
                                             kernel_payload=True),
                  enable_taa=False)
-    assert not r.config.slim_rec and not r.config.kernel_payload
+    jr = JaxRenderer(world(vt).device(tap_blocks=False),
+                     j_raster.RasterConfig(width=32, height=16,
+                                           slim_rec=True, interpret=True),
+                     enable_taa=False)
+    for k, v in dict(slim_rec=False, kernel_payload=False,
+                     fused_resolve_rec=True, inst_rec_f16=True).items():
+        assert getattr(r.config, k) == getattr(jr.config, k) == v, k
     cam = pt.Camera(position=[0.0, 0.0, -3.0], yaw=180.0, aspect=2.0)
+    explicit = dataclasses.replace(cfg, fused_resolve_rec=True,
+                                   inst_rec_f16=True)
+    got = r.render(cam).numpy()
     np.testing.assert_array_equal(
-        r.render(cam).numpy(),
-        Renderer(scene, cfg, enable_taa=False).render(cam).numpy())
+        got, Renderer(scene, explicit, enable_taa=False).render(cam).numpy())
 
 
 @pytest.mark.parametrize("options", [

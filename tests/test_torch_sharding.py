@@ -439,3 +439,55 @@ def test_sharded_masked_frame_matches_unsharded(foliage_scene, n, lazy):
     assert counts[0][0] > 0
     assert counts[1] == counts[0]
     np.testing.assert_array_equal(imgs[1], imgs[0])
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("opts", [
+    dict(fused_resolve_rec=True, inst_rec_f16=True),
+    dict(sort_payload=True),
+    dict(planar_resolve=True),
+], ids=["fused_f16", "sort_payload", "planar"])
+def test_sharded_record_options_match_unsharded(n, opts):
+    """The record layouts, sort_payload and the planar resolve on the
+    sharded frame (fused records through each slab's setup slice, slab
+    binning, planar resolve on each slab's window), 2 TAA frames: word
+    for word the unsharded frame of the same options."""
+    cfg = RasterConfig(**CFG, **opts)
+    want, _ = _frames(n_frames=2, cfg=cfg)
+    got, r = _frames(cpu_mesh(n), n_frames=2, cfg=cfg)
+    np.testing.assert_array_equal(got, want)
+    for k, v in opts.items():
+        assert getattr(r.config, k) == v
+
+
+@pytest.mark.parametrize("opts", [dict(quad_rate_resolve=True),
+                                  dict(slot_resolve=True)],
+                         ids=["quad", "slot"])
+def test_sharded_frame_turns_coherent_paths_off(monkeypatch, opts):
+    """Under a mesh the frame resolves without the quad or slot fetch, as
+    the JAX package's sharded frame does (renderer.py:163-175): every
+    slab's resolve sees them off, no edge overflow is tracked, and the
+    frame is word for word the unsharded one, which takes them."""
+    from voidin_tpu_torch.passes import resolve as t_resolve
+
+    seen = []
+    real = t_resolve.resolve_gbuffer
+
+    def spy(scene, vis, config, **kw):
+        seen.append((config, kw.get("rows") is not None))
+        return real(scene, vis, config, **kw)
+
+    monkeypatch.setattr(t_resolve, "resolve_gbuffer", spy)
+    cfg = RasterConfig(**CFG, **opts)
+    want, r0 = _frames(n_frames=2, cfg=cfg)
+    assert seen and all(c.quad_rate_resolve == cfg.quad_rate_resolve
+                        and c.slot_resolve == cfg.slot_resolve
+                        for c, _ in seen)
+    seen.clear()
+    got, r = _frames(cpu_mesh(4), n_frames=2, cfg=cfg)
+    assert len(seen) == 8 and all(slab for _, slab in seen)
+    assert not any(c.quad_rate_resolve or c.slot_resolve for c, _ in seen)
+    assert r.config.quad_rate_resolve == cfg.quad_rate_resolve
+    np.testing.assert_array_equal(got, want)
+    plain, _ = _frames(n_frames=2)
+    np.testing.assert_array_equal(want, plain)

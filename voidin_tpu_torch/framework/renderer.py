@@ -28,11 +28,11 @@ documented deviation). ``RasterConfig.debug_bounds`` checks every
 data-dependent gather of the frame (core/checks.py) and raises an
 IndexError naming it. slim_rec on a scene outside its envelope (normal
 maps, sampled emissive or metallic-roughness, alpha masking, ids not
-exact in f16) is switched off: the JAX package falls back to
-fused_resolve_rec + inst_rec_f16 there, a gather economy of the same
-frame, and the port renders that frame on its default dense path. The
-Renderer raises NotImplementedError for the JAX package's gather-economy
-RasterConfig options alone (raster.UNSUPPORTED_OPTIONS).
+exact in f16) falls back as the JAX package's does, to fused_resolve_rec +
+inst_rec_f16 (kernel_payload, which rides the slim record, goes off). The
+Renderer raises NotImplementedError for the options the port does not
+carry (raster.UNSUPPORTED_OPTIONS: the quad-block samplers of the albedo
+tap and the TAA history).
 """
 
 from __future__ import annotations
@@ -133,9 +133,8 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     # 1. compute_update + skinning; 2. emit_draws
     scene = _update_scene(scene, moving_ids, globals_, joint_mats)
     draws = _emit_draws(scene, camera, enable_cull)
-    # 3. visibility raster + G-buffer resolve; slim_rec threads the f16
-    # instance record through setup into the slim resolve record
-    inst_rec = resolve_pass._inst_rec_f16(scene) if config.slim_rec else None
+    # 3. visibility raster + G-buffer resolve
+    inst_rec = frame_inst_rec(scene, config)
     vis = raster_pass.rasterize(scene.meshes, scene.instances, draws, camera,
                                 config, materials=scene.materials,
                                 inst_rec=inst_rec)
@@ -168,6 +167,21 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
     if rt is not None:
         aux.update(rt_exhausted=rt["exhausted"], rt_rays=rt["rays"])
     return srgb, state, scene, aux
+
+
+def frame_inst_rec(scene, config):
+    """The f16 instance record the frame threads through setup: slim_rec
+    folds it into the slim record, fused_inst_rec into the resolve record
+    (which needs fused_resolve_rec + inst_rec_f16, else ValueError);
+    otherwise None."""
+    if config.slim_rec:
+        return resolve_pass._inst_rec_f16(scene)
+    if config.fused_inst_rec:
+        if not (config.fused_resolve_rec and config.inst_rec_f16):
+            raise ValueError(
+                "fused_inst_rec requires fused_resolve_rec + inst_rec_f16")
+        return resolve_pass._inst_rec_f16(scene)
+    return None
 
 
 def _update_scene(scene, moving_ids, globals_, joint_mats):
@@ -229,6 +243,9 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
 
     * update, skinning and refits run replicated on every distinct
       device, the cull once on mesh.devices[0];
+    * resolve takes no quad or slot fetch (their compactions are the
+      whole image's), as the JAX package's sharded frame does: the same
+      words; planar_resolve stays;
     * the pair path rasterizes row-partitioned (rasterize_sharded: one
       K1 launch per slab); the block path rasterizes whole on
       mesh.devices[0] and splits the images, as the JAX package does;
@@ -258,7 +275,7 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
               for dev, sc in replicas.items()}
     scene0 = scenes[primary]
     draws = _emit_draws(scene0, camera, enable_cull)
-    inst_rec = resolve_pass._inst_rec_f16(scene0) if config.slim_rec else None
+    inst_rec = frame_inst_rec(scene0, config)
     if config.backend == "pallas":
         vis = shard_mod.rasterize_sharded(
             scene0.meshes, scene0.instances, draws, camera, config, mesh,
@@ -269,6 +286,8 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
             materials=scene0.materials, inst_rec=inst_rec), bounds)
 
     # resolve + shade per slab, on its window of rows
+    config = dataclasses.replace(config, quad_rate_resolve=False,
+                                 slot_resolve=False)
     s = 1 if enable_rt_shadows else area_light_scale
     fields = [f for f in ("tri_id", "depth", "tri_id2", "depth2")
               if getattr(vis[0], f) is not None]
@@ -411,13 +430,13 @@ class Renderer:
         self.scene = scene
         config = config or RasterConfig()
         if config.slim_rec and not _slim_fits(scene):
-            # outside slim's envelope the JAX package switches to
-            # fused_resolve_rec + inst_rec_f16, a gather economy of the
-            # same frame; the port renders that frame on its default
-            # dense path (kernel_payload rides the slim record, so it goes
-            # too)
+            # outside slim's envelope, the JAX package's fallback: the
+            # general records of the same gathers (kernel_payload rides
+            # the slim record, so it goes too)
             config = dataclasses.replace(config, slim_rec=False,
-                                         kernel_payload=False)
+                                         kernel_payload=False,
+                                         fused_resolve_rec=True,
+                                         inst_rec_f16=True)
         # runner-up tracking only when the scene has per-texel alpha-masked
         # materials (visibility.wgsl:79-81 semantics)
         self.config = dataclasses.replace(config,

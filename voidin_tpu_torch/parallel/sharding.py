@@ -215,7 +215,8 @@ def rasterize_sharded(meshes, instances, draws, camera, config, mesh,
 
     def pool(dev):
         m = meshes if replicas is None else replicas[dev].meshes
-        tri_attr = m.tri_attr_packed if config.slim_rec else None
+        tri_attr = (m.tri_attr_packed
+                    if config.slim_rec or config.fused_resolve_rec else None)
         return (m.tri_pos.to(dev),
                 None if tri_attr is None else tri_attr.to(dev))
 

@@ -6,11 +6,14 @@ Counterpart of ``voidin_tpu/passes/raster.py``:
    transform, near-clip (<= 2 triangles, extras into a capacity tail),
    reduce each triangle to an affine coefficient record (edge planes +
    depth plane in a per-triangle anchor frame) plus a resolve record
-   (48 B, or with RasterConfig.slim_rec the 96 B slim record);
+   (48 B; 96 B with the corner-attribute row under fused_resolve_rec, 144
+   B with the f16 instance record too under fused_inst_rec; the 96 B slim
+   record under slim_rec);
 2. binning, by RasterConfig.backend:
    "pallas" (default), the pair path: two-stream (triangle, tile) pairs —
    every triangle's first tile is a 1:1 slot, multi-tile extras expand at
-   pair_capacity/4 — stably sorted by tile, records gathered into tile
+   pair_capacity/4 — or with two_stream_bin=False one stream expanded at
+   pair_capacity, stably sorted by tile, records gathered into tile
    order and their b coefficients baked to each pair's tile origin;
    "xla", the block path: one (triangle, tile) stream expanded at
    pair_capacity, stably sorted by tile, each tile's first
@@ -46,13 +49,11 @@ from .gbuffer import VisBuffer
 
 NEAR_EPS = 1e-8
 
-# RasterConfig options of the JAX package that exist to save TPU gather
-# rows or serve other features; the port carries the default path only.
+# RasterConfig options of the JAX package the port does not carry yet:
+# the quad-block samplers of the albedo tap and the TAA history. The
+# Renderer refuses them by name.
 UNSUPPORTED_OPTIONS = (
-    "sort_payload", "fused_resolve_rec", "inst_rec_f16",
-    "planar_resolve", "fused_inst_rec", "quad_rate_resolve",
-    "taa_quad_history", "taa_inwindow", "taa_quad_where", "tap_block",
-    "slot_resolve",
+    "tap_block", "taa_quad_history", "taa_quad_where", "taa_inwindow",
 )
 
 
@@ -65,6 +66,16 @@ class RasterConfig:
     tile_tri_capacity: int = 128  # block path: max records per tile (K)
     # "pallas": the pair path (K1); "xla": the block path (K2)
     backend: str = "pallas"
+    # The JAX package's sort that carries the 16 record fields through the
+    # tile sort. It gives the records of the gather after the sort, in the
+    # same order (the sort is stable), so the port accepts it and runs
+    # that one gather either way.
+    sort_payload: bool = False
+    # Two-stream pair binning (first tile 1:1, extras through a compacted
+    # expansion at pair_capacity/4) or one stream expanded at
+    # pair_capacity (False). A tile's records come in another order, which
+    # decides K1's ties between records of different chunks.
+    two_stream_bin: bool = True
     # Track the runner-up depth candidate per pixel (K1's track2 variant)
     # so resolve can apply the per-texel alpha cutoff inside the depth
     # competition (visibility.wgsl:79-81 discard). The Renderer sets it
@@ -83,6 +94,39 @@ class RasterConfig:
     # const-folded emissive / metallic-roughness, no alpha mask and
     # f16-exact material and texture ids (the Renderer checks).
     slim_rec: bool = False
+    # The corner-attribute row (12 words) rides the resolve record (24
+    # columns): resolve fetches it with the record. The same words.
+    fused_resolve_rec: bool = False
+    # The fused instance+material record as f16 pairs (12 words, 48 B;
+    # resolve._inst_rec_f16): ids and power-of-two texture extents exact,
+    # basis and colours within the 1e-2 image budget. Material and texture
+    # ids must stay below 2048.
+    inst_rec_f16: bool = False
+    # The f16 instance record rides the draw record and the resolve record
+    # (36 columns) from setup: the words of inst_rec_f16's gather. Needs
+    # fused_resolve_rec + inst_rec_f16; the Renderer threads the record
+    # through rasterize(inst_rec=...).
+    fused_inst_rec: bool = False
+    # The JAX package's channel-major twin of the dense resolve. Accepted
+    # for its config and resolved by the port's dense path, whose G-buffer
+    # words the twin gives (aux within its ulp budget).
+    planar_resolve: bool = False
+    # Resolve's rows fetched once per uniform 2x2 quad, edge quads through
+    # a compacted batch of quad_edge_capacity quads (0: max(quads // 4,
+    # 1024)); overflowed edge pixels keep their quad's anchor rows and are
+    # counted in ResolveAux.overflow. Not with fused_resolve_rec or
+    # slim_rec; off under a mesh.
+    quad_rate_resolve: bool = False
+    quad_edge_capacity: int = 0
+    # Resolve's channels fetched once per (8x16 tile, distinct triangle),
+    # slot_k slots a tile, selected per pixel by a one-hot product;
+    # tiles with more distinct ids re-resolved per pixel, slot_edge_capacity
+    # tiles of them (0: max(tiles // 32, 64)), the rest counted in
+    # ResolveAux.overflow. Subsumes quad_rate_resolve; not with
+    # fused_resolve_rec or slim_rec; off under a mesh.
+    slot_resolve: bool = False
+    slot_k: int = 16
+    slot_edge_capacity: int = 0
     # K1 hands resolve the winner's slim record per pixel
     # (VisBuffer.payload_img), so resolve skips its per-pixel record
     # gather; bit-identical to it. Needs slim_rec and the pair path.
@@ -174,8 +218,8 @@ def setup_draw_records(meshes: MeshPoolData, instances: InstanceData,
                        materials=None, inst_rec=None):
     """Per-draw record (mvp + offsets + instance id, 24 f32), triangle
     counts and their running sum. `inst_rec` (instances, 12) int32, the
-    f16 instance record of resolve._inst_rec_f16 (slim_rec), rides as 12
-    more columns of u32 bits (36 f32)."""
+    f16 instance record of resolve._inst_rec_f16 (slim_rec,
+    fused_inst_rec), rides as 12 more columns of u32 bits (36 f32)."""
     dev = instances.transform.device
     inst_ids = draws.instance.to(torch.int64)
     safe_inst = torch.clamp(inst_ids, min=0)
@@ -251,7 +295,9 @@ def setup_work_slice(tri_pos, tri_attr_packed, draw_rec, n_tris,
     Every operation is per slot, so a slice computes the same words as
     those rows of the whole run: the sharded raster runs tri_capacity / N
     slots on each device (parallel/sharding.py). `tri_attr_packed` is
-    read only for slim_rec."""
+    read only for slim_rec and fused_resolve_rec. Columns that carry u32
+    or f16 words as f32 are only ever copied, so every bit pattern (NaN
+    ones included) comes through."""
     cap = config.tri_capacity
     if num is None:
         num = cap
@@ -323,15 +369,20 @@ def setup_work_slice(tri_pos, tri_attr_packed, draw_rec, n_tris,
         attr = tri_attr_packed[torch.where(valid, tri_pool, 0)]
         resolve1 = _slim_resolve_rec(clip, attr, rec, num)
     else:
-        resolve1 = torch.cat(
-            [
-                clip[:, :, [0, 1, 3]].reshape(num, 9),
-                inst.to(torch.float32)[:, None],
-                idx_start.to(torch.float32)[:, None],
-                torch.zeros(num, 1, dtype=torch.float32, device=dev),
-            ],
-            dim=-1,
-        )
+        cols = [
+            clip[:, :, [0, 1, 3]].reshape(num, 9),
+            inst.to(torch.float32)[:, None],
+            idx_start.to(torch.float32)[:, None],
+            torch.zeros(num, 1, dtype=torch.float32, device=dev),
+        ]
+        if config.fused_resolve_rec:
+            # the corner-attribute row, then (fused_inst_rec) the f16
+            # instance record copied from the draw record
+            attr = tri_attr_packed[torch.where(valid, tri_pool, 0)]
+            cols.append(attr.view(torch.float32))
+            if draw_rec.shape[-1] >= 36:
+                cols.append(rec[:, 24:36])
+        resolve1 = torch.cat(cols, dim=-1)  # (num, 12 | 24 | 36)
     extra_geom = torch.cat(
         [sx2, sy2, z2, alive2[:, None].to(torch.float32)], dim=-1
     )  # (num, 10)
@@ -414,7 +465,8 @@ def triangle_setup(meshes: MeshPoolData, instances: InstanceData,
     """Per-work-item screen data and packed records, capacity padded.
     `materials`: triangles whose base_color.w < 0.5 are dropped here (every
     fragment of them discards, visibility.wgsl:79). `inst_rec`: the f16
-    instance record, needed by slim_rec."""
+    instance record, needed by slim_rec and folded into the resolve
+    record by fused_inst_rec."""
     draw_rec, n_tris, cum_draws = setup_draw_records(
         meshes, instances, draws, camera, config, materials=materials,
         inst_rec=inst_rec,
@@ -528,9 +580,15 @@ def bin_triangles(setup: dict, config: RasterConfig):
 
 
 def bin_triangles_pairs(setup: dict, config: RasterConfig, ty_range=None):
-    """Pair-centric two-stream binning: tile-sorted baked records plus
-    per-tile ranges, padded for K1. Returns (rec_sorted, starts, counts,
-    overflow) with starts/counts int32.
+    """Pair-centric binning: tile-sorted baked records plus per-tile
+    ranges, padded for K1. Returns (rec_sorted, starts, counts, overflow)
+    with starts/counts int32. Two streams (config.two_stream_bin: each
+    alive triangle's first tile 1:1, the other tiles of multi-tile
+    triangles compacted and expanded at pair_capacity / 4; overflow the
+    pairs not placed), or one stream expanded at pair_capacity (overflow
+    the pairs beyond it). Inside a tile the records keep their stream
+    order: two streams put the records of triangles whose first tile it
+    is first.
 
     `ty_range=(ty_lo, rows)`: bin only the `rows` tile rows from tile row
     `ty_lo` (one slab of the sharded raster): every triangle's tile rows
@@ -560,30 +618,40 @@ def bin_triangles_pairs(setup: dict, config: RasterConfig, ty_range=None):
     bbox_rec = torch.stack([tx0, ty0, bw], dim=-1)
     EA = n_pairs.shape[0]
 
-    # Stream A: first tile per alive triangle, slot i <-> triangle i.
-    tile_a = torch.where(alive, ty0 * TX + tx0, NT)
-    tri_a = torch.arange(EA, device=dev)
-    # Stream B: remaining tiles of multi-tile triangles, compacted.
-    n_extra = torch.clamp(n_pairs - 1, min=0)
-    has_extra = n_extra > 0
-    parents = torch.argsort((~has_extra).to(torch.uint8), stable=True)[:EB]
-    counts_b = torch.where(has_extra[parents], n_extra[parents], 0)
-    seg_b, local_b, valid_b = segment_ids_from_counts(counts_b, EB)
-    tri_b = parents[seg_b]
-    br = bbox_rec[tri_b]
-    k = local_b + 1  # tile within the parent bbox, skipping (0, 0)
-    tile_b = (br[:, 1] + k // br[:, 2]) * TX + (br[:, 0] + k % br[:, 2])
-    tile_b = torch.where(valid_b, tile_b, NT)
-    # pairs not placed in B (exact integer form of the JAX f32 count)
-    total_extra = n_extra.sum()
-    placed_b = torch.clamp(counts_b.sum(), max=EB)
-    overflow = torch.clamp(total_extra - placed_b, min=0)
+    if config.two_stream_bin:
+        # Stream A: first tile per alive triangle, slot i <-> triangle i.
+        tile_a = torch.where(alive, ty0 * TX + tx0, NT)
+        tri_a = torch.arange(EA, device=dev)
+        # Stream B: remaining tiles of multi-tile triangles, compacted.
+        n_extra = torch.clamp(n_pairs - 1, min=0)
+        has_extra = n_extra > 0
+        parents = torch.argsort((~has_extra).to(torch.uint8),
+                                stable=True)[:EB]
+        counts_b = torch.where(has_extra[parents], n_extra[parents], 0)
+        seg_b, local_b, valid_b = segment_ids_from_counts(counts_b, EB)
+        tri_b = parents[seg_b]
+        br = bbox_rec[tri_b]
+        k = local_b + 1  # tile within the parent bbox, skipping (0, 0)
+        tile_b = (br[:, 1] + k // br[:, 2]) * TX + (br[:, 0] + k % br[:, 2])
+        tile_b = torch.where(valid_b, tile_b, NT)
+        # pairs not placed in B (exact integer form of the JAX f32 count)
+        total_extra = n_extra.sum()
+        placed_b = torch.clamp(counts_b.sum(), max=EB)
+        overflow = torch.clamp(total_extra - placed_b, min=0)
+        tile = torch.cat([tile_a, tile_b])
+        tri = torch.cat([tri_a, tri_b])
+    else:
+        # one stream: every pair of every triangle, expanded at E
+        E = config.pair_capacity
+        tri, local, pair_valid = segment_ids_from_counts(n_pairs, E)
+        overflow = torch.clamp(saturating_cumsum(n_pairs)[-1] - E, min=0)
+        br = bbox_rec[tri]
+        tile = (br[:, 1] + local // br[:, 2]) * TX + (
+            br[:, 0] + local % br[:, 2])
+        tile = torch.where(pair_valid, tile, NT)
 
-    tile = torch.cat([tile_a, tile_b])
-    tri = torch.cat([tri_a, tri_b])
     tile_sorted, order = torch.sort(tile, stable=True)
-    tri_sorted = tri[order]
-    rec_sorted = setup["raster_rec"][tri_sorted]
+    rec_sorted = setup["raster_rec"][tri[order]]
     rec_sorted = bake_tile_origin(rec_sorted, tile_sorted, config,
                                   row_px_offset=row_px_offset)
     bounds = torch.searchsorted(

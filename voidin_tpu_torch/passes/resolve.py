@@ -12,11 +12,25 @@ evaluates the reference's attribute math (visibility.wgsl:66-97):
 * alpha cutoff: base_color.w < 0.5 || albedo.a < 0.5 -> background;
 * G-buffer = (octahedral normal u32, pack2x16float uv, material id, depth).
 It also produces the per-pixel material fields the shading pass consumes
-(ResolveAux), so shading reads no material table. With
-RasterConfig.slim_rec the resolve record is the slim 96 B row (world-space
-normals and the material scalars ride in it) and resolve fetches one row
-per pixel, or none where K1 handed over the winner's record
-(RasterConfig.kernel_payload, VisBuffer.payload_img).
+(ResolveAux), so shading reads no material table.
+
+The JAX package's record layouts and coherent paths, by RasterConfig
+field:
+* slim_rec: the slim 96 B record (world-space normals and the material
+  scalars ride in it), one row per pixel, or none where K1 handed over the
+  winner's record (kernel_payload, VisBuffer.payload_img);
+* inst_rec_f16: the fused instance record as f16 pairs in 12 words;
+* fused_resolve_rec / fused_inst_rec: the corner-attribute row (and the
+  f16 instance record) ride the resolve record from setup;
+* quad_rate_resolve: the rows fetched once per uniform 2x2 quad, edge
+  quads through a compacted batch (_quad_fetch);
+* slot_resolve: the decoded channels fetched once per (8x16 tile,
+  distinct triangle) and selected per pixel by a one-hot product
+  (_slot_fetch_channels), overflowing tiles re-resolved per pixel;
+* planar_resolve: accepted for the JAX package's config and resolved by
+  the dense path, whose words the JAX package's planar twin gives.
+The coherent paths give the words of the per-pixel path while their edge
+batches hold; what overflows them is counted in ResolveAux.overflow.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from typing import Optional
 import torch
 
 from ..core import checks, encoding, fastmath
+from ..ops import fine_raster as fr
 from ..scene.scene import SceneData
 from ..scene.texture import sample_trilinear
 from .gbuffer import GBuffer, VisBuffer
@@ -40,7 +55,9 @@ class ResolveAux:
     albedo: torch.Tensor  # (H, W, 4) filtered albedo (shading.wgsl:58)
     emissive: torch.Tensor  # (H, W, 3)
     mr: torch.Tensor  # (H, W, 4) metallic-roughness texel
-    # () alpha-fallback pixels beyond capacity (lazy path), else None
+    # () what overflowed a capacity: the alpha-fallback pixels beyond
+    # alpha_fallback_capacity (lazy path) plus the quad / slot edge batches'
+    # overflow; None on a dense path without a coherent fetch
     overflow: Optional[torch.Tensor] = None
     # () pixels whose winner was alpha-cut, and those of them resolved to
     # the runner-up (alpha-masked scenes), else None
@@ -88,43 +105,57 @@ def _inst_rec(scene: SceneData):
 
 def _inst_rec_f16(scene: SceneData):
     """The fused instance record as f16 pairs in 12 u32 columns (int32
-    bits), (instances, 12): what RasterConfig.slim_rec threads through the
-    draw record. f16 keeps ids exact only below 2048, so larger material
-    or texture pools raise."""
+    bits), (instances, 12), 48 B rows (RasterConfig.inst_rec_f16; threaded
+    through the draw record by slim_rec and fused_inst_rec). f16 keeps ids
+    and power-of-two texture extents exact, the basis and colours within
+    ~1e-3; ids are exact only below 2048, so larger material or texture
+    pools raise."""
     n_mats = scene.materials.albedo.shape[0]
     n_tex = scene.textures.size.shape[0]
     if n_mats > 2048 or n_tex > 2048:
         raise ValueError(
             f"inst_rec_f16 requires material/texture ids < 2048 (f16 "
             f"integer exactness); scene has {n_mats} materials / "
-            f"{n_tex} textures")
+            f"{n_tex} textures — disable RasterConfig.inst_rec_f16")
     rec = _inst_rec(scene).to(torch.float16)  # (N, 24)
     return rec.contiguous().view(torch.int32)  # (N, 12)
 
 
 def _fetch_rows(scene: SceneData, vis: VisBuffer, tri_id,
-                slim: bool = False):
-    """The per-pixel row fetches: resolve record, packed corner-attribute
-    row (u32 bits as int32), fused instance+material record. With `slim`
-    the slim record alone: K1's payload image where it covers these
-    pixels (RasterConfig.kernel_payload), else the record gather."""
+                inst_f16: bool = False, slim: bool = False):
+    """The per-pixel row fetches for any pixel-set shape S, undecoded so
+    the quad path can scatter them: rec, the resolve record (12, 24 or 36
+    f32 columns); pk (*S, 12), the packed corner-attribute row (u32 bits
+    as int32), from record columns 12:24 where fused_resolve_rec put it
+    there, else from the pool; irec, the fused instance+material record,
+    from record columns 24:36 where fused_inst_rec put it there, else
+    gathered: (*S, 12) int32 f16 pairs with `inst_f16`, else (*S, 24)
+    f32. With `slim` the slim record alone: K1's payload image where it
+    covers these pixels (RasterConfig.kernel_payload), else the record
+    gather."""
     if (slim and vis.payload_img is not None
             and tri_id.shape == vis.payload_img.shape[:-1]):
         return dict(rec=vis.payload_img)
     tid = torch.clamp(tri_id.to(torch.int64), min=0)
     rec = vis.resolve_rec[
         checks.check_index(tid, vis.resolve_rec.shape[0], "resolve.rec")
-    ]  # (*S, 12 | 24)
+    ]  # (*S, 12 | 24 | 36)
     if slim:
         return dict(rec=rec)
-    tri_pool = (rec[..., 10] / 3.0).to(torch.int64)  # idx_start / 3
-    pk = scene.meshes.tri_attr_packed[checks.check_index(
-        tri_pool, scene.meshes.tri_attr_packed.shape[0], "resolve.tri_attr")
-    ]  # (*S, 12)
+    if rec.shape[-1] >= 24:
+        pk = rec[..., 12:24].view(torch.int32)
+    else:
+        tri_pool = (rec[..., 10] / 3.0).to(torch.int64)  # idx_start / 3
+        pk = scene.meshes.tri_attr_packed[checks.check_index(
+            tri_pool, scene.meshes.tri_attr_packed.shape[0],
+            "resolve.tri_attr")]  # (*S, 12)
+    if rec.shape[-1] >= 36:
+        # the words of the inst_f16 gather, carried as f32 columns
+        return dict(rec=rec, pk=pk, irec=rec[..., 24:36].view(torch.int32))
     inst = checks.check_index(rec[..., 9].to(torch.int64),
                               scene.instances.count, "resolve.instance")
-    irec = _inst_rec(scene)[inst]  # (*S, 24)
-    return dict(rec=rec, pk=pk, irec=irec)
+    table = _inst_rec_f16(scene) if inst_f16 else _inst_rec(scene)
+    return dict(rec=rec, pk=pk, irec=table[inst])
 
 
 def _decode_slim_channels(rows):
@@ -140,16 +171,26 @@ def _decode_slim_channels(rows):
                 n_c=n_c.reshape(S + (9,)), pay=pay.to(torch.float32))
 
 
-def _decode_channels(rows, tangents: bool = True):
-    """Row tables -> f32 channels: cl (clip x/y/w per vertex), uv_c, n_c,
-    t_c/t_sign (when tangents) and irec."""
+def _f16_words(words):
+    """(..., n) int32 words of f16 pairs -> (..., 2n) f32, each word's low
+    half first."""
+    return words.contiguous().view(torch.float16).to(torch.float32)
+
+
+def _decode_channels(rows, inst_f16: bool = False, tangents: bool = True):
+    """Row tables -> f32 channels of any shape S (trailing dims flat): cl
+    (9, clip x/y/w per vertex), uv_c (6), n_c (9), irec (24; decoded from
+    f16 pairs with `inst_f16`) and, when `tangents`, t_sign (3) and t_c
+    (9). Elementwise, so it commutes with an exact selection (the slot
+    path decodes at tile rate)."""
     rec = rows["rec"]
     S = rec.shape[:-1]
     pk = rows["pk"]
     uv_c = pk[..., 0:6].contiguous().view(torch.float32)
     n_c = encoding.decode_octahedral_32(pk[..., 6:9])
+    irec = _f16_words(rows["irec"]) if inst_f16 else rows["irec"]
     out = dict(cl=rec[..., :9], uv_c=uv_c, n_c=n_c.reshape(S + (9,)),
-               irec=rows["irec"])
+               irec=irec)
     if tangents:
         t_enc = pk[..., 9:12]
         out["t_sign"] = 1.0 - 2.0 * (t_enc & 1).to(torch.float32)
@@ -157,27 +198,173 @@ def _decode_channels(rows, tangents: bool = True):
     return out
 
 
+def _scatter_rows(dense, widx, rows):
+    """dense (H, W, C...) with rows (N, C...) written at the flat pixel
+    indices widx (N,); an index H*W drops its row (a spare row takes
+    it). The written indices are distinct."""
+    H, W = dense.shape[:2]
+    flat = dense.reshape((H * W,) + dense.shape[2:])
+    buf = torch.cat([flat, flat[:1]])
+    buf[widx] = rows
+    return buf[:H * W].reshape(dense.shape)
+
+
+def _quad_fetch(scene: SceneData, vis: VisBuffer, tri_id,
+                inst_f16: bool = False, capacity: int = 0):
+    """RasterConfig.quad_rate_resolve: the rows of _fetch_rows fetched
+    once per uniform 2x2 quad (its four pixels hit one triangle) and
+    broadcast; the pixels of edge quads through a compacted flat batch,
+    written back over the broadcast. The same rows feed the same math, so
+    the fields are the per-pixel path's. Returns (dense row tables (H, W,
+    C), the edge quads beyond `capacity` (0: max(Hq * Wq // 4, 1024)),
+    whose pixels keep their anchor's rows). Edge quads are compacted in
+    ascending order, as the JAX package compacts them."""
+    H, W = tri_id.shape
+    Hq, Wq = H // 2, W // 2
+    dev = tri_id.device
+    q = tri_id.reshape(Hq, 2, Wq, 2)
+    anchor = q[:, 0, :, 0]
+    uniform = (q == anchor[:, None, :, None]).all(dim=3).all(dim=1)
+
+    def up(t):  # (Hq, Wq, C) -> (H, W, C), 2x2 broadcast
+        c = t.shape[2:]
+        return t[:, None, :, None].expand((Hq, 2, Wq, 2) + c).reshape(
+            (H, W) + c)
+
+    dense = {k: up(v) for k, v in
+             _fetch_rows(scene, vis, anchor, inst_f16).items()}
+    F = capacity or max(Hq * Wq // 4, 1024)
+    flat = (~uniform).reshape(-1)
+    count = flat.sum()
+    qidx = fastmath.compact_indices(flat, F)
+    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+    qy = qidx // Wq
+    qx = qidx - qy * Wq
+    # all four pixels of each edge quad as one flat batch
+    py = torch.cat([qy * 2, qy * 2, qy * 2 + 1, qy * 2 + 1])
+    px = torch.cat([qx * 2, qx * 2 + 1, qx * 2, qx * 2 + 1])
+    pix = py * W + px
+    rows_e = _fetch_rows(scene, vis, tri_id.reshape(-1)[pix], inst_f16)
+    widx = torch.where(valid.repeat(4), pix, H * W)
+    dense = {k: _scatter_rows(v, widx, rows_e[k]) for k, v in dense.items()}
+    return dense, torch.clamp(count - F, min=0)
+
+
+def _onehot_select(match, table):
+    """The slot path's select: each pixel's slot's channels, with the
+    words of the JAX package's f32 one-hot einsum. match (..., P, K) bool,
+    at most one slot a pixel; table (..., K, C). The product adds the
+    other slots' 0 * value to the selected value, so a -0.0 comes out
+    +0.0, a pixel that matches no slot 0, and a non-finite value of one
+    slot NaN (0 * inf) on every pixel of its tile that does not select
+    that slot. Those rules are applied to the (K, C) table, and each pixel
+    gathers its slot's row: no matmul."""
+    C = table.shape[-1]
+    bad = ~torch.isfinite(table)
+    n_bad = bad.sum(dim=-2, keepdim=True)
+    slot_val = torch.where(n_bad - bad.to(n_bad.dtype) > 0, float("nan"),
+                           table + 0.0)
+    no_match = torch.where(n_bad > 0, float("nan"), 0.0).to(table.dtype)
+    k = match.to(torch.uint8).argmax(dim=-1, keepdim=True)
+    sel = torch.gather(slot_val, -2, k.expand(k.shape[:-1] + (C,)))
+    return torch.where(match.any(dim=-1, keepdim=True), sel, no_match)
+
+
+def _slot_fetch_channels(scene: SceneData, vis: VisBuffer, tri_id,
+                         inst_f16: bool = False, k_slots: int = 16,
+                         capacity: int = 0):
+    """RasterConfig.slot_resolve: an 8x16 tile of K1 shows a handful of
+    distinct winning triangles, so the rows are fetched and decoded once
+    per (tile, slot), k_slots slots a tile (its distinct ids, largest
+    first, by k_slots max passes), and each pixel selects its slot's
+    channels (_onehot_select). Every pixel of a tile with more than
+    k_slots distinct ids is re-resolved per pixel through a compacted
+    batch of tiles (ascending; `capacity` tiles, 0: max(NT // 32, 64)),
+    written back over the select. Returns (channels of _decode_channels
+    as dense (H, W, C) f32, the overflowing tiles beyond capacity, whose
+    unmatched pixels keep the select's zeros)."""
+    H, W = tri_id.shape
+    dev = tri_id.device
+    TH, TW = fr.TILE_H, fr.TILE_W
+    Ty, Tx = H // TH, W // TW
+    NT, PX = Ty * Tx, TH * TW
+    t = tri_id.reshape(Ty, TH, Tx, TW).permute(0, 2, 1, 3).reshape(
+        Ty, Tx, PX)
+    # k_slots max passes: distinct ids, descending; -2 marks consumed
+    # lanes (ids are >= -1), and exhausted slots stay -2
+    uniq, cur = [], t
+    for _ in range(k_slots):
+        m = cur.amax(dim=-1)
+        uniq.append(m)
+        cur = torch.where(cur == m[..., None], -2, cur)
+    uniq = torch.stack(uniq, dim=-1)  # (Ty, Tx, K)
+    tile_ovf = cur.amax(dim=-1) > -2  # ids left after k_slots passes
+
+    tangents = not scene.no_normal_maps
+    ch = _decode_channels(
+        _fetch_rows(scene, vis, torch.clamp(uniq, min=-1), inst_f16),
+        inst_f16, tangents)
+    keys = list(ch)
+    table = torch.cat([ch[k] for k in keys], dim=-1)  # (Ty, Tx, K, C)
+    C = table.shape[-1]
+    match = t[..., None] == uniq[..., None, :]
+    dense = _onehot_select(match, table).reshape(
+        Ty, Tx, TH, TW, C).permute(0, 2, 1, 3, 4).reshape(H, W, C)
+
+    # per-tile fallback: all PX pixels of each overflowing tile
+    F = capacity or max(NT // 32, 64)
+    flat = tile_ovf.reshape(-1)
+    count = flat.sum()
+    tidx = fastmath.compact_indices(flat, F)
+    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+    tid_e = torch.where(valid[:, None], t.reshape(NT, PX)[tidx], -1)
+    ch_e = _decode_channels(_fetch_rows(scene, vis, tid_e, inst_f16),
+                            inst_f16, tangents)
+    rows_flat = torch.cat([ch_e[k] for k in keys], dim=-1).reshape(
+        F * PX, C)
+    ty = tidx // Tx
+    tx = tidx - ty * Tx
+    lane = torch.arange(PX, device=dev)
+    pix = ((ty[:, None] * TH + lane[None, :] // TW) * W
+           + tx[:, None] * TW + lane[None, :] % TW)
+    widx = torch.where(valid[:, None], pix, H * W).reshape(F * PX)
+    dense = _scatter_rows(dense, widx, rows_flat)
+
+    out, off = {}, 0
+    for k in keys:
+        c = ch[k].shape[-1]
+        out[k] = dense[..., off:off + c]
+        off += c
+    return out, torch.clamp(count - F, min=0)
+
+
 def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
                   y_ndc, want_aux: bool = True, lod_probe=None,
+                  inst_f16: bool = False, rows=None, channels=None,
                   slim: bool = False):
     """Per-pixel resolve for any pixel-set shape S: unmasked fields plus
     the keep/cut masks. x_ndc / y_ndc broadcast to S. `lod_probe`: None
     takes the mip lod from image-space finite differences (S = (H, W));
     (dx, dy) NDC steps take it from analytic within-triangle barycentric
-    probes (any S), as the flat fallback batch does. `slim`: the rows are
-    slim records (RasterConfig.slim_rec)."""
+    probes (any S), as the flat fallback batch does. `rows`: row tables
+    already fetched (the quad path), `channels`: channels already decoded
+    (the slot path); by default fetched per pixel. `inst_f16`: the
+    instance record is f16 pairs. `slim`: the rows are slim records
+    (RasterConfig.slim_rec)."""
     S = tri_id.shape
     hit = tri_id >= 0
     # the fetched rows die with the decode (the packed attribute rows are
     # not needed past it); tangents feed only the normal-map TBN transform
-    if slim:
-        if not scene.no_normal_maps:
+    if channels is None:
+        if slim and not scene.no_normal_maps:
             raise ValueError("slim_rec requires a scene with no normal maps")
-        channels = _decode_slim_channels(
-            _fetch_rows(scene, vis, tri_id, slim=True))
-    else:
-        channels = _decode_channels(_fetch_rows(scene, vis, tri_id),
-                                    not scene.no_normal_maps)
+        if rows is None:
+            rows = _fetch_rows(scene, vis, tri_id, inst_f16, slim=slim)
+        channels = (_decode_slim_channels(rows) if slim else
+                    _decode_channels(rows, inst_f16,
+                                     not scene.no_normal_maps))
+        del rows
+    slim = "pay" in channels
     cl = channels["cl"].reshape(S + (3, 3))
 
     # Perspective-correct barycentrics via 2D homogeneous coordinates.
@@ -237,6 +424,9 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     if scene.no_normal_maps:
         normal = n_geo
     else:
+        if "t_c" not in channels:
+            raise ValueError(
+                "tangent channels were pruned but the scene has normal maps")
         t_c = channels["t_c"].reshape(S + (3, 3))
         tangent_raw = interp(t_c, lam_p)
         tangent_w = _sum_last(channels["t_sign"] * lam_p)
@@ -375,6 +565,14 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     (capacity alpha_fallback_capacity, overflow counted in
     ResolveAux.overflow); otherwise every pixel is resolved twice.
 
+    The dense (H, W) resolve takes the coherent fetch the config names:
+    slot_resolve (H % 8 == W % 16 == 0; it subsumes quad), else
+    quad_rate_resolve (H and W even), else the per-pixel one
+    (planar_resolve included); the coherent fetches' edge batches'
+    overflow is counted in ResolveAux.overflow (on the two-pass path the
+    final pass's alone). Neither coherent fetch goes with
+    fused_resolve_rec or slim_rec (ValueError).
+
     Row window (a slab of the sharded frame): `vis` holds the image rows
     [row0, row0 + H) of a `height`-row image (default H), and `rows =
     (lo, hi)` names the window rows that are the caller's own; the rows
@@ -392,25 +590,56 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     y_ndc = (1.0 - pixel_rows(H, dev, row0, height) * 2.0)[:, None].expand(
         H, W)
 
+    f16 = config.inst_rec_f16
     slim = config.slim_rec
+    slot = config.slot_resolve and H % fr.TILE_H == 0 and W % fr.TILE_W == 0
+    quad = (config.quad_rate_resolve and not slot and H % 2 == 0
+            and W % 2 == 0)
+    if (quad or slot) and config.fused_resolve_rec:
+        raise ValueError(
+            "quad/slot_rate_resolve and fused_resolve_rec are mutually "
+            "exclusive: the coherence paths re-split the fused record's "
+            "gathers")
+    if slim and (quad or slot):
+        raise ValueError(
+            "slim_rec and quad/slot_rate_resolve are mutually exclusive")
+    track = quad or slot
+    edge_ovf = torch.zeros((), dtype=torch.int64, device=dev)
 
     def dense_fields(tri_id, depth, want_aux=True):
+        nonlocal edge_ovf
+        fetched, channels = None, None
+        if slot:
+            channels, ovf = _slot_fetch_channels(
+                scene, vis, tri_id, inst_f16=f16, k_slots=config.slot_k,
+                capacity=config.slot_edge_capacity)
+            edge_ovf = edge_ovf + ovf
+        elif quad:
+            fetched, ovf = _quad_fetch(scene, vis, tri_id, inst_f16=f16,
+                                       capacity=config.quad_edge_capacity)
+            edge_ovf = edge_ovf + ovf
         return _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
-                             want_aux=want_aux, slim=slim)
+                             want_aux=want_aux, inst_f16=f16, rows=fetched,
+                             channels=channels, slim=slim)
 
     if vis.tri_id2 is None:
-        return _assemble(dense_fields(vis.tri_id, vis.depth))
+        fields = dense_fields(vis.tri_id, vis.depth)
+        return _assemble(fields, overflow=edge_ovf if track else None)
 
     if not config.lazy_alpha_resolve:
         # Dense two-pass fallback (the lazy path's oracle twin): pass 1
         # finds cut winners, pass 2 re-resolves every pixel with the
-        # runner-up substituted.
+        # runner-up substituted. Pass 1 visits the same edge quads and
+        # tiles, so only pass 2's edge overflow counts.
         f1 = dense_fields(vis.tri_id, vis.depth, want_aux=False)
+        edge_ovf = torch.zeros_like(edge_ovf)
         fall = (vis.tri_id >= 0) & f1["cut"]
         tid = torch.where(fall, vis.tri_id2, vis.tri_id)
         dep = torch.where(fall, vis.depth2, vis.depth)
         n_fall = _own(fall, rows).sum()
-        return _assemble(dense_fields(tid, dep), cut=n_fall, fallback=n_fall)
+        fields = dense_fields(tid, dep)
+        return _assemble(fields, overflow=edge_ovf if track else None,
+                         cut=n_fall, fallback=n_fall)
 
     # Lazy fallback: full resolve of the winners (the final result for
     # every non-cut pixel), then a compacted flat batch over the cut
@@ -430,13 +659,14 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     xb = (fx + 0.5) / W * 2.0 - 1.0
     yb = 1.0 - (fy + 0.5) / height * 2.0
     fb = _pixel_fields(scene, vis, tid2, dep2, xb, yb,
-                       lod_probe=(2.0 / W, 2.0 / height), slim=slim)
+                       lod_probe=(2.0 / W, 2.0 / height), inst_f16=f16,
+                       slim=slim)
     fb_rows = _pack_fallback_rows(fb)
 
-    # invalid slots write the extra row H*W, which is dropped
-    buf = torch.zeros(H * W + 1, _FB_F, dtype=torch.int32, device=dev)
-    buf[torch.where(valid, idx, H * W)] = fb_rows
-    fbimg = _unpack_fallback(buf[: H * W].reshape(H, W, _FB_F))
+    # invalid slots write the pixel index H*W, which is dropped
+    fbimg = _unpack_fallback(_scatter_rows(
+        torch.zeros(H, W, _FB_F, dtype=torch.int32, device=dev),
+        torch.where(valid, idx, H * W), fb_rows))
     use = fall & fbimg["flag"]
 
     merged = dict(f1)
@@ -444,8 +674,10 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
         merged[k] = torch.where(use, fbimg[k], f1[k])
     for k in ("albedo", "emissive", "mr"):
         merged[k] = torch.where(use[..., None], fbimg[k], f1[k])
-    # overflow: the cut pixels left unresolved (count - F on a whole image)
-    return _assemble(merged, overflow=_own(fall & ~use, rows).sum(),
+    # overflow: the cut pixels left unresolved (count - F on a whole
+    # image) plus the edge batches'
+    return _assemble(merged,
+                     overflow=_own(fall & ~use, rows).sum() + edge_ovf,
                      cut=_own(fall, rows).sum(),
                      fallback=_own(use, rows).sum())
 
