@@ -187,7 +187,21 @@ native/texture_packer.cpp, the host C++ compiler), then:
      elsewhere only at K1's ties); then one masked frame with slim_rec,
      which falls back to fused_resolve_rec + inst_rec_f16, word for word
      the frame of that config.
-Phases 5-8, 10-17, 19 and 20 print the median ms/frame of frames 3-12 (CUDA
+ 21. the quad-block samplers (sampler_phases): config 6's World.device()
+     ms without and with the tap-block tables (twice each), then the
+     north star (build_world(10_000, seed=0), its moving instances, TAA)
+     and config 6 (104 textures of 256^2, 32 knots, TAA) at 1920x1080,
+     12 frames each of the default config and of tap_block,
+     taa_quad_history (einsum select), taa_quad_history +
+     taa_quad_where, taa_inwindow and tap_block + taa_quad_history, at
+     edge capacities sized from the samplers' largest edge counts over 12
+     frames (printed; sampler_counts): each with K1 and the fused LTC
+     kernel held against their twins on its first frame, every frame word
+     for word the default set's frame of the same index, overflow 0, its
+     median ms/frame, resolve_gbuffer's and taa's own median ms (CUDA
+     events), peak memory, and an op profile of one resolve and one taa
+     call (device busy, kernels a call, the top ops).
+Phases 5-8, 10-17 and 19-21 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
@@ -195,9 +209,10 @@ its 1-table shape under one_table, the fused ring kernel's with the ring
 frame's ms/frame and differing words,
 the shadow kernel's with its scale-2 rays under scale2, the closest-hit
 kernel's with config 5's rays under config5, K1's and the fused LTC
-kernel's with each preset's, the import scenes' and the App's inputs
-under paths, the fused kernel's also on area_light_scale 2's; their launches
-count phase 16's App frames and phases 17's and 19's runs too),
+kernel's with each preset's, the import scenes', the App's and each
+phase 20 and 21 set's inputs under paths, the fused kernel's also on
+area_light_scale 2's; their launches count phase 16's App frames and
+phases 17's and 19-21's runs too),
 then the card line, then the
 result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
@@ -1906,16 +1921,20 @@ PRESET_RUNS = {
 
 def preset_renderer(p, scene, width, height, mesh=None, **options):
     """A Renderer for preset `p` wired as bench.py:458-501 wires it: the
-    preset's capacities, cull / TAA / raytraced-shadow flags and moving
-    instances, plus the RasterConfig `options`; row-sharded over `mesh`
+    preset's capacities (its edge capacities of quad_rate_resolve,
+    taa_quad_history and tap_block included), cull / TAA /
+    raytraced-shadow flags and moving instances, plus the RasterConfig
+    `options` (which win over the preset's); row-sharded over `mesh`
     where given."""
     from voidin_tpu_torch.framework.renderer import Renderer
     from voidin_tpu_torch.passes.raster import RasterConfig
 
-    cfg = RasterConfig(width=width, height=height,
-                       tri_capacity=p.tri_capacity,
-                       pair_capacity=p.pair_capacity,
-                       tile_tri_capacity=p.tile_tri_capacity, **options)
+    caps = dict(tri_capacity=p.tri_capacity, pair_capacity=p.pair_capacity,
+                tile_tri_capacity=p.tile_tri_capacity,
+                quad_edge_capacity=p.quad_edge_capacity,
+                taa_edge_capacity=p.taa_edge_capacity,
+                tap_edge_capacity=p.tap_edge_capacity)
+    cfg = RasterConfig(width=width, height=height, **{**caps, **options})
     return Renderer(scene, cfg, enable_cull=p.enable_cull,
                     enable_taa=p.enable_taa,
                     enable_rt_shadows=p.enable_rt_shadows,
@@ -2715,12 +2734,15 @@ def main():
     record_launches, record_paths = record_phases(dev, card, masked_world,
                                                   ns_k)
     stamp("phase 20 (record layouts and coherent resolves)")
+    sampler_launches, sampler_paths = sampler_phases(dev, card)
+    stamp("phase 21 (the quad-block samplers)")
     for name in ("fine_raster_pairs", "ltc_rect"):
         rows[name]["paths"] = {**preset_paths.get(name, {}),
                                **import_paths.get(name, {}),
                                **app_paths.get(name, {}),
                                **jpeg_paths.get(name, {}),
-                               **record_paths.get(name, {})}
+                               **record_paths.get(name, {}),
+                               **sampler_paths.get(name, {})}
     for name in ("fine_raster_pairs_track2", "fine_raster_blocks"):
         rows[name]["paths"] = record_paths.get(name, {})
     rows["ltc_rect"]["paths"][
@@ -2730,7 +2752,8 @@ def main():
         fine_raster_pairs=(ns_launches["k1"] + preset_launches["k1"]
                            + import_launches["k1"] + app_launches["k1"]
                            + shard_launches["k1"] + jpeg_launches["k1"]
-                           + ring_launches["k1"] + record_launches["k1"]),
+                           + ring_launches["k1"] + record_launches["k1"]
+                           + sampler_launches["k1"]),
         fine_raster_pairs_track2=(masked_launches["k1_track2"]
                                   + record_launches["k1_track2"]),
         fine_raster_pairs_payload=payload_launches["k1_payload"],
@@ -2742,7 +2765,8 @@ def main():
                   + import_launches["ltc_rect"]
                   + app_launches["ltc_rect"] + shard_launches["ltc_rect"]
                   + jpeg_launches["ltc_rect"]
-                  + record_launches["ltc_rect"]),
+                  + record_launches["ltc_rect"]
+                  + sampler_launches["ltc_rect"]),
         ltc_rect_bf16=bf16_launches["ltc_rect_bf16"],
         ltc_ring=ring_launches["ltc_ring"],
         ltc_ring_bf16=ring_launches["ltc_ring_bf16"],
@@ -3629,6 +3653,302 @@ def record_phases(dev, card, masked_world, ns_k):
         print(f"  {label:52s} frame {ms:8.3f}  resolve {res_ms:8.3f}",
               flush=True)
     del scenes, r
+    torch.cuda.empty_cache()
+    return launches, paths
+
+
+# --- phase 21: the quad-block samplers -------------------------------------
+# (label, RasterConfig options) of each set after the default; each runs on
+# both scenes at the capacities sized from the default frames' counts.
+SAMPLER_SETS = (
+    ("tap_block", dict(tap_block=True)),
+    ("taa_quad_history (einsum select)", dict(taa_quad_history=True)),
+    ("taa_quad_history + taa_quad_where",
+     dict(taa_quad_history=True, taa_quad_where=True)),
+    ("taa_inwindow", dict(taa_inwindow=True)),
+    ("tap_block + taa_quad_history",
+     dict(tap_block=True, taa_quad_history=True)),
+)
+
+
+class StageProbe:
+    """Wraps `module`.`name` while active: CUDA events around each call,
+    and the arguments of call `keep` (tensors cloned before the call, so
+    an in-place write of the call does not reach them)."""
+
+    def __init__(self, module, name, keep=0):
+        self.module, self.name, self.keep = module, name, keep
+        self.events, self.kept = [], None
+
+    def __enter__(self):
+        import torch
+
+        self.real = getattr(self.module, self.name)
+
+        def clone(x):
+            if isinstance(x, torch.Tensor):
+                return x.clone()
+            if dataclasses.is_dataclass(x) and not isinstance(x, type):
+                return dataclasses.replace(x, **{
+                    f.name: clone(getattr(x, f.name))
+                    for f in dataclasses.fields(x)
+                    if isinstance(getattr(x, f.name), torch.Tensor)})
+            return x
+
+        def call(*args, **kw):
+            if len(self.events) == self.keep:
+                self.kept = ([clone(a) for a in args],
+                             {k: clone(v) for k, v in kw.items()})
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def ms(self):
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def call_kept(self):
+        args, kw = self.kept
+        return self.real(*args, **kw)
+
+
+def op_profile(label, fn, n_ops, card, reps=3):
+    """torch.profiler over `reps` calls of `fn`: the `n_ops` torch ops with
+    the most device time a call (the time of the kernels each launches),
+    and {device_ms: the call's kernels' time, kernels: its kernel
+    launches, wall_ms}, a call each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    ops, busy, kernels = [], 0.0, 0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA:
+            busy += dev_us / reps / 1e3
+            kernels += e.count
+        elif dev_us > 0:
+            ops.append((dev_us / reps / 1e3, e.count // reps, e.key))
+    ops.sort(reverse=True)
+    print(f"  ops, {label}: device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall a call, {kernels // reps} kernels a call ({card})",
+          flush=True)
+    for ms, count, key in ops[:n_ops]:
+        print(f"    {ms:8.3f} ms  x{count:<4d} {key[:60]}", flush=True)
+    return dict(device_ms=busy, kernels=kernels // reps, wall_ms=wall)
+
+
+def sampler_counts(render):
+    """The edge counts of the three samplers over the frames that
+    `render()` draws with tap_block and taa_quad_history at capacity 1:
+    {tap, taa_quad, taa_window: the largest count of any frame}. Each
+    count is its sampler's overflow + 1 (a sampler that overflows by 0
+    counted at most one); the in-window fetch is run beside the quad
+    fetch on the same history and coordinates."""
+    from voidin_tpu_torch.passes import resolve, taa
+
+    counts = dict(tap=[], taa_quad=[], taa_window=[])
+    reals = (resolve.sample_trilinear_quadblock,
+             taa._bilinear_clamp_quadblock)
+
+    def tap(*args, **kw):
+        out, ovf = reals[0](*args, **kw)
+        counts["tap"].append(int(ovf) + 1)
+        return out, ovf
+
+    def quad(img, u, v, capacity=0, select="einsum"):
+        out, ovf = reals[1](img, u, v, capacity=capacity, select=select)
+        counts["taa_quad"].append(int(ovf) + 1)
+        _, wovf = taa._bilinear_clamp_inwindow(img, u, v, capacity=1)
+        counts["taa_window"].append(int(wovf) + 1)
+        return out, ovf
+
+    resolve.sample_trilinear_quadblock, taa._bilinear_clamp_quadblock = (
+        tap, quad)
+    try:
+        render()
+    finally:
+        (resolve.sample_trilinear_quadblock,
+         taa._bilinear_clamp_quadblock) = reals
+    return {k: max(v) for k, v in counts.items()}
+
+
+def sampler_capacities(counts, width, height):
+    """RasterConfig capacities of the three samplers: each sampler's
+    auto capacity, or the next power of two at or above its largest count
+    beyond it (capacity_for)."""
+    quads = (height // 2) * (width // 2)
+    blocks = (height // 8) * (width // 8)
+    return dict(
+        tap_edge_capacity=capacity_for(counts["tap"], max(quads // 4, 1024)),
+        taa_edge_capacity=capacity_for(counts["taa_quad"],
+                                       max(quads // 4, 1024)),
+        taa_block_capacity=capacity_for(counts["taa_window"],
+                                        max(blocks // 8, 256)))
+
+
+def sampler_scene_run(label, make, cam, card, n_ops=6):
+    """Phase 21 on one scene. `make(**options)` returns a fresh Renderer
+    (a new device scene: the frames move its instances in place) with the
+    RasterConfig options. Sizes the capacities (sampler_counts over
+    FRAMES frames), runs the default set and SAMPLER_SETS through
+    run_frames, each after holding K1 and the fused LTC kernel against
+    their twins on its first frame (hold_path_kernels); every frame word
+    for word the default set's frame of the same index, overflow 0.
+    Prints each set's median ms/frame of frames 3-12, resolve_gbuffer's
+    and taa's own median ms (CUDA events), peak memory and one op profile
+    of each stage (resolve on the first frame's inputs, taa on the
+    second's). Returns (launches by counter, {kernel row: {set: row}},
+    [(set, ms, resolve ms, taa ms, mem, resolve profile, taa profile)])."""
+    import torch
+
+    from voidin_tpu_torch.passes import resolve, taa
+
+    def counted(render_once):
+        def run():
+            for _ in range(FRAMES):
+                render_once()
+        return run
+
+    r = make(tap_block=True, taa_quad_history=True, tap_edge_capacity=1,
+             taa_edge_capacity=1)
+    counts = sampler_counts(counted(lambda: r.render(cam)))
+    del r
+    caps = sampler_capacities(counts, WIDTH, HEIGHT)
+    print(f"phase 21, {label}: largest edge counts over {FRAMES} frames "
+          f"{counts} (of {(HEIGHT // 2) * (WIDTH // 2)} quads, "
+          f"{(HEIGHT // 8) * (WIDTH // 8)} 8x8 blocks); capacities {caps}",
+          flush=True)
+    launches, paths, table, base = {}, {}, [], None
+    for name, opts in (("default", {}),) + SAMPLER_SETS:
+        set_label = f"{label} {name}"
+        opts = dict(opts, **caps)
+        for k, row in hold_path_kernels(
+                set_label, lambda: make(**opts).render(cam),
+                ("k1", "ltc_rect"), card).items():
+            paths.setdefault(k, {})[set_label] = row
+        r = make(**opts)
+        keep = {i: None for i in range(FRAMES)}
+        reset_launches()
+        with StageProbe(resolve, "resolve_gbuffer") as rp, \
+                StageProbe(taa, "taa", keep=1) as tp:
+            out, times, mem = run_frames(r, cam, set_label, keep=keep)
+        got = expect_launches(set_label, dict(k1=FRAMES, ltc_rect=FRAMES))
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        if base is None:
+            base = keep
+        else:
+            differ = [words_differ(torch.from_numpy(keep[i]),
+                                   torch.from_numpy(base[i]))
+                      for i in range(FRAMES)]
+            print(f"phase 21, {set_label}: words differing from the "
+                  f"default frames {differ}", flush=True)
+            if any(differ):
+                fail(f"phase 21, {set_label}: a frame strays from the "
+                     f"default frame")
+        ms = float(np.median(times[2:]))
+        res_ms = float(np.median(rp.ms()[2:]))
+        taa_ms = float(np.median(tp.ms()[2:]))
+        print(f"phase 21, {set_label} {WIDTH}x{HEIGHT}: median {ms:.3f} "
+              f"ms/frame over frames 3-{FRAMES}, resolve_gbuffer "
+              f"{res_ms:.3f} ms, taa {taa_ms:.3f} ms ({card}); {mem}",
+              flush=True)
+        prof_r = op_profile(f"{set_label} resolve", rp.call_kept, n_ops,
+                            card)
+        prof_t = op_profile(f"{set_label} taa", tp.call_kept, n_ops, card)
+        table.append((set_label, ms, res_ms, taa_ms, mem.split(" (")[0],
+                      prof_r, prof_t))
+        del r, rp, tp, out
+        torch.cuda.empty_cache()
+    return launches, paths, table
+
+
+def sampler_phases(dev, card):
+    """Phase 21: the quad-block samplers (tap_block, taa_quad_history with
+    the einsum and the where select, taa_inwindow, tap_block +
+    taa_quad_history) on the north star (build_world(10_000, seed=0),
+    its moving instances, TAA) and config 6 (104 textures of 256^2, 32
+    knots, TAA, preset_renderer) at WIDTHxHEIGHT (sampler_scene_run);
+    first config 6's World.device() ms without and with the tap-block
+    tables. Returns (launches by counter, {kernel row: {set: row}})."""
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework import presets
+    from voidin_tpu_torch.framework.renderer import Renderer, build_world
+    from voidin_tpu_torch.passes.raster import RasterConfig
+    from voidin_tpu_torch.scene.scene import scene_from_numpy
+
+    p = presets.PRESETS[6](WIDTH / HEIGHT, **PRESET_RUNS[6][0])
+    for blocks in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = p.world.device(dev, tap_blocks=blocks)
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        tex = scene.textures
+        n_bytes = sum(x.numel() for x in (tex.quads, tex.child_blocks,
+                                          tex.parent_blocks)
+                      if x is not None)
+        print(f"phase 21, config 6 World.device(tap_blocks={blocks}): "
+              f"{t:.1f} ms on the host; texture pool {n_bytes / 1e9:.3f} "
+              f"GB ({tex.count} slots of {tex.total} rows)", flush=True)
+        del scene, tex
+    torch.cuda.empty_cache()
+
+    world, moving = build_world(10_000, seed=0)
+    # each run's scene anew from the Worlds' host leaves, packed once
+    hosts = {k: (w.host_leaves(), dict(w.statics(), tap_blocks=True))
+             for k, w in (("north", world), ("config6", p.world))}
+
+    def north(**opts):
+        cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
+                           pair_capacity=CAP, **opts)
+        return Renderer(scene_from_numpy(*hosts["north"], dev), cfg,
+                        moving_ids=moving)
+
+    def config6(**opts):
+        return preset_renderer(p, scene_from_numpy(*hosts["config6"], dev),
+                               WIDTH, HEIGHT, **opts)
+
+    launches, paths, table = {}, {}, []
+    for label, make, cam in (("north star", north, north_star_camera(pt)),
+                             ("config 6", config6, p.camera)):
+        got, kp, rows = sampler_scene_run(label, make, cam, card)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        for k, v in kp.items():
+            paths.setdefault(k, {}).update(v)
+        table += rows
+    print(f"phase 21, the quad-block samplers at {WIDTH}x{HEIGHT} (median "
+          f"of frames 3-{FRAMES}, ms; profile: device busy / kernels a "
+          f"call; {card}):", flush=True)
+    for lab, ms, res, tms, mem, pr, pt_ in table:
+        print(f"  {lab:48s} frame {ms:8.3f} resolve {res:7.3f} "
+              f"({pr['device_ms']:.3f} / {pr['kernels']}) taa {tms:7.3f} "
+              f"({pt_['device_ms']:.3f} / {pt_['kernels']}) {mem}",
+              flush=True)
+    del world, p, hosts
     torch.cuda.empty_cache()
     return launches, paths
 

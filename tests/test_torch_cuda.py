@@ -16,7 +16,8 @@ scene; the App path (examples/model.py's scene through App.step, launches
 and the resize) on the card against the CPU, its recorded MJPEG-AVI read
 back by the port's JPEG decoder, and the profiler's CUDA-event timing;
 the native texture packer on the card's host; the record layouts and
-coherent resolves against the default path on the card. Marked
+coherent resolves against the default path on the card; the quad-block
+samplers' 1080p north-star frames against the default frames. Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -905,3 +906,52 @@ def test_record_options_on_card_keep_the_default_words(cuda, opts):
                  (base_aux.emissive, aux.emissive), (base_aux.mr, aux.mr)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert int(aux.overflow) == 0 and int(aux.cut) > 0
+
+
+# capacities that hold every quad and 8x8 block of a 1080p frame: the
+# batches cannot overflow whatever the motion
+SAMPLER_FULL = dict(tap_edge_capacity=540 * 960, taa_edge_capacity=540 * 960,
+                    taa_block_capacity=135 * 240)
+
+
+@pytest.fixture(scope="module")
+def north_star_frames():
+    """The north star (build_world(10_000), moving instances, TAA) at
+    1920x1080 on the card: a function of RasterConfig options giving its
+    first four frames (a fresh device scene each time), and the default
+    config's frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    world, moving = build_world(10_000, seed=0)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0, aspect=16 / 9)
+
+    def frames(**opts):
+        r = Renderer(world.device("cuda:0"), RasterConfig(
+            width=1920, height=1080, tri_capacity=1 << 19,
+            pair_capacity=1 << 19, **SAMPLER_FULL, **opts),
+            moving_ids=moving)
+        out = []
+        for _ in range(4):
+            out.append(r.render(cam).clone())
+            assert int(r.aux["overflow"]) == 0
+        return out
+
+    return frames, frames()
+
+
+@pytest.mark.parametrize("opts", [
+    dict(tap_block=True),
+    dict(taa_quad_history=True),
+    dict(taa_quad_history=True, taa_quad_where=True),
+    dict(taa_inwindow=True),
+    dict(tap_block=True, taa_quad_history=True),
+], ids=["tap_block", "taa_quad_history", "taa_quad_where", "taa_inwindow",
+        "tap_and_taa_quad"])
+def test_sampler_options_on_card_keep_the_default_frames(cuda, opts,
+                                                         north_star_frames):
+    """On the card, the north star's 1080p frames under each quad-block
+    sampler (TAA reading a history with motion from the second frame on):
+    every word of the default config's frames, overflow 0."""
+    frames, base = north_star_frames
+    for a, b in zip(base, frames(**opts)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -1,6 +1,6 @@
 """The port stands without JAX (and opens no file of the JAX package),
-refuses what it does not carry, and never falls back to the CPU when asked
-for (or defaulting to) a CUDA device."""
+carries every RasterConfig option of the JAX package, and never falls
+back to the CPU when asked for (or defaulting to) a CUDA device."""
 
 import os
 import subprocess
@@ -254,15 +254,65 @@ def test_wrappers_take_no_other_device():
         t_ch.closest_hit(*_closest_inputs("meta"))
 
 
-@pytest.mark.parametrize("kwargs", [
+# The JAX package's RasterConfig fields of the quad-block samplers and
+# their defaults (voidin_tpu/passes/raster.py:147-163, :193-195).
+SAMPLER_FIELDS = dict(taa_quad_history=False, taa_edge_capacity=0,
+                      taa_inwindow=False, taa_block_capacity=0,
+                      taa_quad_where=False, tap_block=False,
+                      tap_edge_capacity=0)
+
+
+def _sampler_frames(**opts):
+    """Three TAA frames (64x32) of a textured scene with moving spheres
+    under RasterConfig `opts`: (the images, the overflow of each)."""
+    from voidin_tpu_torch.core import mathx
+    from voidin_tpu_torch.scene import mesh as t_mesh
+
+    rng = np.random.default_rng(4)
+    w = pt.World()
+    noise = w.textures.add(rng.integers(0, 256, (32, 32, 3), np.uint8),
+                           srgb=True)
+    mat = w.materials.add(albedo=noise)
+    moving = [w.instances.add(np.asarray(mathx.from_translation(
+        [1.5 * i - 2.0, 0.6, -5.0])), t_mesh.SPHERE_1_MESH, mat)
+        for i in range(4)]
+    w.instances.add(np.asarray(mathx.from_translation([0, -1, -5])
+                               @ mathx.from_scale(8.0)),
+                    t_mesh.HORIZONTAL_PLANE_MESH, mat)
+    w.lights.add_point_light([1, 4, -2], 20.0, [1, 1, 1])
+    r = Renderer(w.device("cpu"), RasterConfig(
+        width=64, height=32, tri_capacity=1 << 12, pair_capacity=1 << 13,
+        **opts), moving_ids=moving)
+    imgs, ovf = [], []
+    for _ in range(3):
+        imgs.append(r.render(pt.Camera(position=[0, 1.5, 0], pitch=-15.0,
+                                       aspect=2.0)).numpy())
+        ovf.append(int(r.aux["overflow"]))
+    return imgs, ovf
+
+
+@pytest.mark.parametrize("opts", [
     dict(tap_block=True),
-    dict(taa_inwindow=True),
     dict(taa_quad_history=True),
-])
-def test_renderer_refuses_what_is_not_ported(kwargs):
-    scene = pt.World().device("cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
-        Renderer(scene, RasterConfig(width=32, height=16), **kwargs)
+    dict(taa_quad_history=True, taa_quad_where=True),
+    dict(taa_inwindow=True),
+    dict(tap_block=True, taa_quad_history=True),
+], ids=["tap_block", "taa_quad_history", "taa_quad_where", "taa_inwindow",
+        "tap_and_taa_quad"])
+def test_renderer_renders_every_option(opts):
+    """The options the port once refused: RasterConfig holds the seven
+    fields of the quad-block samplers with the JAX package's defaults, and
+    the Renderer renders with each sampler on, every frame word for word
+    the default frame (the history has motion from the second frame on),
+    overflow 0."""
+    cfg = RasterConfig()
+    assert {k: getattr(cfg, k) for k in SAMPLER_FIELDS} == SAMPLER_FIELDS
+    base, base_ovf = _sampler_frames()
+    got, ovf = _sampler_frames(**opts)
+    assert base_ovf == ovf == [0, 0, 0]
+    for a, b in zip(base, got):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert base[2].std() > 0.02
 
 
 def test_renderer_renders_alpha_masked_scene():

@@ -89,6 +89,28 @@ def test_preset_world_matches_jax(n, builder, packer):  # noqa: F811
                                       err_msg=f.name)
 
 
+EDGE_CAPACITIES = ("quad_edge_capacity", "taa_edge_capacity",
+                   "tap_edge_capacity")
+
+
+@pytest.mark.parametrize("n", sorted(t_presets.PRESETS))
+def test_preset_edge_capacities_match_jax(n):
+    """Each preset's edge capacities of quad_rate_resolve,
+    taa_quad_history and tap_block are the JAX preset's, and
+    chip_smoke.preset_renderer hands them to the RasterConfig."""
+    import chip_smoke
+
+    jp = j_presets.PRESETS[n](16 / 9, **SMALL.get(n, {}))
+    tp = t_presets.PRESETS[n](16 / 9, **SMALL.get(n, {}))
+    for f in EDGE_CAPACITIES:
+        assert getattr(jp, f) == getattr(tp, f), f
+    cfg = chip_smoke.preset_renderer(
+        tp, tp.world.device("cpu", with_tlas=tp.with_tlas,
+                            tap_blocks=False), 64, 32).config
+    assert {f: getattr(cfg, f) for f in EDGE_CAPACITIES} == {
+        f: getattr(tp, f) for f in EDGE_CAPACITIES}
+
+
 @pytest.mark.parametrize("t", [0.0, 0.35, 0.7, 2.9])
 def test_clapper_joint_mats_match_jax(t):
     np.testing.assert_array_equal(j_presets.clapper_joint_mats(t),
@@ -155,9 +177,9 @@ def test_sponza_pool_budget():
     """tests/test_stress.py's budget arithmetic on the port's
     pool_device_bytes: the ~108-slot 1024^2 pool of config 6 (one 32 B
     quad row per texel over the mip chain, ~44.7 MB a slot) fits one H100
-    (80 GB) beside a frame's working set. The port builds no tap-block
-    tables, so the JAX budget's other side (the 3x block tables) has no
-    counterpart here."""
+    (80 GB) beside a frame's working set, and so does it with the
+    tap-block tables (160 B a texel, 5x; the JAX function counts them as
+    3x, two 64 B rows short of the tables it builds)."""
     n_slots = 104 + 4
     plain = pool_device_bytes(n_slots, 1024)
     assert plain < (80 << 30) - (4 << 30), f"{plain / 2**30:.1f} GiB"
@@ -169,6 +191,10 @@ def test_sponza_pool_budget():
     from voidin_tpu.scene.texture import pool_device_bytes as j_bytes
     for n, s in ((108, 1024), (12, 64), (1, 1)):
         assert pool_device_bytes(n, s) == j_bytes(n, s, blocks=False)
+        assert pool_device_bytes(n, s, blocks=True) == 5 * j_bytes(
+            n, s, blocks=True) // 3
+    blocked = pool_device_bytes(n_slots, 1024, blocks=True)
+    assert blocked < (80 << 30) - (4 << 30), f"{blocked / 2**30:.1f} GiB"
 
 
 def test_config6_procedural_fallback(monkeypatch):
@@ -183,6 +209,10 @@ def test_config6_procedural_fallback(monkeypatch):
     scene = p.world.device("cpu")
     assert scene.textures.base_size == 64
     assert scene.textures.quads.numel() == pool_device_bytes(12, 64)
+    t = scene.textures
+    assert sum(x.numel() for x in (t.quads, t.child_blocks,
+                                   t.parent_blocks)) == pool_device_bytes(
+        12, 64, blocks=True)
 
 
 def test_sponza_texture_set_refuses_jpeg(tmp_path, monkeypatch):

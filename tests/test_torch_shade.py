@@ -110,8 +110,9 @@ def test_taa_with_bridged_history(resolved):
         JaxFrameState(history=jax.numpy.asarray(history),
                       history_valid=jax.numpy.asarray(True)))
     state = frame_state_from_numpy(history, True, "cpu")
-    tout, tstate = t_taa.taa(torch.from_numpy(resolved["jh"].copy()),
-                             resolved["tg"], cu, state)
+    tout, tstate, tovf = t_taa.taa(torch.from_numpy(resolved["jh"].copy()),
+                                   resolved["tg"], cu, state)
+    assert int(tovf) == 0  # the per-pixel fetch has no edge batch
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
                                atol=1e-6)
     assert tstate.history is tout and tstate.history_valid

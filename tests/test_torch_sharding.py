@@ -460,34 +460,54 @@ def test_sharded_record_options_match_unsharded(n, opts):
         assert getattr(r.config, k) == v
 
 
-@pytest.mark.parametrize("opts", [dict(quad_rate_resolve=True),
-                                  dict(slot_resolve=True)],
-                         ids=["quad", "slot"])
-def test_sharded_frame_turns_coherent_paths_off(monkeypatch, opts):
-    """Under a mesh the frame resolves without the quad or slot fetch, as
-    the JAX package's sharded frame does (renderer.py:163-175): every
-    slab's resolve sees them off, no edge overflow is tracked, and the
-    frame is word for word the unsharded one, which takes them."""
-    from voidin_tpu_torch.passes import resolve as t_resolve
+# the options whose compactions are the whole image's, which the sharded
+# frame turns off: resolve's (in its config) and TAA's (its fetch options)
+RESOLVE_PATHS = ("quad_rate_resolve", "slot_resolve", "tap_block")
+TAA_FETCHES = dict(taa_quad_history="quad_history", taa_inwindow="inwindow")
 
-    seen = []
-    real = t_resolve.resolve_gbuffer
+
+@pytest.mark.parametrize("opts", [dict(quad_rate_resolve=True),
+                                  dict(slot_resolve=True),
+                                  dict(tap_block=True),
+                                  dict(taa_quad_history=True),
+                                  dict(taa_inwindow=True)],
+                         ids=["quad", "slot", "tap_block", "taa_quad_history",
+                              "taa_inwindow"])
+def test_sharded_frame_turns_coherent_paths_off(monkeypatch, opts):
+    """Under a mesh the frame resolves without the quad or slot fetch and
+    the quad-block albedo tap, and TAA fetches its history per pixel, as
+    the JAX package's sharded frame does (renderer.py:163-175, :217-220):
+    every slab's resolve and TAA see them off, no edge overflow is
+    tracked, and the frame is word for word the unsharded one, which
+    takes them."""
+    from voidin_tpu_torch.passes import resolve as t_resolve
+    from voidin_tpu_torch.passes import taa as t_taa
+
+    seen, fetches = [], []
+    real, real_taa = t_resolve.resolve_gbuffer, t_taa.taa_resolve
 
     def spy(scene, vis, config, **kw):
         seen.append((config, kw.get("rows") is not None))
         return real(scene, vis, config, **kw)
 
+    def taa_spy(*args, **kw):
+        fetches.append({k: kw.get(k, False) for k in TAA_FETCHES.values()})
+        return real_taa(*args, **kw)
+
     monkeypatch.setattr(t_resolve, "resolve_gbuffer", spy)
+    monkeypatch.setattr(t_taa, "taa_resolve", taa_spy)
     cfg = RasterConfig(**CFG, **opts)
     want, r0 = _frames(n_frames=2, cfg=cfg)
-    assert seen and all(c.quad_rate_resolve == cfg.quad_rate_resolve
-                        and c.slot_resolve == cfg.slot_resolve
-                        for c, _ in seen)
+    assert seen and all(getattr(c, k) == getattr(cfg, k) for c, _ in seen
+                        for k in RESOLVE_PATHS)
+    assert fetches == [{v: getattr(cfg, k) for k, v in TAA_FETCHES.items()}]
     seen.clear()
+    fetches.clear()
     got, r = _frames(cpu_mesh(4), n_frames=2, cfg=cfg)
     assert len(seen) == 8 and all(slab for _, slab in seen)
-    assert not any(c.quad_rate_resolve or c.slot_resolve for c, _ in seen)
-    assert r.config.quad_rate_resolve == cfg.quad_rate_resolve
+    assert not any(getattr(c, k) for c, _ in seen for k in RESOLVE_PATHS)
+    assert len(fetches) == 4 and not any(any(f.values()) for f in fetches)
+    assert all(getattr(r.config, k) == v for k, v in opts.items())
     np.testing.assert_array_equal(got, want)
     plain, _ = _frames(n_frames=2)
     np.testing.assert_array_equal(want, plain)

@@ -14,7 +14,8 @@ under each set (the north star's sets, the block path, the masked
 scene's lazy and two-pass fallbacks; quad and slot at phase 20's edge
 capacities) with torch.profiler, three calls each, and prints the N
 torch ops with the most device time a call (the kernels each launches),
-the call's device busy ms (its kernels' time) and wall ms. `--root DIR`
+the call's device busy ms (its kernels' time), kernels and wall ms
+(chip_smoke.op_profile). `--root DIR`
 takes voidin_tpu_torch from DIR (a parent's unpacked tree) and this
 tree's chip_smoke.py. `--skip-phase` runs the profile
 alone. Prints the card line last. Exits non-zero on a failed gate or
@@ -50,44 +51,6 @@ def resolve_inputs(cs, scene, cfg):
     finally:
         resolve.resolve_gbuffer = real
     return seen[0]
-
-
-def op_profile(label, args, n_ops, card, reps=3):
-    """torch.profiler over `reps` resolve_gbuffer calls: the `n_ops` torch
-    ops with the most device time a call (the time of the kernels each
-    launches), the device busy ms (the kernels' time) and the wall ms a
-    call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from voidin_tpu_torch.passes import resolve
-
-    resolve.resolve_gbuffer(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            resolve.resolve_gbuffer(*args)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    ops, busy, kernels = [], 0.0, 0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA:
-            busy += dev_us / reps / 1e3
-            kernels += e.count
-        elif dev_us > 0:
-            ops.append((dev_us / reps / 1e3, e.count // reps, e.key))
-    ops.sort(reverse=True)
-    print(f"resolve ops, {label}: device busy {busy:.3f} ms of {wall:.3f} "
-          f"ms wall a call, {kernels // reps} kernels a call ({card})",
-          flush=True)
-    for ms, count, key in ops[:n_ops]:
-        print(f"  {ms:8.3f} ms  x{count:<4d} {key[:60]}", flush=True)
-    return dict(device_ms=busy, wall_ms=wall)
 
 
 def main():
@@ -132,6 +95,8 @@ def main():
     if args.ops:
         import dataclasses
 
+        from voidin_tpu_torch.passes import resolve
+
         scenes = dict(north=scene, masked=masked_world.device(dev))
         sets = (("default", "north", {}),) + tuple(
             (label, "north", opts) for label, opts, _ in cs.RECORD_SETS) + (
@@ -154,7 +119,9 @@ def main():
             if key not in sized:
                 sized[key] = cs.edge_capacities(inputs[1].tri_id)[0]
                 print(f"{key}: capacities {sized[key]}", flush=True)
-            out[label] = op_profile(label, inputs, args.ops, card)
+            out[label] = cs.op_profile(
+                f"resolve, {label}",
+                lambda: resolve.resolve_gbuffer(*inputs), args.ops, card)
             del inputs
         print(json.dumps(dict(resolve_ops=out)))
     print(card, flush=True)

@@ -189,6 +189,19 @@ def compact_indices(mask_flat, size):
     )
 
 
+def scatter_rows(dense, widx, rows):
+    """dense (H, W, C...) with rows (N, C...) written at the flat pixel
+    indices widx (N,); an index H*W drops its row (a spare row takes
+    it). The written indices are distinct. The write-back of the
+    compacted edge batches (resolve's quad and slot fetches and alpha
+    fallback, the quad-block texture tap, the TAA history samplers)."""
+    H, W = dense.shape[:2]
+    flat = dense.reshape((H * W,) + dense.shape[2:])
+    buf = torch.cat([flat, flat[:1]])
+    buf[widx] = rows
+    return buf[:H * W].reshape(dense.shape)
+
+
 def _bilinear_taps(n_out: int, n_in: int, s: int):
     """Per output index: the two source taps (lo, hi) and their f32
     weights of jax.image.resize('bilinear') upsampling at integer scale s

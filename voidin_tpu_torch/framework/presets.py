@@ -43,10 +43,11 @@ def find_asset(rel: str) -> Optional[str]:
 class Preset:
     """A preset's World, camera and the Renderer's flags and capacities.
 
-    The JAX Preset's quad_edge_capacity, taa_edge_capacity,
-    tap_edge_capacity, rt_packet and rt_threaded are left out: they size
-    and select the TPU's gather-economy passes and traversal variants,
-    which the port does not carry (ROADMAP "Not ported")."""
+    The edge capacities of the coherent passes (quad_rate_resolve,
+    taa_quad_history, tap_block) carry the JAX Preset's values; the JAX
+    Preset's rt_packet and rt_threaded are left out: they select the
+    TPU's packet traversals, whose place the port's shadow-ray kernel
+    takes (ROADMAP "Not ported")."""
 
     world: World
     camera: Camera
@@ -62,6 +63,11 @@ class Preset:
     tri_capacity: int = 1 << 20
     pair_capacity: int = 1 << 20
     tile_tri_capacity: int = 128
+    # Edge-batch capacities of quad_rate_resolve, taa_quad_history and
+    # tap_block (RasterConfig's fields of the same names; 0 = auto)
+    quad_edge_capacity: int = 1 << 16
+    taa_edge_capacity: int = 1 << 11
+    tap_edge_capacity: int = 0  # 0 = auto (n_quads // 4)
     # Per-frame (J, 4, 4) joint matrices for skinned scenes, a function of
     # the Renderer's time (config 4's clapping arms).
     animator: Optional[object] = None
@@ -82,7 +88,8 @@ def config1_single_mesh(aspect: float) -> Preset:
     w.lights.add_point_light([3, 4, 4], 20.0, [1, 1, 1])
     cam = Camera(position=[0, 1.2, 3.4], pitch=-15.0, aspect=aspect)
     return Preset(world=w, camera=cam, enable_cull=False, enable_taa=False,
-                  tri_capacity=1 << 17, pair_capacity=1 << 18)
+                  tri_capacity=1 << 17, pair_capacity=1 << 18,
+                  quad_edge_capacity=1 << 16, taa_edge_capacity=1 << 10)
 
 
 def config2_instanced_cull(aspect: float, n_instances: int = 1000) -> Preset:
@@ -114,7 +121,8 @@ def config2_instanced_cull(aspect: float, n_instances: int = 1000) -> Preset:
     # sized to live work (validated by the overflow counter bench prints).
     return Preset(world=w, camera=cam, enable_taa=False,
                   tri_capacity=1 << 19, pair_capacity=1 << 20,
-                  tile_tri_capacity=192)
+                  tile_tri_capacity=192,
+                  quad_edge_capacity=1 << 17, taa_edge_capacity=1 << 12)
 
 
 def config3_gltf_arealights(aspect: float) -> Preset:
@@ -161,7 +169,8 @@ def config3_gltf_arealights(aspect: float) -> Preset:
     w.lights.add_point_light([2, 3, 4], 12.0, [0.6, 0.6, 0.7])
     cam = Camera(position=[0, 2.5, 9.0], pitch=-12.0, aspect=aspect)
     return Preset(world=w, camera=cam, enable_taa=False,
-                  tri_capacity=1 << 15, pair_capacity=1 << 18)
+                  tri_capacity=1 << 15, pair_capacity=1 << 18,
+                  quad_edge_capacity=1 << 13, taa_edge_capacity=1 << 10)
 
 
 def _add_clapper_arm(w: World, segments: int = 8, width: float = 0.6,
@@ -274,6 +283,7 @@ def config4_animated_taa(aspect: float) -> Preset:
     cam = Camera(position=[0, 3, 4], pitch=-14.0, aspect=aspect)
     return Preset(world=w, camera=cam, moving_ids=moving, enable_taa=True,
                   tri_capacity=1 << 16, pair_capacity=1 << 18,
+                  quad_edge_capacity=1 << 15, taa_edge_capacity=1 << 10,
                   animator=clapper_joint_mats)
 
 
@@ -306,6 +316,8 @@ def config5_raytraced_shadows(aspect: float) -> Preset:
         with_tlas=True,
         tri_capacity=1 << 17,
         pair_capacity=1 << 19,
+        quad_edge_capacity=1 << 16,
+        taa_edge_capacity=1 << 10,
     )
 
 
@@ -410,6 +422,8 @@ def config6_sponza_textures(
         tri_capacity=1 << 19,
         pair_capacity=1 << 19,
         tile_tri_capacity=192,
+        quad_edge_capacity=1 << 17,
+        taa_edge_capacity=1 << 12,
     )
 
 
@@ -555,6 +569,8 @@ def config7_sponza_geometry(
         tri_capacity=1 << 19,
         pair_capacity=1 << 20,
         tile_tri_capacity=192,
+        quad_edge_capacity=1 << 17,
+        taa_edge_capacity=1 << 12,
     )
 
 

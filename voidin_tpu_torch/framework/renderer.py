@@ -29,10 +29,11 @@ data-dependent gather of the frame (core/checks.py) and raises an
 IndexError naming it. slim_rec on a scene outside its envelope (normal
 maps, sampled emissive or metallic-roughness, alpha masking, ids not
 exact in f16) falls back as the JAX package's does, to fused_resolve_rec +
-inst_rec_f16 (kernel_payload, which rides the slim record, goes off). The
-Renderer raises NotImplementedError for the options the port does not
-carry (raster.UNSUPPORTED_OPTIONS: the quad-block samplers of the albedo
-tap and the TAA history).
+inst_rec_f16 (kernel_payload, which rides the slim record, goes off).
+The quad-block samplers of the albedo tap (tap_block) and of the TAA
+history (taa_quad_history, taa_quad_where, taa_inwindow) run where the
+config names them: their edge batches' overflow adds to aux["overflow"],
+and the sharded frame turns them off as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -148,14 +149,23 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
         hdr = shading_pass.shade(scene, gbuffer, camera, aux_r,
                                  area_light_scale=area_light_scale)
     # 5. TAA (reproject + resolve into history)
+    taa_overflow = None
     if enable_taa:
-        hdr, state = taa_pass.taa(hdr, gbuffer, camera, state)
+        hdr, state, taa_overflow = taa_pass.taa(
+            hdr, gbuffer, camera, state,
+            quad_history=config.taa_quad_history,
+            edge_capacity=config.taa_edge_capacity,
+            inwindow=config.taa_inwindow,
+            block_capacity=config.taa_block_capacity,
+            quad_select="where" if config.taa_quad_where else "einsum")
     # 6. postprocess (sharpen + tonemap) + sRGB encode
     srgb = linear_to_srgb(post_pass.postprocess(hdr) if enable_post
                           else hdr)
     overflow = vis.overflow
     if aux_r.overflow is not None:
         overflow = overflow + aux_r.overflow  # alpha-fallback capacity
+    if taa_overflow is not None:
+        overflow = overflow + taa_overflow  # TAA history edge batches
     aux = dict(
         draw_count=draws.count,
         overflow=overflow,
@@ -243,9 +253,10 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
 
     * update, skinning and refits run replicated on every distinct
       device, the cull once on mesh.devices[0];
-    * resolve takes no quad or slot fetch (their compactions are the
-      whole image's), as the JAX package's sharded frame does: the same
-      words; planar_resolve stays;
+    * resolve takes no quad or slot fetch and no quad-block albedo tap,
+      TAA no quad-block or in-window history fetch (their compactions
+      are the whole image's), as the JAX package's sharded frame does:
+      the same words; planar_resolve stays;
     * the pair path rasterizes row-partitioned (rasterize_sharded: one
       K1 launch per slab); the block path rasterizes whole on
       mesh.devices[0] and splits the images, as the JAX package does;
@@ -287,7 +298,8 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
 
     # resolve + shade per slab, on its window of rows
     config = dataclasses.replace(config, quad_rate_resolve=False,
-                                 slot_resolve=False)
+                                 slot_resolve=False, tap_block=False,
+                                 taa_quad_history=False, taa_inwindow=False)
     s = 1 if enable_rt_shadows else area_light_scale
     fields = [f for f in ("tri_id", "depth", "tri_id2", "depth2")
               if getattr(vis[0], f) is not None]
@@ -341,7 +353,7 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
                 motion = taa_pass.reproject(
                     GBuffer(normal_uv=None, material=None, depth=depth_w),
                     camera, row0=bounds[d][0] - top, height=H)
-                out = taa_pass.taa_resolve(
+                out, _ = taa_pass.taa_resolve(
                     color_w, hist[dev], motion, row0=bounds[d][0] - top,
                     quads=quads[dev])
                 outs.append(out[top:top + hdrs[d].shape[0]])
@@ -415,18 +427,7 @@ class Renderer:
         moving_ids: Optional[np.ndarray] = None,
         mesh=None,
         pipeline_cache=None,
-        **options,
     ):
-        unsupported = []
-        for k, v in options.items():
-            if k not in raster_pass.UNSUPPORTED_OPTIONS:
-                raise TypeError(f"unknown Renderer option {k!r}")
-            if v:
-                unsupported.append(k)
-        if unsupported:
-            raise NotImplementedError(
-                "not ported to voidin_tpu_torch: " + ", ".join(unsupported)
-            )
         self.scene = scene
         config = config or RasterConfig()
         if config.slim_rec and not _slim_fits(scene):

@@ -13,6 +13,9 @@ leaves and statics (``scene.scene_to_numpy``, the names of
   such as the aspect 16 / 9 comes back exactly), when one is given;
 * ``version``: SNAPSHOT_VERSION.
 
+The texture pool's tap-block tables are not saved: ``statics`` says
+whether the pool held them, and ``load_scene`` derives them again on its
+device (``texture.block_tables``), so a block-less pool loads block-less.
 As in the JAX package, skins are not snapshotted (they are rebuilt from
 their assets; a loaded scene has none), and a file of another version, or
 without the marker, is refused with a ValueError.
@@ -30,7 +33,10 @@ from ..core.camera import Camera
 from ..scene.scene import SceneData, scene_from_numpy, scene_to_numpy
 
 # v1: named host leaves + JSON statics (the first format of this package)
-SNAPSHOT_VERSION = 1
+# v2: statics["tap_blocks"] records whether the texture pool held its
+#     tap-block tables; load derives them again (a block-less pool stays
+#     one), as the JAX package's v3 records them
+SNAPSHOT_VERSION = 2
 
 
 def save_scene(path: str, scene: SceneData,

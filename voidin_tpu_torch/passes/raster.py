@@ -49,14 +49,6 @@ from .gbuffer import VisBuffer
 
 NEAR_EPS = 1e-8
 
-# RasterConfig options of the JAX package the port does not carry yet:
-# the quad-block samplers of the albedo tap and the TAA history. The
-# Renderer refuses them by name.
-UNSUPPORTED_OPTIONS = (
-    "tap_block", "taa_quad_history", "taa_quad_where", "taa_inwindow",
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
     width: int = 1920
@@ -127,6 +119,42 @@ class RasterConfig:
     slot_resolve: bool = False
     slot_k: int = 16
     slot_edge_capacity: int = 0
+    # Quad-rate albedo tap (texture.sample_trilinear_quadblock): one child
+    # and one parent 4x4 block row per uniform 2x2 pixel quad instead of
+    # four 32 B quad rows; edge quads (texture, mip or wrap-seam
+    # straddles, a spread above 2 texels) through a compacted per-pixel
+    # batch of tap_edge_capacity quads (0: max(quads // 4, 1024)), the
+    # rest counted in ResolveAux.overflow. The words of the per-pixel tap
+    # while the batch holds. Needs the pool's block tables
+    # (World.device(tap_blocks=True)) and even sides, else the per-pixel
+    # tap runs; off under a mesh.
+    tap_block: bool = False
+    tap_edge_capacity: int = 0
+    # TAA history fetch by quad blocks (taa._bilinear_clamp_quadblock):
+    # one 4x4-texel f16 block row per 2x2 output quad instead of one 2x2
+    # row per pixel; quads whose history coordinates spread wider go
+    # through a compacted per-pixel batch of taa_edge_capacity quads (0:
+    # max(quads // 4, 1024)), the rest counted in the frame's overflow.
+    # The words of the default fetch while the batch holds, under the
+    # JAX package's select rules (taa_quad_where). Needs even sides; off
+    # under a mesh.
+    taa_quad_history: bool = False
+    taa_edge_capacity: int = 0
+    # TAA history fetch from each pixel's 5x5 clamp-shifted window for
+    # pixels whose corners lie in it (taa._bilinear_clamp_inwindow), fast
+    # movers per 8x8 block through a compacted batch of
+    # taa_block_capacity blocks (0: max(blocks // 8, 256)), overflow
+    # counted. The words of the default fetch; sides that are not
+    # multiples of 8 take the default fetch. taa_quad_history comes
+    # first where both are set; off under a mesh.
+    taa_inwindow: bool = False
+    taa_block_capacity: int = 0
+    # taa_quad_history's in-block select: the JAX package's where-chains
+    # (the selected f16 texel, as the default fetch reads it) instead of
+    # its one-hot einsum, whose f32 sum turns a -0.0 texel into +0.0 and
+    # makes every corner of a quad NaN where its 4x4 block holds a
+    # non-finite texel it does not select. The two differ only there.
+    taa_quad_where: bool = False
     # K1 hands resolve the winner's slim record per pixel
     # (VisBuffer.payload_img), so resolve skips its per-pixel record
     # gather; bit-identical to it. Needs slim_rec and the pair path.

@@ -28,7 +28,13 @@ field:
   distinct triangle) and selected per pixel by a one-hot product
   (_slot_fetch_channels), overflowing tiles re-resolved per pixel;
 * planar_resolve: accepted for the JAX package's config and resolved by
-  the dense path, whose words the JAX package's planar twin gives.
+  the dense path, whose words the JAX package's planar twin gives;
+* tap_block: the albedo tap reads one child and one parent 4x4 block
+  row per uniform 2x2 quad (texture.sample_trilinear_quadblock), edge
+  quads through a compacted batch of tap_edge_capacity quads; it composes
+  with quad and slot, needs even sides and the pool's block tables
+  (World.device(tap_blocks=True)), and takes the per-pixel tap without
+  them.
 The coherent paths give the words of the per-pixel path while their edge
 batches hold; what overflows them is counted in ResolveAux.overflow.
 """
@@ -43,7 +49,7 @@ import torch
 from ..core import checks, encoding, fastmath
 from ..ops import fine_raster as fr
 from ..scene.scene import SceneData
-from ..scene.texture import sample_trilinear
+from ..scene.texture import sample_trilinear, sample_trilinear_quadblock
 from .gbuffer import GBuffer, VisBuffer
 from .shading import pixel_rows, uv_lod
 
@@ -198,17 +204,6 @@ def _decode_channels(rows, inst_f16: bool = False, tangents: bool = True):
     return out
 
 
-def _scatter_rows(dense, widx, rows):
-    """dense (H, W, C...) with rows (N, C...) written at the flat pixel
-    indices widx (N,); an index H*W drops its row (a spare row takes
-    it). The written indices are distinct."""
-    H, W = dense.shape[:2]
-    flat = dense.reshape((H * W,) + dense.shape[2:])
-    buf = torch.cat([flat, flat[:1]])
-    buf[widx] = rows
-    return buf[:H * W].reshape(dense.shape)
-
-
 def _quad_fetch(scene: SceneData, vis: VisBuffer, tri_id,
                 inst_f16: bool = False, capacity: int = 0):
     """RasterConfig.quad_rate_resolve: the rows of _fetch_rows fetched
@@ -246,7 +241,8 @@ def _quad_fetch(scene: SceneData, vis: VisBuffer, tri_id,
     pix = py * W + px
     rows_e = _fetch_rows(scene, vis, tri_id.reshape(-1)[pix], inst_f16)
     widx = torch.where(valid.repeat(4), pix, H * W)
-    dense = {k: _scatter_rows(v, widx, rows_e[k]) for k, v in dense.items()}
+    dense = {k: fastmath.scatter_rows(v, widx, rows_e[k])
+             for k, v in dense.items()}
     return dense, torch.clamp(count - F, min=0)
 
 
@@ -328,7 +324,7 @@ def _slot_fetch_channels(scene: SceneData, vis: VisBuffer, tri_id,
     pix = ((ty[:, None] * TH + lane[None, :] // TW) * W
            + tx[:, None] * TW + lane[None, :] % TW)
     widx = torch.where(valid[:, None], pix, H * W).reshape(F * PX)
-    dense = _scatter_rows(dense, widx, rows_flat)
+    dense = fastmath.scatter_rows(dense, widx, rows_flat)
 
     out, off = {}, 0
     for k in keys:
@@ -341,7 +337,7 @@ def _slot_fetch_channels(scene: SceneData, vis: VisBuffer, tri_id,
 def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
                   y_ndc, want_aux: bool = True, lod_probe=None,
                   inst_f16: bool = False, rows=None, channels=None,
-                  slim: bool = False):
+                  slim: bool = False, tap_block_cap=None):
     """Per-pixel resolve for any pixel-set shape S: unmasked fields plus
     the keep/cut masks. x_ndc / y_ndc broadcast to S. `lod_probe`: None
     takes the mip lod from image-space finite differences (S = (H, W));
@@ -350,7 +346,11 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     already fetched (the quad path), `channels`: channels already decoded
     (the slot path); by default fetched per pixel. `inst_f16`: the
     instance record is f16 pairs. `slim`: the rows are slim records
-    (RasterConfig.slim_rec)."""
+    (RasterConfig.slim_rec). `tap_block_cap`: the albedo tap takes the
+    quad-block sampler (RasterConfig.tap_block) with that edge capacity
+    where S is an (H, W) grid of even sides and the pool holds its block
+    tables, and the fields then hold its "tap_overflow"; elsewhere the
+    per-pixel tap, as in the JAX package."""
     S = tri_id.shape
     hit = tri_id >= 0
     # the fetched rows die with the decode (the packed attribute rows are
@@ -418,8 +418,15 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
         )
         lod = torch.clamp(torch.log2(torch.clamp(rho, min=1e-8)), 0.0, 16.0)
 
-    albedo = sample_trilinear(scene.textures, mat_albedo, uv, lod,
-                              wh=(tex_w, tex_h), srgb=scene.albedo_srgb)
+    tap_ovf = None
+    if (tap_block_cap is not None and len(S) == 2 and S[0] % 2 == 0
+            and S[1] % 2 == 0 and scene.textures.child_blocks is not None):
+        albedo, tap_ovf = sample_trilinear_quadblock(
+            scene.textures, mat_albedo, uv, lod, wh=(tex_w, tex_h),
+            srgb=scene.albedo_srgb, capacity=tap_block_cap)
+    else:
+        albedo = sample_trilinear(scene.textures, mat_albedo, uv, lod,
+                                  wh=(tex_w, tex_h), srgb=scene.albedo_srgb)
     n_geo = _normalize(n_ws)
     if scene.no_normal_maps:
         normal = n_geo
@@ -456,6 +463,8 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
         keep=keep,
         cut=cut,
     )
+    if tap_ovf is not None:
+        out["tap_overflow"] = tap_ovf
     if not want_aux:
         return out
 
@@ -568,10 +577,12 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     The dense (H, W) resolve takes the coherent fetch the config names:
     slot_resolve (H % 8 == W % 16 == 0; it subsumes quad), else
     quad_rate_resolve (H and W even), else the per-pixel one
-    (planar_resolve included); the coherent fetches' edge batches'
-    overflow is counted in ResolveAux.overflow (on the two-pass path the
-    final pass's alone). Neither coherent fetch goes with
-    fused_resolve_rec or slim_rec (ValueError).
+    (planar_resolve included); tap_block takes the albedo tap at quad
+    rate (_pixel_fields) on any of them. The edge batches' overflow is
+    counted in ResolveAux.overflow (on the two-pass path the final
+    pass's alone; the flat alpha fallback batch taps per pixel). Neither
+    coherent fetch goes with fused_resolve_rec or slim_rec
+    (ValueError).
 
     Row window (a slab of the sharded frame): `vis` holds the image rows
     [row0, row0 + H) of a `height`-row image (default H), and `rows =
@@ -603,7 +614,11 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     if slim and (quad or slot):
         raise ValueError(
             "slim_rec and quad/slot_rate_resolve are mutually exclusive")
-    track = quad or slot
+    track = quad or slot or config.tap_block
+    tap_cap = None
+    if config.tap_block:
+        tap_cap = (config.tap_edge_capacity
+                   or max((H // 2) * (W // 2) // 4, 1024))
     edge_ovf = torch.zeros((), dtype=torch.int64, device=dev)
 
     def dense_fields(tri_id, depth, want_aux=True):
@@ -618,9 +633,12 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
             fetched, ovf = _quad_fetch(scene, vis, tri_id, inst_f16=f16,
                                        capacity=config.quad_edge_capacity)
             edge_ovf = edge_ovf + ovf
-        return _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
-                             want_aux=want_aux, inst_f16=f16, rows=fetched,
-                             channels=channels, slim=slim)
+        f = _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
+                          want_aux=want_aux, inst_f16=f16, rows=fetched,
+                          channels=channels, slim=slim, tap_block_cap=tap_cap)
+        if "tap_overflow" in f:
+            edge_ovf = edge_ovf + f.pop("tap_overflow")
+        return f
 
     if vis.tri_id2 is None:
         fields = dense_fields(vis.tri_id, vis.depth)
@@ -664,7 +682,7 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     fb_rows = _pack_fallback_rows(fb)
 
     # invalid slots write the pixel index H*W, which is dropped
-    fbimg = _unpack_fallback(_scatter_rows(
+    fbimg = _unpack_fallback(fastmath.scatter_rows(
         torch.zeros(H, W, _FB_F, dtype=torch.int32, device=dev),
         torch.where(valid, idx, H * W), fb_rows))
     use = fall & fbimg["flag"]

@@ -10,6 +10,15 @@ mu +/- 1.5 sigma clamp, blend 1 -> 1/12 by velocity validity widened by
 clamp distance. As in the JAX package, frame 0 seeds the history with the
 current frame instead of converging from black.
 
+The history fetch, by RasterConfig field as in the JAX package: per pixel
+from the f16 history_quads table (the default), by quad blocks
+(taa_quad_history: one f16 4x4 block row per 2x2 output quad, edge quads
+through a compacted batch; taa_quad_where picks the JAX package's
+where-chain select over its one-hot einsum, whose words differ on -0.0
+and non-finite texels), or from each pixel's 5x5 window (taa_inwindow,
+fast movers per 8x8 block through a compacted batch). Each gives the
+default fetch's words while its batch holds (the einsum select aside).
+
 The port writes the resolved image into the history buffer IN PLACE
 (FrameState.history.copy_): one full-resolution buffer carried across
 frames instead of a new one per frame. ``reproject`` and ``taa_resolve``
@@ -72,12 +81,9 @@ def history_quads(img):
         H * W, 4 * C)
 
 
-def _bilinear_clamp(img, u, v, quads=None):
-    """Bilinear sample of (H, W, C) at normalized uv (clamp-to-edge) from
-    its history_quads table (`quads`, built here when not given)."""
-    H, W, C = img.shape
-    if quads is None:
-        quads = history_quads(img)
+def _history_coords(u, v, H, W):
+    """(x0i, y0i, tx, ty) of normalized history uv on an (H, W) image:
+    the clamped floor texel (i64) and the lerp weights (..., 1)."""
     fx = u * W - 0.5
     fy = v * H - 0.5
     x0 = torch.floor(fx)
@@ -86,12 +92,174 @@ def _bilinear_clamp(img, u, v, quads=None):
     ty = (fy - y0)[..., None]
     x0i = torch.clamp(torch.nan_to_num(x0), 0, W - 1).to(torch.int64)
     y0i = torch.clamp(torch.nan_to_num(y0), 0, H - 1).to(torch.int64)
-    q = quads[y0i * W + x0i].to(torch.float32)
-    c00, c10 = q[..., :C], q[..., C: 2 * C]
-    c01, c11 = q[..., 2 * C: 3 * C], q[..., 3 * C:]
+    return x0i, y0i, tx, ty
+
+
+def _lerp(c00, c10, c01, c11, tx, ty):
     top = c00 + (c10 - c00) * tx
     bot = c01 + (c11 - c01) * tx
     return top + (bot - top) * ty
+
+
+def _bilinear_clamp(img, u, v, quads=None):
+    """Bilinear sample of (H, W, C) at normalized uv (clamp-to-edge) from
+    its history_quads table (`quads`, built here when not given)."""
+    H, W, C = img.shape
+    if quads is None:
+        quads = history_quads(img)
+    x0i, y0i, tx, ty = _history_coords(u, v, H, W)
+    q = quads[y0i * W + x0i].to(torch.float32)
+    return _lerp(q[..., :C], q[..., C: 2 * C], q[..., 2 * C: 3 * C],
+                 q[..., 3 * C:], tx, ty)
+
+
+def _einsum_select(blk, k):
+    """The corners that the JAX package's default quad-block select gives:
+    a one-hot einsum of each quad's f16 4x4 block (blk (Q, 16, C)) into
+    f32, at the block texels k (Q, n). The einsum adds the 15 other
+    texels times 0 to the selected one, so the selected value comes out
+    +0.0 for -0.0, and NaN wherever another texel of its channel in the
+    block is not finite (0 * inf, 0 * NaN). Those rules applied to the
+    block, then an index gather: no matmul, whose TF32 would round."""
+    b = blk.to(torch.float32)
+    bad = ~torch.isfinite(b)
+    n_bad = bad.sum(dim=1, keepdim=True)
+    b = torch.where(n_bad - bad.to(n_bad.dtype) > 0, float("nan"), b + 0.0)
+    return torch.gather(b, 1, k[..., None].expand(k.shape + (b.shape[2],)))
+
+
+def _bilinear_clamp_quadblock(img, u, v, capacity=0, select="einsum"):
+    """_bilinear_clamp by quad blocks (RasterConfig.taa_quad_history; H
+    and W even): the history coordinates of a 2x2 output quad land within
+    a texel or two of each other, so one f16 4x4-texel block row of the
+    history (the (H * W, 16 C) block table, clamp-to-edge, built from one
+    edge-padded copy) at the quad's min floor texel serves its four
+    pixels when their floor coordinates spread by 2 or less. Each pixel
+    takes its corners from the block by an index gather, under `select`:
+    "where" gives the selected f16 texel (the words of the default
+    fetch), "einsum" the JAX package's one-hot einsum's words
+    (_einsum_select). Quads that spread wider go through a compacted
+    per-pixel batch of `capacity` quads (0: max(Hq * Wq // 4, 1024)),
+    ascending, each pixel reading columns 0, C, 4C and 5C of its own block
+    row; a quad beyond the batch keeps its block value. Returns (samples
+    (H, W, C), the edge quads beyond capacity)."""
+    H, W, C = img.shape
+    Hq, Wq = H // 2, W // 2
+    dev = img.device
+    imgh = img.to(torch.float16)
+    ys = torch.clamp(torch.arange(H + 3, device=dev), max=H - 1)
+    xs = torch.clamp(torch.arange(W + 3, device=dev), max=W - 1)
+    padded = imgh[ys][:, xs]
+    # the 4x4 windows as a view, written once: texel (dy, dx) of a row at
+    # columns (4 dy + dx) C
+    blocks = padded.unfold(0, 4, 1).unfold(1, 4, 1).permute(
+        0, 1, 3, 4, 2).reshape(H * W, 16 * C)
+    x0i, y0i, tx, ty = _history_coords(u, v, H, W)
+
+    def q4(a):  # (H, W) -> (Hq, Wq, 4), pixels (0,0) (0,1) (1,0) (1,1)
+        return a.reshape(Hq, 2, Wq, 2).permute(0, 2, 1, 3).reshape(
+            Hq, Wq, 4)
+
+    x4, y4 = q4(x0i), q4(y0i)
+    bx = x4.amin(dim=-1)
+    by = y4.amin(dim=-1)
+    ok = (x4.amax(dim=-1) - bx <= 2) & (y4.amax(dim=-1) - by <= 2)
+    ox = torch.clamp(x4 - bx[..., None], 0, 2)
+    oy = torch.clamp(y4 - by[..., None], 0, 2)
+    # each pixel's corners (0,0) (0,1) (1,0) (1,1) as block texels
+    k = ((oy * 4 + ox)[..., None]
+         + torch.tensor([0, 1, 4, 5], device=dev)).reshape(Hq * Wq, 16)
+    blk = blocks[(by * W + bx).reshape(-1)].reshape(Hq * Wq, 16, C)
+    if select == "where":
+        c = torch.gather(blk, 1, k[..., None].expand(Hq * Wq, 16, C)).to(
+            torch.float32)
+    else:
+        c = _einsum_select(blk, k)
+    c = c.reshape(Hq, Wq, 2, 2, 4, C).permute(0, 2, 1, 3, 4, 5).reshape(
+        H, W, 4, C)
+    out = _lerp(c[:, :, 0], c[:, :, 1], c[:, :, 2], c[:, :, 3], tx, ty)
+
+    # edge quads: each pixel's own block row, scattered back
+    F = capacity or max(Hq * Wq // 4, 1024)
+    flat = (~ok).reshape(-1)
+    count = flat.sum()
+    qidx = fastmath.compact_indices(flat, F)
+    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+    qy = qidx // Wq
+    qx = qidx - qy * Wq
+    py = torch.cat([qy * 2, qy * 2, qy * 2 + 1, qy * 2 + 1])
+    px = torch.cat([qx * 2, qx * 2 + 1, qx * 2, qx * 2 + 1])
+    pix = py * W + px  # (4F,)
+    qe = blocks[y0i.reshape(-1)[pix] * W + x0i.reshape(-1)[pix]]
+    e = qe.reshape(-1, 16, C)[:, [0, 1, 4, 5]].to(torch.float32)
+    vals = _lerp(e[:, 0], e[:, 1], e[:, 2], e[:, 3],
+                 tx.reshape(-1, 1)[pix], ty.reshape(-1, 1)[pix])
+    widx = torch.where(valid.repeat(4), pix, H * W)
+    out = fastmath.scatter_rows(out, widx, vals)
+    return out, torch.clamp(count - F, min=0)
+
+
+def _bilinear_clamp_inwindow(img, u, v, capacity=0, quads=None):
+    """_bilinear_clamp for near-static pixels (RasterConfig.taa_inwindow;
+    H and W multiples of 8, else _bilinear_clamp with overflow 0): a pixel
+    whose floor texel lies at offsets (ox, oy) in [-2, 1] of itself finds
+    its bilinear corners in its own 5x5 clamp-shifted window, gathered
+    from one edge-padded f16 copy of the history at (y + oy + d, x + ox +
+    e), so no shifted copy is made. Pixels outside the window go by 8x8
+    blocks through a compacted batch of `capacity` blocks (0: max(Hb * Wb
+    // 8, 256)), ascending, each pixel gathering a 12 B record (its quad
+    row's index as f32, tx, ty) and one f16 row of the history_quads table
+    (`quads`, built here when not given). An offset outside the window
+    reads the window's -2 texel, as the JAX package's where-chains do, so
+    a block beyond the batch keeps that value. The words of
+    _bilinear_clamp while the batch holds. Returns (samples (H, W, C),
+    the blocks beyond capacity)."""
+    H, W, C = img.shape
+    dev = img.device
+    if H % 8 or W % 8:
+        return (_bilinear_clamp(img, u, v, quads),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    x0i, y0i, tx, ty = _history_coords(u, v, H, W)
+    px = torch.arange(W, device=dev)[None, :]
+    py = torch.arange(H, device=dev)[:, None]
+    ox = x0i - px
+    oy = y0i - py
+    kx = torch.where((ox >= -1) & (ox <= 1), ox, -2)
+    ky = torch.where((oy >= -1) & (oy <= 1), oy, -2)
+    ys = torch.clamp(torch.arange(-2, H + 2, device=dev), 0, H - 1)
+    xs = torch.clamp(torch.arange(-2, W + 2, device=dev), 0, W - 1)
+    padded = img.to(torch.float16)[ys][:, xs].reshape(-1, C)
+    at = (py + 2 + ky) * (W + 4) + px + 2 + kx  # corner (0, 0)
+    c = [padded[at + d * (W + 4) + e].to(torch.float32)
+         for d in (0, 1) for e in (0, 1)]
+    out = _lerp(c[0], c[1], c[2], c[3], tx, ty)
+
+    # 8x8-block fallback for the pixels outside their window
+    Hb, Wb = H // 8, W // 8
+    bad = (ox < -2) | (ox > 1) | (oy < -2) | (oy > 1)
+    bad_blk = bad.reshape(Hb, 8, Wb, 8).any(dim=3).any(dim=1).reshape(-1)
+    count = bad_blk.sum()
+    F = capacity or max(Hb * Wb // 8, 256)
+    bidx = fastmath.compact_indices(bad_blk, F)
+    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+    by = bidx // Wb
+    bx = bidx - by * Wb
+    r8 = torch.arange(8, device=dev)
+    pix = ((by[:, None, None] * 8 + r8[None, :, None]) * W
+           + bx[:, None, None] * 8 + r8[None, None, :]).reshape(-1)
+    valid64 = valid.repeat_interleave(64)
+    pix = torch.where(valid64, pix, 0)
+    if quads is None:
+        quads = history_quads(img)
+    rec = torch.cat([(y0i * W + x0i).to(torch.float32)[..., None], tx, ty],
+                    dim=-1).reshape(H * W, 3)
+    r = rec[pix]
+    q = quads[r[:, 0].to(torch.int64)].to(torch.float32)
+    vals = _lerp(q[:, :C], q[:, C: 2 * C], q[:, 2 * C: 3 * C], q[:, 3 * C:],
+                 r[:, 1:2], r[:, 2:3])
+    widx = torch.where(valid64, pix, H * W)
+    out = fastmath.scatter_rows(out, widx, vals)
+    return out, torch.clamp(count - F, min=0)
 
 
 def reproject(gbuffer, camera, row0: int = 0, height=None) -> torch.Tensor:
@@ -130,12 +298,19 @@ def reproject(gbuffer, camera, row0: int = 0, height=None) -> torch.Tensor:
     return torch.stack([vel_x, vel_y, in_bounds.to(torch.float32)], dim=-1)
 
 
-def taa_resolve(color, history, motion, row0: int = 0, quads=None):
+def taa_resolve(color, history, motion, row0: int = 0, quads=None,
+                quad_history=False, edge_capacity=0, inwindow=False,
+                block_capacity=0, quad_select="einsum"):
     """taa.wgsl:45-103. color/motion: (H, W, 3); history: the whole (H',
     W, 3) image. `row0`: color and motion hold image rows [row0, row0 +
     H) of the history's image (a window of the sharded frame; its first
     and last rows are exact only at the image's edges); `quads`: the
-    history's history_quads table, built here when not given."""
+    history's history_quads table, built here when not given. The history
+    fetch: `quad_history` (even H and W, the whole image) by quad blocks
+    with `edge_capacity` and `quad_select` (_bilinear_clamp_quadblock),
+    else `inwindow` (the whole image) from each pixel's window with
+    `block_capacity` (_bilinear_clamp_inwindow), else per pixel. Returns
+    (resolved, the fetch's overflow: 0 on the per-pixel fetch)."""
     H, W = color.shape[:2]
     dev = color.device
     height = history.shape[0]
@@ -146,7 +321,17 @@ def taa_resolve(color, history, motion, row0: int = 0, quads=None):
     vel = motion
     hist_u = uu - vel[..., 0] * 0.5
     hist_v = vv + vel[..., 1] * 0.5  # * (1, -1) flip
-    hist = rgb_to_ycbcr(_bilinear_clamp(history, hist_u, hist_v, quads))
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if quad_history and H % 2 == 0 and W % 2 == 0:
+        hist_rgb, overflow = _bilinear_clamp_quadblock(
+            history, hist_u, hist_v, capacity=edge_capacity,
+            select=quad_select)
+    elif inwindow:
+        hist_rgb, overflow = _bilinear_clamp_inwindow(
+            history, hist_u, hist_v, capacity=block_capacity, quads=quads)
+    else:
+        hist_rgb = _bilinear_clamp(history, hist_u, hist_v, quads)
+    hist = rgb_to_ycbcr(hist_rgb)
 
     vsum = torch.zeros_like(color)
     vsum2 = torch.zeros_like(color)
@@ -195,17 +380,24 @@ def taa_resolve(color, history, motion, row0: int = 0, quads=None):
     ) / torch.clamp(torch.maximum(hist[..., 0], ex[..., 0]), min=1e-5)
     blend = blend * (0.2 + 0.8 * _smoothstep(0.0, 2.0, clamp_dist))
     result = clamped + (center - clamped) * blend[..., None]
-    return ycbcr_to_rgb(result)
+    return ycbcr_to_rgb(result), overflow
 
 
-def taa(color, gbuffer, camera, state):
-    """Full TAA pass; returns (resolved color, state). The resolved image
-    is written into state.history in place."""
+def taa(color, gbuffer, camera, state, quad_history=False, edge_capacity=0,
+        inwindow=False, block_capacity=0, quad_select="einsum"):
+    """Full TAA pass; returns (resolved color, state, the history fetch's
+    overflow). The resolved image is written into state.history in place.
+    The fetch options are taa_resolve's. The first frame reads no history
+    (it seeds it), so its overflow is 0."""
     motion = reproject(gbuffer, camera)
+    overflow = torch.zeros((), dtype=torch.int64, device=color.device)
     if state.history_valid:
-        out = taa_resolve(color, state.history, motion)
+        out, overflow = taa_resolve(
+            color, state.history, motion, quad_history=quad_history,
+            edge_capacity=edge_capacity, inwindow=inwindow,
+            block_capacity=block_capacity, quad_select=quad_select)
     else:
         out = color
     state.history.copy_(out)
     state.history_valid = True
-    return state.history, state
+    return state.history, state, overflow
