@@ -11,26 +11,28 @@ the raytraced-shadow frame of config 5 (chip_smoke.config5_preset, TLAS,
 no TAA) at rt_shadow_scale 1 and 2, and config 5 with its knot a 2-joint
 skin bent by a new pose each frame (config5_preset(skinned=True),
 chip_smoke.knot_joint_mats) through Renderer.render, overflow 0 on
-every frame, with CUDA events around each pass of render_frame (the skin
-stage, apply_skins with its BLAS refit, and the TLAS refit), and the
-ring-light frame of examples/ring_light.py at 1920x1080 (its shading with
-the fused LTC ring kernel's call), and the BASELINE presets 2,
-4, 6 and 7 at chip_smoke.PRESET_RUNS' full sizes, wired as
-chip_smoke.preset_renderer wires them (config 4 posed by its animator;
---presets renders these alone, --ring the ring-light frame alone), around
-the resolve's per-pixel field evaluations (the dense (H, W) pass and the
-flat fallback batch), around the fused LTC kernel's call inside shade and
-around the shadow-ray kernel's call inside shade_raytraced (the ray
-setup and the per-light shading are the rest of that pass). Prints, per scene, the
-median ms of each stage over the frames after the first two, and the
-host-clock ms/frame. Then times the resolve pass alone on one masked visibility buffer, three ways: as an unmasked
+every frame, and the ring-light frame of examples/ring_light.py at
+1920x1080 (its shading with the fused LTC ring kernel's call), and the
+BASELINE presets 2, 4, 6 and 7 at chip_smoke.PRESET_RUNS' full sizes,
+wired as chip_smoke.preset_renderer wires them (config 4 posed by its
+animator; --presets renders these alone, --ring the ring-light frame
+alone). The stages are the program's own frame scopes
+(voidin_tpu_torch/framework/profiler.py, switched on here): each pass and
+its stages (skinning and the TLAS refit; setup, binning, the fine raster
+kernel and the untile; the resolve's row fetch, field evaluation and
+fallback batch; the fused LTC kernel's call, the point lights, the
+shadow rays' packing and walk; TAA's reprojection, history fetch and
+resolve; tonemap and sRGB). Prints, per scene, each scope's device ms
+(its CUDA event pair: from when the stream reaches its entry to when it
+reaches its exit) and the host's syncs, a frame, the mean over the frames
+after the first two, and the host-clock ms/frame. Then times the resolve
+pass alone on one masked visibility buffer, three ways: as an unmasked
 scene would (winner only), the lazy compacted fallback (the default) and
 the dense two-pass fallback. Every number is printed with the card's name
 and power limit. Needs a CUDA device.
 """
 
 import argparse
-import collections
 import dataclasses
 import os
 import sys
@@ -46,76 +48,23 @@ import chip_smoke  # noqa: E402
 import voidin_tpu_torch as pt  # noqa: E402
 from voidin_tpu_torch.framework import renderer as renderer_mod  # noqa: E402
 from voidin_tpu_torch.examples import ring_light  # noqa: E402
-from voidin_tpu_torch.ops import fine_raster as fr  # noqa: E402
-from voidin_tpu_torch.ops import ltc_rect  # noqa: E402
-from voidin_tpu_torch.ops import ltc_ring  # noqa: E402
-from voidin_tpu_torch.ops import shadow_trace  # noqa: E402
+from voidin_tpu_torch.framework import profiler  # noqa: E402
 from voidin_tpu_torch.passes import raster, resolve  # noqa: E402
 
-STAGES = [
-    (renderer_mod.update_pass, "compute_update", "update"),
-    (renderer_mod.skin_mod, "apply_skins", "skin"),
-    (renderer_mod.skin_mod, "refit_blas", "  BLAS refit"),
-    (renderer_mod.skin_mod, "refit_tlas", "TLAS refit"),
-    (renderer_mod.cull_pass, "emit_draws", "cull + LOD"),
-    (raster, "rasterize", "raster"),
-    (raster, "triangle_setup", "  triangle setup"),
-    (raster, "bin_triangles_pairs", "  binning"),
-    (raster, "bin_triangles", "  block binning"),
-    (raster, "_pair_payload_stream", "  payload stream"),
-    (fr, "fine_raster_pairs", "  fine raster K1"),
-    (fr, "fine_raster_blocks", "  fine raster K2"),
-    (raster, "_untile_payload", "  payload untile"),
-    (resolve, "resolve_gbuffer", "resolve"),
-    (resolve, "_pixel_fields", "  resolve fields"),
-    (renderer_mod.shading_pass, "shade", "shade"),
-    (ltc_rect, "ltc_rect_terms", "  LTC rect, fused kernel"),
-    (renderer_mod.shading_pass, "shade_raytraced", "shade, raytraced"),
-    (shadow_trace, "occluded", "  shadow rays, kernel"),
-    (renderer_mod.shading_pass, "shade_ring_light", "shade, ring light"),
-    (ltc_ring, "ltc_ring_terms", "  LTC ring, fused kernel"),
-    (renderer_mod.taa_pass, "taa", "taa"),
-    (renderer_mod.post_pass, "postprocess", "postprocess"),
-    (ring_light, "postprocess", "postprocess"),
-]
-EVENTS = collections.defaultdict(list)
 # The presets split: the LOD field (2), skins with TAA and moving
 # instances (4), the 108-slot texture pool (6), the unique geometry (7).
 PRESET_SPLITS = (2, 4, 6, 7)
 
 
-def instrument():
-    """Wrap each stage function so that every call records a CUDA event
-    pair under its label; resolve's field passes are told apart by the
-    shape they run on (the dense (H, W) image or the flat batch)."""
-    for mod, fn_name, label in STAGES:
-        fn = getattr(mod, fn_name)
-
-        def timed(*a, _fn=fn, _label=label, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = _fn(*a, **k)
-            end.record()
-            name = _label
-            if _label == "  resolve fields":
-                name += " (H, W)" if a[2].dim() == 2 else " (flat batch)"
-            EVENTS[name].append((start, end))
-            return out
-
-        setattr(mod, fn_name, timed)
-
-
 def split(label, world, moving, cfg, frames, card):
     """Renders `frames` frames of `world` at the north-star camera and
     prints each stage's median."""
-    EVENTS.clear()
     r = renderer_mod.Renderer(world.device("cuda"), cfg, moving_ids=moving)
     cam = chip_smoke.north_star_camera(pt)
     walls = []
     for i in range(frames):
-        if i == 2:  # frames 1-2 warm up: drop their events
-            EVENTS.clear()
+        if i == 2:  # frames 1-2 warm up: drop their scopes
+            profiler.collect()
         t0 = time.perf_counter()
         r.render(cam)
         torch.cuda.synchronize()
@@ -128,15 +77,15 @@ def split(label, world, moving, cfg, frames, card):
 def ring_split(frames, card):
     """The ring-light frame (examples/ring_light.py render) at 1920x1080,
     `frames` frames, each stage's median as split prints it."""
-    EVENTS.clear()
     scene = ring_light.ring_world().device("cuda")
     walls = []
     for i in range(frames):
         if i == 2:
-            EVENTS.clear()
+            profiler.collect()
         t0 = time.perf_counter()
-        ring_light.render(scene, chip_smoke.WIDTH, chip_smoke.HEIGHT,
-                          tri_capacity=1 << 16, pair_capacity=1 << 19)
+        with profiler.scope("frame", frame=i):
+            ring_light.render(scene, chip_smoke.WIDTH, chip_smoke.HEIGHT,
+                              tri_capacity=1 << 16, pair_capacity=1 << 19)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     report("ring light", walls, frames, card)
@@ -157,14 +106,13 @@ def preset_split(label, p, frames, card, joint_mats=None):
     (chip_smoke.preset_renderer), frame i posed by `joint_mats(i)`, by
     default by the preset's animator at the Renderer's time (config 4's
     arms); each stage's median as split prints it."""
-    EVENTS.clear()
     r = chip_smoke.preset_renderer(
         p, p.world.device("cuda", with_tlas=p.with_tlas), chip_smoke.WIDTH,
         chip_smoke.HEIGHT)
     walls = []
     for i in range(frames):
         if i == 2:
-            EVENTS.clear()
+            profiler.collect()
         t0 = time.perf_counter()
         if joint_mats is not None:
             jm = joint_mats(i)
@@ -179,16 +127,18 @@ def preset_split(label, p, frames, card, joint_mats=None):
 
 
 def report(label, walls, frames, card):
-    ms = {k: float(np.median([s.elapsed_time(e) for s, e in v]))
-          for k, v in EVENTS.items()}
+    """Prints the frames' scopes since the last collect: each pass's
+    device ms a frame with its share of the passes' sum, its stages
+    indented below it, and the host's syncs a frame."""
+    rows, _, n = profiler.scope_rows(profiler.collect())
     print(f"{label}: host-clock median {np.median(walls[2:]):.3f} ms/frame "
-          f"over frames 3-{frames} ({card})")
-    top = sum(v for k, v in ms.items() if not k.startswith(" "))
-    order = [lab for _, _, lab in STAGES]
-    for k in sorted(ms, key=lambda k: order.index(k.split(" (")[0])
-                    if k.split(" (")[0] in order else len(order)):
-        share = "" if k.startswith(" ") else f"{100 * ms[k] / top:5.1f}%"
-        print(f"  {k:34s} {ms[k]:9.3f} ms {share}")
+          f"over frames 3-{frames} ({card}); device ms a frame, mean of "
+          f"{n} frames")
+    top = sum(dev for depth, _, _, dev, *_ in rows if depth == 1)
+    for depth, name, _, dev, _, syncs, _, _ in rows[1:]:
+        share = f"{100 * dev / top:5.1f}%" if depth == 1 else "      "
+        print(f"  {'  ' * (depth - 1) + name:34s} {dev:9.3f} ms {share} "
+              f"{syncs:5.2f} syncs")
     print(f"  {'sum of passes':34s} {top:9.3f} ms")
 
 
@@ -231,11 +181,11 @@ def main():
         sys.exit("needs a CUDA device")
     card = chip_smoke.card_line()
     if args.ring:
-        instrument()
+        profiler.enable()
         ring_split(args.frames, card)
         return
     if args.presets:
-        instrument()
+        profiler.enable()
         for n in PRESET_SPLITS:
             baseline_split(n, args.frames, card)
         return
@@ -254,7 +204,7 @@ def main():
         cfg, backend="xla", tile_tri_capacity=chip_smoke.block_capacity(
             counts))
     slim_cfg = dataclasses.replace(cfg, slim_rec=True, kernel_payload=True)
-    instrument()
+    profiler.enable()
     for label, w, mv, c in (("north star", world, moving, cfg),
                             (f"block path (K {block_cfg.tile_tri_capacity})",
                              world, moving, block_cfg),

@@ -12,6 +12,12 @@ The App's scene and frames live on `device`: the card unless the caller
 asks for another ("cpu" in the tests); without a card, the default raises
 as World.device() does. `step` returns the frame as a tensor on that
 device; `run` copies each recorded frame to the host once.
+
+With the GPU_PROFILING environment variable set, the App turns the
+profiler's frame scopes on (framework/profiler.py) and prints their table
+every DUMP_EVERY frames (app.rs:417-424): each scope's host, device and
+self ms and its syncs a frame, indented by parent, and the frame's
+counters.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 from ..core.camera import Camera
 from ..passes.raster import RasterConfig
 from ..scene.scene import World
+from . import profiler
 from .pipeline import PipelineCache
 from .recorder import Recorder
 from .renderer import Renderer
@@ -119,6 +126,9 @@ class App:
         # (J, 4, 4) joint matrices for skinned scenes; examples update this
         # in Example.update (e.g. via io.gltf.GltfAnimator).
         self.joint_mats = None
+        self.profiling = profiler.profiling_enabled()
+        if self.profiling:
+            profiler.enable()
 
         example.init(self)
         example.setup_scene(self)
@@ -169,6 +179,9 @@ class App:
         self.state.frame_count += 1
         self.state.total_time += FIXED_TIME_STEP
         self.state.dt = FIXED_TIME_STEP
+        if (self.profiling
+                and self.state.frame_count % profiler.DUMP_EVERY == 0):
+            profiler.print_scope_table(profiler.collect())
         return img
 
     def screenshot(self, path: str):

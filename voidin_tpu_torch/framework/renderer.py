@@ -61,6 +61,7 @@ from ..scene import mesh as mesh_mod
 from ..scene import skin as skin_mod
 from ..scene.scene import SceneData, World
 from ..scene.texture import linear_to_srgb
+from . import profiler
 
 
 @dataclasses.dataclass
@@ -159,23 +160,28 @@ def render_frame(scene: SceneData, camera: CameraUniform, globals_: Globals,
             block_capacity=config.taa_block_capacity,
             quad_select="where" if config.taa_quad_where else "einsum")
     # 6. postprocess (sharpen + tonemap) + sRGB encode
-    srgb = linear_to_srgb(post_pass.postprocess(hdr) if enable_post
-                          else hdr)
-    overflow = vis.overflow
-    if aux_r.overflow is not None:
-        overflow = overflow + aux_r.overflow  # alpha-fallback capacity
-    if taa_overflow is not None:
-        overflow = overflow + taa_overflow  # TAA history edge batches
-    aux = dict(
-        draw_count=draws.count,
-        overflow=overflow,
-        depth=gbuffer.depth,
-        vis_coverage=(vis.tri_id >= 0).sum(),
-    )
-    if aux_r.cut is not None:
-        aux.update(alpha_cut=aux_r.cut, alpha_fallback=aux_r.fallback)
-    if rt is not None:
-        aux.update(rt_exhausted=rt["exhausted"], rt_rays=rt["rays"])
+    with profiler.scope("post"):
+        ldr = post_pass.postprocess(hdr) if enable_post else hdr
+        with profiler.scope("post.srgb"):
+            srgb = linear_to_srgb(ldr)
+        del ldr
+    with profiler.scope("frame.end"):
+        overflow = vis.overflow
+        if aux_r.overflow is not None:
+            overflow = overflow + aux_r.overflow  # alpha-fallback capacity
+        if taa_overflow is not None:
+            overflow = overflow + taa_overflow  # TAA history edge batches
+        aux = dict(
+            draw_count=draws.count,
+            overflow=overflow,
+            depth=gbuffer.depth,
+            vis_coverage=(vis.tri_id >= 0).sum(),
+        )
+        if aux_r.cut is not None:
+            aux.update(alpha_cut=aux_r.cut, alpha_fallback=aux_r.fallback)
+        if rt is not None:
+            aux.update(rt_exhausted=rt["exhausted"], rt_rays=rt["rays"])
+        profiler.count("covered_px", aux["vis_coverage"])
     return srgb, state, scene, aux
 
 
@@ -194,6 +200,7 @@ def frame_inst_rec(scene, config):
     return None
 
 
+@profiler.scoped("update")
 def _update_scene(scene, moving_ids, globals_, joint_mats):
     """compute_update (moving instances, in place) and skinning: the
     skinned pool ranges recomputed from the joint matrices, the BLAS
@@ -203,11 +210,13 @@ def _update_scene(scene, moving_ids, globals_, joint_mats):
     update_pass.compute_update(scene.instances, moving_ids.to(dev),
                                globals_.time, globals_.dt)
     if scene.skins and joint_mats is not None:
-        scene = dataclasses.replace(scene, meshes=skin_mod.apply_skins(
-            scene.meshes, scene.skins, joint_mats.to(dev)))
+        with profiler.scope("update.skin"):
+            scene = dataclasses.replace(scene, meshes=skin_mod.apply_skins(
+                scene.meshes, scene.skins, joint_mats.to(dev)))
         if scene.tlas is not None:
-            scene = dataclasses.replace(scene, tlas=skin_mod.refit_tlas(
-                scene.tlas, scene.meshes, scene.instances))
+            with profiler.scope("update.refit"):
+                scene = dataclasses.replace(scene, tlas=skin_mod.refit_tlas(
+                    scene.tlas, scene.meshes, scene.instances))
     return scene
 
 
@@ -215,11 +224,14 @@ def _emit_draws(scene, camera, enable_cull):
     """Frustum cull + LOD select + compaction, or every instance."""
     if enable_cull:
         return cull_pass.emit_draws(scene.meshes, scene.instances, camera)
-    n = scene.instances.count
-    return cull_pass.DrawList(
-        instance=torch.arange(n, dtype=torch.int32, device=scene.device),
-        count=torch.tensor(n, device=scene.device),
-    )
+    with profiler.scope("cull"):
+        n = scene.instances.count
+        draws = cull_pass.DrawList(
+            instance=torch.arange(n, dtype=torch.int32, device=scene.device),
+            count=torch.tensor(n, device=scene.device),
+        )
+        profiler.count("draws", draws.count)
+    return draws
 
 
 def _shard_vis(mesh, vis, bounds):
@@ -342,55 +354,63 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
         return shard_mod.take_rows(slabs, bounds, a, b, devs[d]), r0 - a
 
     if enable_taa:
-        if state.history_valid:
-            hist = {dev: state.history.to(dev) for dev in mesh.distinct}
-            quads = {dev: taa_pass.history_quads(h)
-                     for dev, h in hist.items()}
-            outs = []
-            for d, dev in enumerate(devs):
-                depth_w, top = halo([g.depth for g in gbs], d)
-                color_w, _ = halo(hdrs, d)
-                motion = taa_pass.reproject(
-                    GBuffer(normal_uv=None, material=None, depth=depth_w),
-                    camera, row0=bounds[d][0] - top, height=H)
-                out, _ = taa_pass.taa_resolve(
-                    color_w, hist[dev], motion, row0=bounds[d][0] - top,
-                    quads=quads[dev])
-                outs.append(out[top:top + hdrs[d].shape[0]])
-            hdrs = outs
-        # the history after every slab has read it
-        for (r0, r1), out in zip(bounds, hdrs):
-            state.history[r0:r1].copy_(out)
-        state.history_valid = True
+        with profiler.scope("taa"):
+            if state.history_valid:
+                hist = {dev: state.history.to(dev) for dev in mesh.distinct}
+                quads = {dev: taa_pass.history_quads(h)
+                         for dev, h in hist.items()}
+                outs = []
+                for d, dev in enumerate(devs):
+                    depth_w, top = halo([g.depth for g in gbs], d)
+                    color_w, _ = halo(hdrs, d)
+                    with profiler.scope("taa.reproject"):
+                        motion = taa_pass.reproject(
+                            GBuffer(normal_uv=None, material=None,
+                                    depth=depth_w),
+                            camera, row0=bounds[d][0] - top, height=H)
+                    out, _ = taa_pass.taa_resolve(
+                        color_w, hist[dev], motion, row0=bounds[d][0] - top,
+                        quads=quads[dev])
+                    outs.append(out[top:top + hdrs[d].shape[0]])
+                hdrs = outs
+            # the history after every slab has read it
+            for (r0, r1), out in zip(bounds, hdrs):
+                state.history[r0:r1].copy_(out)
+            state.history_valid = True
 
-    srgbs = []
-    for d in range(len(devs)):
-        if enable_post:
-            hdr_w, top = halo(hdrs, d)
-            ldr = post_pass.postprocess(hdr_w)[top:top + hdrs[d].shape[0]]
-        else:
-            ldr = hdrs[d]
-        srgbs.append(linear_to_srgb(ldr))
-    srgb = shard_mod.gather_rows(srgbs, primary)
+    with profiler.scope("post"):
+        srgbs = []
+        for d in range(len(devs)):
+            if enable_post:
+                hdr_w, top = halo(hdrs, d)
+                ldr = post_pass.postprocess(hdr_w)[top:top
+                                                   + hdrs[d].shape[0]]
+            else:
+                ldr = hdrs[d]
+            with profiler.scope("post.srgb"):
+                srgbs.append(linear_to_srgb(ldr))
+        srgb = shard_mod.gather_rows(srgbs, primary)
 
     def total(xs):
         return sum(x.to(primary) for x in xs)
 
-    overflow = vis[0].overflow
-    if auxs[0].overflow is not None:
-        overflow = overflow + total(a.overflow for a in auxs)
-    aux = dict(
-        draw_count=draws.count,
-        overflow=overflow,
-        depth=shard_mod.gather_rows([g.depth for g in gbs], primary),
-        vis_coverage=total((v.tri_id >= 0).sum() for v in vis),
-    )
-    if auxs[0].cut is not None:
-        aux.update(alpha_cut=total(a.cut for a in auxs),
-                   alpha_fallback=total(a.fallback for a in auxs))
-    if rts:
-        aux.update(rt_exhausted=total(r["exhausted"] for r in rts),
-                   rt_rays=total(r["rays"] for r in rts))
+    with profiler.scope("frame.end"):
+        overflow = vis[0].overflow
+        if auxs[0].overflow is not None:
+            overflow = overflow + total(a.overflow for a in auxs)
+        aux = dict(
+            draw_count=draws.count,
+            overflow=overflow,
+            depth=shard_mod.gather_rows([g.depth for g in gbs], primary),
+            vis_coverage=total((v.tri_id >= 0).sum() for v in vis),
+        )
+        if auxs[0].cut is not None:
+            aux.update(alpha_cut=total(a.cut for a in auxs),
+                       alpha_fallback=total(a.fallback for a in auxs))
+        if rts:
+            aux.update(rt_exhausted=total(r["exhausted"] for r in rts),
+                       rt_rays=total(r["rays"] for r in rts))
+        profiler.count("covered_px", aux["vis_coverage"])
     return srgb, state, scene0, aux
 
 
@@ -501,28 +521,34 @@ class Renderer:
         """One frame at `camera`; `joint_mats` ((J, 4, 4), array or
         tensor) poses the scene's skins and is required when it has
         any. The Renderer's scene keeps the rest pose: every frame skins
-        it anew."""
-        if self.scene.skins:
-            if joint_mats is None:
-                raise ValueError("scene has skinning regions: pass "
-                                 "joint_mats")
-            jm = torch.as_tensor(joint_mats, dtype=torch.float32,
-                                 device=self.device)
-        else:
-            jm = torch.zeros(0, 4, 4, device=self.device)
-        if self.enable_taa:
-            camera.jitter = self.jitter.get_jitter(
-                self.frame_count, self.config.width, self.config.height
-            )
-        uniform = camera.uniform(previous=self._prev_uniform)
-        self._prev_uniform = uniform
-        globals_ = Globals.make(self.config.width, self.config.height,
-                                frame=self.frame_count, time=self.time, dt=dt)
-        frame = self._fn or self._build_frame()
-        img, self.state, _, self.aux = frame(
-            self.scene, uniform, globals_, self.state, self.moving_ids, jm)
-        self.frame_count += 1
-        self.time += dt
+        it anew. The frame runs in the profiler's scope "frame", numbered
+        by frame_count."""
+        with profiler.scope("frame", frame=self.frame_count):
+            with profiler.scope("frame.begin"):
+                if self.scene.skins:
+                    if joint_mats is None:
+                        raise ValueError("scene has skinning regions: pass "
+                                         "joint_mats")
+                    jm = torch.as_tensor(joint_mats, dtype=torch.float32,
+                                         device=self.device)
+                else:
+                    jm = torch.zeros(0, 4, 4, device=self.device)
+                if self.enable_taa:
+                    camera.jitter = self.jitter.get_jitter(
+                        self.frame_count, self.config.width,
+                        self.config.height)
+                uniform = camera.uniform(previous=self._prev_uniform)
+                self._prev_uniform = uniform
+                globals_ = Globals.make(self.config.width,
+                                        self.config.height,
+                                        frame=self.frame_count,
+                                        time=self.time, dt=dt)
+            frame = self._fn or self._build_frame()
+            img, self.state, _, self.aux = frame(
+                self.scene, uniform, globals_, self.state, self.moving_ids,
+                jm)
+            self.frame_count += 1
+            self.time += dt
         return img
 
 

@@ -30,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from ..framework import profiler
+
 ROW_AXIS = "rows"
 
 
@@ -164,6 +166,7 @@ def replicated(mesh: Optional[RowMesh], scene):
     return out
 
 
+@profiler.scoped("raster")
 def rasterize_sharded(meshes, instances, draws, camera, config, mesh,
                       materials=None, inst_rec=None, replicas=None):
     """Row-PARTITIONED raster: each device bins and fine-rasterizes ONLY
@@ -209,10 +212,6 @@ def rasterize_sharded(meshes, instances, draws, camera, config, mesh,
     rows_per = config.tiles_y // n_dev
     track2 = config.alpha_mask
 
-    draw_rec, n_tris, cum_draws = raster_pass.setup_draw_records(
-        meshes, instances, draws, camera, config, materials=materials,
-        inst_rec=inst_rec)
-
     def pool(dev):
         m = meshes if replicas is None else replicas[dev].meshes
         tri_attr = (m.tri_attr_packed
@@ -220,25 +219,37 @@ def rasterize_sharded(meshes, instances, draws, camera, config, mesh,
         return (m.tri_pos.to(dev),
                 None if tri_attr is None else tri_attr.to(dev))
 
-    parts = []
-    for d, dev in enumerate(mesh.devices):
-        tri_pos, tri_attr = pool(dev)
-        parts.append(raster_pass.setup_work_slice(
-            tri_pos, tri_attr, draw_rec.to(dev), n_tris.to(dev), config,
-            lo=d * slots_per, num=slots_per))
-    setups = {}
-    for dev in mesh.distinct:
-        gathered = {k: torch.cat([p[k].to(dev) for p in parts])
-                    for k in parts[0]}
-        setups[dev] = raster_pass.setup_finalize(gathered,
-                                                 cum_draws.to(dev), config)
+    with profiler.scope("raster.setup"):
+        draw_rec, n_tris, cum_draws = raster_pass.setup_draw_records(
+            meshes, instances, draws, camera, config, materials=materials,
+            inst_rec=inst_rec)
+        parts = []
+        for d, dev in enumerate(mesh.devices):
+            tri_pos, tri_attr = pool(dev)
+            parts.append(raster_pass.setup_work_slice(
+                tri_pos, tri_attr, draw_rec.to(dev), n_tris.to(dev), config,
+                lo=d * slots_per, num=slots_per))
+        setups = {}
+        for dev in mesh.distinct:
+            gathered = {k: torch.cat([p[k].to(dev) for p in parts])
+                        for k in parts[0]}
+            setups[dev] = raster_pass.setup_finalize(gathered,
+                                                     cum_draws.to(dev),
+                                                     config)
+        profiler.count("overflow.setup",
+                       setups[mesh.distinct[0]]["setup_overflow"])
 
     slabs, overflows = [], []
     for d, dev in enumerate(mesh.devices):
-        rec_sorted, starts, counts, overflow = raster_pass.bin_triangles_pairs(
-            setups[dev], local_cfg, ty_range=(d * rows_per, rows_per))
-        outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
-                                    track2=track2)
+        with profiler.scope("raster.bin"):
+            rec_sorted, starts, counts, overflow = \
+                raster_pass.bin_triangles_pairs(
+                    setups[dev], local_cfg, ty_range=(d * rows_per,
+                                                      rows_per))
+            raster_pass.count_bins(counts, overflow)
+        with profiler.scope("raster.k1"):
+            outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
+                                        track2=track2)
         r0, r1 = bounds[d]
 
         def untile(a):

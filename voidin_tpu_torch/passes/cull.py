@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..core import fastmath
+from ..framework import profiler
 from ..scene.instance import InstanceData
 from ..scene.mesh import MeshPoolData
 
@@ -92,11 +93,14 @@ def select_lod(meshes: MeshPoolData, instances: InstanceData,
     return torch.gather(table, 1, level[:, None])[:, 0]
 
 
+@profiler.scoped("cull")
 def emit_draws(meshes: MeshPoolData, instances: InstanceData,
                camera) -> DrawList:
     mesh_sel = (
         select_lod(meshes, instances, camera) if meshes.has_lods else None
     )
-    return compact_draws(
+    draws = compact_draws(
         instance_visibility(meshes, instances, camera), mesh_sel
     )
+    profiler.count("draws", draws.count)
+    return draws

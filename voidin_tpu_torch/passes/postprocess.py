@@ -12,6 +12,7 @@ import torch
 
 from ..core import fastmath
 from ..core.color import calculate_luma, rgb_to_ycbcr
+from ..framework import profiler
 from .taa import _shift
 
 
@@ -38,6 +39,7 @@ def neutral_tonemap(col):
     return res * 0.97
 
 
+@profiler.scoped("post.tonemap")
 def postprocess(color: torch.Tensor) -> torch.Tensor:
     """(H, W, 3) HDR -> (H, W, 3) tonemapped LDR-ish (still linear-light)."""
     sharpen_amount = 0.5

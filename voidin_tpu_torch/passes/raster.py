@@ -41,6 +41,7 @@ import dataclasses
 import torch
 
 from ..core import encoding, fastmath
+from ..framework import profiler
 from ..ops import fine_raster as fr
 from ..scene.instance import InstanceData
 from ..scene.mesh import MeshPoolData
@@ -722,8 +723,10 @@ def fine_raster(records, counts, config: RasterConfig):
     """The block path's fine raster: kernel K2 on the card, its twin on
     the CPU (ops/fine_raster.fine_raster_blocks). Returns the untiled
     (depth, tri_id) images."""
-    depth, trif = fr.fine_raster_blocks(records, counts)
-    return _untile(depth, trif, config)
+    with profiler.scope("raster.k1"):
+        depth, trif = fr.fine_raster_blocks(records, counts)
+    with profiler.scope("raster.untile"):
+        return _untile(depth, trif, config)
 
 
 def _pair_payload_stream(rec_sorted, resolve_rec):
@@ -756,6 +759,16 @@ def _untile_payload(pay, tri_id, resolve_rec, config: RasterConfig):
     return torch.where(tri_id[..., None] >= 0, img, row0).view(torch.float32)
 
 
+def count_bins(counts, overflow):
+    """The profiler's binning counters: the (triangle, tile) pairs binned
+    and the fullest tile's (the per-tile counts, summed and maxed after
+    the frames) and the overflow."""
+    profiler.count("pairs", counts)
+    profiler.count("tile_max", counts)
+    profiler.count("overflow.bin", overflow)
+
+
+@profiler.scoped("raster")
 def rasterize(meshes: MeshPoolData, instances: InstanceData, draws: DrawList,
               camera, config: RasterConfig, materials=None,
               inst_rec=None) -> VisBuffer:
@@ -766,40 +779,52 @@ def rasterize(meshes: MeshPoolData, instances: InstanceData, draws: DrawList,
         raise ValueError("kernel_payload requires slim_rec and the pair "
                          "path (backend='pallas')")
     track2 = config.alpha_mask
-    setup = triangle_setup(meshes, instances, draws, camera, config,
-                           materials=materials, inst_rec=inst_rec)
+    with profiler.scope("raster.setup"):
+        setup = triangle_setup(meshes, instances, draws, camera, config,
+                               materials=materials, inst_rec=inst_rec)
+        profiler.count("overflow.setup", setup["setup_overflow"])
     H, W = config.height, config.width
     payload_img = None
     if config.backend == "pallas":
-        rec_sorted, starts, counts, overflow = bin_triangles_pairs(setup,
-                                                                   config)
-        payload = None
-        if config.kernel_payload:
-            payload = _pair_payload_stream(rec_sorted, setup["resolve_rec"])
-        outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
-                                    track2=track2, payload=payload)
-        depth, tri_id = _untile(outs[0], outs[1], config)
-        if payload is not None:
-            payload_img = _untile_payload(outs[-1], tri_id[:H, :W],
-                                          setup["resolve_rec"], config)
-    elif config.backend == "xla":
-        records, counts, overflow = bin_triangles(setup, config)
-        if track2:
-            outs = fr.fine_raster_blocks(records, counts, track2=True)
+        with profiler.scope("raster.bin"):
+            rec_sorted, starts, counts, overflow = bin_triangles_pairs(
+                setup, config)
+            count_bins(counts, overflow)
+            payload = None
+            if config.kernel_payload:
+                payload = _pair_payload_stream(rec_sorted,
+                                               setup["resolve_rec"])
+        with profiler.scope("raster.k1"):
+            outs = fr.fine_raster_pairs(rec_sorted, starts, counts,
+                                        track2=track2, payload=payload)
+        with profiler.scope("raster.untile"):
             depth, tri_id = _untile(outs[0], outs[1], config)
+            if payload is not None:
+                payload_img = _untile_payload(outs[-1], tri_id[:H, :W],
+                                              setup["resolve_rec"], config)
+    elif config.backend == "xla":
+        with profiler.scope("raster.bin"):
+            records, counts, overflow = bin_triangles(setup, config)
+            count_bins(counts, overflow)
+        if track2:
+            with profiler.scope("raster.k1"):
+                outs = fr.fine_raster_blocks(records, counts, track2=True)
+            with profiler.scope("raster.untile"):
+                depth, tri_id = _untile(outs[0], outs[1], config)
         else:
             depth, tri_id = fine_raster(records, counts, config)
     else:
         raise ValueError(f"unknown raster backend {config.backend!r}")
-    vis = VisBuffer(
-        tri_id=tri_id[:H, :W],
-        depth=depth[:H, :W],
-        resolve_rec=setup["resolve_rec"],
-        overflow=overflow + setup["setup_overflow"],
-        payload_img=payload_img,
-    )
-    if track2:
-        depth2, tri_id2 = _untile(outs[2], outs[3], config)
-        vis.tri_id2 = tri_id2[:H, :W]
-        vis.depth2 = depth2[:H, :W]
+    with profiler.scope("raster.untile"):
+        vis = VisBuffer(
+            tri_id=tri_id[:H, :W],
+            depth=depth[:H, :W],
+            resolve_rec=setup["resolve_rec"],
+            overflow=overflow + setup["setup_overflow"],
+            payload_img=payload_img,
+        )
+        if track2:
+            depth2, tri_id2 = _untile(outs[2], outs[3], config)
+            vis.tri_id2 = tri_id2[:H, :W]
+            vis.depth2 = depth2[:H, :W]
     return vis

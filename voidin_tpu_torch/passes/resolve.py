@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from ..core import checks, encoding, fastmath
+from ..framework import profiler
 from ..ops import fine_raster as fr
 from ..scene.scene import SceneData
 from ..scene.texture import sample_trilinear, sample_trilinear_quadblock
@@ -350,20 +351,30 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     quad-block sampler (RasterConfig.tap_block) with that edge capacity
     where S is an (H, W) grid of even sides and the pool holds its block
     tables, and the fields then hold its "tap_overflow"; elsewhere the
-    per-pixel tap, as in the JAX package."""
-    S = tri_id.shape
-    hit = tri_id >= 0
+    per-pixel tap, as in the JAX package. The fetch and decode run in the
+    profiler's scope resolve.fetch, the rest in resolve.fields."""
     # the fetched rows die with the decode (the packed attribute rows are
     # not needed past it); tangents feed only the normal-map TBN transform
     if channels is None:
         if slim and not scene.no_normal_maps:
             raise ValueError("slim_rec requires a scene with no normal maps")
-        if rows is None:
-            rows = _fetch_rows(scene, vis, tri_id, inst_f16, slim=slim)
-        channels = (_decode_slim_channels(rows) if slim else
-                    _decode_channels(rows, inst_f16,
-                                     not scene.no_normal_maps))
-        del rows
+        with profiler.scope("resolve.fetch"):
+            if rows is None:
+                rows = _fetch_rows(scene, vis, tri_id, inst_f16, slim=slim)
+            channels = (_decode_slim_channels(rows) if slim else
+                        _decode_channels(rows, inst_f16,
+                                         not scene.no_normal_maps))
+            del rows
+    with profiler.scope("resolve.fields"):
+        return _channel_fields(scene, tri_id, depth, x_ndc, y_ndc, channels,
+                               want_aux, lod_probe, tap_block_cap)
+
+
+def _channel_fields(scene: SceneData, tri_id, depth, x_ndc, y_ndc, channels,
+                    want_aux, lod_probe, tap_block_cap):
+    """_pixel_fields from the decoded channels."""
+    S = tri_id.shape
+    hit = tri_id >= 0
     slim = "pay" in channels
     cl = channels["cl"].reshape(S + (3, 3))
 
@@ -516,6 +527,8 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
 
 
 def _assemble(fields, **counts):
+    if counts.get("overflow") is not None:
+        profiler.count("overflow.resolve", counts["overflow"])
     gbuffer = GBuffer(
         normal_uv=torch.stack([fields["packed_n"], fields["packed_uv"]],
                               dim=-1),
@@ -562,6 +575,7 @@ def _unpack_fallback(img):
     )
 
 
+@profiler.scoped("resolve")
 def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
                     height=None, rows=None):
     """Resolve the winning candidate per pixel. Returns (GBuffer,
@@ -625,14 +639,16 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
         nonlocal edge_ovf
         fetched, channels = None, None
         if slot:
-            channels, ovf = _slot_fetch_channels(
-                scene, vis, tri_id, inst_f16=f16, k_slots=config.slot_k,
-                capacity=config.slot_edge_capacity)
-            edge_ovf = edge_ovf + ovf
+            with profiler.scope("resolve.fetch"):
+                channels, ovf = _slot_fetch_channels(
+                    scene, vis, tri_id, inst_f16=f16, k_slots=config.slot_k,
+                    capacity=config.slot_edge_capacity)
+                edge_ovf = edge_ovf + ovf
         elif quad:
-            fetched, ovf = _quad_fetch(scene, vis, tri_id, inst_f16=f16,
-                                       capacity=config.quad_edge_capacity)
-            edge_ovf = edge_ovf + ovf
+            with profiler.scope("resolve.fetch"):
+                fetched, ovf = _quad_fetch(scene, vis, tri_id, inst_f16=f16,
+                                           capacity=config.quad_edge_capacity)
+                edge_ovf = edge_ovf + ovf
         f = _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
                           want_aux=want_aux, inst_f16=f16, rows=fetched,
                           channels=channels, slim=slim, tap_block_cap=tap_cap)
@@ -655,7 +671,8 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
         tid = torch.where(fall, vis.tri_id2, vis.tri_id)
         dep = torch.where(fall, vis.depth2, vis.depth)
         n_fall = _own(fall, rows).sum()
-        fields = dense_fields(tid, dep)
+        with profiler.scope("resolve.fallback"):
+            fields = dense_fields(tid, dep)
         return _assemble(fields, overflow=edge_ovf if track else None,
                          cut=n_fall, fallback=n_fall)
 
@@ -666,26 +683,27 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     fall = (vis.tri_id >= 0) & f1["cut"]
     F = config.alpha_fallback_capacity or max((height * W) // 16, 1024)
 
-    flat = fall.reshape(-1)
-    count = flat.sum()
-    idx = fastmath.compact_indices(flat, F)  # (F,) pixel indices
-    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
-    tid2 = torch.where(valid, vis.tri_id2.reshape(-1)[idx], -1)
-    dep2 = vis.depth2.reshape(-1)[idx]
-    fx = (idx % W).to(torch.float32)
-    fy = (idx // W + row0).to(torch.float32)
-    xb = (fx + 0.5) / W * 2.0 - 1.0
-    yb = 1.0 - (fy + 0.5) / height * 2.0
-    fb = _pixel_fields(scene, vis, tid2, dep2, xb, yb,
-                       lod_probe=(2.0 / W, 2.0 / height), inst_f16=f16,
-                       slim=slim)
-    fb_rows = _pack_fallback_rows(fb)
+    with profiler.scope("resolve.fallback"):
+        flat = fall.reshape(-1)
+        count = flat.sum()
+        idx = fastmath.compact_indices(flat, F)  # (F,) pixel indices
+        valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+        tid2 = torch.where(valid, vis.tri_id2.reshape(-1)[idx], -1)
+        dep2 = vis.depth2.reshape(-1)[idx]
+        fx = (idx % W).to(torch.float32)
+        fy = (idx // W + row0).to(torch.float32)
+        xb = (fx + 0.5) / W * 2.0 - 1.0
+        yb = 1.0 - (fy + 0.5) / height * 2.0
+        fb = _pixel_fields(scene, vis, tid2, dep2, xb, yb,
+                           lod_probe=(2.0 / W, 2.0 / height), inst_f16=f16,
+                           slim=slim)
+        fb_rows = _pack_fallback_rows(fb)
 
-    # invalid slots write the pixel index H*W, which is dropped
-    fbimg = _unpack_fallback(fastmath.scatter_rows(
-        torch.zeros(H, W, _FB_F, dtype=torch.int32, device=dev),
-        torch.where(valid, idx, H * W), fb_rows))
-    use = fall & fbimg["flag"]
+        # invalid slots write the pixel index H*W, which is dropped
+        fbimg = _unpack_fallback(fastmath.scatter_rows(
+            torch.zeros(H, W, _FB_F, dtype=torch.int32, device=dev),
+            torch.where(valid, idx, H * W), fb_rows))
+        use = fall & fbimg["flag"]
 
     merged = dict(f1)
     for k in ("packed_n", "packed_uv", "material", "depth"):

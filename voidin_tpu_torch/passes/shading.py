@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import encoding, fastmath
+from ..framework import profiler
 from ..ops import ltc_rect, ltc_ring, lut_fetch, shadow_trace
 from ..ops.ltc_rect import LUT_BIAS, LUT_SCALE, integrate_edge
 # the ring's disk math lives beside its fused kernel; disk_points3 and
@@ -148,6 +149,7 @@ def _area_light_terms(scene: SceneData, nor, rd, pos, roughness):
     return acc_d, acc_s
 
 
+@profiler.scoped("shade")
 def shade(scene: SceneData, gbuffer, camera, aux, area_light_scale: int = 1,
           row0: int = 0, height=None) -> torch.Tensor:
     """G-buffer + the resolve pass's material fields -> (H, W, 3) HDR.
@@ -177,29 +179,31 @@ def shade(scene: SceneData, gbuffer, camera, aux, area_light_scale: int = 1,
     color = torch.where(is_light, albedo[..., :3] + emissive, color)
 
     lights = scene.lights
-    for i in range(lights.point_radius.shape[0]):
-        lpos = lights.point_position[i]
-        lrad = lights.point_radius[i]
-        lcol = lights.point_color[i]
-        light_vec = lpos - pos
-        dist = fastmath.norm3(light_vec)
-        atten = attenuation(1.0, 1.0, dist, lrad)
-        light_dir = fastmath.normalize(light_vec)
-        shade_t = torch.clamp(fastmath.sum3(nor * light_dir), min=0.0)
-        diff = lcol * albedo[..., :3] * (shade_t * atten)[..., None]
-        covr = torch.clamp(fastmath.sum3(-rd * nor), min=0.0)
-        spec = lcol * (mr[..., 2] * _pow16(covr) * atten)[..., None]
-        contrib = torch.where((dist - lrad > 0.0)[..., None], 0.0,
-                              diff + spec)
-        color = color + torch.where(is_light, 0.0, contrib)
+    with profiler.scope("shade.point"):
+        for i in range(lights.point_radius.shape[0]):
+            lpos = lights.point_position[i]
+            lrad = lights.point_radius[i]
+            lcol = lights.point_color[i]
+            light_vec = lpos - pos
+            dist = fastmath.norm3(light_vec)
+            atten = attenuation(1.0, 1.0, dist, lrad)
+            light_dir = fastmath.normalize(light_vec)
+            shade_t = torch.clamp(fastmath.sum3(nor * light_dir), min=0.0)
+            diff = lcol * albedo[..., :3] * (shade_t * atten)[..., None]
+            covr = torch.clamp(fastmath.sum3(-rd * nor), min=0.0)
+            spec = lcol * (mr[..., 2] * _pow16(covr) * atten)[..., None]
+            contrib = torch.where((dist - lrad > 0.0)[..., None], 0.0,
+                                  diff + spec)
+            color = color + torch.where(is_light, 0.0, contrib)
 
     if lights.area_intensity.shape[0] > 0 and area_light_scale > 1:
         s = area_light_scale
         roughness = torch.clamp(mr[..., 0], 0.0, 1.0)
-        acc_d, acc_s = _area_light_terms(
-            scene, fastmath.subsample_mm(nor, s),
-            fastmath.subsample_mm(rd, s), fastmath.subsample_mm(pos, s),
-            fastmath.subsample_mm(roughness, s))
+        with profiler.scope("shade.rect"):
+            acc_d, acc_s = _area_light_terms(
+                scene, fastmath.subsample_mm(nor, s),
+                fastmath.subsample_mm(rd, s), fastmath.subsample_mm(pos, s),
+                fastmath.subsample_mm(roughness, s))
         H, W = depth.shape
         acc_d, acc_s = (fastmath.upsample_bilinear_mm(a, s, H, W, row0,
                                                       height)
@@ -208,9 +212,10 @@ def shade(scene: SceneData, gbuffer, camera, aux, area_light_scale: int = 1,
         color = color + torch.where(is_light, 0.0, contrib)
     elif lights.area_intensity.shape[0] > 0:
         roughness = torch.clamp(mr[..., 0], 0.0, 1.0)
-        diffs, specs = ltc_rect.ltc_rect_terms(
-            nor, rd, pos, roughness, lights.area_points, scene.ltc1,
-            scene.ltc2, bf16=LTC_LUT_BF16)
+        with profiler.scope("shade.rect"):
+            diffs, specs = ltc_rect.ltc_rect_terms(
+                nor, rd, pos, roughness, lights.area_points, scene.ltc1,
+                scene.ltc2, bf16=LTC_LUT_BF16)
         for i in range(lights.area_intensity.shape[0]):
             pts = lights.area_points[i]  # (4, 3)
             intensity = lights.area_intensity[i]
@@ -241,6 +246,7 @@ def _trace_shadow_rays(tables, max_leaf, pos, nor, lpos, needs_ray):
     return res.hit.reshape(h, w), res.exhausted
 
 
+@profiler.scoped("shade")
 def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
                     shadow_scale: int = 1, row0: int = 0, height=None):
     """Deferred shading with TLAS-traced point-light shadows (JAX
@@ -281,7 +287,8 @@ def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
     color = torch.where(is_light[..., None], albedo[..., :3] + emissive,
                         color)
 
-    tables = traverse.scene_rays_threaded(scene)
+    with profiler.scope("shade.rays"):
+        tables = traverse.scene_rays_threaded(scene)
     max_leaf = scene.meshes.bvh_max_leaf
     lights = scene.lights
     shadable = (depth > 0.0) & ~is_light
@@ -298,8 +305,9 @@ def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
         cov = fastmath.sum3(-rd * nor)
         needs_ray = shadable & (dist < lrad) & ((ndl > 0.0) | (cov > 0.0))
         traced = needs_ray[::s, ::s]
-        occ, ex = _trace_shadow_rays(tables, max_leaf, pos[::s, ::s],
-                                     nor[::s, ::s], lpos, traced)
+        with profiler.scope("shade.rays"):
+            occ, ex = _trace_shadow_rays(tables, max_leaf, pos[::s, ::s],
+                                         nor[::s, ::s], lpos, traced)
         if s > 1:
             occ = occ.repeat_interleave(s, 0).repeat_interleave(s, 1)
             occ = occ[:H, :W]
@@ -322,6 +330,8 @@ def shade_raytraced(scene: SceneData, gbuffer, camera, aux,
     magenta = torch.tensor([1.0, 0.0, 1.0], device=depth.device)
     color = torch.where(((material_id == 0) & (depth > 0.0))[..., None],
                         magenta, color)
+    profiler.count("rt_rays", rays)
+    profiler.count("rt_exhausted", exhausted)
     return torch.clamp(color, min=0.0), dict(exhausted=exhausted, rays=rays)
 
 
@@ -475,6 +485,7 @@ def ring_points(center, normal_dir, radius, n=16):
             ).astype(np.float32)
 
 
+@profiler.scoped("shade")
 def shade_ring_light(scene: SceneData, gbuffer, camera,
                      disk_center=(-3.0, 3.5, 10.0),
                      disk_dirx=(1.0, 0.0, 0.0), disk_diry=(0.0, 1.0, 0.0),
@@ -518,10 +529,11 @@ def shade_ring_light(scene: SceneData, gbuffer, camera,
     diry = np.asarray(disk_diry, np.float32)
     dn = np.cross(dirx, diry)
 
-    spec, diff = ltc_ring.ltc_ring_terms(
-        nor, rd, pos, roughness,
-        ring_points3(center, dirx, diry, halfx, halfy), scene.ltc1,
-        scene.ltc2, two_sided=two_sided, bf16=LTC_LUT_BF16)
+    with profiler.scope("shade.ring"):
+        spec, diff = ltc_ring.ltc_ring_terms(
+            nor, rd, pos, roughness,
+            ring_points3(center, dirx, diry, halfx, halfy), scene.ltc1,
+            scene.ltc2, two_sided=two_sided, bf16=LTC_LUT_BF16)
     lit = _relu(spec + diff)[..., None].expand(
         depth.shape + (3,))
 

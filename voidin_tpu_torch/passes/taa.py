@@ -33,6 +33,7 @@ import torch
 
 from ..core import fastmath
 from ..core.color import rgb_to_ycbcr, ycbcr_to_rgb
+from ..framework import profiler
 from .shading import _pixel_ndc, pixel_rows, world_position_from_depth
 
 
@@ -322,74 +323,80 @@ def taa_resolve(color, history, motion, row0: int = 0, quads=None,
     hist_u = uu - vel[..., 0] * 0.5
     hist_v = vv + vel[..., 1] * 0.5  # * (1, -1) flip
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    if quad_history and H % 2 == 0 and W % 2 == 0:
-        hist_rgb, overflow = _bilinear_clamp_quadblock(
-            history, hist_u, hist_v, capacity=edge_capacity,
-            select=quad_select)
-    elif inwindow:
-        hist_rgb, overflow = _bilinear_clamp_inwindow(
-            history, hist_u, hist_v, capacity=block_capacity, quads=quads)
-    else:
-        hist_rgb = _bilinear_clamp(history, hist_u, hist_v, quads)
-    hist = rgb_to_ycbcr(hist_rgb)
+    with profiler.scope("taa.history"):
+        if quad_history and H % 2 == 0 and W % 2 == 0:
+            hist_rgb, overflow = _bilinear_clamp_quadblock(
+                history, hist_u, hist_v, capacity=edge_capacity,
+                select=quad_select)
+        elif inwindow:
+            hist_rgb, overflow = _bilinear_clamp_inwindow(
+                history, hist_u, hist_v, capacity=block_capacity, quads=quads)
+        else:
+            hist_rgb = _bilinear_clamp(history, hist_u, hist_v, quads)
+    with profiler.scope("taa.resolve"):
+        hist = rgb_to_ycbcr(hist_rgb)
 
-    vsum = torch.zeros_like(color)
-    vsum2 = torch.zeros_like(color)
-    wsum = 0.0
-    mn_sum = torch.zeros_like(color)
-    mn_wsum = 0.0
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            shifted = _shift(color, dy, dx)
-            neigh = rgb_to_ycbcr(shifted)
-            w = float(np.exp(-3.0 * (dx * dx + dy * dy) / 4.0))
-            vsum = vsum + neigh * w
-            vsum2 = vsum2 + neigh * neigh * w
-            wsum += w
-            wt = _mitchell_weight_np(np.sqrt(dx * dx + dy * dy))
-            mn_sum = mn_sum + shifted * wt
-            mn_wsum += wt
+        vsum = torch.zeros_like(color)
+        vsum2 = torch.zeros_like(color)
+        wsum = 0.0
+        mn_sum = torch.zeros_like(color)
+        mn_wsum = 0.0
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                shifted = _shift(color, dy, dx)
+                neigh = rgb_to_ycbcr(shifted)
+                w = float(np.exp(-3.0 * (dx * dx + dy * dy) / 4.0))
+                vsum = vsum + neigh * w
+                vsum2 = vsum2 + neigh * neigh * w
+                wsum += w
+                wt = _mitchell_weight_np(np.sqrt(dx * dx + dy * dy))
+                mn_sum = mn_sum + shifted * wt
+                mn_wsum += wt
 
-    ex = vsum / wsum
-    ex2 = vsum2 / wsum
-    dev_ = fastmath.sqrt(torch.clamp(ex2 - ex * ex, min=0.0))
-    local_contrast = dev_[..., 0] / (ex[..., 0] + 1e-5)
+        ex = vsum / wsum
+        ex2 = vsum2 / wsum
+        dev_ = fastmath.sqrt(torch.clamp(ex2 - ex * ex, min=0.0))
+        local_contrast = dev_[..., 0] / (ex[..., 0] + 1e-5)
 
-    hist_px = hist_u * W
-    hist_py = hist_v * height
-    frac_x = hist_px - torch.floor(hist_px)
-    frac_y = hist_py - torch.floor(hist_py)
-    texel_center_dist = (0.5 - frac_x).abs() + (0.5 - frac_y).abs()
+        hist_px = hist_u * W
+        hist_py = hist_v * height
+        frac_x = hist_px - torch.floor(hist_px)
+        frac_y = hist_py - torch.floor(hist_py)
+        texel_center_dist = (0.5 - frac_x).abs() + (0.5 - frac_y).abs()
 
-    box_size = 1.0 * (0.5 + 0.5 * _smoothstep(-0.1, 0.3, local_contrast))
-    box_size = box_size * (
-        0.5 + 0.5 * torch.clamp(1.0 - texel_center_dist, 0.0, 1.0)
-    )
-    center = rgb_to_ycbcr(mn_sum / mn_wsum)
+        box_size = 1.0 * (0.5 + 0.5 * _smoothstep(-0.1, 0.3,
+                                                  local_contrast))
+        box_size = box_size * (
+            0.5 + 0.5 * torch.clamp(1.0 - texel_center_dist, 0.0, 1.0)
+        )
+        center = rgb_to_ycbcr(mn_sum / mn_wsum)
 
-    n_dev = 1.5
-    bs2 = (box_size * box_size)[..., None]
-    mid = center + (ex - center) * bs2
-    nmin = mid - dev_ * (box_size[..., None] * n_dev)
-    nmax = mid + dev_ * (box_size[..., None] * n_dev)
+        n_dev = 1.5
+        bs2 = (box_size * box_size)[..., None]
+        mid = center + (ex - center) * bs2
+        nmin = mid - dev_ * (box_size[..., None] * n_dev)
+        nmax = mid + dev_ * (box_size[..., None] * n_dev)
 
-    clamped = torch.minimum(torch.maximum(hist, nmin), nmax)
-    blend = 1.0 + (1.0 / 12.0 - 1.0) * vel[..., 2]
-    clamp_dist = torch.minimum(
-        (hist[..., 0] - nmin[..., 0]).abs(), (hist[..., 0] - nmax[..., 0]).abs()
-    ) / torch.clamp(torch.maximum(hist[..., 0], ex[..., 0]), min=1e-5)
-    blend = blend * (0.2 + 0.8 * _smoothstep(0.0, 2.0, clamp_dist))
-    result = clamped + (center - clamped) * blend[..., None]
-    return ycbcr_to_rgb(result), overflow
+        clamped = torch.minimum(torch.maximum(hist, nmin), nmax)
+        blend = 1.0 + (1.0 / 12.0 - 1.0) * vel[..., 2]
+        clamp_dist = torch.minimum(
+            (hist[..., 0] - nmin[..., 0]).abs(),
+            (hist[..., 0] - nmax[..., 0]).abs()
+        ) / torch.clamp(torch.maximum(hist[..., 0], ex[..., 0]), min=1e-5)
+        blend = blend * (0.2 + 0.8 * _smoothstep(0.0, 2.0, clamp_dist))
+        result = clamped + (center - clamped) * blend[..., None]
+        return ycbcr_to_rgb(result), overflow
 
 
+@profiler.scoped("taa")
 def taa(color, gbuffer, camera, state, quad_history=False, edge_capacity=0,
         inwindow=False, block_capacity=0, quad_select="einsum"):
     """Full TAA pass; returns (resolved color, state, the history fetch's
     overflow). The resolved image is written into state.history in place.
     The fetch options are taa_resolve's. The first frame reads no history
     (it seeds it), so its overflow is 0."""
-    motion = reproject(gbuffer, camera)
+    with profiler.scope("taa.reproject"):
+        motion = reproject(gbuffer, camera)
     overflow = torch.zeros((), dtype=torch.int64, device=color.device)
     if state.history_valid:
         out, overflow = taa_resolve(
@@ -400,4 +407,5 @@ def taa(color, gbuffer, camera, state, quad_history=False, edge_capacity=0,
         out = color
     state.history.copy_(out)
     state.history_valid = True
+    profiler.count("overflow.taa", overflow)
     return state.history, state, overflow
