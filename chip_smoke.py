@@ -22,7 +22,10 @@ native/texture_packer.cpp, the host C++ compiler), then:
      yardstick (the port never calls it); K1 track2 and K2 track2 on the
      masked frame's records and blocks (all four outputs identical); the
      fused LTC kernel and its bf16 variant on the north-star and masked
-     frames' own shade fields (0 differing words) (ltc_rect_phases);
+     frames' own shade fields (0 differing words) (ltc_rect_phases); the
+     dense resolve kernel on the VisBuffer of the north star's and config
+     5's first frames against its twin, the eager chain on the card
+     (every word of every field equal; resolve_phases);
   3. the golden deferred scene at 160x96 on the card against the checked-in
      golden image (tests/golden/deferred.png, mean abs diff < 5e-3, the
      golden tests' budget) and against the port's CPU render;
@@ -33,8 +36,8 @@ native/texture_packer.cpp, the host C++ compiler), then:
   5. the north-star frame: build_world(10_000, seed=0) at 1920x1080 with
      raster capacities 2^19, moving instances and TAA, for 12 frames
      through Renderer.render; overflow 0 on every frame, a finite image
-     with variance, K1 and the fused LTC kernel launched once per frame,
-     K3 never;
+     with variance, K1, the fused LTC kernel and the dense resolve kernel
+     launched once per frame, K3 never;
   6. the block-path north-star frame: one VisBuffer of each path at the
      first frame's camera (depth bit-identical; the pixels whose id
      differs, which only depth ties allow, are printed), then 12 frames
@@ -203,14 +206,23 @@ native/texture_packer.cpp, the host C++ compiler), then:
      call (device busy, kernels a call, the top ops).
 Phases 5-8, 10-17 and 19-21 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
-the launch counts to 0 just before it and checks them just after. Prints
+the launch counts to 0 just before it and checks them just after: the
+dense resolve kernel once a frame (once a slab and frame when sharded)
+wherever the scene has no alpha mask and const emissive and
+metallic-roughness maps and none of the record and coherent options of
+passes/resolve.py takes_dense_kernel is on, never elsewhere (the import
+scenes' emissive map, the masked scene, slim_rec and the other record
+options, tap_block); wherever a phase holds K1 and the fused LTC kernel
+against their twins on a frame's inputs, the dense resolve kernel is held
+against its twin there too where that frame calls it. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
 its 1-table shape under one_table, the fused ring kernel's with the ring
 frame's ms/frame and differing words,
 the shadow kernel's with its scale-2 rays under scale2, the closest-hit
-kernel's with config 5's rays under config5, K1's and the fused LTC
-kernel's with each preset's, the import scenes', the App's and each
-phase 20 and 21 set's inputs under paths, the fused kernel's also on
+kernel's with config 5's rays under config5, K1's, the fused LTC
+kernel's and the dense resolve kernel's with each preset's, the import
+scenes', the App's and each phase 20 and 21 set's inputs under paths
+(the resolve kernel's also with config 5's), the fused kernel's also on
 area_light_scale 2's; their launches count phase 16's App frames and
 phases 17's and 19-21's runs too),
 then the card line, then the
@@ -481,6 +493,7 @@ def launch_counters():
     from voidin_tpu_torch.ops import ltc_rect as lr
     from voidin_tpu_torch.ops import ltc_ring as lg
     from voidin_tpu_torch.ops import lut_fetch as lf
+    from voidin_tpu_torch.ops import resolve as rs
     from voidin_tpu_torch.ops import shadow_trace as st
 
     return dict(k1=(fr, "LAUNCHES"), k1_track2=(fr, "LAUNCHES_TRACK2"),
@@ -494,7 +507,8 @@ def launch_counters():
                 ltc_ring_bf16=(lg, "LAUNCHES_BF16"),
                 shadow_trace=(st, "LAUNCHES"),
                 shadow_pack=(st, "LAUNCHES_PACK"),
-                closest_hit=(ch, "LAUNCHES"))
+                closest_hit=(ch, "LAUNCHES"),
+                resolve_dense=(rs, "LAUNCHES"))
 
 
 def reset_launches():
@@ -636,6 +650,27 @@ def ltc_rect_bound(n_px, n_lights):
                     n_px * (192 + n_lights * (32 + 2 * 251 + 1)))
 
 
+# The dense resolve kernel's bytes a pixel: the visibility image read
+# (tri_id, depth: 8 B) and the seven output images written (normal and
+# uv words, material, depth, albedo, emissive, metallic-roughness: 60 B).
+# The tables and texels it gathers are left out: a lower bound.
+RESOLVE_PX_BYTES = 8 + 60
+# RasterConfig options that keep a frame off the dense resolve kernel
+# (passes/resolve.py takes_dense_kernel), besides an alpha-masked scene
+# and sampled emissive or metallic-roughness.
+RESOLVE_EAGER_OPTIONS = ("slot_resolve", "quad_rate_resolve", "slim_rec",
+                         "tap_block", "fused_resolve_rec", "fused_inst_rec",
+                         "inst_rec_f16")
+
+
+def takes_resolve_kernel(scene, opts):
+    """Whether a frame of `scene` under the RasterConfig options `opts`
+    resolves through the dense resolve kernel, one launch a frame."""
+    return (not scene.alpha_masked and scene.emissive_const
+            and scene.mr_const
+            and not any(opts.get(k) for k in RESOLVE_EAGER_OPTIONS))
+
+
 def frame_ltc_inputs(pt, scene, cfg):
     """The fused LTC kernel's arguments as shade hands them over, in the
     first frame of `scene` at the north-star camera (TAA off)."""
@@ -681,15 +716,18 @@ def timing(r):
 
 def kernel_calls(render):
     """The arguments of every call of K1 (fine_raster_pairs), K2
-    (fine_raster_blocks) and the fused LTC kernel (ltc_rect_terms) while
-    `render()` draws one frame: {counter name: [(args, kwargs), ...]}, a
-    kernel that the frame did not call left out."""
+    (fine_raster_blocks), the fused LTC kernel (ltc_rect_terms) and the
+    dense resolve kernel (resolve_dense) while `render()` draws one
+    frame: {counter name: [(args, kwargs), ...]}, a kernel that the frame
+    did not call left out."""
     from voidin_tpu_torch.ops import fine_raster as fr
     from voidin_tpu_torch.ops import ltc_rect as lr
+    from voidin_tpu_torch.ops import resolve as rs
 
     wrapped = dict(k1=(fr, "fine_raster_pairs"),
                    k2=(fr, "fine_raster_blocks"),
-                   ltc_rect=(lr, "ltc_rect_terms"))
+                   ltc_rect=(lr, "ltc_rect_terms"),
+                   resolve_dense=(rs, "resolve_dense"))
     reals = {k: getattr(m, a) for k, (m, a) in wrapped.items()}
     seen = {}
 
@@ -710,8 +748,8 @@ def kernel_calls(render):
 
 
 def main_path_inputs(render):
-    """The arguments of the first call of K1, K2 and the fused LTC kernel
-    while `render()` draws one frame (kernel_calls): {counter name:
+    """The arguments of the first call of K1, K2, the fused LTC kernel and
+    the dense resolve kernel while `render()` draws one frame (kernel_calls): {counter name:
     (args, kwargs)}."""
     return {k: calls[0] for k, calls in kernel_calls(render).items()}
 
@@ -805,11 +843,45 @@ def hold_ltc_call(label, args, kw, card):
     return r
 
 
+def hold_resolve_call(label, args, kw, card, reps=10):
+    """One recorded launch of the dense resolve kernel (its arguments
+    `args`, `kw`, the twin among them) against its twin, the eager chain
+    run on the card: every word of every field equal, timed by call and
+    on the device beside its bound (RESOLVE_PX_BYTES a pixel). Returns its
+    row."""
+    import torch
+
+    from voidin_tpu_torch.ops import resolve as rs
+
+    got = rs.resolve_dense(*args, **kw)
+    ref = kw["twin"](*args)
+    torch.cuda.synchronize()
+    differ = {k: words_differ(got[k], ref[k]) for k in rs.FIELDS}
+    err = max(float(torch.nan_to_num((got[k] - ref[k]).abs(), nan=0.0).max())
+              for k in ("depth", "albedo", "emissive", "mr"))
+    vis = args[1]
+    n_px = vis.depth.numel()
+    r = timed_row(lambda: rs.resolve_dense(*args, **kw),
+                  "resolve_dense_kernel", reps, lambda: kw["twin"](*args), 1,
+                  bound_ms(n_px * RESOLVE_PX_BYTES, 0), err)
+    hit = int((vis.tri_id >= 0).sum())
+    r.update(pixels=n_px, covered=hit, differing_words=sum(differ.values()))
+    print(f"{label}, dense resolve on its own {tuple(vis.depth.shape)} "
+          f"VisBuffer (rows from {args[2] if len(args) > 2 else 0}, "
+          f"{hit} covered pixels): differing words {differ}; {timing(r)} "
+          f"({card})", flush=True)
+    if any(differ.values()):
+        fail(f"{label}: the dense resolve kernel disagrees with its twin on "
+             f"its own VisBuffer")
+    return r
+
+
 def hold_path_kernels(label, render, want, card):
-    """K1 (base or track2), K2 and the fused LTC kernel against their
-    twins on the inputs that one frame of `render()` hands them
-    (main_path_inputs): every output word equal, as kernel_phases and
-    ltc_rect_phases hold them on the north-star frame; `want` names the
+    """K1 (base or track2), K2, the fused LTC kernel and the dense resolve
+    kernel against their twins on the inputs that one frame of `render()`
+    hands them (main_path_inputs): every output word equal, as
+    kernel_phases, ltc_rect_phases and resolve_phases hold them on the
+    north-star frame; `want` names the
     counters of the kernels that the frame must call. Returns {kernel row
     name: its row on this path}."""
     seen = main_path_inputs(render)
@@ -825,6 +897,9 @@ def hold_path_kernels(label, render, want, card):
         rows["fine_raster_blocks"] = hold_k2_call(label, *seen["k2"], card)
     if "ltc_rect" in seen:
         rows["ltc_rect"] = hold_ltc_call(label, *seen["ltc_rect"], card)
+    if "resolve_dense" in seen:
+        rows["resolve_dense"] = hold_resolve_call(
+            label, *seen["resolve_dense"], card)
     return rows
 
 
@@ -1101,6 +1176,34 @@ def ltc_rect_phases(dev, card, rows, world, masked_scene, cfg, masked_cfg):
             fail(f"fused LTC {name} disagrees with its twin")
 
 
+def resolve_phases(dev, card, rows, world, cfg):
+    """The dense resolve kernel against its twin, the eager chain run on
+    the card, on the VisBuffer that the first frame of the north star and
+    of config 5 (raytraced shadows) hand it at WIDTHxHEIGHT (every word
+    equal), timed over 50 calls as kernel_phases times the others; adds
+    its row to `rows`, config 5's under paths."""
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework.renderer import Renderer
+
+    p = config5_preset(pt)
+    frames = {
+        "north star": lambda: Renderer(world.device(dev), cfg).render(
+            north_star_camera(pt)),
+        "config 5": lambda: preset_renderer(
+            p, p.world.device(dev, with_tlas=p.with_tlas), WIDTH,
+            HEIGHT).render(p.camera)}
+    held = {}
+    for label, render in frames.items():
+        calls = kernel_calls(render).get("resolve_dense", [])
+        if len(calls) != 1:
+            fail(f"{label}: the frame called the dense resolve kernel "
+                 f"{len(calls)} times, expected once")
+        held[label] = hold_resolve_call(f"{label} first frame", *calls[0],
+                                        card, reps=50)
+    rows["resolve_dense"] = dict(held["north star"],
+                                 paths={"config 5": held["config 5"]})
+
+
 def shadow_bound(n_lanes, n_rays, counts, table, inst, tri_pos):
     """The shadow-ray kernel must read each lane's active byte and write
     its hit byte, read each active ray (24 B), and read the node table,
@@ -1295,7 +1398,8 @@ def rt_phases(dev, card):
         reset_launches()
         out, times, mem = run_frames(r, cam, label)
         got = expect_launches(label, dict(k1=FRAMES, shadow_trace=FRAMES,
-                                          shadow_pack=FRAMES))
+                                          shadow_pack=FRAMES,
+                                          resolve_dense=FRAMES))
         if scale == 1:
             launches = got
         frame_ms[scale] = float(np.median(times[2:]))
@@ -1710,7 +1814,8 @@ def skin_phases(dev, card):
     out, times, mem = run_frames(r, p.camera, "skinned config 5",
                                  knot_joint_mats)
     expect_launches("skinned config 5", dict(k1=FRAMES, shadow_trace=FRAMES,
-                                             shadow_pack=FRAMES))
+                                             shadow_pack=FRAMES,
+                                             resolve_dense=FRAMES))
     ms = float(np.median(times[2:]))
     n_inst = int((scene.instances.mesh_id == knot).sum())
     print(f"skinned config 5 {WIDTH}x{HEIGHT} (the knot a 2-joint skin of "
@@ -1826,7 +1931,8 @@ def ring_phases(dev, card):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    got_l = expect_launches("ring light", dict(k1=FRAMES, ltc_ring=FRAMES))
+    got_l = expect_launches("ring light", dict(k1=FRAMES, ltc_ring=FRAMES,
+                                               resolve_dense=FRAMES))
     out = img.cpu().numpy()
     ms = float(np.median(times[2:]))
     print(f"ring light {WIDTH}x{HEIGHT}: median {ms:.3f} ms/frame over "
@@ -1893,7 +1999,7 @@ def ring_phases(dev, card):
         finally:
             shading.LTC_LUT_BF16 = False
     bf16_l = expect_launches("ring light bf16 frame", dict(
-        k1=1, ltc_ring_bf16=1))
+        k1=1, ltc_ring_bf16=1, resolve_dense=1))
     diff = np.abs(frames[True].astype(np.float64) - frames[False])
     print(f"ring light {WIDTH}x{HEIGHT} with LTC_LUT_BF16: max abs diff to "
           f"the f32 frame {diff.max():.3e}, mean {diff.mean():.3e} (bound "
@@ -1902,20 +2008,23 @@ def ring_phases(dev, card):
             and diff.mean() < RING_BF16_MEAN):
         fail("the bf16 ring frame strays from the f32 frame")
     launches = dict(ltc_ring=got_l["ltc_ring"],
-                    ltc_ring_bf16=bf16_l["ltc_ring_bf16"], k1=got_l["k1"])
+                    ltc_ring_bf16=bf16_l["ltc_ring_bf16"], k1=got_l["k1"],
+                    resolve_dense=got_l["resolve_dense"])
     return rows, launches, ms
 
 
 # Phase 14: config -> (the preset's arguments at full size, the kernels
 # besides K1 base that its frame launches once: the fused LTC kernel where
-# the scene has rect area lights). Config 5 is phase 10's scene.
+# the scene has rect area lights, the dense resolve kernel on every preset,
+# whose materials all sample const emissive and metallic-roughness).
+# Config 5 is phase 10's scene.
 PRESET_RUNS = {
-    1: ({}, ()),
-    2: (dict(n_instances=1000), ()),
-    3: ({}, ("ltc_rect",)),
-    4: ({}, ("ltc_rect",)),
-    6: (dict(n_textures=104, n_knots=32), ("ltc_rect",)),
-    7: (dict(detail=1.0), ("ltc_rect",)),
+    1: ({}, ("resolve_dense",)),
+    2: (dict(n_instances=1000), ("resolve_dense",)),
+    3: ({}, ("ltc_rect", "resolve_dense")),
+    4: ({}, ("ltc_rect", "resolve_dense")),
+    6: (dict(n_textures=104, n_knots=32), ("ltc_rect", "resolve_dense")),
+    7: (dict(detail=1.0), ("ltc_rect", "resolve_dense")),
 }
 
 
@@ -2066,6 +2175,7 @@ def import_phases(dev, card):
                        pair_capacity=1 << 19)
     scene = world.device(dev)
     cam = pt.Camera(**IMPORT_CAMERA, aspect=WIDTH / HEIGHT)
+    # the glTF material's emissive map keeps resolve on the eager chain
     paths = {k: {"import": row} for k, row in hold_path_kernels(
         "import", lambda: Renderer(scene, cfg).render(
             cam, joint_mats=import_joint_mats(animator, 0)),
@@ -2196,7 +2306,8 @@ def app_run_pair(app, label, card):
             _, times, _ = run_frames(_CameraPath(r), cam, name,
                                      shape=(h, w, 3))
             r_ms = float(np.median(times[2:]))
-        got = expect_launches(name, dict(k1=FRAMES, ltc_rect=FRAMES))
+        got = expect_launches(name, dict(k1=FRAMES, ltc_rect=FRAMES,
+                                         resolve_dense=FRAMES))
         if run == "App":
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
@@ -2251,7 +2362,8 @@ def record_phase(app, card, path, step_ms):
         app.step = real_step
     wall = (time.perf_counter() - t0) * 1e3
     got = expect_launches("App.run with recording",
-                          dict(k1=FRAMES, ltc_rect=FRAMES))
+                          dict(k1=FRAMES, ltc_rect=FRAMES,
+                               resolve_dense=FRAMES))
     out = app.recorder.out_path
     route = "MJPEG-AVI (no ffmpeg)" if out.endswith(".avi") else "ffmpeg"
     size = os.path.getsize(out)
@@ -2343,7 +2455,8 @@ def web_phase(app, card):
     if t.is_alive():
         fail("the web viewer did not stop on Esc")
     n = result["frames"]
-    got = expect_launches("web viewer", dict(k1=n, ltc_rect=n))
+    got = expect_launches("web viewer", dict(k1=n, ltc_rect=n,
+                                             resolve_dense=n))
     moved = float(np.linalg.norm(np.asarray(app.state.camera.position)
                                  - pos0))
     h, w = app.config.height, app.config.width
@@ -2394,8 +2507,8 @@ def app_phases(dev, card, k1_device_ms):
           f"moving, built in {(time.perf_counter() - t0) * 1e3:.0f} ms on "
           f"the host", flush=True)
     paths = {k: {"App (model)": row} for k, row in hold_path_kernels(
-        "App (model) first frame", app.step, ("k1", "ltc_rect"),
-        card).items()}
+        "App (model) first frame", app.step,
+        ("k1", "ltc_rect", "resolve_dense"), card).items()}
     got, small_ms, _ = app_run_pair(app, "App (model)", card)
     add(got)
 
@@ -2488,6 +2601,7 @@ def main():
     rows, ns_k, masked_k, masked_scene = kernel_phases(
         dev, card, world, masked_world, cfg, masked_cfg)
     ltc_rect_phases(dev, card, rows, world, masked_scene, cfg, masked_cfg)
+    resolve_phases(dev, card, rows, world, cfg)
 
     def stamp(what):
         print(f"[{time.perf_counter() - t_start:.1f} s] {what} done",
@@ -2580,7 +2694,7 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "north-star")
     ns_launches = expect_launches("north-star", dict(
-        k1=FRAMES, ltc_rect=FRAMES))
+        k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES))
     ns_ms = float(np.median(times[2:]))
     print(f"north-star frame {WIDTH}x{HEIGHT}: median {ns_ms:.3f} ms/frame "
           f"over frames 3-{FRAMES} ({card}); {mem}; image mean "
@@ -2611,7 +2725,7 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "block-path")
     block_launches = expect_launches("block-path", dict(
-        k2=FRAMES, ltc_rect=FRAMES))
+        k2=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES))
     block_ms = float(np.median(times[2:]))
     print(f"block-path north-star frame {WIDTH}x{HEIGHT} (backend xla, K "
           f"{ns_k}): median {block_ms:.3f} ms/frame over frames 3-{FRAMES} "
@@ -2736,8 +2850,9 @@ def main():
     stamp("phase 20 (record layouts and coherent resolves)")
     sampler_launches, sampler_paths = sampler_phases(dev, card)
     stamp("phase 21 (the quad-block samplers)")
-    for name in ("fine_raster_pairs", "ltc_rect"):
-        rows[name]["paths"] = {**preset_paths.get(name, {}),
+    for name in ("fine_raster_pairs", "ltc_rect", "resolve_dense"):
+        rows[name]["paths"] = {**rows[name].get("paths", {}),
+                               **preset_paths.get(name, {}),
                                **import_paths.get(name, {}),
                                **app_paths.get(name, {}),
                                **jpeg_paths.get(name, {}),
@@ -2775,6 +2890,15 @@ def main():
         shadow_pack=(rt_launches["shadow_pack"]
                      + shard_launches["shadow_pack"]),
         closest_hit=closest_launches,
+        resolve_dense=(ns_launches["resolve_dense"]
+                       + block_launches["resolve_dense"]
+                       + rt_launches["resolve_dense"]
+                       + ring_launches["resolve_dense"]
+                       + preset_launches["resolve_dense"]
+                       + app_launches["resolve_dense"]
+                       + shard_launches["resolve_dense"]
+                       + record_launches["resolve_dense"]
+                       + sampler_launches["resolve_dense"]),
     )
     meta = dict(
         fine_raster_pairs=("voidin_tpu_torch/csrc/fine_raster.cu",
@@ -2807,6 +2931,9 @@ def main():
                      "voidin_tpu/rt/traverse.py:858"),
         closest_hit=("voidin_tpu_torch/csrc/closest_hit.cu",
                      "voidin_tpu/rt/traverse.py:889"),
+        # no TPU kernel: the JAX package's resolve in plain jnp
+        resolve_dense=("voidin_tpu_torch/csrc/resolve.cu",
+                       "voidin_tpu/passes/resolve.py:934"),
     )
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2838,14 +2965,17 @@ ALS_Q99_BUDGET = 0.12  # tests/test_ltc.py:401 (mean: GOLDEN_BUDGET)
 
 
 def hold_slab_kernels(label, calls, card):
-    """Each slab's K1 and fused LTC launch of one sharded frame (the
-    kernel_calls of that frame) against its twin on the slab's own
-    inputs (hold_k1_call, hold_ltc_call). Returns [K1 device ms per
+    """Each slab's K1, fused LTC and dense resolve launch of one sharded
+    frame (the kernel_calls of that frame) against its twin on the slab's
+    own inputs and row window (hold_k1_call, hold_ltc_call,
+    hold_resolve_call). Returns [K1 device ms per
     slab]."""
     k1_ms = [hold_k1_call(f"{label}, slab {d}", *call, card)["device_ms"]
              for d, call in enumerate(calls["k1"])]
     for d, call in enumerate(calls["ltc_rect"]):
         hold_ltc_call(f"{label}, slab {d}", *call, card)
+    for d, call in enumerate(calls["resolve_dense"]):
+        hold_resolve_call(f"{label}, slab {d}", *call, card)
     return k1_ms
 
 
@@ -2917,7 +3047,7 @@ def shard_phases(dev, card, cards_only=False):
         out, times, mem = run_frames(r, cam, f"sharded north star, {label}",
                                      keep=keep, shape=shape)
         add(expect_launches(f"sharded north star, {label}", dict(
-            k1=n * FRAMES, ltc_rect=n * FRAMES)))
+            k1=n * FRAMES, ltc_rect=n * FRAMES, resolve_dense=n * FRAMES)))
         ms[label] = float(np.median(times[2:]))
         line = (f"sharded north star {WIDTH}x{H}, {label}: median "
                 f"{ms[label]:.3f} ms/frame over frames 3-{FRAMES} ({card}); "
@@ -2935,7 +3065,8 @@ def shard_phases(dev, card, cards_only=False):
             fail(f"sharded north star, {label}: the frames differ from the "
                  f"unsharded frames")
         calls = kernel_calls(lambda: r.render(cam))
-        if {k: len(v) for k, v in calls.items()} != dict(k1=n, ltc_rect=n):
+        if {k: len(v) for k, v in calls.items()} != dict(
+                k1=n, ltc_rect=n, resolve_dense=n):
             fail(f"{label}: one frame called {calls.keys()} other than once "
                  f"per slab")
         k1_ms = hold_slab_kernels(f"sharded north star, {label}", calls,
@@ -2963,7 +3094,8 @@ def shard_phases(dev, card, cards_only=False):
                 fail(f"config 5 sharded, {label}: overflow or exhausted rays")
         add(expect_launches(f"config 5 {WIDTH}x{H}, {label}", dict(
             k1=n * SHARD_RT_FRAMES, shadow_trace=n * SHARD_RT_FRAMES,
-            shadow_pack=n * SHARD_RT_FRAMES)))
+            shadow_pack=n * SHARD_RT_FRAMES,
+            resolve_dense=n * SHARD_RT_FRAMES)))
         imgs[label] = img
     differ = words_differ(imgs["2 slabs"], imgs["unsharded"])
     print(f"config 5 {WIDTH}x{H} raytraced, 2 slabs: words differing from "
@@ -3044,8 +3176,8 @@ def shard_phases(dev, card, cards_only=False):
                  area_light_scale=2)
     reset_launches()
     out, times, mem = run_frames(r, cam, "area_light_scale 2", shape=shape)
-    add(expect_launches("area_light_scale 2", dict(k1=FRAMES,
-                                                   ltc_rect=FRAMES)))
+    add(expect_launches("area_light_scale 2", dict(
+        k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES)))
     print(f"area_light_scale 2 north star {WIDTH}x{H}: median "
           f"{float(np.median(times[2:])):.3f} ms/frame over frames "
           f"3-{FRAMES} ({card}) vs {ms['unsharded']:.3f} at full "
@@ -3324,6 +3456,7 @@ def image_import_phases(dev, card):
         animator = GltfAnimator(doc)
         scene = world.device(dev)
         label = f"import {kind}"
+        # the emissive map keeps resolve on the eager chain
         for k, row in hold_path_kernels(
                 label, lambda: Renderer(scene, cfg).render(
                     cam, joint_mats=import_joint_mats(animator, 0)),
@@ -3551,16 +3684,19 @@ def record_phases(dev, card, masked_world, ns_k):
         k1 = "k1_track2" if track2 else "k1"
         k2 = "k2_track2" if track2 else "k2"
         raster = k1 if pair else k2
+        dense = takes_resolve_kernel(scene, opts)
         for k, row in hold_path_kernels(
                 label, lambda: Renderer(scene, cfg).render(
                     north_star_camera(pt)),
-                ("k1" if pair else "k2", "ltc_rect"), card).items():
+                ("k1" if pair else "k2", "ltc_rect")
+                + (("resolve_dense",) if dense else ()), card).items():
             paths.setdefault(k, {})[label] = row
         r = Renderer(scene, cfg)
         reset_launches()
         with ResolveProbe() as probe:
             out, times, mem = run_frames(r, north_star_camera(pt), label)
-        got = expect_launches(label, {raster: FRAMES, "ltc_rect": FRAMES})
+        got = expect_launches(label, {raster: FRAMES, "ltc_rect": FRAMES,
+                                      "resolve_dense": FRAMES * dense})
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         ms = float(np.median(times[2:]))
@@ -3842,9 +3978,11 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
     for name, opts in (("default", {}),) + SAMPLER_SETS:
         set_label = f"{label} {name}"
         opts = dict(opts, **caps)
+        dense = not opts.get("tap_block")  # both scenes sample const maps
         for k, row in hold_path_kernels(
                 set_label, lambda: make(**opts).render(cam),
-                ("k1", "ltc_rect"), card).items():
+                ("k1", "ltc_rect") + (("resolve_dense",) if dense else ()),
+                card).items():
             paths.setdefault(k, {})[set_label] = row
         r = make(**opts)
         keep = {i: None for i in range(FRAMES)}
@@ -3852,7 +3990,8 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
         with StageProbe(resolve, "resolve_gbuffer") as rp, \
                 StageProbe(taa, "taa", keep=1) as tp:
             out, times, mem = run_frames(r, cam, set_label, keep=keep)
-        got = expect_launches(set_label, dict(k1=FRAMES, ltc_rect=FRAMES))
+        got = expect_launches(set_label, dict(k1=FRAMES, ltc_rect=FRAMES,
+                                              resolve_dense=FRAMES * dense))
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         if base is None:

@@ -17,7 +17,10 @@ and the resize) on the card against the CPU, its recorded MJPEG-AVI read
 back by the port's JPEG decoder, and the profiler's CUDA-event timing;
 the native texture packer on the card's host; the record layouts and
 coherent resolves against the default path on the card; the quad-block
-samplers' 1080p north-star frames against the default frames. Marked
+samplers' 1080p north-star frames against the default frames; the dense
+resolve kernel against the eager chain it replaces, word for word (the
+benchmark scenes' first 1080p frames, a normal-mapped scene, edge images,
+degenerate triangles, row windows). Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -40,6 +43,7 @@ from voidin_tpu_torch.ops import ltc_ring as t_ring
 from voidin_tpu_torch.ops import lut_fetch as t_lut
 from voidin_tpu_torch.passes import cull, raster, resolve
 from voidin_tpu_torch.passes import shading as t_shading
+from voidin_tpu_torch.passes.gbuffer import VisBuffer
 from voidin_tpu_torch.passes.raster import RasterConfig
 from voidin_tpu_torch.scene.ltc import load_ltc_tables
 
@@ -955,3 +959,165 @@ def test_sampler_options_on_card_keep_the_default_frames(cuda, opts,
     frames, base = north_star_frames
     for a, b in zip(base, frames(**opts)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The dense resolve kernel (ops/resolve.py resolve_dense) against its twin,
+# the eager chain run on the card
+# ---------------------------------------------------------------------------
+
+RESOLVE_1080 = dict(width=1920, height=1080)
+
+
+def _first_vis(scene, cfg, cam):
+    """The first frame's VisBuffer of `scene` at `cam` under `cfg`."""
+    u = cam.uniform()
+    draws = cull.emit_draws(scene.meshes, scene.instances, u)
+    return raster.rasterize(scene.meshes, scene.instances, draws, u, cfg,
+                            materials=scene.materials)
+
+
+def _normal_mapped_world():
+    """build_world(1000)'s field with normal-mapped spheres and cubes in
+    front of the camera: one sRGB and one linear normal map, and a linear
+    albedo beside the field's sRGB ones, so that both taps read the
+    per-texture sRGB flag."""
+    from voidin_tpu_torch.core import mathx
+    from voidin_tpu_torch.scene import mesh as mesh_mod
+
+    world, _ = build_world(1000, seed=0)
+    rng = np.random.default_rng(5)
+    bumps = rng.integers(90, 166, (64, 64, 3)).astype(np.uint8)
+    bumps[..., 2] = 240
+    maps = [world.textures.add(bumps, srgb=False),
+            world.textures.add(bumps[::-1].copy(), srgb=True)]
+    albedo = world.textures.add(
+        rng.integers(40, 230, (128, 64, 3)).astype(np.uint8), srgb=False)
+    mats = [world.materials.add(albedo=albedo, normal=maps[0]),
+            world.materials.add(albedo=albedo, normal=maps[1]),
+            world.materials.add(albedo=albedo)]
+    cube = world.meshes.add(mesh_mod.make_cube_mesh(1.0))
+    for i, x in enumerate(np.linspace(-9.0, 9.0, 10)):
+        world.instances.add(
+            np.asarray(mathx.from_translation([x, 1.0 + (i % 3),
+                                               18.0 - (i % 4)])),
+            cube if i % 2 else mesh_mod.SPHERE_1_MESH, mats[i % 3])
+    return world
+
+
+def _resolve_case(device, kind):
+    """(scene, VisBuffer) of a first frame: the benchmark's two scenes at
+    1080p, the normal-mapped field at 320x184."""
+    if kind == "rtshadows":
+        p = config5_preset(pt, aspect=16 / 9)
+        cfg = RasterConfig(tri_capacity=p.tri_capacity,
+                           pair_capacity=p.pair_capacity, **RESOLVE_1080)
+        scene = p.world.device(device)
+        return scene, _first_vis(scene, cfg, p.camera)
+    if kind == "northstar":
+        world = build_world(10_000, seed=0)[0]
+        cfg = RasterConfig(tri_capacity=1 << 19, pair_capacity=1 << 20,
+                           **RESOLVE_1080)
+    else:
+        world = (_normal_mapped_world() if kind == "nmap"
+                 else build_world(1000, seed=0)[0])
+        cfg = CFG
+    scene = world.device(device)
+    cam = pt.Camera(position=[0.0, 2.0, 30.0], pitch=-5.0,
+                    aspect=cfg.width / cfg.height)
+    return scene, _first_vis(scene, cfg, cam)
+
+
+def _assert_dense_kernel_equals_twin(scene, vis, row0=0, height=None):
+    from voidin_tpu_torch.ops import resolve as t_dense
+
+    n = t_dense.LAUNCHES
+    got = t_dense.resolve_dense(scene, vis, row0, height,
+                                twin=resolve.resolve_dense_reference)
+    want = resolve.resolve_dense_reference(scene, vis, row0, height)
+    torch.cuda.synchronize()
+    assert t_dense.LAUNCHES == n + 1
+    for k in t_dense.FIELDS:
+        g = got[k].view(torch.int32)
+        w = want[k].view(torch.int32)
+        assert g.shape == w.shape
+        bad = (g != w).nonzero()
+        assert bad.shape[0] == 0, (
+            f"{k}: {bad.shape[0]} words differ, first at {bad[:4].tolist()}:"
+            f" kernel {[hex(int(g[tuple(i)]) & 0xFFFFFFFF) for i in bad[:4]]}"
+            f" twin {[hex(int(w[tuple(i)]) & 0xFFFFFFFF) for i in bad[:4]]}")
+    return got
+
+
+@pytest.mark.parametrize("kind", ["northstar", "rtshadows", "nmap"])
+def test_resolve_dense_kernel_matches_twin(cuda, kind):
+    """The first frame's VisBuffer of the benchmark's scenes and of a
+    normal-mapped one: every output word the eager chain's; the frame's
+    resolve_gbuffer takes the kernel, one launch."""
+    from voidin_tpu_torch.ops import resolve as t_dense
+
+    scene, vis = _resolve_case(cuda, kind)
+    assert resolve.takes_dense_kernel(CFG, scene, vis)
+    assert scene.no_normal_maps == (kind != "nmap")
+    got = _assert_dense_kernel_equals_twin(scene, vis)
+    hit = vis.tri_id >= 0
+    assert hit.any() and (~hit).any()
+    assert (got["material"][hit] != 0).any()
+    if kind == "nmap":
+        assert scene.albedo_srgb is None and scene.normal_srgb is None
+    n = t_dense.LAUNCHES
+    gb, aux = resolve.resolve_gbuffer(scene, vis, CFG)
+    assert t_dense.LAUNCHES == n + 1
+    assert torch.equal(gb.normal_uv, got["normal_uv"])
+    assert torch.equal(aux.mr, got["mr"])
+
+
+@pytest.mark.parametrize("edit", ["background", "last_pixels", "degenerate"])
+def test_resolve_dense_kernel_edge_images(cuda, edit):
+    """An all-background image (every pixel reads record 0); geometry at
+    the last column and the last row only (the mip level's zero
+    difference there and a background neighbour's record-0 uv); and
+    zero-area triangles (all-zero, repeated and collinear corners, w = 0
+    corners), record 0 among them, whose NaN and signed zeros must come
+    out as the chain's."""
+    scene, vis = _resolve_case(cuda, "nmap")
+    H, W = vis.tri_id.shape
+    tri_id, rec = vis.tri_id.clone(), vis.resolve_rec.clone()
+    some = int(tri_id.max())
+    if edit == "background":
+        tri_id.fill_(-1)
+    elif edit == "last_pixels":
+        tri_id.fill_(-1)
+        for y, x in ((H - 1, W - 1), (H - 1, 0), (0, W - 1), (H - 2, W - 1),
+                     (H - 1, W - 2)):
+            tri_id[y, x] = some
+    else:
+        ids = torch.unique(tri_id[tri_id >= 0])
+        ids = torch.cat([torch.zeros(1, dtype=ids.dtype, device=cuda),
+                         ids]).long()
+        clip = rec[ids, :9].reshape(-1, 3, 3)
+        kind = torch.arange(ids.shape[0], device=cuda) % 4
+        zero = torch.zeros_like(clip)
+        repeated = clip.clone()
+        repeated[:, 2] = clip[:, 0]
+        collinear = clip.clone()
+        collinear[:, 2] = (clip[:, 0] + clip[:, 1]) * 0.5
+        w0 = clip.clone()
+        w0[:, :, 2] = 0.0
+        pick = torch.stack([zero, repeated, collinear, w0])[
+            kind, torch.arange(ids.shape[0], device=cuda)]
+        rec[ids, :9] = pick.reshape(-1, 9)
+    edited = VisBuffer(tri_id=tri_id, depth=vis.depth, resolve_rec=rec,
+                       overflow=vis.overflow)
+    _assert_dense_kernel_equals_twin(scene, edited)
+
+
+@pytest.mark.parametrize("a,b", [(0, 47), (40, 93), (137, 184)])
+def test_resolve_dense_kernel_on_a_row_window(cuda, a, b):
+    """Rows [a, b) of the 184-row image as a slab of the sharded frame
+    hands them (row0=a, height=184, its last row its own last)."""
+    scene, vis = _resolve_case(cuda, "nmap")
+    H = vis.tri_id.shape[0]
+    win = VisBuffer(tri_id=vis.tri_id[a:b], depth=vis.depth[a:b],
+                    resolve_rec=vis.resolve_rec, overflow=vis.overflow)
+    _assert_dense_kernel_equals_twin(scene, win, row0=a, height=H)

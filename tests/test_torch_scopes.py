@@ -41,8 +41,9 @@ TREE = [("frame", None), ("frame.begin", "frame"), ("update", "frame"),
         ("cull", "frame"), ("raster", "frame"), ("raster.setup", "raster"),
         ("raster.bin", "raster"), ("raster.k1", "raster"),
         ("raster.untile", "raster"), ("raster.untile", "raster"),
-        ("resolve", "frame"), ("resolve.fetch", "resolve"),
-        ("resolve.fields", "resolve"), ("shade", "frame"),
+        ("resolve", "frame"), ("resolve.kernel", "resolve"),
+        ("resolve.fetch", "resolve.kernel"),
+        ("resolve.fields", "resolve.kernel"), ("shade", "frame"),
         ("shade.point", "shade"), ("shade.rect", "shade"),
         ("taa", "frame"), ("taa.reproject", "taa"),
         ("taa.history", "taa"), ("taa.resolve", "taa"), ("post", "frame"),
@@ -183,7 +184,7 @@ def test_counters_only_when_on():
     recs = profiler.collect()
     assert sorted({k for d in recs for k in d["counters"]}) == sorted([
         "draws", "overflow.setup", "pairs", "tile_max", "overflow.bin",
-        "overflow.taa", "covered_px"])
+        "overflow.taa", "covered_px", "resolve.kernel_px"])
     assert all(type(v) is int for d in recs for v in d["counters"].values())
     last = {}
     for d in recs:
@@ -198,6 +199,10 @@ def test_counters_only_when_on():
         "raster.setup"}
     assert {d["name"] for d in recs if "pairs" in d["counters"]} == {
         "raster.bin"}
+    # the default frame resolves every pixel through resolve_dense
+    assert last["resolve.kernel_px"] == CFG.width * CFG.height
+    assert {d["name"] for d in recs
+            if "resolve.kernel_px" in d["counters"]} == {"resolve"}
 
 
 def test_counter_tensors_reduced_after_the_frames(scopes_on):

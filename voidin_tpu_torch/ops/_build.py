@@ -157,6 +157,8 @@ def load() -> ctypes.CDLL:
                                            p, p, p, p]
         lib.voidin_closest_hit_attrs.restype = i
         lib.voidin_closest_hit_attrs.argtypes = [p]
+        lib.voidin_resolve_dense.restype = i
+        lib.voidin_resolve_dense.argtypes = [p, p, i, p]
         lib.voidin_error_string.restype = ctypes.c_char_p
         lib.voidin_error_string.argtypes = [i]
         _lib = lib

@@ -14,6 +14,13 @@ evaluates the reference's attribute math (visibility.wgsl:66-97):
 It also produces the per-pixel material fields the shading pass consumes
 (ResolveAux), so shading reads no material table.
 
+The default layout (takes_dense_kernel: no alpha mask, the 12-column
+record, none of the options below, const-folded emissive and
+metallic-roughness) resolves in one launch of the hand-written kernel
+ops/resolve.py resolve_dense, whose twin on the CPU is this module's
+chain; every other input runs the chain (_fetch_rows -> _decode_channels
+-> _channel_fields) eagerly.
+
 The JAX package's record layouts and coherent paths, by RasterConfig
 field:
 * slim_rec: the slim 96 B record (world-space normals and the material
@@ -49,6 +56,7 @@ import torch
 from ..core import checks, encoding, fastmath
 from ..framework import profiler
 from ..ops import fine_raster as fr
+from ..ops import resolve as dense_op
 from ..scene.scene import SceneData
 from ..scene.texture import sample_trilinear, sample_trilinear_quadblock
 from .gbuffer import GBuffer, VisBuffer
@@ -575,6 +583,44 @@ def _unpack_fallback(img):
     )
 
 
+def pixel_ndc(H: int, W: int, device, row0: int = 0, height=None):
+    """The pixel centres' NDC x and y, each broadcast to (H, W), of the
+    image rows [row0, row0 + H) of a `height`-row image (default H)."""
+    height = H if height is None else height
+    x_ndc = ((torch.arange(W, dtype=torch.float32, device=device) + 0.5)
+             / W * 2.0 - 1.0)[None, :].expand(H, W)
+    y_ndc = (1.0 - pixel_rows(H, device, row0, height) * 2.0)[:, None]
+    return x_ndc, y_ndc.expand(H, W)
+
+
+def resolve_dense_reference(scene: SceneData, vis: VisBuffer, row0: int = 0,
+                            height=None):
+    """The plain twin of ops/resolve.py resolve_dense: this module's dense
+    per-pixel fields of `vis` (rows [row0, row0 + H) of a `height`-row
+    image), as dense_op.FIELDS."""
+    H, W = vis.depth.shape
+    x_ndc, y_ndc = pixel_ndc(H, W, vis.depth.device, row0, height)
+    f = _pixel_fields(scene, vis, vis.tri_id, vis.depth, x_ndc, y_ndc)
+    f["normal_uv"] = torch.stack([f["packed_n"], f["packed_uv"]], dim=-1)
+    return {k: f[k] for k in dense_op.FIELDS}
+
+
+def takes_dense_kernel(config, scene, vis) -> bool:
+    """Whether resolve_gbuffer resolves `vis` through the one-launch
+    dense resolve (ops/resolve.py resolve_dense): a static test of the
+    layout its inputs show. No runner-up (no alpha mask), none of the
+    record layouts and coherent fetches (they change the rows or how
+    they are fetched), the per-pixel albedo tap, and const-folded
+    emissive and metallic-roughness. Every other input keeps the eager
+    chain."""
+    return (vis.tri_id2 is None
+            and not (config.slot_resolve or config.quad_rate_resolve
+                     or config.slim_rec or config.tap_block
+                     or config.fused_resolve_rec or config.fused_inst_rec
+                     or config.inst_rec_f16)
+            and scene.emissive_const and scene.mr_const)
+
+
 @profiler.scoped("resolve")
 def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
                     height=None, rows=None):
@@ -606,14 +652,27 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     exact only where it is the image's last, so the caller gives it one
     row of halo below. The counts (cut, fallback and overflow, the
     fallback pixels left unresolved) are those of the own rows, and the
-    fallback capacity is the whole image's."""
+    fallback capacity is the whole image's.
+
+    Inputs of the default layout (takes_dense_kernel) resolve in one
+    launch of ops/resolve.py resolve_dense (the profiler's scope
+    resolve.kernel), with the chain's words; the profiler's counters
+    resolve.kernel_px and resolve.eager_px count the pixels each way
+    resolved (eager: each dense pass's H x W, and the fallback batch's
+    pixels resolved to their runner-up)."""
     H, W = vis.depth.shape
     dev = vis.depth.device
     height = H if height is None else height
-    x_ndc = ((torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
-             * 2.0 - 1.0)[None, :].expand(H, W)
-    y_ndc = (1.0 - pixel_rows(H, dev, row0, height) * 2.0)[:, None].expand(
-        H, W)
+    if takes_dense_kernel(config, scene, vis):
+        profiler.count("resolve.kernel_px", H * W)
+        with profiler.scope("resolve.kernel"):
+            f = dense_op.resolve_dense(scene, vis, row0, height,
+                                       twin=resolve_dense_reference)
+        return (GBuffer(normal_uv=f["normal_uv"], material=f["material"],
+                        depth=f["depth"]),
+                ResolveAux(albedo=f["albedo"], emissive=f["emissive"],
+                           mr=f["mr"]))
+    x_ndc, y_ndc = pixel_ndc(H, W, dev, row0, height)
 
     f16 = config.inst_rec_f16
     slim = config.slim_rec
@@ -637,6 +696,7 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
 
     def dense_fields(tri_id, depth, want_aux=True):
         nonlocal edge_ovf
+        profiler.count("resolve.eager_px", H * W)
         fetched, channels = None, None
         if slot:
             with profiler.scope("resolve.fetch"):
@@ -687,7 +747,9 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
         flat = fall.reshape(-1)
         count = flat.sum()
         idx = fastmath.compact_indices(flat, F)  # (F,) pixel indices
-        valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
+        n_fb = torch.clamp(count, max=F)
+        profiler.count("resolve.eager_px", n_fb)
+        valid = torch.arange(F, device=dev) < n_fb
         tid2 = torch.where(valid, vis.tri_id2.reshape(-1)[idx], -1)
         dep2 = vis.depth2.reshape(-1)[idx]
         fx = (idx % W).to(torch.float32)
