@@ -30,14 +30,14 @@ def readings(cell, seed, frames, device):
     import torch
 
     import run
-    from pb import check, configs, program, traffic
+    from pb import animation, check, configs, program, traffic
 
     config = configs.load(cell["config"])
     mix = traffic.load(cell["traffic"])
-    path = traffic.CameraPath(mix, config)
     scene = configs.build_scene(config, seed)
+    path = traffic.CameraPath(mix, config, animation.period(scene))
     loop = run.Frames(program.make_renderer(config, scene, device), path,
-                      config)
+                      config, run.joint_table(scene, path, device))
     loop.reserve([0])
     loop.one()
     for _ in range(int(mix["warmup_frames"])):
@@ -54,7 +54,7 @@ def readings(cell, seed, frames, device):
     from reference.render import Reference
 
     ctl = Reference(scene, config, device, dtype=torch.bfloat16)
-    ctl_kept = check.render_frames(ctl, path, config, kept)
+    ctl_kept = check.render_frames(ctl, path, config, kept, scene)
     del ctl
     control = check.reference_numbers(config, path, scene, ctl_kept, device)
     worst = {}

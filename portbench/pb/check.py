@@ -12,7 +12,9 @@ hold the program's whole history from its start against the reference.
 A later compared frame it renders from the program's own history as it
 stood before that frame (copied off the device during the window), so
 that its one step is judged alone and the reference need not replay
-every frame of the window.
+every frame of the window. A skinned scene's reference poses each frame
+it renders from that frame's joint matrices, the program's own input
+(pb/animation.py).
 
 Numbers, each the largest over the compared frames of a run and over a
 frame's image and the history it leaves (encoded as an image is: post
@@ -31,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from . import animation
 from . import camera as pcam
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,24 +92,33 @@ def chain_end(kept, taa):
     return min(later) if taa and later else 0
 
 
-def render_frames(ref, path, config, kept):
+def render_frames(ref, path, config, kept, scene):
     """{frame: (image, the history it read, the history it left)} of the
-    reference `ref` for each frame of `kept`, as the check renders them:
-    frames 0 to chain_end in a chain from its own history, each later
-    frame from the program's history that kept[frame] holds."""
+    reference `ref` of `scene` for each frame of `kept`, as the check
+    renders them: frames 0 to chain_end in a chain from its own history,
+    each later frame from the program's history that kept[frame] holds.
+    A skinned scene's reference is posed at each frame by that frame's
+    joint matrices (pb/animation.py, the program's own input)."""
+
+    def pose(k):
+        if not ref.skins:
+            return {}
+        return {"joint_mats": animation.joint_matrices(scene, k, path.dt)}
+
     end = chain_end(kept, config["renderer"]["enable_taa"])
     cams = uniforms(path, config, sorted(set(range(end + 1)) | set(kept)))
     out, hist = {}, None
     for k in range(end + 1):
         read = hist
-        img, hist = ref.frame(k, cams[k], path.dt, history=read)
+        img, hist = ref.frame(k, cams[k], path.dt, history=read, **pose(k))
         if k in kept:
             out[k] = (img, read, hist)
     for k in sorted(kept):
         if k > end:
             read = kept[k][1]
             img, left = ref.frame(k, cams[k], path.dt, history=None
-                                  if read is None else read.to(ref.dev))
+                                  if read is None else read.to(ref.dev),
+                                  **pose(k))
             out[k] = (img, read, left)
     return out
 
@@ -120,7 +132,7 @@ def reference_numbers(config, path, scene, kept, device):
     from reference.render import Reference
 
     ref = Reference(scene, config, device)
-    want = render_frames(ref, path, config, kept)
+    want = render_frames(ref, path, config, kept, scene)
     out = {}
     for k in sorted(kept):
         img, _, left = kept[k]

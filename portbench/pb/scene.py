@@ -12,12 +12,19 @@ so that a later change to the program cannot move the yardstick.
 A Scene mirrors the program's pools id for id: meshes 0-3, textures 0-3
 and materials 0-2 are the pools' reserved entries (the recipes draw
 nothing with the reserved meshes, so every drawn triangle comes from here).
+
+Skins and their animation are data shaped as glTF 2.0 holds them: a skin
+names a mesh, its vertices' JOINTS_0 / WEIGHTS_0 and its joint list; the
+skeleton's joints carry a parent, a rest translation, rotation and scale
+and an inverse bind matrix; one looping clip samples each joint's local
+translation, rotation and scale at its keys (LINEAR). pb/animation.py
+turns them into a frame's joint matrices; a scene without skins has none.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -186,6 +193,47 @@ def area_light_points(wh, transform):
 
 
 @dataclasses.dataclass
+class Joint:
+    """One joint of the skeleton (a glTF node that skins list): its parent
+    (an earlier joint's index, -1 for a root), its rest local transform
+    (translation, unit rotation quaternion x y z w, scale) and its inverse
+    bind matrix."""
+
+    parent: int
+    translation: np.ndarray  # (3,)
+    rotation: np.ndarray  # (4,) x y z w
+    scale: np.ndarray  # (3,)
+    inverse_bind: np.ndarray  # (4, 4)
+
+
+@dataclasses.dataclass
+class Skin:
+    """A skinned mesh (a glTF skin and its primitive's JOINTS_0 /
+    WEIGHTS_0): every instance of `mesh` takes the pose. A vertex's joint
+    k is skeleton joint joint_list[joints[v, k]]."""
+
+    mesh: int
+    joints: np.ndarray  # (V, 4) int
+    weights: np.ndarray  # (V, 4) f32
+    joint_list: List[int]
+
+
+@dataclasses.dataclass
+class Clip:
+    """One looping animation clip (a glTF animation with LINEAR samplers):
+    at each key time (K,) s every joint's local translation (K, J, 3),
+    rotation (K, J, 4, x y z w) and scale (K, J, 3). Frame f samples it at
+    (f % period_frames) * dt, held at its first and last key outside them
+    (glTF's clamp), so it repeats every period_frames frames."""
+
+    times: np.ndarray  # (K,)
+    translation: np.ndarray  # (K, J, 3)
+    rotation: np.ndarray  # (K, J, 4)
+    scale: np.ndarray  # (K, J, 3)
+    period_frames: int
+
+
+@dataclasses.dataclass
 class Scene:
     """One configuration's scene as host arrays, ids as in the program's
     pools. Textures are u8 (h, w, 4) with an sRGB flag; materials hold
@@ -205,6 +253,9 @@ class Scene:
     area_lights: List[tuple] = dataclasses.field(default_factory=list)
     moving: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0, np.int32))
+    skins: List[Skin] = dataclasses.field(default_factory=list)
+    skeleton: List[Joint] = dataclasses.field(default_factory=list)
+    clip: Optional[Clip] = None
 
     @classmethod
     def empty(cls):
@@ -274,7 +325,12 @@ def area_light(scene: Scene, quad_mesh: int, color, intensity, wh,
 def to_world(scene: Scene):
     """The program's World holding `scene`: the recipe's meshes, textures
     and materials appended after the pools' reserved entries (so every id
-    is the scene's), then its instances and lights."""
+    is the scene's), then its instances and lights, then its skins as the
+    program's glTF importer binds them (io/gltf.py bind_skins): each
+    skin's joint rows allocated in the scene's order and its SkinData
+    built with the mesh's BVH, so that the BLAS and TLAS are refit to
+    the pose."""
+    from voidin_tpu_torch.scene import skin as skin_mod
     from voidin_tpu_torch.scene.mesh import Mesh
     from voidin_tpu_torch.scene.scene import World
 
@@ -298,4 +354,16 @@ def to_world(scene: Scene):
         w.lights.add_point_light(pos, radius, color)
     for color, intensity, pts in scene.area_lights:
         w.lights.add_area_light(color, intensity, pts)
+    pool = w.meshes
+    for sk in scene.skins:
+        info = pool.mesh_info[sk.mesh]
+        view = Mesh(pool.positions[sk.mesh], pool.normals[sk.mesh],
+                    pool.tangents[sk.mesh], pool.uvs[sk.mesh],
+                    pool.indices[sk.mesh])
+        n = len(sk.joint_list)
+        w.skins.append(skin_mod.build_skin_data(
+            view, pool.indices[sk.mesh], sk.joints, sk.weights,
+            base_tri=info["base_index"] // 3, mesh_id=sk.mesh,
+            joint_offset=w.allocate_joints(n), n_joints=n,
+            nodes=pool.bvh_nodes[sk.mesh], bvh_base=info["bvh_index"]))
     return w

@@ -3,8 +3,9 @@
 
 A frame's camera pose depends only on the frame's index, so the work of
 frame k is the same however fast the program runs; and a measured window
-ends on a whole lap of the path (window_ends), so it holds each pose
-equally often however many frames the program fits into --seconds.
+ends on a whole lap of the path and of the scene's animation together
+(window_ends), so it holds each pose equally often however many frames
+the program fits into --seconds.
 
 camera kinds:
   "static": the configuration's own camera, held still;
@@ -28,16 +29,19 @@ def load(name):
 
 
 class CameraPath:
-    def __init__(self, traffic, config):
+    def __init__(self, traffic, config, animation_frames=1):
         self.spec = traffic["camera"]
         self.home = config["camera"]
         self.dt = float(traffic["dt"])
-        # frames in one lap of the path: a still camera's lap is one frame
-        self.lap = int(self.spec.get("period_frames", 1))
+        # frames in one lap of the path (a still camera's lap is one
+        # frame) and of the scene's animation (pb/animation.py period)
+        self.lap = math.lcm(int(self.spec.get("period_frames", 1)),
+                            int(animation_frames))
 
     def window_ends(self, frames, elapsed, seconds):
         """Whether a window of `frames` frames that has lasted `elapsed` s
-        ends here: at the first whole lap once `seconds` have passed."""
+        ends here: at the first whole lap of both the camera's path and
+        the animation once `seconds` have passed."""
         return elapsed >= seconds and frames % self.lap == 0
 
     def pose(self, frame):

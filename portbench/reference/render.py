@@ -7,10 +7,12 @@ JAX package, and takes nothing that the program made: it works out again
 from the benchmark's scene arrays (pb/scene.py) the moving transforms
 (compute_update.wgsl), the cull and LOD select (emit_draws.wgsl), the
 mesh pool's corner attributes, the texture mip chain and its quad rows,
-the camera uniform and TAA jitter (pb/camera.py), and it traces shadow
-rays by brute force over every triangle of every instance in place of a
-BVH. The LTC tables are its frozen copy (ltc_tables.npz beside this
-file, the upstream fit the program ships as an asset).
+the camera uniform and TAA jitter (pb/camera.py), a skinned mesh's
+posed vertices (its own linear blend of the scene's rest vertices by the
+frame's joint matrices, which pb/animation.py gives both sides), and it
+traces shadow rays by brute force over every triangle of every instance
+in place of a BVH. The LTC tables are its frozen copy (ltc_tables.npz
+beside this file, the upstream fit the program ships as an asset).
 
 Its own rasterizer tests pixel centres against each triangle's three
 edge planes and keeps the largest reverse-Z depth: it is written apart
@@ -22,11 +24,11 @@ control runs it in bfloat16); integer ids and indices stay exact. The
 TF32 path of matmul stays off.
 
 Pipeline of Reference.frame, after render_frame (framework/renderer.py):
-update -> cull + LOD -> near clip, projection, back-face cull -> raster
-(depth + id) -> resolve (barycentrics, normal, uv, trilinear albedo) ->
-shade (ambient, point lights, LTC rect lights; or raytraced point-light
-shadows) -> TAA (reproject, history resolve) -> post (sharpen, tonemap)
--> sRGB.
+skin (a skinned scene) -> update -> cull + LOD -> near clip, projection,
+back-face cull -> raster (depth + id) -> resolve (barycentrics, normal,
+uv, trilinear albedo) -> shade (ambient, point lights, LTC rect lights;
+or raytraced point-light shadows) -> TAA (reproject, history resolve) ->
+post (sharpen, tonemap) -> sRGB.
 """
 
 from __future__ import annotations
@@ -387,6 +389,26 @@ class Reference:
         self.mesh_base = torch.as_tensor(base, device=dev)
         self.mesh_count = torch.as_tensor(count, device=dev)
         self.mesh_min, self.mesh_max = f(np.stack(mn)), f(np.stack(mx))
+        # skinned meshes: rest vertices, normals and triangles, each
+        # vertex's rows of the frame's joint matrices (the skins' joint
+        # lists concatenated in order) and its weights, normalised
+        self.rest = (self.tri_pos, self.tri_n, self.mesh_min, self.mesh_max)
+        self.skins = []
+        row = 0
+        for sk in scene.skins:
+            m = scene.meshes[sk.mesh]
+            w = np.asarray(sk.weights, np.float32)
+            wsum = w.sum(-1, keepdims=True)
+            if not (wsum > 0.0).all():
+                raise ValueError("a skinned vertex has no weight")
+            self.skins.append(dict(
+                mesh=sk.mesh, v=f(m.vertices), n=f(m.normals),
+                tri=torch.as_tensor(m.indices.reshape(-1, 3).astype(np.int64),
+                                    device=dev),
+                rows=torch.as_tensor(row + np.asarray(sk.joints, np.int64),
+                                     device=dev),
+                w=f(w / wsum)))
+            row += len(sk.joint_list)
         n_mesh = len(scene.meshes)
         table = np.full((n_mesh, 4), -1, np.int64)
         thresh = np.zeros((n_mesh, 4), np.float32)
@@ -440,6 +462,36 @@ class Reference:
         ltc = np.load(os.path.join(_HERE, "ltc_tables.npz"))
         self.ltc1, self.ltc2 = f(ltc["ltc1"]), f(ltc["ltc2"])
         self._T = (0, self.T0.clone(), 0.0)  # (next frame, transforms, time)
+
+    # -- skinning: linear blend per vertex ----------------------------------
+    def posed(self, joint_mats):
+        """(tri_pos, tri_n, mesh_min, mesh_max) of the mesh pool posed by
+        `joint_mats` ((J, 4, 4), every skin's rows): each skinned vertex at
+        sum_k w_k M_k [v; 1], its normal normalize(sum_k w_k R_k n) read
+        at the pool's precision (oct32 words), de-indexed into its mesh's
+        triangle rows, and the mesh's box taken from the posed vertices.
+        Other meshes keep their rest rows."""
+        jm = torch.as_tensor(np.asarray(joint_mats, np.float32),
+                             device=self.dev).to(self.ft)
+        tri_pos, tri_n, mn, mx = (x.clone() for x in self.rest)
+        for sk in self.skins:
+            M = jm[sk["rows"]]  # (V, 4, 4, 4)
+            w = sk["w"]
+            pos = torch.zeros_like(sk["v"])
+            nrm = torch.zeros_like(sk["n"])
+            for k in range(4):
+                R = M[:, k, :3, :3]
+                pos = pos + w[:, k, None] * (mat3_vec(R, sk["v"])
+                                             + M[:, k, :3, 3])
+                nrm = nrm + w[:, k, None] * mat3_vec(R, sk["n"])
+            nrm = oct_decode(oct_encode(normalize(nrm)), self.ft)
+            b = int(self.mesh_base[sk["mesh"]])
+            c = int(self.mesh_count[sk["mesh"]])
+            tri_pos[b:b + c] = pos[sk["tri"]]
+            tri_n[b:b + c] = nrm[sk["tri"]]
+            mn[sk["mesh"]] = pos.amin(0)
+            mx[sk["mesh"]] = pos.amax(0)
+        return tri_pos, tri_n, mn, mx
 
     # -- update (compute_update.wgsl:12-28) --------------------------------
     def transforms(self, frame, dt):
@@ -937,10 +989,17 @@ class Reference:
         return (tm0 + (tm1 - tm0) * (bt * bt)[..., None]) * 0.97
 
     # -- one frame -------------------------------------------------------------
-    def frame(self, frame, cam, dt, history=None):
+    def frame(self, frame, cam, dt, history=None, joint_mats=None):
         """The sRGB image of frame `frame` at camera uniform `cam`, and the
         TAA history it leaves. `history`: the (H, W, 3) history the frame
-        reads (None on the first frame, which seeds it)."""
+        reads (None on the first frame, which seeds it). `joint_mats`: the
+        frame's (J, 4, 4) joint matrices, required where the scene has
+        skins; the cull, the raster and the shadow rays see that pose."""
+        if self.skins:
+            if joint_mats is None:
+                raise ValueError("the scene has skins: pass joint_mats")
+            (self.tri_pos, self.tri_n, self.mesh_min,
+             self.mesh_max) = self.posed(joint_mats)
         T = self.transforms(frame, dt)
         inst, mesh = self.draws(T, cam)
         st = self.setup(T, cam, inst, mesh)

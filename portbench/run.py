@@ -9,11 +9,14 @@ sizes, the Renderer's options and capacities) under a traffic mix
 (traffic/<mix>.json: the camera's path and the frame step). The run
 makes the scene from the seed, builds the port's Renderer on the card,
 renders the traffic's warm-up frames (set-up ends there), then renders
-frames in a closed loop for --seconds: a frame is one Renderer.render
-followed by the host's read of that frame's gate counters (overflow,
-exhausted shadow rays, coverage, a finite image), which waits for the
-frame to finish. A frame fails a gate where overflow or exhausted rays
-are non-zero, nothing is covered or the image is not finite.
+frames in a closed loop for --seconds, ending on a whole lap of the
+camera's path and the scene's animation: a frame is one Renderer.render
+(handed that frame's joint matrices where the scene has skins: set-up
+computes one lap of them, pb/animation.py) followed by the host's read
+of that frame's gate counters (overflow, exhausted shadow rays,
+coverage, a finite image), which waits for the frame to finish. A frame
+fails a gate where overflow or exhausted rays are non-zero, nothing is
+covered or the image is not finite.
 
 --trace 0 prints the cell's end-to-end metrics: frame_ms (window wall
 time / frames), frame_ms_p95 (95th percentile of the frames' wall
@@ -86,11 +89,14 @@ def load_cell(name):
 class Frames:
     """The closed frame loop over the traffic's camera path."""
 
-    def __init__(self, renderer, path, config):
+    def __init__(self, renderer, path, config, joints=None):
         from pb import program
 
         self.r = renderer
         self.path = path
+        # a skinned scene's joint matrices of one lap of its animation
+        # ((P, J, 4, 4), joint_table): frame f is handed row f % P
+        self.joints = joints
         self.program = program
         self.W, self.H = config["width"], config["height"]
         self.taa = config["renderer"]["enable_taa"]
@@ -129,7 +135,11 @@ class Frames:
         if slot is not None and self.taa and self.r.state.history_valid:
             before = slot[1].copy_(self.r.state.history, non_blocking=True)
         cam = self.program.camera(self.path.pose(f), self.W, self.H)
-        img = self.r.render(cam, dt=self.path.dt)
+        if self.joints is None:
+            img = self.r.render(cam, dt=self.path.dt)
+        else:
+            img = self.r.render(cam, dt=self.path.dt,
+                                joint_mats=self.joints[f % len(self.joints)])
         aux = self.r.aux
         zero = torch.zeros((), dtype=torch.int64, device=img.device)
         g = torch.stack([aux["overflow"].to(torch.int64).reshape(()),
@@ -196,13 +206,28 @@ def main():
     return 0
 
 
+def joint_table(scene, path, device):
+    """A skinned scene's joint matrices of every frame of one lap of its
+    animation (pb/animation.py period_table), (P, J, 4, 4) f32 in host
+    memory, pinned where the frames run on a card; None without skins."""
+    import torch
+
+    from pb import animation
+
+    if not scene.skins:
+        return None
+    table = torch.from_numpy(animation.period_table(scene, path.dt))
+    return table.pin_memory() if torch.device(device).type == "cuda" \
+        else table
+
+
 def run_cell(cell, per_layer, seed, seconds, trace, device, size=None):
     """One run of `cell` on `device`: (the result's JSON object, the
     check's numbers of each compared frame). `size` ((width, height))
     overrides the configuration's, for the CPU tests' tiny frames."""
     import torch
 
-    from pb import check, configs, program, stats, traffic
+    from pb import animation, check, configs, program, stats, traffic
 
     stamps = [("import", time.perf_counter())]
     config = configs.load(cell["config"])
@@ -210,8 +235,8 @@ def run_cell(cell, per_layer, seed, seconds, trace, device, size=None):
         config = dict(config, width=size[0], height=size[1])
     mix = traffic.load(cell["traffic"])
     limits = check.load_limits(cell["name"])
-    path = traffic.CameraPath(mix, config)
     scene = configs.build_scene(config, seed)
+    path = traffic.CameraPath(mix, config, animation.period(scene))
     stamps.append(("scene", time.perf_counter()))
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -219,7 +244,7 @@ def run_cell(cell, per_layer, seed, seconds, trace, device, size=None):
         torch.cuda.reset_peak_memory_stats(dev)
     renderer = program.make_renderer(config, scene, device)
     stamps.append(("renderer", time.perf_counter()))
-    loop = Frames(renderer, path, config)
+    loop = Frames(renderer, path, config, joint_table(scene, path, device))
     metric_mods = {m["name"]: importlib.import_module(f"metrics.{m['name']}")
                    for m in per_layer} if trace else {}
 

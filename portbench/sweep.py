@@ -29,16 +29,18 @@ def main():
     import torch
 
     import run
-    from pb import configs, program, traffic
+    from pb import animation, configs, program, traffic
     from voidin_tpu_torch.passes import raster
 
     if not torch.cuda.is_available():
         run.die("no CUDA device", 2)
     cell, _ = run.load_cell(args.workload)
     config = configs.load(cell["config"])
-    path = traffic.CameraPath(traffic.load(cell["traffic"]), config)
-    r = program.make_renderer(config, configs.build_scene(config, args.seed),
-                              "cuda")
+    scene = configs.build_scene(config, args.seed)
+    path = traffic.CameraPath(traffic.load(cell["traffic"]), config,
+                              animation.period(scene))
+    r = program.make_renderer(config, scene, "cuda")
+    joints = run.joint_table(scene, path, "cuda")
     seen = {}
     real_setup, real_bin = raster.triangle_setup, raster.bin_triangles_pairs
 
@@ -61,8 +63,10 @@ def main():
     try:
         for f in range(args.frames):
             pos, yaw, pitch = path.pose(f)
+            pose = {} if joints is None else {
+                "joint_mats": joints[f % len(joints)]}
             r.render(program.camera((pos, yaw, pitch), config["width"],
-                                    config["height"]), dt=path.dt)
+                                    config["height"]), dt=path.dt, **pose)
             row = {k: int(v) for k, v in seen.items()}
             row["draws"] = int(r.aux["draw_count"])
             row["overflow"] = int(r.aux["overflow"])

@@ -24,7 +24,8 @@ def test_bf16_control_fails(cell, config, mix, seed):
     scene = configs.build_scene(cfg, seed)
     ctl = Reference(scene, cfg, "cpu", dtype=torch.bfloat16)
     kept = check.render_frames(ctl, path, cfg,
-                               {f: (None, None, None) for f in range(2)})
+                               {f: (None, None, None) for f in range(2)},
+                               scene)
     per_frame = check.reference_numbers(cfg, path, scene, kept, "cpu")
     ok, numbers = check.verdict(per_frame, check.load_limits(cell))
     assert not ok, numbers

@@ -59,3 +59,35 @@ assert img.shape == (36, 64, 3)
     assert "torch" in names
     assert not names & {"jax", "jaxlib", "flax", "voidin_tpu",
                         "voidin_tpu_torch"}
+
+
+def test_animation_and_skinned_reference_load_no_program():
+    """pb/animation.py, and the reference posing a skinned scene (the
+    skinned fixture) from its joint matrices, load neither JAX nor the
+    JAX package nor the program."""
+    names = _loaded(f"""
+sys.path.insert(0, {os.path.join(HERE, "tests")!r})
+import numpy as np
+from pb import animation, camera, check, traffic
+from reference.render import Reference
+import skinned_fixture as fx
+cfg = dict(fx.config(), width=64, height=36)
+scene = fx.build(cfg["scene"], 5)
+path = traffic.CameraPath(traffic.load("static"), cfg,
+                          animation.period(scene))
+ref = Reference(scene, cfg, "cpu")
+out = check.render_frames(ref, path, cfg, {{7: (None, None, None)}}, scene)
+assert out[7][0].shape == (36, 64, 3)
+""")
+    assert "torch" in names and "numpy" in names
+    assert not names & {"jax", "jaxlib", "flax", "voidin_tpu",
+                        "voidin_tpu_torch"}
+
+
+def test_animation_imports_numpy_alone():
+    names = _loaded("""
+import pb.animation
+""")
+    assert "numpy" in names
+    assert not names & {"torch", "jax", "jaxlib", "flax", "voidin_tpu",
+                        "voidin_tpu_torch"}
