@@ -14,6 +14,12 @@ Plain PyTorch, as the JAX package's is plain jnp. The sums round as the
 JAX functions do when called op by op: the joint blend in jnp.sum's order,
 each ``einsum`` of a 3-vector (XLA's dot) as a chain of fused
 multiply-adds (fastmath.dot_fma).
+
+The work is counted in the profiler's innermost open scope
+(``update.skin``, ``update.refit``) from sizes known when the scene was
+built, so counting launches nothing and waits for nothing: ``skin.tris``
+(triangles posed), ``skin.joints`` (joint rows handed in) and
+``refit.nodes`` (nodes of each BLAS refit plan and of the TLAS).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import encoding, fastmath
+from ..framework import profiler
 
 
 @dataclasses.dataclass
@@ -126,6 +133,7 @@ def apply_skin(meshes, skin: SkinData, joint_mats: torch.Tensor):
     tan = _unit(_rotate(R, skin.rest_tan))
 
     t = pos.shape[0]
+    profiler.count("skin.tris", t)
     rows = slice(skin.base_tri, skin.base_tri + t)
     tri_pos = meshes.tri_pos.clone()
     tri_pos[rows] = pos.reshape(t, 9)
@@ -151,6 +159,7 @@ def refit_blas(meshes, skin: SkinData, pos: torch.Tensor):
     its children's node AABBs and scatters the unions into copies of the
     pool node arrays. The topology (and the pool's triangle permutation)
     stays as built."""
+    profiler.count("refit.nodes", skin.refit_order.shape[0])
     tri_min = pos.amin(dim=1)  # (T, 3) skin-local triangle AABBs
     tri_max = pos.amax(dim=1)
     leaf_tri = skin.refit_leaf_tri.long()  # (B, C), -1 pad
@@ -180,6 +189,7 @@ def refit_blas(meshes, skin: SkinData, pos: torch.Tensor):
 
 
 def apply_skins(meshes, skins, joint_mats):
+    profiler.count("skin.joints", joint_mats.shape[0])
     for s in skins:
         meshes = apply_skin(meshes, s, joint_mats)
     return meshes
@@ -193,6 +203,7 @@ def refit_tlas(tlas, meshes, instances):
     topology stays as built. A new TlasData; None passes through."""
     if tlas is None:
         return tlas
+    profiler.count("refit.nodes", tlas.refit_order.shape[0])
     mesh_id = instances.mesh_id.long()
     mn = meshes.mesh_min[mesh_id]  # (N, 3)
     mx = meshes.mesh_max[mesh_id]
