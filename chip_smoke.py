@@ -78,10 +78,13 @@ native/texture_packer.cpp, the host C++ compiler), then:
      size (512x288);
  12. the skinned frame (skin_phases): config 5 with its knot a 2-joint
      skin (weights by height) bent by a new pose each frame, raytraced
-     shadows, 12 frames at 1920x1080 (overflow 0, rt_exhausted 0, K1 and
-     the shadow kernel once a frame), the last pose's refit BLAS and TLAS
+     shadows, 12 frames at 1920x1080 (overflow 0, rt_exhausted 0, K1, the
+     shadow kernel and the three skin kernels once a frame), the last pose's refit BLAS and TLAS
      valid and tight on the card, and the scene at 320x184 on the card
-     against the CPU twins (mean 5e-3);
+     against the CPU twins (mean 5e-3); then the skin kernels at the
+     walking crowd's shapes (skin_kernel_phases): pose, BLAS refit and
+     TLAS refit against the chain at three frames of the walk, every word
+     equal, each timed beside its bound;
  13. the ring light (ring_phases): the golden ring_light scene at 160x96
      on the card against tests/golden/ring_light.png and the CPU twins
      (mean 5e-3), 12 frames of it at 1920x1080 (K1 and the fused LTC ring
@@ -98,7 +101,8 @@ native/texture_packer.cpp, the host C++ compiler), then:
      moving instances; config 4 posed by clapper_joint_mats at the
      Renderer's time), 12 frames each: overflow 0, K1 base once a frame,
      the fused LTC kernel once a frame on the presets with area lights
-     (3, 4, 6, 7) and never on 1 and 2, every other kernel never; on
+     (3, 4, 6, 7) and never on 1 and 2, the pose and BLAS refit kernels
+     once a frame on config 4, every other kernel never; on
      config 4 the last pose's refit BLAS of both arms valid and tight and
      frames 0 and 6 different; before each run, K1 base and the fused LTC
      kernel held against their twins (every word equal) on the inputs
@@ -495,6 +499,7 @@ def launch_counters():
     from voidin_tpu_torch.ops import lut_fetch as lf
     from voidin_tpu_torch.ops import resolve as rs
     from voidin_tpu_torch.ops import shadow_trace as st
+    from voidin_tpu_torch.ops import skin as sk
 
     return dict(k1=(fr, "LAUNCHES"), k1_track2=(fr, "LAUNCHES_TRACK2"),
                 k1_payload=(fr, "LAUNCHES_PAYLOAD"),
@@ -508,7 +513,22 @@ def launch_counters():
                 shadow_trace=(st, "LAUNCHES"),
                 shadow_pack=(st, "LAUNCHES_PACK"),
                 closest_hit=(ch, "LAUNCHES"),
-                resolve_dense=(rs, "LAUNCHES"))
+                resolve_dense=(rs, "LAUNCHES"),
+                skin_pose=(sk, "LAUNCHES"), blas_refit=(sk, "LAUNCHES_BLAS"),
+                tlas_refit=(sk, "LAUNCHES_TLAS"))
+
+
+def skin_launches(scene, frames):
+    """The skin kernels' launches in `frames` posed Renderer frames of
+    `scene` (a SceneData on the card): the pose once a frame where it has
+    skins, the BLAS refit where one of them has a refit plan, the TLAS
+    refit where it has a TLAS too; none without skins."""
+    if not scene.skins:
+        return {}
+    return dict(skin_pose=frames,
+                blas_refit=frames * any(s.refit_order is not None
+                                        for s in scene.skins),
+                tlas_refit=frames * (scene.tlas is not None))
 
 
 def reset_launches():
@@ -1799,7 +1819,8 @@ def skin_phases(dev, card):
     (overflow 0, no shadow ray at the step limit, K1 and the shadow kernel
     launched once a frame), the last pose's refit BLAS and TLAS valid and
     tight (refit_violations), then the scene at 320x184 on the card against
-    the port's CPU render (mean 5e-3). Returns the median ms/frame."""
+    the port's CPU render (mean 5e-3). Returns the frames' launches by
+    counter (the skin kernels once a frame each)."""
     import torch
 
     import voidin_tpu_torch as pt
@@ -1813,9 +1834,9 @@ def skin_phases(dev, card):
     reset_launches()
     out, times, mem = run_frames(r, p.camera, "skinned config 5",
                                  knot_joint_mats)
-    expect_launches("skinned config 5", dict(k1=FRAMES, shadow_trace=FRAMES,
-                                             shadow_pack=FRAMES,
-                                             resolve_dense=FRAMES))
+    launches = expect_launches("skinned config 5", dict(
+        k1=FRAMES, shadow_trace=FRAMES, shadow_pack=FRAMES,
+        resolve_dense=FRAMES, **skin_launches(scene, FRAMES)))
     ms = float(np.median(times[2:]))
     n_inst = int((scene.instances.mesh_id == knot).sum())
     print(f"skinned config 5 {WIDTH}x{HEIGHT} (the knot a 2-joint skin of "
@@ -1835,7 +1856,8 @@ def skin_phases(dev, card):
     if differ or int(got.exhausted) or int(want.exhausted):
         fail("shadow_trace disagrees with its twin on the skinned frame")
     jm = torch.from_numpy(knot_joint_mats(FRAMES - 1)).to(dev)
-    meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm)
+    meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm,
+                                  batch=scene.skin_batch)
     tlas = skin_mod.refit_tlas(scene.tlas, meshes, scene.instances)
     bad = refit_violations(world, knot, meshes, tlas, scene.instances)
     moved = float((meshes.bvh_max - scene.meshes.bvh_max).abs().max())
@@ -1863,7 +1885,122 @@ def skin_phases(dev, card):
           f"vs the CPU twins {diff:.3e} (budget {GOLDEN_BUDGET})", flush=True)
     if not (np.isfinite(imgs["card"]).all() and diff < GOLDEN_BUDGET):
         fail("the small skinned frame on the card disagrees with the CPU")
-    return ms
+    return launches
+
+
+CROWD_SEED = 2 ** 31 + 99
+
+
+def skin_bound(n_tri):
+    """The pose kernel must read each posed corner's rest position, normal
+    and tangent (36 B), four weights (16 B) and four joint indices at one
+    byte each (4 B), and write its position (12 B) and two octahedral
+    words (8 B): 228 B a triangle (portbench/roofline/skin.py)."""
+    return bound_ms(228 * n_tri, 0)
+
+
+def blas_refit_bound(skins):
+    """The BLAS refit must read each leaf triangle's posed row (36 B) and
+    each plan row's node and child (8 B), and write each node's box (24
+    B)."""
+    plans = [s for s in skins if s.refit_order is not None]
+    n_leaf_tri = sum(int((s.refit_leaf_tri >= 0).sum()) for s in plans)
+    n_nodes = sum(s.refit_order.shape[0] for s in plans)
+    return bound_ms(36 * n_leaf_tri + 32 * n_nodes, 0)
+
+
+def tlas_refit_bound(tlas):
+    """The TLAS refit must read each leaf's instance transform rows (48
+    B), mesh id and mesh box (28 B), each plan row's node, children and
+    instance (16 B), and write each node's box (24 B)."""
+    n_leaves = int((tlas.refit_child[:, 0] < 0).sum())
+    return bound_ms(76 * n_leaves + 40 * tlas.refit_order.shape[0], 0)
+
+
+def skin_kernel_phases(dev, card):
+    """The skin kernels at the walking crowd's shapes (portbench's
+    rtshadows_crowd recipe: 32 skins, 369,152 triangles, 1,760 joint rows,
+    32 BLAS of 19 levels, its TLAS): scene/skin.py's CUDA route against
+    the chain on the card at frames 0, 17 and 45 of the walk (every word
+    of the posed rows, mesh boxes, BLAS and TLAS nodes equal), then each
+    kernel timed over 50 calls by call and on the device beside its bound,
+    and its part of the chain by call. Returns {name: row}."""
+    import torch
+
+    from voidin_tpu_torch.ops import skin as skin_ops
+    from voidin_tpu_torch.scene import skin as skin_mod
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if os.path.join(root, "portbench") not in sys.path:
+        sys.path.insert(0, os.path.join(root, "portbench"))
+    from pb import animation, configs
+    from pb import scene as pb_scene
+
+    crowd = configs.build_scene(configs.load("rtshadows_crowd"), CROWD_SEED)
+    data = pb_scene.to_world(crowd).device(dev, with_tlas=True)
+    m, skins, inst = data.meshes, data.skins, data.instances
+
+    def joints(frame):
+        return torch.from_numpy(
+            animation.joint_matrices(crowd, frame, 1 / 60)).to(dev)
+
+    for frame in (0, 17, 45):
+        jm = joints(frame)
+        got = skin_mod.apply_skins(m, skins, jm, batch=data.skin_batch)
+        want = skin_mod.apply_skins_reference(m, skins, jm)
+        got_t = skin_mod.refit_tlas(data.tlas, got, inst)
+        want_t = skin_mod.refit_tlas_reference(data.tlas, want, inst)
+        differ = {k: words_differ(getattr(got, k), getattr(want, k))
+                  for k in ("tri_pos", "tri_attr_packed", "mesh_min",
+                            "mesh_max", "bvh_min", "bvh_max")}
+        differ.update({k: words_differ(getattr(got_t, k), getattr(want_t, k))
+                       for k in ("tlas_min", "tlas_max")})
+        print(f"skin kernels, the crowd at frame {frame}: differing words "
+              f"{differ} ({card})", flush=True)
+        if any(differ.values()):
+            fail(f"the skin kernels disagree with the chain at frame {frame}")
+
+    jm = joints(17)
+    batch = data.skin_batch
+    posed = skin_mod.apply_skins(m, skins, jm, batch=batch)
+    outs = [m.tri_pos.clone(), m.tri_attr_packed.clone(), m.mesh_min.clone(),
+            m.mesh_max.clone()]
+    bvh = [m.bvh_min.clone(), m.bvh_max.clone()]
+    tlas = [data.tlas.tlas_min.clone(), data.tlas.tlas_max.clone()]
+    unplanned = tuple(dataclasses.replace(s, refit_order=None)
+                      for s in skins)
+    pos = [posed.tri_pos[s.base_tri:s.base_tri + s.rest_pos.shape[0]]
+           .reshape(-1, 3, 3) for s in skins]
+
+    def blas_chain():
+        mm = posed
+        for s, p in zip(skins, pos):
+            mm = skin_mod.refit_blas(mm, s, p)
+
+    rows = dict(
+        skin_pose=timed_row(
+            lambda: skin_ops.pose_skins(batch, jm, *outs), "skin_pose_kernel",
+            50, lambda: skin_mod.apply_skins_reference(m, unplanned, jm), 3,
+            skin_bound(batch.n_tri), 0.0),
+        blas_refit=timed_row(
+            lambda: skin_ops.refit_blas(batch, posed.tri_pos, *bvh),
+            "blas_refit_kernel", 50, blas_chain, 3, blas_refit_bound(skins),
+            0.0),
+        tlas_refit=timed_row(
+            lambda: skin_ops.refit_tlas(data.tlas, posed.mesh_min,
+                                        posed.mesh_max, inst.mesh_id,
+                                        inst.transform, *tlas),
+            "tlas_refit_kernel", 50,
+            lambda: skin_mod.refit_tlas_reference(data.tlas, posed, inst), 3,
+            tlas_refit_bound(data.tlas), 0.0))
+    rows["skin_pose"].update(triangles=batch.n_tri, skins=batch.n_skins)
+    rows["blas_refit"].update(nodes=batch.refit_nodes,
+                              levels=batch.step_first.shape[0])
+    rows["tlas_refit"].update(nodes=data.tlas.refit_order.shape[0])
+    for name, r in rows.items():
+        print(f"{name} (the crowd, frame 17): {timing(r)} ({card})",
+              flush=True)
+    return rows
 
 
 def ltc_ring_bound(n_px):
@@ -2104,7 +2241,8 @@ def preset_phases(dev, card):
         keep = {0: None, 6: None} if w.skins else None
         reset_launches()
         out, times, mem = run_frames(r, p.camera, label, joint_mats, keep)
-        want = dict(k1=FRAMES, **{k: FRAMES for k in extra})
+        want = dict(k1=FRAMES, **{k: FRAMES for k in extra},
+                    **skin_launches(scene, FRAMES))
         got = expect_launches(label, want)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
@@ -2116,7 +2254,8 @@ def preset_phases(dev, card):
               f"{out.std():.4f}", flush=True)
         if w.skins:
             jm = torch.from_numpy(p.animator(r.time - 1.0 / 60.0)).to(dev)
-            meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm)
+            meshes = skin_mod.apply_skins(scene.meshes, scene.skins, jm,
+                                          batch=scene.skin_batch)
             bad = [refit_violations(w, s.mesh_id, meshes, None,
                                     scene.instances) for s in w.skins]
             moved = float(np.abs(keep[6] - keep[0]).mean())
@@ -2184,7 +2323,8 @@ def import_phases(dev, card):
     reset_launches()
     out, times, mem = run_frames(r, cam, "import",
                                  lambda i: import_joint_mats(animator, i))
-    got = expect_launches("import", dict(k1=FRAMES, ltc_rect=FRAMES))
+    got = expect_launches("import", dict(k1=FRAMES, ltc_rect=FRAMES,
+                                         **skin_launches(scene, FRAMES)))
     ms = float(np.median(times[2:]))
     print(f"import scene {WIDTH}x{HEIGHT}: median {ms:.3f} ms/frame over "
           f"frames 3-{FRAMES} ({card}); {mem}; image mean {out.mean():.4f} "
@@ -2826,8 +2966,9 @@ def main():
     stamp("phase 10 (raytraced shadows)")
     rows["closest_hit"], closest_launches = closest_phases(dev, card)
     stamp("phase 11 (closest hit)")
-    skin_phases(dev, card)
-    stamp("phase 12 (skinned)")
+    skin_main_launches = skin_phases(dev, card)
+    rows.update(skin_kernel_phases(dev, card))
+    stamp("phase 12 (skinned; the skin kernels at the crowd's shapes)")
     ring_rows, ring_launches, _ = ring_phases(dev, card)
     rows.update(ring_rows)
     stamp("phase 13 (ring light)")
@@ -2890,6 +3031,9 @@ def main():
         shadow_pack=(rt_launches["shadow_pack"]
                      + shard_launches["shadow_pack"]),
         closest_hit=closest_launches,
+        **{k: (skin_main_launches[k] + preset_launches[k]
+               + import_launches[k] + jpeg_launches[k])
+           for k in ("skin_pose", "blas_refit", "tlas_refit")},
         resolve_dense=(ns_launches["resolve_dense"]
                        + block_launches["resolve_dense"]
                        + rt_launches["resolve_dense"]
@@ -2934,6 +3078,13 @@ def main():
         # no TPU kernel: the JAX package's resolve in plain jnp
         resolve_dense=("voidin_tpu_torch/csrc/resolve.cu",
                        "voidin_tpu/passes/resolve.py:934"),
+        # no TPU kernel: the JAX package's skinning and refits in plain jnp
+        skin_pose=("voidin_tpu_torch/csrc/skin.cu",
+                   "voidin_tpu/scene/skin.py:74"),
+        blas_refit=("voidin_tpu_torch/csrc/skin.cu",
+                    "voidin_tpu/scene/skin.py:123"),
+        tlas_refit=("voidin_tpu_torch/csrc/skin.cu",
+                    "voidin_tpu/scene/skin.py:162"),
     )
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3466,8 +3617,8 @@ def image_import_phases(dev, card):
         reset_launches()
         out, times, mem = run_frames(r, cam, label,
                                      lambda i: import_joint_mats(animator, i))
-        got_launches = expect_launches(label, dict(k1=FRAMES,
-                                                   ltc_rect=FRAMES))
+        got_launches = expect_launches(label, dict(
+            k1=FRAMES, ltc_rect=FRAMES, **skin_launches(scene, FRAMES)))
         for k, n in got_launches.items():
             launches[k] = launches.get(k, 0) + n
         print(f"phase 19, {label} ({name}, {got.shape[1]}x{got.shape[0]}, "

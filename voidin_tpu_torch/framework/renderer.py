@@ -212,7 +212,8 @@ def _update_scene(scene, moving_ids, globals_, joint_mats):
     if scene.skins and joint_mats is not None:
         with profiler.scope("update.skin"):
             scene = dataclasses.replace(scene, meshes=skin_mod.apply_skins(
-                scene.meshes, scene.skins, joint_mats.to(dev)))
+                scene.meshes, scene.skins, joint_mats.to(dev),
+                batch=scene.skin_batch))
         if scene.tlas is not None:
             with profiler.scope("update.refit"):
                 scene = dataclasses.replace(scene, tlas=skin_mod.refit_tlas(

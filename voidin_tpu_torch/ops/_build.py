@@ -159,6 +159,10 @@ def load() -> ctypes.CDLL:
         lib.voidin_closest_hit_attrs.argtypes = [p]
         lib.voidin_resolve_dense.restype = i
         lib.voidin_resolve_dense.argtypes = [p, p, i, p]
+        for fn in (lib.voidin_skin_pose, lib.voidin_blas_refit,
+                   lib.voidin_tlas_refit):
+            fn.restype = i
+            fn.argtypes = [p, p, p]
         lib.voidin_error_string.restype = ctypes.c_char_p
         lib.voidin_error_string.argtypes = [i]
         _lib = lib

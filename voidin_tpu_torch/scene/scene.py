@@ -33,6 +33,9 @@ records that flag instead of the tables.
 ``World.skins`` holds the scene's skinning regions (``scene/skin.py``
 SkinData); ``SceneData.skins`` carries them to the device, leaves keyed
 "skins.<i>.<field>" and their static fields under ``statics["skins"]``.
+On a CUDA device ``scene_from_numpy`` also sets up the skin kernels
+(``ops/skin.py``) once: ``SceneData.skin_batch`` and
+``TlasData.refit_bounds``, which every frame's skinning and refits read.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import skin as skin_ops
 from ..rt import bvh as bvh_mod
 from . import mesh as mesh_mod
 from . import texture as tex_mod
@@ -77,6 +81,9 @@ class TlasData:
     refit_child: torch.Tensor  # (B, 2) i32
     refit_instance: torch.Tensor  # (B,) i32
     refit_levels: tuple = ()
+    # the levels' bounds (K + 1) i32 for the refit kernel (ops/skin.py
+    # tlas_bounds); set up on a CUDA device, else None
+    refit_bounds: Optional[torch.Tensor] = None
 
 
 TLAS_LEAVES = ("tlas_min", "tlas_max", "tlas_left_right", "tlas_instance",
@@ -96,8 +103,12 @@ def tlas_from_numpy(h: dict, device) -> TlasData:
             a = a.view(np.int32)
         return torch.as_tensor(a, device=device)
 
-    return TlasData(**{k: t(k) for k in TLAS_LEAVES},
-                    refit_levels=bvh_mod.tlas_refit_plan(nodes)["levels"])
+    levels = bvh_mod.tlas_refit_plan(nodes)["levels"]
+    device = torch.device(device)
+    return TlasData(**{k: t(k) for k in TLAS_LEAVES}, refit_levels=levels,
+                    refit_bounds=(skin_ops.tlas_bounds(
+                        levels, len(nodes), device)
+                        if device.type == "cuda" else None))
 
 
 @dataclasses.dataclass
@@ -126,6 +137,9 @@ class SceneData:
     # Vertex skinning regions (scene/skin.py SkinData), each recomputing
     # its pool triangle range from the frame's joint matrices
     skins: tuple = ()
+    # the skin kernels' set-up of `skins` (ops/skin.py SkinBatch) on a
+    # CUDA device with skins, else None
+    skin_batch: Optional[skin_ops.SkinBatch] = None
 
     @property
     def device(self) -> torch.device:
@@ -175,6 +189,8 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
         tlas=(tlas_from_numpy(group("tlas"), device)
               if "tlas.tlas_min" in leaves else None),
         skins=skins,
+        skin_batch=(skin_ops.skin_batch(skins)
+                    if skins and device.type == "cuda" else None),
         **flags,
     )
 

@@ -7,19 +7,28 @@ recomputes exactly those rows of its mesh from the rest pose and a (J, 4,
 4) array of joint matrices (joint world transform @ inverse bind, composed
 on the host each frame) and writes them into copies of the pool tables.
 The mesh AABB (frustum culling), the mesh's BLAS node AABBs and the TLAS
-node AABBs are then refit bottom-up over the fixed topology, one gather and
-one scatter per tree level.
+node AABBs are then refit bottom-up over the fixed topology.
 
-Plain PyTorch, as the JAX package's is plain jnp. The sums round as the
-JAX functions do when called op by op: the joint blend in jnp.sum's order,
-each ``einsum`` of a 3-vector (XLA's dot) as a chain of fused
-multiply-adds (fastmath.dot_fma).
+Two routes, one result. On CUDA tensors ``apply_skins`` poses every skin
+and refits every BLAS, and ``refit_tlas`` the TLAS, in the hand-written
+kernels of ops/skin.py (three launches a frame over the tables that
+scene_from_numpy set up once, SceneData.skin_batch and
+TlasData.refit_bounds; each pool table copied once a frame). On CPU
+tensors they run the plain PyTorch chain, which is the kernels' twin and
+is held to JAX: ``apply_skin`` per skin (one gather and one scatter per
+BLAS level in ``refit_blas``) and ``refit_tlas_reference``. The chain's
+sums round as the JAX functions do when called op by op: the joint blend
+in jnp.sum's order, each ``einsum`` of a 3-vector (XLA's dot) as a chain
+of fused multiply-adds (fastmath.dot_fma); its min and max take JAX's
+signed zeros (-0.0 below +0.0), which torch's reductions leave to their
+order.
 
 The work is counted in the profiler's innermost open scope
 (``update.skin``, ``update.refit``) from sizes known when the scene was
 built, so counting launches nothing and waits for nothing: ``skin.tris``
-(triangles posed), ``skin.joints`` (joint rows handed in) and
-``refit.nodes`` (nodes of each BLAS refit plan and of the TLAS).
+(triangles posed), ``skin.kernel_tris`` / ``skin.eager_tris`` (of them,
+posed by the kernel / by the chain), ``skin.joints`` (joint rows handed
+in) and ``refit.nodes`` (nodes of each BLAS refit plan and of the TLAS).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 
 from ..core import encoding, fastmath
 from ..framework import profiler
+from ..ops import skin as skin_ops
 
 
 @dataclasses.dataclass
@@ -114,6 +124,33 @@ def _unit(v):
     return v / torch.clamp(fastmath.norm3(v), min=1e-20)[..., None]
 
 
+# min and max with JAX's signed zeros: between -0.0 and +0.0 a min takes
+# -0.0 and a max +0.0, whatever the order (torch's choice follows its
+# reduction order); NaN passes through as in torch's.
+def _amin(x, dim):
+    m = x.amin(dim=dim)
+    neg = ((x == 0) & torch.signbit(x)).any(dim=dim)
+    return torch.where((m == 0) & neg, -0.0, m)
+
+
+def _amax(x, dim):
+    m = x.amax(dim=dim)
+    pos = ((x == 0) & ~torch.signbit(x)).any(dim=dim)
+    return torch.where((m == 0) & pos, 0.0, m)
+
+
+def _minimum(a, b):
+    m = torch.minimum(a, b)
+    return torch.where((m == 0) & (torch.signbit(a) | torch.signbit(b)),
+                       -0.0, m)
+
+
+def _maximum(a, b):
+    m = torch.maximum(a, b)
+    return torch.where((m == 0) & ~(torch.signbit(a) & torch.signbit(b)),
+                       0.0, m)
+
+
 def apply_skin(meshes, skin: SkinData, joint_mats: torch.Tensor):
     """Skin one mesh region: a new MeshPoolData whose rows of the region
     (tri_pos, tri_attr_packed), mesh AABB and, with a refit plan, BLAS
@@ -134,6 +171,7 @@ def apply_skin(meshes, skin: SkinData, joint_mats: torch.Tensor):
 
     t = pos.shape[0]
     profiler.count("skin.tris", t)
+    profiler.count("skin.eager_tris", t)
     rows = slice(skin.base_tri, skin.base_tri + t)
     tri_pos = meshes.tri_pos.clone()
     tri_pos[rows] = pos.reshape(t, 9)
@@ -143,8 +181,8 @@ def apply_skin(meshes, skin: SkinData, joint_mats: torch.Tensor):
     flat = pos.reshape(-1, 3)
     mesh_min = meshes.mesh_min.clone()
     mesh_max = meshes.mesh_max.clone()
-    mesh_min[skin.mesh_id] = flat.amin(dim=0)
-    mesh_max[skin.mesh_id] = flat.amax(dim=0)
+    mesh_min[skin.mesh_id] = _amin(flat, 0)
+    mesh_max[skin.mesh_id] = _amax(flat, 0)
     meshes = dataclasses.replace(meshes, tri_pos=tri_pos,
                                  tri_attr_packed=tri_attr,
                                  mesh_min=mesh_min, mesh_max=mesh_max)
@@ -153,21 +191,28 @@ def apply_skin(meshes, skin: SkinData, joint_mats: torch.Tensor):
     return meshes
 
 
-def refit_blas(meshes, skin: SkinData, pos: torch.Tensor):
-    """Bottom-up BLAS AABB refit from the skinned (T, 3, 3) positions: each
-    level of the plan (deepest first) gathers its leaves' triangle AABBs or
-    its children's node AABBs and scatters the unions into copies of the
-    pool node arrays. The topology (and the pool's triangle permutation)
-    stays as built."""
+def refit_blas(meshes, skin, pos):
+    """Bottom-up BLAS AABB refit. The chain (`skin` a SkinData, `pos` its
+    skinned (T, 3, 3) positions): each level of the plan (deepest first)
+    gathers its leaves' triangle AABBs or its children's node AABBs and
+    scatters the unions into copies of the pool node arrays. The kernel
+    (`skin` the scene's ops/skin.py SkinBatch, `pos` the frame's posed
+    tri_pos): every refittable BLAS of the batch in one launch. The
+    topology (and the pool's triangle permutation) stays as built."""
+    if isinstance(skin, skin_ops.SkinBatch):
+        profiler.count("refit.nodes", skin.refit_nodes)
+        bmin, bmax = meshes.bvh_min.clone(), meshes.bvh_max.clone()
+        skin_ops.refit_blas(skin, pos, bmin, bmax)
+        return dataclasses.replace(meshes, bvh_min=bmin, bvh_max=bmax)
     profiler.count("refit.nodes", skin.refit_order.shape[0])
-    tri_min = pos.amin(dim=1)  # (T, 3) skin-local triangle AABBs
-    tri_max = pos.amax(dim=1)
+    tri_min = _amin(pos, 1)  # (T, 3) skin-local triangle AABBs
+    tri_max = _amax(pos, 1)
     leaf_tri = skin.refit_leaf_tri.long()  # (B, C), -1 pad
     valid = (leaf_tri >= 0)[..., None]
     safe = leaf_tri.clamp(min=0)
     inf = torch.tensor(float("inf"), device=pos.device)
-    lmin = torch.where(valid, tri_min[safe], inf).amin(dim=1)  # (B, 3)
-    lmax = torch.where(valid, tri_max[safe], -inf).amax(dim=1)
+    lmin = _amin(torch.where(valid, tri_min[safe], inf), 1)  # (B, 3)
+    lmax = _amax(torch.where(valid, tri_max[safe], -inf), 1)
 
     bmin, bmax = meshes.bvh_min.clone(), meshes.bvh_max.clone()
     base = skin.bvh_base
@@ -181,15 +226,46 @@ def refit_blas(meshes, skin: SkinData, pos: torch.Tensor):
         # XLA clamps an out-of-range gather)
         c0 = base + child.clamp(min=0)
         c1 = (c0 + 1).clamp(max=bmin.shape[0] - 1)
-        cmin = torch.minimum(bmin[c0], bmin[c1])
-        cmax = torch.maximum(bmax[c0], bmax[c1])
+        cmin = _minimum(bmin[c0], bmin[c1])
+        cmax = _maximum(bmax[c0], bmax[c1])
         bmin[ids] = torch.where(is_leaf, lmin[s:e], cmin)
         bmax[ids] = torch.where(is_leaf, lmax[s:e], cmax)
     return dataclasses.replace(meshes, bvh_min=bmin, bvh_max=bmax)
 
 
-def apply_skins(meshes, skins, joint_mats):
+def apply_skins(meshes, skins, joint_mats, batch=None):
+    """Every skin of `skins` posed by `joint_mats` ((J, 4, 4) f32, all
+    skins' rows), with the BLAS refits: a new MeshPoolData (see
+    apply_skin). On CUDA tensors the kernels of ops/skin.py over `batch`,
+    the skins' set-up (SceneData.skin_batch): one copy of each pool table,
+    the pose and the BLAS refit (through this module's refit_blas) in two
+    launches. On CPU tensors the chain, apply_skins_reference."""
     profiler.count("skin.joints", joint_mats.shape[0])
+    if not skins:
+        return meshes
+    if not meshes.tri_pos.is_cuda:
+        return apply_skins_reference(meshes, skins, joint_mats)
+    if batch is None or batch.n_skins != len(skins):
+        raise ValueError("CUDA skins pose through their set-up: pass "
+                         "batch=SceneData.skin_batch (ops/skin.py skin_batch)")
+    profiler.count("skin.tris", batch.n_tri)
+    profiler.count("skin.kernel_tris", batch.n_tri)
+    tri_pos = meshes.tri_pos.clone()
+    tri_attr = meshes.tri_attr_packed.clone()
+    mesh_min = meshes.mesh_min.clone()
+    mesh_max = meshes.mesh_max.clone()
+    skin_ops.pose_skins(batch, joint_mats, tri_pos, tri_attr, mesh_min,
+                        mesh_max)
+    meshes = dataclasses.replace(meshes, tri_pos=tri_pos,
+                                 tri_attr_packed=tri_attr,
+                                 mesh_min=mesh_min, mesh_max=mesh_max)
+    if batch.refit_nodes:
+        meshes = refit_blas(meshes, batch, tri_pos)
+    return meshes
+
+
+def apply_skins_reference(meshes, skins, joint_mats):
+    """The chain on any device: apply_skin for each skin in turn."""
     for s in skins:
         meshes = apply_skin(meshes, s, joint_mats)
     return meshes
@@ -199,11 +275,25 @@ def refit_tlas(tlas, meshes, instances):
     """Bottom-up TLAS AABB refit: each instance's world AABB from its
     (refit) mesh AABB's 8 corners through the instance transform (as
     World.build_tlas builds them, rt/bvh.py instance_world_aabbs), then
-    parents take the union of their children, deepest level first. The
-    topology stays as built. A new TlasData; None passes through."""
+    parents take the union of their children. The topology stays as
+    built. A new TlasData; None passes through. On CUDA tensors one launch
+    of ops/skin.py's TLAS kernel over a copy of the node boxes (by
+    TlasData.refit_bounds); on CPU tensors the chain,
+    refit_tlas_reference."""
     if tlas is None:
         return tlas
     profiler.count("refit.nodes", tlas.refit_order.shape[0])
+    if not tlas.tlas_min.is_cuda:
+        return refit_tlas_reference(tlas, meshes, instances)
+    bmin, bmax = tlas.tlas_min.clone(), tlas.tlas_max.clone()
+    skin_ops.refit_tlas(tlas, meshes.mesh_min, meshes.mesh_max,
+                        instances.mesh_id, instances.transform, bmin, bmax)
+    return dataclasses.replace(tlas, tlas_min=bmin, tlas_max=bmax)
+
+
+def refit_tlas_reference(tlas, meshes, instances):
+    """The chain of refit_tlas on any device: the instance AABBs, then one
+    gather and one scatter per TLAS level, deepest first."""
     mesh_id = instances.mesh_id.long()
     mn = meshes.mesh_min[mesh_id]  # (N, 3)
     mx = meshes.mesh_max[mesh_id]
@@ -212,8 +302,8 @@ def refit_tlas(tlas, meshes, instances):
     corners = torch.where(pick, mx[:, None], mn[:, None])  # (N, 8, 3)
     t = instances.transform
     world = _rotate(t[:, None, :3, :3], corners) + t[:, None, :3, 3]
-    imin = world.amin(dim=1)  # (N, 3)
-    imax = world.amax(dim=1)
+    imin = _amin(world, 1)  # (N, 3)
+    imax = _amax(world, 1)
 
     bmin, bmax = tlas.tlas_min.clone(), tlas.tlas_max.clone()
     order = tlas.refit_order.long()
@@ -227,9 +317,9 @@ def refit_tlas(tlas, meshes, instances):
         c0 = child[:, 0].clamp(min=0)
         c1 = child[:, 1].clamp(min=0)
         bmin[ids] = torch.where(is_leaf, imin[safe_i],
-                                torch.minimum(bmin[c0], bmin[c1]))
+                                _minimum(bmin[c0], bmin[c1]))
         bmax[ids] = torch.where(is_leaf, imax[safe_i],
-                                torch.maximum(bmax[c0], bmax[c1]))
+                                _maximum(bmax[c0], bmax[c1]))
     return dataclasses.replace(tlas, tlas_min=bmin, tlas_max=bmax)
 
 
