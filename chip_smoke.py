@@ -194,14 +194,12 @@ native/texture_packer.cpp, the host C++ compiler), then:
      elsewhere only at K1's ties); then one masked frame with slim_rec,
      which falls back to fused_resolve_rec + inst_rec_f16, word for word
      the frame of that config.
- 21. the quad-block samplers (sampler_phases): config 6's World.device()
-     ms without and with the tap-block tables (twice each), then the
-     north star (build_world(10_000, seed=0), its moving instances, TAA)
-     and config 6 (104 textures of 256^2, 32 knots, TAA) at 1920x1080,
-     12 frames each of the default config and of tap_block,
-     taa_quad_history (einsum select), taa_quad_history +
-     taa_quad_where, taa_inwindow and tap_block + taa_quad_history, at
-     edge capacities sized from the samplers' largest edge counts over 12
+ 21. the TAA history samplers (sampler_phases): the north star
+     (build_world(10_000, seed=0), its moving instances, TAA) and config 6
+     (104 textures of 256^2, 32 knots, TAA) at 1920x1080, 12 frames each
+     of the default config and of taa_quad_history (einsum select),
+     taa_quad_history + taa_quad_where and taa_inwindow, at edge
+     capacities sized from the samplers' largest edge counts over 12
      frames (printed; sampler_counts): each with K1 and the fused LTC
      kernel held against their twins on its first frame, every frame word
      for word the default set's frame of the same index, overflow 0, its
@@ -216,7 +214,7 @@ wherever the scene has no alpha mask and const emissive and
 metallic-roughness maps and none of the record and coherent options of
 passes/resolve.py takes_dense_kernel is on, never elsewhere (the import
 scenes' emissive map, the masked scene, slim_rec and the other record
-options, tap_block); wherever a phase holds K1 and the fused LTC kernel
+options); wherever a phase holds K1 and the fused LTC kernel
 against their twins on a frame's inputs, the dense resolve kernel is held
 against its twin there too where that frame calls it. Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
@@ -679,7 +677,7 @@ RESOLVE_PX_BYTES = 8 + 60
 # (passes/resolve.py takes_dense_kernel), besides an alpha-masked scene
 # and sampled emissive or metallic-roughness.
 RESOLVE_EAGER_OPTIONS = ("slot_resolve", "quad_rate_resolve", "slim_rec",
-                         "tap_block", "fused_resolve_rec", "fused_inst_rec",
+                         "fused_resolve_rec", "fused_inst_rec",
                          "inst_rec_f16")
 
 
@@ -2167,8 +2165,8 @@ PRESET_RUNS = {
 
 def preset_renderer(p, scene, width, height, mesh=None, **options):
     """A Renderer for preset `p` wired as bench.py:458-501 wires it: the
-    preset's capacities (its edge capacities of quad_rate_resolve,
-    taa_quad_history and tap_block included), cull / TAA /
+    preset's capacities (its edge capacities of quad_rate_resolve and
+    taa_quad_history included), cull / TAA /
     raytraced-shadow flags and moving instances, plus the RasterConfig
     `options` (which win over the preset's); row-sharded over `mesh`
     where given."""
@@ -2178,8 +2176,7 @@ def preset_renderer(p, scene, width, height, mesh=None, **options):
     caps = dict(tri_capacity=p.tri_capacity, pair_capacity=p.pair_capacity,
                 tile_tri_capacity=p.tile_tri_capacity,
                 quad_edge_capacity=p.quad_edge_capacity,
-                taa_edge_capacity=p.taa_edge_capacity,
-                tap_edge_capacity=p.tap_edge_capacity)
+                taa_edge_capacity=p.taa_edge_capacity)
     cfg = RasterConfig(width=width, height=height, **{**caps, **options})
     return Renderer(scene, cfg, enable_cull=p.enable_cull,
                     enable_taa=p.enable_taa,
@@ -2990,7 +2987,7 @@ def main():
                                                   ns_k)
     stamp("phase 20 (record layouts and coherent resolves)")
     sampler_launches, sampler_paths = sampler_phases(dev, card)
-    stamp("phase 21 (the quad-block samplers)")
+    stamp("phase 21 (the TAA history samplers)")
     for name in ("fine_raster_pairs", "ltc_rect", "resolve_dense"):
         rows[name]["paths"] = {**rows[name].get("paths", {}),
                                **preset_paths.get(name, {}),
@@ -3944,17 +3941,14 @@ def record_phases(dev, card, masked_world, ns_k):
     return launches, paths
 
 
-# --- phase 21: the quad-block samplers -------------------------------------
+# --- phase 21: the TAA history samplers ------------------------------------
 # (label, RasterConfig options) of each set after the default; each runs on
 # both scenes at the capacities sized from the default frames' counts.
 SAMPLER_SETS = (
-    ("tap_block", dict(tap_block=True)),
     ("taa_quad_history (einsum select)", dict(taa_quad_history=True)),
     ("taa_quad_history + taa_quad_where",
      dict(taa_quad_history=True, taa_quad_where=True)),
     ("taa_inwindow", dict(taa_inwindow=True)),
-    ("tap_block + taa_quad_history",
-     dict(tap_block=True, taa_quad_history=True)),
 )
 
 
@@ -4045,48 +4039,39 @@ def op_profile(label, fn, n_ops, card, reps=3):
 
 
 def sampler_counts(render):
-    """The edge counts of the three samplers over the frames that
-    `render()` draws with tap_block and taa_quad_history at capacity 1:
-    {tap, taa_quad, taa_window: the largest count of any frame}. Each
-    count is its sampler's overflow + 1 (a sampler that overflows by 0
-    counted at most one); the in-window fetch is run beside the quad
-    fetch on the same history and coordinates."""
-    from voidin_tpu_torch.passes import resolve, taa
+    """The edge counts of the two TAA samplers over the frames that
+    `render()` draws with taa_quad_history at capacity 1: {taa_quad,
+    taa_window: the largest count of any frame}. Each count is its
+    sampler's overflow + 1 (a sampler that overflows by 0 counted at most
+    one); the in-window fetch is run beside the quad fetch on the same
+    history and coordinates."""
+    from voidin_tpu_torch.passes import taa
 
-    counts = dict(tap=[], taa_quad=[], taa_window=[])
-    reals = (resolve.sample_trilinear_quadblock,
-             taa._bilinear_clamp_quadblock)
-
-    def tap(*args, **kw):
-        out, ovf = reals[0](*args, **kw)
-        counts["tap"].append(int(ovf) + 1)
-        return out, ovf
+    counts = dict(taa_quad=[], taa_window=[])
+    real = taa._bilinear_clamp_quadblock
 
     def quad(img, u, v, capacity=0, select="einsum"):
-        out, ovf = reals[1](img, u, v, capacity=capacity, select=select)
+        out, ovf = real(img, u, v, capacity=capacity, select=select)
         counts["taa_quad"].append(int(ovf) + 1)
         _, wovf = taa._bilinear_clamp_inwindow(img, u, v, capacity=1)
         counts["taa_window"].append(int(wovf) + 1)
         return out, ovf
 
-    resolve.sample_trilinear_quadblock, taa._bilinear_clamp_quadblock = (
-        tap, quad)
+    taa._bilinear_clamp_quadblock = quad
     try:
         render()
     finally:
-        (resolve.sample_trilinear_quadblock,
-         taa._bilinear_clamp_quadblock) = reals
+        taa._bilinear_clamp_quadblock = real
     return {k: max(v) for k, v in counts.items()}
 
 
 def sampler_capacities(counts, width, height):
-    """RasterConfig capacities of the three samplers: each sampler's
-    auto capacity, or the next power of two at or above its largest count
+    """RasterConfig capacities of the two samplers: each sampler's auto
+    capacity, or the next power of two at or above its largest count
     beyond it (capacity_for)."""
     quads = (height // 2) * (width // 2)
     blocks = (height // 8) * (width // 8)
     return dict(
-        tap_edge_capacity=capacity_for(counts["tap"], max(quads // 4, 1024)),
         taa_edge_capacity=capacity_for(counts["taa_quad"],
                                        max(quads // 4, 1024)),
         taa_block_capacity=capacity_for(counts["taa_window"],
@@ -4116,8 +4101,7 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
                 render_once()
         return run
 
-    r = make(tap_block=True, taa_quad_history=True, tap_edge_capacity=1,
-             taa_edge_capacity=1)
+    r = make(taa_quad_history=True, taa_edge_capacity=1)
     counts = sampler_counts(counted(lambda: r.render(cam)))
     del r
     caps = sampler_capacities(counts, WIDTH, HEIGHT)
@@ -4129,11 +4113,10 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
     for name, opts in (("default", {}),) + SAMPLER_SETS:
         set_label = f"{label} {name}"
         opts = dict(opts, **caps)
-        dense = not opts.get("tap_block")  # both scenes sample const maps
+        # both scenes sample const maps: every set takes the dense resolve
         for k, row in hold_path_kernels(
                 set_label, lambda: make(**opts).render(cam),
-                ("k1", "ltc_rect") + (("resolve_dense",) if dense else ()),
-                card).items():
+                ("k1", "ltc_rect", "resolve_dense"), card).items():
             paths.setdefault(k, {})[set_label] = row
         r = make(**opts)
         keep = {i: None for i in range(FRAMES)}
@@ -4142,7 +4125,7 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
                 StageProbe(taa, "taa", keep=1) as tp:
             out, times, mem = run_frames(r, cam, set_label, keep=keep)
         got = expect_launches(set_label, dict(k1=FRAMES, ltc_rect=FRAMES,
-                                              resolve_dense=FRAMES * dense))
+                                              resolve_dense=FRAMES))
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         if base is None:
@@ -4174,13 +4157,12 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
 
 
 def sampler_phases(dev, card):
-    """Phase 21: the quad-block samplers (tap_block, taa_quad_history with
-    the einsum and the where select, taa_inwindow, tap_block +
-    taa_quad_history) on the north star (build_world(10_000, seed=0),
-    its moving instances, TAA) and config 6 (104 textures of 256^2, 32
-    knots, TAA, preset_renderer) at WIDTHxHEIGHT (sampler_scene_run);
-    first config 6's World.device() ms without and with the tap-block
-    tables. Returns (launches by counter, {kernel row: {set: row}})."""
+    """Phase 21: the TAA history samplers (taa_quad_history with the
+    einsum and the where select, taa_inwindow) on the north star
+    (build_world(10_000, seed=0), its moving instances, TAA) and config 6
+    (104 textures of 256^2, 32 knots, TAA, preset_renderer) at
+    WIDTHxHEIGHT (sampler_scene_run). Returns (launches by counter,
+    {kernel row: {set: row}})."""
     import torch
 
     import voidin_tpu_torch as pt
@@ -4190,25 +4172,9 @@ def sampler_phases(dev, card):
     from voidin_tpu_torch.scene.scene import scene_from_numpy
 
     p = presets.PRESETS[6](WIDTH / HEIGHT, **PRESET_RUNS[6][0])
-    for blocks in (False, True, False, True):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scene = p.world.device(dev, tap_blocks=blocks)
-        torch.cuda.synchronize()
-        t = (time.perf_counter() - t0) * 1e3
-        tex = scene.textures
-        n_bytes = sum(x.numel() for x in (tex.quads, tex.child_blocks,
-                                          tex.parent_blocks)
-                      if x is not None)
-        print(f"phase 21, config 6 World.device(tap_blocks={blocks}): "
-              f"{t:.1f} ms on the host; texture pool {n_bytes / 1e9:.3f} "
-              f"GB ({tex.count} slots of {tex.total} rows)", flush=True)
-        del scene, tex
-    torch.cuda.empty_cache()
-
     world, moving = build_world(10_000, seed=0)
     # each run's scene anew from the Worlds' host leaves, packed once
-    hosts = {k: (w.host_leaves(), dict(w.statics(), tap_blocks=True))
+    hosts = {k: (w.host_leaves(), w.statics())
              for k, w in (("north", world), ("config6", p.world))}
 
     def north(**opts):
@@ -4230,7 +4196,7 @@ def sampler_phases(dev, card):
         for k, v in kp.items():
             paths.setdefault(k, {}).update(v)
         table += rows
-    print(f"phase 21, the quad-block samplers at {WIDTH}x{HEIGHT} (median "
+    print(f"phase 21, the TAA history samplers at {WIDTH}x{HEIGHT} (median "
           f"of frames 3-{FRAMES}, ms; profile: device busy / kernels a "
           f"call; {card}):", flush=True)
     for lab, ms, res, tms, mem, pr, pt_ in table:

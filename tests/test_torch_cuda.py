@@ -914,7 +914,7 @@ def test_record_options_on_card_keep_the_default_words(cuda, opts):
 
 # capacities that hold every quad and 8x8 block of a 1080p frame: the
 # batches cannot overflow whatever the motion
-SAMPLER_FULL = dict(tap_edge_capacity=540 * 960, taa_edge_capacity=540 * 960,
+SAMPLER_FULL = dict(taa_edge_capacity=540 * 960,
                     taa_block_capacity=135 * 240)
 
 
@@ -944,17 +944,14 @@ def north_star_frames():
 
 
 @pytest.mark.parametrize("opts", [
-    dict(tap_block=True),
     dict(taa_quad_history=True),
     dict(taa_quad_history=True, taa_quad_where=True),
     dict(taa_inwindow=True),
-    dict(tap_block=True, taa_quad_history=True),
-], ids=["tap_block", "taa_quad_history", "taa_quad_where", "taa_inwindow",
-        "tap_and_taa_quad"])
+], ids=["taa_quad_history", "taa_quad_where", "taa_inwindow"])
 def test_sampler_options_on_card_keep_the_default_frames(cuda, opts,
                                                          north_star_frames):
-    """On the card, the north star's 1080p frames under each quad-block
-    sampler (TAA reading a history with motion from the second frame on):
+    """On the card, the north star's 1080p frames under each TAA
+    quad-block sampler (TAA reading a history with motion from the second frame on):
     every word of the default config's frames, overflow 0."""
     frames, base = north_star_frames
     for a, b in zip(base, frames(**opts)):

@@ -254,12 +254,11 @@ def test_wrappers_take_no_other_device():
         t_ch.closest_hit(*_closest_inputs("meta"))
 
 
-# The JAX package's RasterConfig fields of the quad-block samplers and
-# their defaults (voidin_tpu/passes/raster.py:147-163, :193-195).
+# The JAX package's RasterConfig fields of the TAA quad-block samplers
+# and their defaults (voidin_tpu/passes/raster.py:149-163).
 SAMPLER_FIELDS = dict(taa_quad_history=False, taa_edge_capacity=0,
                       taa_inwindow=False, taa_block_capacity=0,
-                      taa_quad_where=False, tap_block=False,
-                      tap_edge_capacity=0)
+                      taa_quad_where=False)
 
 
 def _sampler_frames(**opts):
@@ -292,21 +291,21 @@ def _sampler_frames(**opts):
 
 
 @pytest.mark.parametrize("opts", [
-    dict(tap_block=True),
     dict(taa_quad_history=True),
     dict(taa_quad_history=True, taa_quad_where=True),
     dict(taa_inwindow=True),
-    dict(tap_block=True, taa_quad_history=True),
-], ids=["tap_block", "taa_quad_history", "taa_quad_where", "taa_inwindow",
-        "tap_and_taa_quad"])
+], ids=["taa_quad_history", "taa_quad_where", "taa_inwindow"])
 def test_renderer_renders_every_option(opts):
-    """The options the port once refused: RasterConfig holds the seven
-    fields of the quad-block samplers with the JAX package's defaults, and
-    the Renderer renders with each sampler on, every frame word for word
-    the default frame (the history has motion from the second frame on),
-    overflow 0."""
+    """The options the port once refused: RasterConfig holds the five
+    fields of the TAA quad-block samplers with the JAX package's defaults
+    (and not the JAX package's quad-rate albedo tap, whose words its one
+    tap gives), and the Renderer renders with each sampler on, every frame
+    word for word the default frame (the history has motion from the
+    second frame on), overflow 0."""
     cfg = RasterConfig()
     assert {k: getattr(cfg, k) for k in SAMPLER_FIELDS} == SAMPLER_FIELDS
+    with pytest.raises(TypeError):
+        RasterConfig(tap_block=True)
     base, base_ovf = _sampler_frames()
     got, ovf = _sampler_frames(**opts)
     assert base_ovf == ovf == [0, 0, 0]

@@ -10,7 +10,8 @@ against the JAX package's (voidin_tpu/framework/presets.py).
   the same Preset fields and camera uniform. Configs 6 and 7 run at
   the reduced arguments of tests/test_stress.py and tests/test_oracle.py.
 - The device-bytes arithmetic of tests/test_stress.py on the port's
-  pool_device_bytes, and config 6's procedural fallback.
+  pool_device_bytes, every preset's device pool held as its quad table
+  alone, and config 6's procedural fallback.
 
 The frames of the presets against the JAX frames and the numpy oracle are
 in tests/test_torch_preset_frames.py.
@@ -89,15 +90,14 @@ def test_preset_world_matches_jax(n, builder, packer):  # noqa: F811
                                       err_msg=f.name)
 
 
-EDGE_CAPACITIES = ("quad_edge_capacity", "taa_edge_capacity",
-                   "tap_edge_capacity")
+EDGE_CAPACITIES = ("quad_edge_capacity", "taa_edge_capacity")
 
 
 @pytest.mark.parametrize("n", sorted(t_presets.PRESETS))
 def test_preset_edge_capacities_match_jax(n):
-    """Each preset's edge capacities of quad_rate_resolve,
-    taa_quad_history and tap_block are the JAX preset's, and
-    chip_smoke.preset_renderer hands them to the RasterConfig."""
+    """Each preset's edge capacities of quad_rate_resolve and
+    taa_quad_history are the JAX preset's, and chip_smoke.preset_renderer
+    hands them to the RasterConfig."""
     import chip_smoke
 
     jp = j_presets.PRESETS[n](16 / 9, **SMALL.get(n, {}))
@@ -105,8 +105,7 @@ def test_preset_edge_capacities_match_jax(n):
     for f in EDGE_CAPACITIES:
         assert getattr(jp, f) == getattr(tp, f), f
     cfg = chip_smoke.preset_renderer(
-        tp, tp.world.device("cpu", with_tlas=tp.with_tlas,
-                            tap_blocks=False), 64, 32).config
+        tp, tp.world.device("cpu", with_tlas=tp.with_tlas), 64, 32).config
     assert {f: getattr(cfg, f) for f in EDGE_CAPACITIES} == {
         f: getattr(tp, f) for f in EDGE_CAPACITIES}
 
@@ -177,9 +176,7 @@ def test_sponza_pool_budget():
     """tests/test_stress.py's budget arithmetic on the port's
     pool_device_bytes: the ~108-slot 1024^2 pool of config 6 (one 32 B
     quad row per texel over the mip chain, ~44.7 MB a slot) fits one H100
-    (80 GB) beside a frame's working set, and so does it with the
-    tap-block tables (160 B a texel, 5x; the JAX function counts them as
-    3x, two 64 B rows short of the tables it builds)."""
+    (80 GB) beside a frame's working set."""
     n_slots = 104 + 4
     plain = pool_device_bytes(n_slots, 1024)
     assert plain < (80 << 30) - (4 << 30), f"{plain / 2**30:.1f} GiB"
@@ -191,17 +188,32 @@ def test_sponza_pool_budget():
     from voidin_tpu.scene.texture import pool_device_bytes as j_bytes
     for n, s in ((108, 1024), (12, 64), (1, 1)):
         assert pool_device_bytes(n, s) == j_bytes(n, s, blocks=False)
-        assert pool_device_bytes(n, s, blocks=True) == 5 * j_bytes(
-            n, s, blocks=True) // 3
-    blocked = pool_device_bytes(n_slots, 1024, blocks=True)
-    assert blocked < (80 << 30) - (4 << 30), f"{blocked / 2**30:.1f} GiB"
+
+
+# the tensors of the port's device pool: its quad table and metadata
+POOL_TENSORS = ["quads", "size", "max_lod", "srgb"]
+
+
+@pytest.mark.parametrize("n", sorted(t_presets.PRESETS))
+def test_preset_pool_is_the_quad_table_alone(n):
+    """Each preset's scene on the device holds its texture pool as the
+    quad table alone, one 32 B row a texel over every slot's mip chain:
+    pool_device_bytes(T, S) bytes, and no tap-block tables."""
+    tp = t_presets.PRESETS[n](16 / 9, **SMALL.get(n, {}))
+    t = tp.world.device("cpu", with_tlas=tp.with_tlas).textures
+    assert [f.name for f in dataclasses.fields(t)
+            if isinstance(getattr(t, f.name), torch.Tensor)] == POOL_TENSORS
+    assert t.count == len(tp.world.textures.images)
+    assert t.quads.shape == (t.count * t.total, 32)
+    assert t.quads.numel() * t.quads.element_size() == pool_device_bytes(
+        t.count, t.base_size)
 
 
 def test_config6_procedural_fallback(monkeypatch):
     """Without the asset root the preset still builds (procedural
     textures), so the stress configuration runs anywhere; the device pool
-    holds exactly pool_device_bytes of quads, sized to its largest image
-    (64^2 here, the preset's base size)."""
+    holds exactly pool_device_bytes of quads and nothing more, sized to
+    its largest image (64^2 here, the preset's base size)."""
     monkeypatch.setattr(t_presets, "find_asset", lambda rel: None)
     p = t_presets.config6_sponza_textures(16 / 9, base_size=64,
                                           n_textures=8, n_knots=1)
@@ -210,9 +222,8 @@ def test_config6_procedural_fallback(monkeypatch):
     assert scene.textures.base_size == 64
     assert scene.textures.quads.numel() == pool_device_bytes(12, 64)
     t = scene.textures
-    assert sum(x.numel() for x in (t.quads, t.child_blocks,
-                                   t.parent_blocks)) == pool_device_bytes(
-        12, 64, blocks=True)
+    assert [f.name for f in dataclasses.fields(t)
+            if isinstance(getattr(t, f.name), torch.Tensor)] == POOL_TENSORS
 
 
 def test_sponza_texture_set_refuses_jpeg(tmp_path, monkeypatch):

@@ -1,8 +1,10 @@
-"""Port parity for the JAX package's quad-block samplers: the pool's 4x4
-tap-block tables, the quad-rate albedo tap (RasterConfig.tap_block,
-texture.sample_trilinear_quadblock), the TAA history fetch by quad blocks
-(taa_quad_history, its two selects by taa_quad_where) and from each
-pixel's window (taa_inwindow), and whole frames under them.
+"""Port parity for the JAX package's quad-block samplers: the TAA history
+fetch by quad blocks (taa_quad_history, its two selects by
+taa_quad_where) and from each pixel's window (taa_inwindow), and whole
+frames under them; and the JAX package's quad-rate albedo tap
+(RasterConfig.tap_block over its pool's 4x4 tap-block tables), whose
+words the port's one tap (texture.sample_trilinear over the quad table)
+gives: the port holds no block tables.
 
 The JAX functions run as the JAX package's own tests run them on the CPU
 (op by op). Tolerances: every word equal (NaN at the same places, whose
@@ -11,8 +13,8 @@ the sRGB decode of the albedo tap (the JAX package's pow rounds apart
 from torch's; ResolveAux fields within 1e-6, tests/test_torch_records.py)
 and whole frames (mean 5e-3 of the JAX frame, tests/test_torch_frame.py).
 Against the port's own default path, as the JAX package's tests hold
-theirs (tests/test_texture_meta.py, test_taa_quad.py,
-test_taa_inwindow.py): every word, overflow 0.
+theirs (tests/test_taa_quad.py, test_taa_inwindow.py): every word,
+overflow 0.
 """
 
 import dataclasses
@@ -27,26 +29,23 @@ from voidin_tpu.framework.renderer import FrameState as JaxFrameState
 from voidin_tpu.framework.renderer import Globals as JaxGlobals
 from voidin_tpu.framework.renderer import render_frame as jax_render_frame
 from voidin_tpu.passes import cull as j_cull
+from voidin_tpu.passes import resolve as j_resolve
 from voidin_tpu.passes import taa as j_taa
 from voidin_tpu.scene import texture as j_tex
 
-import voidin_tpu_torch as pt
-from voidin_tpu_torch.core import checks
 from voidin_tpu_torch.framework import renderer as t_renderer
-from voidin_tpu_torch.io.snapshot import load_scene, save_scene
 from voidin_tpu_torch.passes import cull as t_cull
 from voidin_tpu_torch.passes import taa as t_taa
-from voidin_tpu_torch.scene import mesh as t_mesh
 from voidin_tpu_torch.scene import texture as t_tex
-from voidin_tpu_torch.scene.scene import scene_to_numpy
 
 from tests import test_raster, test_resolve_quad
 from tests.test_taa_inwindow import _coords
 from tests.test_taa_quad import _data
 from tests.test_texture_meta import _pool
-from tests.test_torch_records import (J_CFG, _all_draws, assert_matches_jax,
-                                      assert_same_words, normal_mapped_world,
-                                      port_cfg, resolve_both, resolve_port)
+from tests.test_torch_records import (J_CFG, _all_draws,
+                                      assert_gbuffer_words, jax_vis,
+                                      normal_mapped_world, port_cfg,
+                                      port_vis, resolve_port)
 from tests.test_torch_scene import packer  # noqa: F401 (fixture)
 from tests.test_torch_scene import port_scene, unpermuted_worlds
 
@@ -70,7 +69,7 @@ def assert_words(want, got):
 
 
 # ---------------------------------------------------------------------------
-# The block tables
+# The pool
 # ---------------------------------------------------------------------------
 
 # (h, w) of each pool's textures after the four reserved 1x1 slots
@@ -82,11 +81,12 @@ POOLS = {
 
 
 @pytest.mark.parametrize("pool", sorted(POOLS))
-def test_block_tables_match_jax(pool, packer):  # noqa: F811
-    """child_blocks / parent_blocks derived on the device equal the JAX
-    package's (numpy rolls at TexturePool.device()) on each packer, on
-    pools with non-square, non-power-of-two and 1xN textures; the pool's
-    bytes are pool_device_bytes(blocks=True), 5x the quad table's."""
+def test_pool_is_the_jax_quad_table_alone(pool, packer):  # noqa: F811
+    """On each packer, on pools with non-square, non-power-of-two and 1xN
+    textures: the port's device pool is the JAX package's quad table,
+    word for word, and nothing else: pool_device_bytes(T, S) bytes
+    (the JAX function's count without blocks) and no block fields,
+    where the JAX pool built with its tap-block tables holds 5x that."""
     rng = np.random.default_rng(len(pool))
     jp, tp = j_tex.TexturePool(base_size=64), t_tex.TexturePool(base_size=64)
     for h, w in POOLS[pool]:
@@ -95,115 +95,81 @@ def test_block_tables_match_jax(pool, packer):  # noqa: F811
         tp.add(img, srgb=True)
     jd = jp.device(blocks=True)
     td = tp.device("cpu")
-    assert td.child_blocks.dtype == torch.uint8
-    for k in ("quads", "child_blocks", "parent_blocks"):
-        np.testing.assert_array_equal(np.asarray(getattr(jd, k)),
-                                      getattr(td, k).numpy(), err_msg=k)
+    assert td.quads.dtype == torch.uint8
+    np.testing.assert_array_equal(np.asarray(jd.quads), td.quads.numpy())
+    assert not {"child_blocks", "parent_blocks"} & {
+        f.name for f in dataclasses.fields(td)}
     T, S = td.count, td.base_size
-    n_bytes = sum(getattr(td, k).numel()
-                  for k in ("quads", "child_blocks", "parent_blocks"))
-    assert n_bytes == t_tex.pool_device_bytes(T, S, blocks=True) \
-        == 5 * t_tex.pool_device_bytes(T, S)
-    # the JAX function counts its tables as 3x (its docstring): two 64 B
-    # rows a texel short of what its TexturePool.device() holds
+    n_bytes = td.quads.numel() * td.quads.element_size()
+    assert n_bytes == t_tex.pool_device_bytes(T, S) \
+        == j_tex.pool_device_bytes(T, S, blocks=False)
     j_bytes = sum(np.asarray(getattr(jd, k)).nbytes
                   for k in ("quads", "child_blocks", "parent_blocks"))
-    assert j_bytes == n_bytes
-    assert j_tex.pool_device_bytes(T, S, blocks=True) == 3 * (n_bytes // 5)
-    assert tp.device("cpu", blocks=False).child_blocks is None
-
-
-def test_block_tables_in_chunks():
-    """A level larger than one gather's budget goes in chunks of
-    textures: the same tables."""
-    pool = _pool()
-    tp = t_tex.TexturePool(base_size=pool.base_size)
-    for img, srgb in zip(pool.images[4:], pool.srgb_flags[4:]):
-        tp.add(img, srgb=srgb)
-    whole = tp.device("cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_tex, "_BLOCK_CHUNK", 64)
-        chunked = tp.device("cpu")
-    for k in ("child_blocks", "parent_blocks"):
-        assert torch.equal(getattr(whole, k), getattr(chunked, k)), k
+    assert j_bytes == 5 * n_bytes
 
 
 # ---------------------------------------------------------------------------
-# The quad-rate albedo tap
+# The albedo tap against the JAX package's quad-rate tap
 # ---------------------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
 def pools():
-    """tests/test_texture_meta.py's pool on both packages."""
+    """tests/test_texture_meta.py's pool on both packages (the JAX one
+    with its tap-block tables)."""
     pool = _pool()
     tp = t_tex.TexturePool(base_size=pool.base_size)
     for img, srgb in zip(pool.images[4:], pool.srgb_flags[4:]):
         tp.add(img, srgb=srgb)
-    jd, td = pool.device(), tp.device("cpu")
+    jd, td = pool.device(blocks=True), tp.device("cpu")
     assert np.array_equal(np.asarray(jd.quads), td.quads.numpy())
     return jd, td
 
 
 def _tap_inputs(case, H=32, W=64):
-    """(tex_id, uv, lod, capacity) of a tap case:
-    tests/test_texture_meta.py:93-117's smooth, random and overflow cases,
-    and "straddle": quads across the pool's last (16x16) texture and its
-    first at deep levels, a capacity of 8, so the block values of quads
-    that straddle textures and levels stay in place."""
-    rng = np.random.default_rng(21)
+    """(tex_id, uv, lod) of tests/test_texture_meta.py:93-117's smooth and
+    random cases."""
     if case == "smooth":
         yy, xx = np.meshgrid(np.linspace(-0.2, 1.3, H),
                              np.linspace(-0.1, 2.1, W), indexing="ij")
         return (np.full((H, W), 4, np.int32),
                 np.stack([xx, yy], -1).astype(np.float32),
-                (xx * 2.0 + yy).astype(np.float32), 0)
-    if case == "straddle":
-        tex = np.where(rng.random((H, W)) < 0.5, 6, 4).astype(np.int32)
-        uv = rng.uniform(0.0, 1.0, (H, W, 2)).astype(np.float32)
-        return tex, uv, rng.uniform(3.0, 7.0, (H, W)).astype(np.float32), 8
+                (xx * 2.0 + yy).astype(np.float32))
+    rng = np.random.default_rng(21)
     uv = rng.uniform(-2, 3, (H, W, 2)).astype(np.float32)
     lod = rng.uniform(0, 9, (H, W)).astype(np.float32)
     tex = rng.integers(4, 7, (H, W)).astype(np.int32)
-    return tex, uv, lod, 8 if case == "overflow" else 0
+    return tex, uv, lod
 
 
-@pytest.mark.parametrize("case", ["smooth", "random", "overflow",
-                                  "straddle"])
+@pytest.mark.parametrize("case", ["smooth", "random"])
 def test_tap_quadblock_matches_jax(pools, case):
-    """sample_trilinear_quadblock against the JAX package's: the filtered
-    words (before the sRGB decode) and the overflow equal, the decoded
-    samples within 1e-6; without overflow every word of the port's
-    per-pixel tap. The block indices stay inside the table (checked)."""
+    """The port's sample_trilinear against the JAX package's
+    sample_trilinear_quadblock at its auto capacity: the filtered words
+    (before the sRGB decode) equal, the decoded samples within 1e-6, the
+    JAX overflow 0."""
     jd, td = pools
-    tex, uv, lod, cap = _tap_inputs(case)
+    tex, uv, lod = _tap_inputs(case)
     whg = jd.size[jnp.asarray(tex)]
     wh = (whg[..., 0].astype(jnp.float32), whg[..., 1].astype(jnp.float32))
     twh = (_t(wh[0]), _t(wh[1]))
     for srgb in (False, None):
         jq, jo = j_tex.sample_trilinear_quadblock(
             jd, jnp.asarray(tex), jnp.asarray(uv), jnp.asarray(lod), wh=wh,
-            srgb=srgb, capacity=cap)
-        with checks.bounds(True):
-            tq, to = t_tex.sample_trilinear_quadblock(
-                td, _t(tex), _t(uv), _t(lod), wh=twh, srgb=srgb,
-                capacity=cap)
-        assert int(to) == int(jo)
+            srgb=srgb)
+        assert int(jo) == 0
+        tq = t_tex.sample_trilinear(td, _t(tex), _t(uv), _t(lod), wh=twh,
+                                    srgb=srgb)
         if srgb is False:
             assert_words(jq, tq.numpy())
         else:
             np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=0,
                                        atol=AUX_ATOL)
-        base = t_tex.sample_trilinear(td, _t(tex), _t(uv), _t(lod), wh=twh,
-                                      srgb=srgb)
-        if int(to) == 0:
-            assert_words(base.numpy(), tq.numpy())
-    assert (int(to) > 0) == (case in ("overflow", "straddle"))
     assert np.isfinite(tq.numpy()).all()
 
 
 # ---------------------------------------------------------------------------
-# resolve_gbuffer with tap_block
+# resolve_gbuffer against the JAX package's with tap_block
 # ---------------------------------------------------------------------------
 
 
@@ -215,15 +181,15 @@ def cases():
 def block_case(cases, name):
     """tests/test_torch_records.py's case `name` ("textured", "nmap",
     "alpha"), its JAX scene built with the tap-block tables (the port's
-    scene takes them from its leaves)."""
+    scene takes its quad table alone)."""
     if name not in cases:
         with unpermuted_worlds():
             w = dict(textured=test_resolve_quad._textured_scene,
                      nmap=normal_mapped_world,
                      alpha=lambda: test_raster._alpha_scene()[0])[name]()
             js = w.device()
+        assert js.textures.child_blocks is not None
         ts = port_scene(js)
-        assert ts.textures.child_blocks is not None
         aspect = J_CFG.width / J_CFG.height
         if name == "alpha":
             cam = test_raster._alpha_camera(aspect)
@@ -238,78 +204,40 @@ def block_case(cases, name):
     return cases[name]
 
 
-TAP = dict(tap_block=True)
+# (case, the options both packages take); the JAX package adds tap_block
 TAP_CASES = {
-    "tap": ("textured", TAP),
-    "tap_f16": ("textured", {**TAP, "inst_rec_f16": True}),
-    "tap_nmap": ("nmap", TAP),
-    "tap_alpha": ("alpha", TAP),
-    "tap_alpha_dense": ("alpha", {**TAP, "lazy_alpha_resolve": False}),
-    "tap_quad": ("textured", {**TAP, "quad_rate_resolve": True}),
-    "tap_slot": ("textured", {**TAP, "slot_resolve": True}),
-    "tap_overflow": ("textured", {**TAP, "tap_edge_capacity": 8}),
+    "tap": ("textured", {}),
+    "tap_f16": ("textured", {"inst_rec_f16": True}),
+    "tap_nmap": ("nmap", {}),
+    "tap_alpha": ("alpha", {}),
+    "tap_alpha_dense": ("alpha", {"lazy_alpha_resolve": False}),
+    "tap_quad": ("textured", {"quad_rate_resolve": True}),
+    "tap_slot": ("textured", {"slot_resolve": True}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(TAP_CASES))
 def test_resolve_tap_block_matches_jax(cases, case):
-    """resolve_gbuffer with tap_block (alone, with the f16 record, normal
-    maps, the alpha fallback lazy and dense, with quad and slot, and an
-    edge capacity that overflows) against the JAX package's: G-buffer
-    words and overflow equal, the material fields within 1e-6."""
-    name, opts = TAP_CASES[case]
-    j, t = resolve_both(block_case(cases, name), **opts)
-    assert_matches_jax(j, t)
-    assert (int(t[1].overflow) > 0) == case.endswith("overflow")
-
-
-@pytest.mark.parametrize("case", sorted(
-    c for c in TAP_CASES if not c.endswith("overflow")))
-def test_resolve_tap_block_bit_identical(cases, case):
-    """tests/test_texture_meta.py:120-140 on the port: every word of the
-    resolve without tap_block (the same coherent fetch and alpha
-    fallback), overflow 0."""
+    """The port's resolve_gbuffer (alone, with the f16 record, normal
+    maps, the alpha fallback lazy and dense, with quad and slot) against
+    the JAX package's under the same options plus tap_block: G-buffer
+    words equal, the material fields within 1e-6, the JAX overflow 0 (and
+    the port's, where it tracks one)."""
     name, opts = TAP_CASES[case]
     c = block_case(cases, name)
-    base = {k: v for k, v in opts.items() if k != "tap_block"}
-    got = resolve_port(c, **opts)
-    assert_same_words(resolve_port(c, **base), got)
-    assert int(got[1].overflow) == 0
-
-
-def test_blockless_pool_falls_back_and_snapshots(cases, tmp_path):
-    """A pool built without block tables (World.device(tap_blocks=False))
-    takes the per-pixel tap under tap_block, as the JAX package's does:
-    every word of the default resolve, overflow 0 (tracked). The port's
-    snapshot records whether the pool had its tables and loads a
-    block-less pool block-less, a blocked one with the same tables."""
-    c = block_case(cases, "textured")
-    with unpermuted_worlds():
-        js = test_resolve_quad._textured_scene().device(tap_blocks=False)
-    ts = port_scene(js)
-    assert ts.textures.child_blocks is None
-    bare = dict(c, js=js, ts=ts, vis={})
-    j, t = resolve_both(bare, **TAP)
-    assert_matches_jax(j, t)
-    assert int(t[1].overflow) == 0
-    assert_same_words(resolve_port(bare), t)
-    assert_same_words(resolve_port(c, **TAP), t)
-
-    w = pt.World()
-    rng = np.random.default_rng(2)
-    mat = w.materials.add(albedo=w.textures.add(
-        rng.integers(0, 256, (24, 40, 3)).astype(np.uint8), srgb=True))
-    w.instances.add(np.eye(4, dtype=np.float32), t_mesh.SPHERE_1_MESH, mat)
-    for blocks in (False, True):
-        scene = w.device("cpu", tap_blocks=blocks)
-        path = str(tmp_path / f"scene_{blocks}.npz")
-        save_scene(path, scene)
-        loaded, _ = load_scene(path, "cpu")
-        assert scene_to_numpy(loaded)[1]["tap_blocks"] is blocks
-        for k in ("child_blocks", "parent_blocks"):
-            a, b = getattr(scene.textures, k), getattr(loaded.textures, k)
-            assert (a is None) == (b is None) == (not blocks), k
-            assert a is None or torch.equal(a, b), k
+    jcfg = dataclasses.replace(J_CFG, alpha_mask=c["alpha"], tap_block=True,
+                               **opts)
+    jg, ja = j_resolve.resolve_gbuffer(c["js"], jax_vis(port_vis(c, **opts)),
+                                       c["cam"], jcfg)
+    tg, ta = resolve_port(c, **opts)
+    assert_gbuffer_words(jg, tg)
+    for field in ("albedo", "emissive", "mr"):
+        np.testing.assert_allclose(getattr(ta, field).numpy(),
+                                   np.asarray(getattr(ja, field)), rtol=0,
+                                   atol=AUX_ATOL, err_msg=field)
+    assert int(ja.overflow) == 0
+    assert ta.overflow is None or int(ta.overflow) == 0
+    assert (tg.material.numpy() > 0).any()
 
 
 # ---------------------------------------------------------------------------
@@ -484,11 +412,12 @@ def test_taa_resolve_options_keep_the_words(opt):
 # Frames
 # ---------------------------------------------------------------------------
 
+# (the port's options, the JAX package's): the port has no tap_block
 FRAME_OPTIONS = {
-    "tap_block": dict(tap_block=True),
-    "taa_quad_history": dict(taa_quad_history=True),
-    "taa_quad_where": dict(taa_quad_history=True, taa_quad_where=True),
-    "taa_inwindow": dict(taa_inwindow=True),
+    "tap_block": ({}, dict(tap_block=True)),
+    "taa_quad_history": (dict(taa_quad_history=True),) * 2,
+    "taa_quad_where": (dict(taa_quad_history=True, taa_quad_where=True),) * 2,
+    "taa_inwindow": (dict(taa_inwindow=True),) * 2,
 }
 
 
@@ -535,13 +464,15 @@ def _jax_frame(inputs, opts):
 def test_frame_option_matches_default_and_jax(frames, opt):
     """A frame under each sampler (TAA reading a seeded history through
     motion): every word of the port's default frame, and within the
-    frame budget of the JAX package's frame under the same option."""
+    frame budget of the JAX package's frame under the same option (under
+    tap_block, the port's default frame against the JAX package's
+    tap_block frame)."""
     (imgs, inputs) = frames
-    opts = FRAME_OPTIONS[opt]
-    got = _port_frame(inputs, opts)
+    port_opts, jax_opts = FRAME_OPTIONS[opt]
+    got = _port_frame(inputs, port_opts)
     np.testing.assert_array_equal(got.view(np.int32),
                                   imgs["port"].view(np.int32))
-    diff = np.abs(got - _jax_frame(inputs, opts)).mean()
+    diff = np.abs(got - _jax_frame(inputs, jax_opts)).mean()
     print(f"{opt}: mean abs diff vs the JAX frame {diff:.3e}")
     assert diff < BUDGET and got.std() > 0.02
     assert np.abs(imgs["port"] - imgs["jax"]).mean() < BUDGET

@@ -36,7 +36,6 @@ ROUTES = [
     ("slot_resolve", True, False),
     ("quad_rate_resolve", True, False),
     ("slim_rec", True, False),
-    ("tap_block", True, False),
     ("fused_resolve_rec", True, False),
     ("fused_inst_rec", True, False),
     ("inst_rec_f16", True, False),

@@ -9,8 +9,9 @@ the JAX package's path of the same option: G-buffer words equal, the
 material fields within 1e-6, ResolveAux.overflow equal (the overflow
 cases' words too). Against the port's own default path, as the JAX
 package's tests hold theirs (tests/test_resolve_quad.py,
-test_resolve_slot.py, test_resolve_planar.py; the tap_block cases wait
-for tap_block): quad and slot every word, planar every word too. The
+test_resolve_slot.py, test_resolve_planar.py; the tap_block cases are
+in tests/test_torch_quadblock.py): quad and slot every word, planar
+every word too. The
 port resolves planar_resolve by its dense path. The JAX package's
 op-by-op planar twin rounds its cross products unfused, where its dense
 path's jnp.cross is contracted (fastmath.cross), so the port's material

@@ -462,22 +462,20 @@ def test_sharded_record_options_match_unsharded(n, opts):
 
 # the options whose compactions are the whole image's, which the sharded
 # frame turns off: resolve's (in its config) and TAA's (its fetch options)
-RESOLVE_PATHS = ("quad_rate_resolve", "slot_resolve", "tap_block")
+RESOLVE_PATHS = ("quad_rate_resolve", "slot_resolve")
 TAA_FETCHES = dict(taa_quad_history="quad_history", taa_inwindow="inwindow")
 
 
 @pytest.mark.parametrize("opts", [dict(quad_rate_resolve=True),
                                   dict(slot_resolve=True),
-                                  dict(tap_block=True),
                                   dict(taa_quad_history=True),
                                   dict(taa_inwindow=True)],
-                         ids=["quad", "slot", "tap_block", "taa_quad_history",
+                         ids=["quad", "slot", "taa_quad_history",
                               "taa_inwindow"])
 def test_sharded_frame_turns_coherent_paths_off(monkeypatch, opts):
-    """Under a mesh the frame resolves without the quad or slot fetch and
-    the quad-block albedo tap, and TAA fetches its history per pixel, as
-    the JAX package's sharded frame does (renderer.py:163-175, :217-220):
-    every slab's resolve and TAA see them off, no edge overflow is
+    """Under a mesh the frame resolves without the quad or slot fetch,
+    and TAA fetches its history per pixel, as the JAX package's sharded
+    frame does (renderer.py:163-175, :217-220): every slab's resolve and TAA see them off, no edge overflow is
     tracked, and the frame is word for word the unsharded one, which
     takes them."""
     from voidin_tpu_torch.passes import resolve as t_resolve

@@ -44,7 +44,7 @@ class Preset:
     """A preset's World, camera and the Renderer's flags and capacities.
 
     The edge capacities of the coherent passes (quad_rate_resolve,
-    taa_quad_history, tap_block) carry the JAX Preset's values; the JAX
+    taa_quad_history) carry the JAX Preset's values; the JAX
     Preset's rt_packet and rt_threaded are left out: they select the
     TPU's packet traversals, whose place the port's shadow-ray kernel
     takes (ROADMAP "Not ported")."""
@@ -63,11 +63,10 @@ class Preset:
     tri_capacity: int = 1 << 20
     pair_capacity: int = 1 << 20
     tile_tri_capacity: int = 128
-    # Edge-batch capacities of quad_rate_resolve, taa_quad_history and
-    # tap_block (RasterConfig's fields of the same names; 0 = auto)
+    # Edge-batch capacities of quad_rate_resolve and taa_quad_history
+    # (RasterConfig's fields of the same names)
     quad_edge_capacity: int = 1 << 16
     taa_edge_capacity: int = 1 << 11
-    tap_edge_capacity: int = 0  # 0 = auto (n_quads // 4)
     # Per-frame (J, 4, 4) joint matrices for skinned scenes, a function of
     # the Renderer's time (config 4's clapping arms).
     animator: Optional[object] = None

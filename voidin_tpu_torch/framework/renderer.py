@@ -30,10 +30,10 @@ IndexError naming it. slim_rec on a scene outside its envelope (normal
 maps, sampled emissive or metallic-roughness, alpha masking, ids not
 exact in f16) falls back as the JAX package's does, to fused_resolve_rec +
 inst_rec_f16 (kernel_payload, which rides the slim record, goes off).
-The quad-block samplers of the albedo tap (tap_block) and of the TAA
-history (taa_quad_history, taa_quad_where, taa_inwindow) run where the
-config names them: their edge batches' overflow adds to aux["overflow"],
-and the sharded frame turns them off as the JAX package's does.
+The quad-block samplers of the TAA history (taa_quad_history,
+taa_quad_where, taa_inwindow) run where the config names them: their edge
+batches' overflow adds to aux["overflow"], and the sharded frame turns
+them off as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -266,10 +266,10 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
 
     * update, skinning and refits run replicated on every distinct
       device, the cull once on mesh.devices[0];
-    * resolve takes no quad or slot fetch and no quad-block albedo tap,
-      TAA no quad-block or in-window history fetch (their compactions
-      are the whole image's), as the JAX package's sharded frame does:
-      the same words; planar_resolve stays;
+    * resolve takes no quad or slot fetch, TAA no quad-block or
+      in-window history fetch (their compactions are the whole image's),
+      as the JAX package's sharded frame does: the same words;
+      planar_resolve stays;
     * the pair path rasterizes row-partitioned (rasterize_sharded: one
       K1 launch per slab); the block path rasterizes whole on
       mesh.devices[0] and splits the images, as the JAX package does;
@@ -311,8 +311,8 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
 
     # resolve + shade per slab, on its window of rows
     config = dataclasses.replace(config, quad_rate_resolve=False,
-                                 slot_resolve=False, tap_block=False,
-                                 taa_quad_history=False, taa_inwindow=False)
+                                 slot_resolve=False, taa_quad_history=False,
+                                 taa_inwindow=False)
     s = 1 if enable_rt_shadows else area_light_scale
     fields = [f for f in ("tri_id", "depth", "tri_id2", "depth2")
               if getattr(vis[0], f) is not None]

@@ -13,9 +13,6 @@ leaves and statics (``scene.scene_to_numpy``, the names of
   such as the aspect 16 / 9 comes back exactly), when one is given;
 * ``version``: SNAPSHOT_VERSION.
 
-The texture pool's tap-block tables are not saved: ``statics`` says
-whether the pool held them, and ``load_scene`` derives them again on its
-device (``texture.block_tables``), so a block-less pool loads block-less.
 As in the JAX package, skins are not snapshotted (they are rebuilt from
 their assets; a loaded scene has none), and a file of another version, or
 without the marker, is refused with a ValueError.
@@ -33,9 +30,9 @@ from ..core.camera import Camera
 from ..scene.scene import SceneData, scene_from_numpy, scene_to_numpy
 
 # v1: named host leaves + JSON statics (the first format of this package)
-# v2: statics["tap_blocks"] records whether the texture pool held its
-#     tap-block tables; load derives them again (a block-less pool stays
-#     one), as the JAX package's v3 records them
+# v2: as v1; files saved before the port dropped the pool's tap-block
+#     tables also carry statics["tap_blocks"], which scene_from_numpy
+#     ignores
 SNAPSHOT_VERSION = 2
 
 

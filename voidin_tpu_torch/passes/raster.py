@@ -120,17 +120,6 @@ class RasterConfig:
     slot_resolve: bool = False
     slot_k: int = 16
     slot_edge_capacity: int = 0
-    # Quad-rate albedo tap (texture.sample_trilinear_quadblock): one child
-    # and one parent 4x4 block row per uniform 2x2 pixel quad instead of
-    # four 32 B quad rows; edge quads (texture, mip or wrap-seam
-    # straddles, a spread above 2 texels) through a compacted per-pixel
-    # batch of tap_edge_capacity quads (0: max(quads // 4, 1024)), the
-    # rest counted in ResolveAux.overflow. The words of the per-pixel tap
-    # while the batch holds. Needs the pool's block tables
-    # (World.device(tap_blocks=True)) and even sides, else the per-pixel
-    # tap runs; off under a mesh.
-    tap_block: bool = False
-    tap_edge_capacity: int = 0
     # TAA history fetch by quad blocks (taa._bilinear_clamp_quadblock):
     # one 4x4-texel f16 block row per 2x2 output quad instead of one 2x2
     # row per pixel; quads whose history coordinates spread wider go

@@ -35,13 +35,10 @@ field:
   distinct triangle) and selected per pixel by a one-hot product
   (_slot_fetch_channels), overflowing tiles re-resolved per pixel;
 * planar_resolve: accepted for the JAX package's config and resolved by
-  the dense path, whose words the JAX package's planar twin gives;
-* tap_block: the albedo tap reads one child and one parent 4x4 block
-  row per uniform 2x2 quad (texture.sample_trilinear_quadblock), edge
-  quads through a compacted batch of tap_edge_capacity quads; it composes
-  with quad and slot, needs even sides and the pool's block tables
-  (World.device(tap_blocks=True)), and takes the per-pixel tap without
-  them.
+  the dense path, whose words the JAX package's planar twin gives.
+The albedo tap is the per-pixel trilinear sample (texture.sample_trilinear)
+on every path; the JAX package's quad-rate tap over 4x4 block tables
+gives its words and is not ported.
 The coherent paths give the words of the per-pixel path while their edge
 batches hold; what overflows them is counted in ResolveAux.overflow.
 """
@@ -58,7 +55,7 @@ from ..framework import profiler
 from ..ops import fine_raster as fr
 from ..ops import resolve as dense_op
 from ..scene.scene import SceneData
-from ..scene.texture import sample_trilinear, sample_trilinear_quadblock
+from ..scene.texture import sample_trilinear
 from .gbuffer import GBuffer, VisBuffer
 from .shading import pixel_rows, uv_lod
 
@@ -346,7 +343,7 @@ def _slot_fetch_channels(scene: SceneData, vis: VisBuffer, tri_id,
 def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
                   y_ndc, want_aux: bool = True, lod_probe=None,
                   inst_f16: bool = False, rows=None, channels=None,
-                  slim: bool = False, tap_block_cap=None):
+                  slim: bool = False):
     """Per-pixel resolve for any pixel-set shape S: unmasked fields plus
     the keep/cut masks. x_ndc / y_ndc broadcast to S. `lod_probe`: None
     takes the mip lod from image-space finite differences (S = (H, W));
@@ -355,12 +352,8 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
     already fetched (the quad path), `channels`: channels already decoded
     (the slot path); by default fetched per pixel. `inst_f16`: the
     instance record is f16 pairs. `slim`: the rows are slim records
-    (RasterConfig.slim_rec). `tap_block_cap`: the albedo tap takes the
-    quad-block sampler (RasterConfig.tap_block) with that edge capacity
-    where S is an (H, W) grid of even sides and the pool holds its block
-    tables, and the fields then hold its "tap_overflow"; elsewhere the
-    per-pixel tap, as in the JAX package. The fetch and decode run in the
-    profiler's scope resolve.fetch, the rest in resolve.fields."""
+    (RasterConfig.slim_rec). The fetch and decode run in the profiler's
+    scope resolve.fetch, the rest in resolve.fields."""
     # the fetched rows die with the decode (the packed attribute rows are
     # not needed past it); tangents feed only the normal-map TBN transform
     if channels is None:
@@ -375,11 +368,11 @@ def _pixel_fields(scene: SceneData, vis: VisBuffer, tri_id, depth, x_ndc,
             del rows
     with profiler.scope("resolve.fields"):
         return _channel_fields(scene, tri_id, depth, x_ndc, y_ndc, channels,
-                               want_aux, lod_probe, tap_block_cap)
+                               want_aux, lod_probe)
 
 
 def _channel_fields(scene: SceneData, tri_id, depth, x_ndc, y_ndc, channels,
-                    want_aux, lod_probe, tap_block_cap):
+                    want_aux, lod_probe):
     """_pixel_fields from the decoded channels."""
     S = tri_id.shape
     hit = tri_id >= 0
@@ -437,15 +430,8 @@ def _channel_fields(scene: SceneData, tri_id, depth, x_ndc, y_ndc, channels,
         )
         lod = torch.clamp(torch.log2(torch.clamp(rho, min=1e-8)), 0.0, 16.0)
 
-    tap_ovf = None
-    if (tap_block_cap is not None and len(S) == 2 and S[0] % 2 == 0
-            and S[1] % 2 == 0 and scene.textures.child_blocks is not None):
-        albedo, tap_ovf = sample_trilinear_quadblock(
-            scene.textures, mat_albedo, uv, lod, wh=(tex_w, tex_h),
-            srgb=scene.albedo_srgb, capacity=tap_block_cap)
-    else:
-        albedo = sample_trilinear(scene.textures, mat_albedo, uv, lod,
-                                  wh=(tex_w, tex_h), srgb=scene.albedo_srgb)
+    albedo = sample_trilinear(scene.textures, mat_albedo, uv, lod,
+                              wh=(tex_w, tex_h), srgb=scene.albedo_srgb)
     n_geo = _normalize(n_ws)
     if scene.no_normal_maps:
         normal = n_geo
@@ -482,8 +468,6 @@ def _channel_fields(scene: SceneData, tri_id, depth, x_ndc, y_ndc, channels,
         keep=keep,
         cut=cut,
     )
-    if tap_ovf is not None:
-        out["tap_overflow"] = tap_ovf
     if not want_aux:
         return out
 
@@ -610,12 +594,11 @@ def takes_dense_kernel(config, scene, vis) -> bool:
     dense resolve (ops/resolve.py resolve_dense): a static test of the
     layout its inputs show. No runner-up (no alpha mask), none of the
     record layouts and coherent fetches (they change the rows or how
-    they are fetched), the per-pixel albedo tap, and const-folded
-    emissive and metallic-roughness. Every other input keeps the eager
-    chain."""
+    they are fetched), and const-folded emissive and metallic-roughness.
+    Every other input keeps the eager chain."""
     return (vis.tri_id2 is None
             and not (config.slot_resolve or config.quad_rate_resolve
-                     or config.slim_rec or config.tap_block
+                     or config.slim_rec
                      or config.fused_resolve_rec or config.fused_inst_rec
                      or config.inst_rec_f16)
             and scene.emissive_const and scene.mr_const)
@@ -637,11 +620,9 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     The dense (H, W) resolve takes the coherent fetch the config names:
     slot_resolve (H % 8 == W % 16 == 0; it subsumes quad), else
     quad_rate_resolve (H and W even), else the per-pixel one
-    (planar_resolve included); tap_block takes the albedo tap at quad
-    rate (_pixel_fields) on any of them. The edge batches' overflow is
-    counted in ResolveAux.overflow (on the two-pass path the final
-    pass's alone; the flat alpha fallback batch taps per pixel). Neither
-    coherent fetch goes with fused_resolve_rec or slim_rec
+    (planar_resolve included). The edge batches' overflow is counted in
+    ResolveAux.overflow (on the two-pass path the final pass's alone).
+    Neither coherent fetch goes with fused_resolve_rec or slim_rec
     (ValueError).
 
     Row window (a slab of the sharded frame): `vis` holds the image rows
@@ -687,11 +668,7 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
     if slim and (quad or slot):
         raise ValueError(
             "slim_rec and quad/slot_rate_resolve are mutually exclusive")
-    track = quad or slot or config.tap_block
-    tap_cap = None
-    if config.tap_block:
-        tap_cap = (config.tap_edge_capacity
-                   or max((H // 2) * (W // 2) // 4, 1024))
+    track = quad or slot
     edge_ovf = torch.zeros((), dtype=torch.int64, device=dev)
 
     def dense_fields(tri_id, depth, want_aux=True):
@@ -709,12 +686,9 @@ def resolve_gbuffer(scene: SceneData, vis: VisBuffer, config, row0: int = 0,
                 fetched, ovf = _quad_fetch(scene, vis, tri_id, inst_f16=f16,
                                            capacity=config.quad_edge_capacity)
                 edge_ovf = edge_ovf + ovf
-        f = _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
-                          want_aux=want_aux, inst_f16=f16, rows=fetched,
-                          channels=channels, slim=slim, tap_block_cap=tap_cap)
-        if "tap_overflow" in f:
-            edge_ovf = edge_ovf + f.pop("tap_overflow")
-        return f
+        return _pixel_fields(scene, vis, tri_id, depth, x_ndc, y_ndc,
+                             want_aux=want_aux, inst_f16=f16, rows=fetched,
+                             channels=channels, slim=slim)
 
     if vis.tri_id2 is None:
         fields = dense_fields(vis.tri_id, vis.depth)

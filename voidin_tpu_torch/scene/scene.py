@@ -18,17 +18,8 @@ back on the host, under the same names (``io/snapshot.py`` saves them).
 world AABBs (``TlasData``), which the raytraced shadows walk. The texture
 pool is packed on the host (``TexturePool.host_arrays``: the native C++
 packer of ``native/``, as the JAX package's default, numpy without it)
-whatever the device.
-
-``World.device(tap_blocks=True)`` (the JAX package's parameter and
-default) also derives the texture pool's 4x4 tap-block tables on the
-device (``texture.block_tables``; RasterConfig.tap_block reads them),
-which add 128 B to each texel's 32 B quad row (5x the pool's bytes);
-``tap_blocks=False`` leaves them None.
-``scene_from_numpy`` takes them from the leaves where a JAX scene's
-leaves hold them ("textures.child_blocks", "textures.parent_blocks"),
-else derives them where ``statics["tap_blocks"]`` asks; ``scene_to_numpy``
-records that flag instead of the tables.
+whatever the device, and held on the device as its quad table alone
+(``texture.pool_device_bytes``).
 
 ``World.skins`` holds the scene's skinning regions (``scene/skin.py``
 SkinData); ``SceneData.skins`` carries them to the device, leaves keyed
@@ -150,11 +141,9 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
     """SceneData on `device` from numpy leaves keyed by dotted path plus
     the static flags of STATIC_FLAGS. The TLAS comes along where the
     leaves hold one ("tlas.*"), and skin i where they hold "skins.<i>.*",
-    with its static fields from statics["skins"][i]. The texture pool's
-    tap-block tables come from the leaves where they hold them, else from
-    texture.block_tables on `device` where statics["tap_blocks"] is
-    true. Extra leaves (LUT quad tables, the pool's vertex streams) are
-    ignored: no pass reads them."""
+    with its static fields from statics["skins"][i]. Extra leaves (LUT
+    quad tables, the pool's vertex streams) are ignored: no pass reads
+    them."""
     device = torch.device(device)
 
     def group(prefix):
@@ -181,9 +170,11 @@ def scene_from_numpy(leaves: dict, statics: dict, device) -> SceneData:
         instances=InstanceData(**tensors("instances", INSTANCE_LEAVES)),
         materials=MaterialData(**tensors("materials", MATERIAL_LEAVES)),
         lights=LightData(**tensors("lights", LIGHT_LEAVES)),
-        textures=tex_mod.pool_from_numpy(
-            group("textures"), device,
-            blocks=bool(statics.get("tap_blocks", False))),
+        # A JAX scene may hold its pool's tap-block tables (leaves
+        # "textures.child_blocks" / "textures.parent_blocks", statics
+        # "tap_blocks"): a layout of its quad-rate albedo tap, whose words
+        # the port's per-pixel tap gives, so both are ignored here.
+        textures=tex_mod.pool_from_numpy(group("textures"), device),
         ltc1=ltc1,
         ltc2=ltc2,
         tlas=(tlas_from_numpy(group("tlas"), device)
@@ -199,13 +190,10 @@ def scene_to_numpy(scene: SceneData):
     """(leaves, statics) of `scene` on the host, the reverse of
     scene_from_numpy: the leaves keyed as World.host_leaves keys them and
     typed as the device holds them (the host's u32 words as int32, which
-    scene_from_numpy takes unchanged), the static flags of
-    STATIC_FLAGS, statics["tap_blocks"] (whether the pool holds its
-    tap-block tables, which scene_from_numpy derives again instead of
-    their bytes travelling) and the skins' static fields under
-    statics["skins"]. The statics that the leaves determine (the pool's
-    has_lods, the texture base size, the TLAS refit levels) are left to
-    scene_from_numpy."""
+    scene_from_numpy takes unchanged), the static flags of STATIC_FLAGS
+    and the skins' static fields under statics["skins"]. The statics that
+    the leaves determine (the pool's has_lods, the texture base size, the
+    TLAS refit levels) are left to scene_from_numpy."""
     parts = dict(meshes=(scene.meshes, mesh_mod.MESH_LEAVES),
                  instances=(scene.instances, INSTANCE_LEAVES),
                  materials=(scene.materials, MATERIAL_LEAVES),
@@ -222,7 +210,6 @@ def scene_to_numpy(scene: SceneData):
         for k, v in skin_leaves(skin).items():
             leaves[f"skins.{i}.{k}"] = v
     statics = {k: getattr(scene, k) for k in STATIC_FLAGS}
-    statics["tap_blocks"] = scene.textures.child_blocks is not None
     statics["skins"] = tuple(skin_statics(s) for s in scene.skins)
     return leaves, statics
 
@@ -345,14 +332,9 @@ class World:
             skins=tuple(skin_statics(s) for s in self.skins),
         )
 
-    def device(self, device="cuda", with_tlas: bool = False,
-               tap_blocks: bool = True) -> SceneData:
+    def device(self, device="cuda", with_tlas: bool = False) -> SceneData:
         """The scene on `device`: the card unless the caller asks for
         another (the CPU tests pass "cpu"). Raises where there is no
-        card. `with_tlas` builds the TLAS the raytraced shadows need;
-        `tap_blocks` the texture pool's tap-block tables (5x the pool's
-        bytes; without them RasterConfig.tap_block takes the per-pixel
-        tap)."""
-        statics = dict(self.statics(), tap_blocks=tap_blocks)
-        return scene_from_numpy(self.host_leaves(with_tlas), statics,
+        card. `with_tlas` builds the TLAS the raytraced shadows need."""
+        return scene_from_numpy(self.host_leaves(with_tlas), self.statics(),
                                 device)

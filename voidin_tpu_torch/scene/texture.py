@@ -17,15 +17,12 @@ follow its float32 accumulation) and, where the library is unavailable or
 ``VOIDIN_NATIVE=0``, through numpy (``_pack_numpy``, within a few u8 steps
 of it, equal in each level's own texels at mip levels 0-3).
 
-With ``blocks`` (the default of ``TexturePool.device`` and
-``World.device(tap_blocks=)``, as in the JAX package) the pool also holds
-the 4x4 tap-block tables that the quad-rate albedo tap
-(``sample_trilinear_quadblock``, RasterConfig.tap_block) reads: each
-texel's wrap-baked 4x4 neighbourhood of its level and of the resampled
-parent, derived on the device from the uploaded quad table. They add
-128 B to each texel's 32 B quad row: 5x the pool's bytes. Left out (the
-TPU package keeps them): the 16 B split twins, a layout of the TPU's
-gather cliff that the JAX package leaves off below 2^62 rows.
+On the device the pool is that quad table alone, 32 B a texel
+(``pool_device_bytes``), and every tap is ``sample_trilinear``: one quad
+row per sample. Left out (the JAX package keeps them): the 4x4 tap-block
+tables of its quad-rate albedo tap (128 B more a texel, whose words the
+per-pixel tap gives) and the 16 B split twins, both gather layouts of the
+TPU.
 """
 
 from __future__ import annotations
@@ -36,7 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import checks, fastmath
+from ..core import checks
 
 WHITE_TEXTURE = 0
 BLACK_TEXTURE = 1
@@ -68,18 +65,13 @@ def _mip_sizes(base: int) -> List[int]:
     return sizes
 
 
-def pool_device_bytes(n_textures: int, pool_size: int,
-                      blocks: bool = False) -> int:
-    """Device bytes of the pool's tables for `n_textures` slots at pool
+def pool_device_bytes(n_textures: int, pool_size: int) -> int:
+    """Device bytes of the pool's table for `n_textures` slots at pool
     size S=`pool_size`: one 32 B quad row per texel over the flattened
     mip chain (sum of s^2 over the mips, ~(4/3) S^2 rows), so ~44.7 MB a
-    slot at S=1024, and 5x that with `blocks` (the two 64 B tap-block
-    rows a texel: 160 B). The JAX function counts the blocks as 3x, two
-    64 B rows short of the tables its TexturePool.device() builds. The
-    port builds no 16 B split twins (the JAX function doubles for them
-    only from 2^62 rows)."""
+    slot at S=1024."""
     total_rows = sum(s * s for s in _mip_sizes(pool_size))
-    return n_textures * total_rows * (160 if blocks else 32)
+    return n_textures * total_rows * 32
 
 
 def _downsample2x2(img: np.ndarray) -> np.ndarray:
@@ -133,11 +125,6 @@ class TexturePoolData:
     size: torch.Tensor  # (T, 2) i32 (w, h) at level 0
     max_lod: torch.Tensor  # (T,) f32
     srgb: torch.Tensor  # (T,) bool — decode rgb after filtering
-    # (T * TOTAL, 64) uint8: the texel's 4x4 wrap-baked neighbourhood of
-    # its level (child) and of the resampled parent, 16 RGBA texels in
-    # row-major order (block_tables); None for a pool built without them
-    child_blocks: Optional[torch.Tensor] = None
-    parent_blocks: Optional[torch.Tensor] = None
     base_size: int = 0
     total: int = 0
 
@@ -213,12 +200,10 @@ class TexturePool:
         self.srgb_flags.append(bool(srgb))
         return len(self.images) - 1
 
-    def device(self, device="cuda", blocks: bool = True) -> TexturePoolData:
+    def device(self, device="cuda") -> TexturePoolData:
         """The pool on `device` (the card unless the caller asks for
-        another); `blocks` also derives the tap-block tables there (5x
-        the pool's bytes; the albedo tap takes its per-pixel rows
-        without them)."""
-        return pool_from_numpy(self.host_arrays(), device, blocks=blocks)
+        another)."""
+        return pool_from_numpy(self.host_arrays(), device)
 
     def host_arrays(self) -> dict:
         """Packed quad table + metadata as numpy (the device leaves). Each
@@ -283,17 +268,15 @@ def _pack_numpy(img: np.ndarray, base: int) -> np.ndarray:
     return out
 
 
-def pool_from_numpy(h: dict, device, blocks: bool = False
-                    ) -> TexturePoolData:
-    """Device pool from its host arrays. The pow2 base size follows from
-    the per-texture row count: total = (4 S^2 - 1) / 3. The tap-block
-    tables come from `h` where it holds them (the leaves of a JAX pool),
-    else, with `blocks`, from block_tables on the device."""
+def pool_from_numpy(h: dict, device) -> TexturePoolData:
+    """Device pool from its host arrays (TEXTURE_LEAVES; other keys are
+    ignored). The pow2 base size follows from the per-texture row count:
+    total = (4 S^2 - 1) / 3."""
     T = h["size"].shape[0]
     total = h["quads"].shape[0] // T
     base = int(round(np.sqrt((3 * total + 1) / 4)))
     assert (4 * base * base - 1) // 3 == total, (base, total)
-    pool = TexturePoolData(
+    return TexturePoolData(
         quads=torch.as_tensor(np.array(h["quads"]),
                               device=device),
         size=torch.as_tensor(np.array(h["size"], np.int32), device=device),
@@ -303,63 +286,6 @@ def pool_from_numpy(h: dict, device, blocks: bool = False
         base_size=base,
         total=total,
     )
-    if h.get("child_blocks") is not None:
-        pool.child_blocks, pool.parent_blocks = (
-            torch.as_tensor(np.array(h[k]), device=device)
-            for k in ("child_blocks", "parent_blocks"))
-    elif blocks:
-        pool.child_blocks, pool.parent_blocks = block_tables(pool)
-    return pool
-
-
-# Texels a gather of block_tables covers at most (its int64 index is 8 B
-# a texel): a level larger than this across the pool goes in chunks of
-# textures, so the derivation's scratch stays below ~0.5 GB.
-_BLOCK_CHUNK = 1 << 22
-
-
-def block_tables(pool: TexturePoolData):
-    """(child_blocks, parent_blocks) of a pool, each (T * TOTAL, 64)
-    uint8: at a texel's row the 4x4 texels from it, texel (j, i) (j rows
-    down, i columns across) at bytes 16 j + 4 i, of its level (corner c00
-    of the quad rows, bytes 0:4) and of the resampled parent (bytes
-    16:20), wrapped over the texture's own (lh, lw) at that level, never
-    over the padded s x s; rows outside the level's texels stay 0.
-    Derived from the quad table as the JAX package derives them at
-    TexturePool.device(), so either packer's pool gets its own tables:
-    index arithmetic and one gather per level (per chunk of textures on
-    a large level) on the pool's device."""
-    T, total, S = pool.count, pool.total, pool.base_size
-    dev = pool.quads.device
-    # each RGBA texel as one int32 word: [child, parent] per quad row
-    texel = pool.quads.reshape(T * total, 32)[
-        :, [0, 1, 2, 3, 16, 17, 18, 19]].contiguous().view(torch.int32)
-    child = torch.zeros(T, total, 16, dtype=torch.int32, device=dev)
-    parent = torch.zeros_like(child)
-    size = pool.size.to(torch.int64)
-    k4 = torch.arange(4, device=dev)
-    off = 0
-    for li, s in enumerate(_mip_sizes(S)):
-        r = torch.arange(s, device=dev)[None, :, None]
-        step = max(1, _BLOCK_CHUNK // (s * s * 16))
-        for t0 in range(0, T, step):
-            t = torch.arange(t0, min(T, t0 + step), device=dev)
-            lw = torch.clamp(size[t, 0] >> li, min=1)[:, None, None]
-            lh = torch.clamp(size[t, 1] >> li, min=1)[:, None, None]
-            ys = (r + k4) % lh  # (n, s, 4): rows y + j, wrapped
-            xs = (r + k4) % lw  # (n, s, 4): columns x + i, wrapped
-            idx = (t[:, None, None, None, None] * total + off
-                   + ys[:, :, None, :, None] * s + xs[:, None, :, None, :])
-            valid = ((r < lh)[:, :, None, :] & (r < lw)[:, None, :, :]
-                     )[..., None]
-            rows = texel[idx.reshape(-1)].reshape(len(t), s * s, 16, 2)
-            valid = valid.reshape(len(t), s * s, 1, 1)
-            rows = torch.where(valid, rows, 0)
-            child[t0:t0 + len(t), off:off + s * s] = rows[..., 0]
-            parent[t0:t0 + len(t), off:off + s * s] = rows[..., 1]
-        off += s * s
-    return (child.view(torch.uint8).reshape(T * total, 64),
-            parent.view(torch.uint8).reshape(T * total, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -422,12 +348,7 @@ def sample_trilinear(pool: TexturePoolData, tex_id, uv, lod, wh=None,
     l0 = torch.floor(lod)
     raw = _bilinear_level(pool, tex_id, uv, l0.to(torch.int64),
                           lod_frac=lod - l0, wh=wh)
-    return _srgb_decode(pool, tex_id, raw, srgb)
-
-
-def _srgb_decode(pool: TexturePoolData, tex_id, raw, srgb):
-    """Post-filter sRGB decode of raw (..., 4) rgb: per-sample flags
-    (`srgb` None) or the call site's static flag."""
+    # post-filter sRGB decode of rgb
     if srgb is None:
         decode = pool.srgb[tex_id.to(torch.int64)][..., None]
         rgb = torch.where(decode, srgb_to_linear_t(raw[..., :3]),
@@ -439,131 +360,11 @@ def _srgb_decode(pool: TexturePoolData, tex_id, raw, srgb):
     return torch.cat([rgb, raw[..., 3:4]], dim=-1)
 
 
-def _lerp_corners(c00, c10, c01, c11, tx, ty):
-    """The bilinear lerp of a texel quad's corners, in the order of every
-    tap of the pool."""
-    top = c00 + (c10 - c00) * tx
-    bot = c01 + (c11 - c01) * tx
-    return top + (bot - top) * ty
-
-
 def _quad_lerp(q, base, tx, ty):
     """The bilinear sample of the quad at columns base: base + 16 of
     quad rows q (..., 32) f32."""
-    return _lerp_corners(q[..., base: base + 4], q[..., base + 4: base + 8],
-                         q[..., base + 8: base + 12],
-                         q[..., base + 12: base + 16], tx, ty)
-
-
-def sample_trilinear_quadblock(pool: TexturePoolData, tex_id, uv, lod, wh,
-                               srgb: Optional[bool] = None,
-                               capacity: int = 0):
-    """Quad-rate trilinear tap over an (H, W) pixel grid (H, W even;
-    RasterConfig.tap_block): the 2x2 bilinear footprints of a 2x2 pixel
-    quad lie within a few texels of each other at a proper mip level, so
-    one child-block and one parent-block row (pool.child_blocks /
-    parent_blocks, 64 B each) serve all four pixels: 2 rows a quad instead
-    of 4. A quad is uniform when its four pixels share a texture and a
-    level and their floor coordinates spread by 2 or less; each pixel then
-    takes its corners from the block (an index gather; the JAX package's
-    one-hot einsum over u8 / 255 values gives the same words). Other
-    quads go through a compacted batch of `capacity` quads (0: max(Hq *
-    Wq // 4, 1024)), ascending, whose pixels each gather one packed 16 B
-    record (the quad-row index bit-cast to f32, tx, ty, frac) and one 32 B
-    quad row, scattered back. The words of sample_trilinear(..., wh=wh,
-    srgb=srgb) while the batch holds; a quad beyond it keeps the block
-    path's value, as in the JAX package. The block index takes the anchor
-    pixel's texture and level and the quad's min x and y, which are at
-    most the anchor's own, so it lies in the anchor's level (held to the
-    table under debug_bounds as "texture.blocks"). Returns (samples (H,
-    W, 4) linear-space, the edge quads beyond capacity)."""
-    H, W = lod.shape
-    Hq, Wq = H // 2, W // 2
-    dev = lod.device
-    w0, h0 = wh
-    lodc = torch.minimum(torch.clamp(lod, min=0.0), derived_max_lod(w0, h0))
-    l0 = torch.floor(lodc)
-    frac = lodc - l0
-    level = l0.to(torch.int64)
-    lw = torch.clamp(w0.to(torch.int64) >> level, min=1)
-    lh = torch.clamp(h0.to(torch.int64) >> level, min=1)
-    stride = torch.clamp(pool.base_size >> level, min=1)
-    off = _level_offset_closed(pool.base_size, level)
-    fx = uv[..., 0] * lw.to(torch.float32) - 0.5
-    fy = uv[..., 1] * lh.to(torch.float32) - 0.5
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    tx = fx - x0
-    ty = fy - y0
-    x0i = torch.remainder(x0.to(torch.int64), lw)
-    y0i = torch.remainder(y0.to(torch.int64), lh)
-    tid = tex_id.to(torch.int64)
-    idx_img = tid * pool.total + off + y0i * stride + x0i  # per-pixel row
-
-    def q4(a):  # (H, W) -> (Hq, Wq, 4), pixels (0,0) (0,1) (1,0) (1,1)
-        return a.reshape(Hq, 2, Wq, 2).permute(0, 2, 1, 3).reshape(
-            Hq, Wq, 4)
-
-    tex4, lev4, x4, y4 = q4(tid), q4(level), q4(x0i), q4(y0i)
-    bx = x4.amin(dim=-1)
-    by = y4.amin(dim=-1)
-    uniform = ((tex4 == tex4[..., :1]).all(dim=-1)
-               & (lev4 == lev4[..., :1]).all(dim=-1)
-               & (x4.amax(dim=-1) - bx <= 2) & (y4.amax(dim=-1) - by <= 2))
-    bidx = (tex4[..., 0] * pool.total + q4(off)[..., 0]
-            + by * q4(stride)[..., 0] + bx)
-    # never past the anchor pixel's own row, so inside the anchor's level
-    bidx = checks.check_index(bidx, pool.child_blocks.shape[0],
-                              "texture.blocks")
-    # each pixel's four corner texels in the block, as int32 words
-    ox = torch.clamp(x4 - bx[..., None], 0, 2)
-    oy = torch.clamp(y4 - by[..., None], 0, 2)
-    k = ((oy * 4 + ox)[..., None]
-         + torch.tensor([0, 1, 4, 5], device=dev)).reshape(Hq, Wq, 16)
-    scale = float(np.float32(1.0 / 255.0))
-
-    def corners(table):  # (H, W, 4 corners, 4) f32
-        blk = table[bidx].view(torch.int32)  # (Hq, Wq, 16) texels
-        c = torch.gather(blk, 2, k).view(torch.uint8).reshape(
-            Hq, Wq, 2, 2, 4, 4).permute(0, 2, 1, 3, 4, 5).reshape(
-            H, W, 4, 4)
-        return c.to(torch.float32) * scale
-
-    txe, tye = tx[..., None], ty[..., None]
-
-    def bilin(c):
-        return _lerp_corners(c[:, :, 0], c[:, :, 1], c[:, :, 2],
-                             c[:, :, 3], txe, tye)
-
-    child = bilin(corners(pool.child_blocks))
-    parent = bilin(corners(pool.parent_blocks))
-    raw = child + (parent - child) * frac[..., None]
-
-    # edge quads: per-pixel 32 B quad rows, scattered back
-    F = capacity or max(Hq * Wq // 4, 1024)
-    flat = (~uniform).reshape(-1)
-    count = flat.sum()
-    qidx = fastmath.compact_indices(flat, F)
-    valid = torch.arange(F, device=dev) < torch.clamp(count, max=F)
-    qy = qidx // Wq
-    qx = qidx - qy * Wq
-    py = torch.cat([qy * 2, qy * 2, qy * 2 + 1, qy * 2 + 1])
-    px = torch.cat([qx * 2, qx * 2 + 1, qx * 2, qx * 2 + 1])
-    pix = py * W + px  # (4F,)
-    # one packed 16 B record a pixel: the row index's bits, tx, ty, frac
-    epack = torch.stack([idx_img.to(torch.int32), tx.view(torch.int32),
-                         ty.view(torch.int32), frac.view(torch.int32)],
-                        dim=-1).reshape(H * W, 4)
-    eg = epack[pix]
-    idx_e = checks.check_index(eg[:, 0], pool.quads.shape[0],
-                               "texture.quads_edge").to(torch.int64)
-    ef = eg.view(torch.float32)
-    qrow = pool.quads[idx_e].to(torch.float32) * scale  # (4F, 32)
-
-    ch_e = _quad_lerp(qrow, 0, ef[:, 1:2], ef[:, 2:3])
-    vals = ch_e + (_quad_lerp(qrow, 16, ef[:, 1:2], ef[:, 2:3]) - ch_e) \
-        * ef[:, 3:4]
-    widx = torch.where(valid.repeat(4), pix, H * W)
-    raw = fastmath.scatter_rows(raw, widx, vals)
-    return (_srgb_decode(pool, tid, raw, srgb),
-            torch.clamp(count - F, min=0))
+    c00, c10, c01, c11 = (q[..., base + 4 * k: base + 4 * k + 4]
+                          for k in range(4))
+    top = c00 + (c10 - c00) * tx
+    bot = c01 + (c11 - c01) * tx
+    return top + (bot - top) * ty
