@@ -206,6 +206,15 @@ native/texture_packer.cpp, the host C++ compiler), then:
      median ms/frame, resolve_gbuffer's and taa's own median ms (CUDA
      events), peak memory, and an op profile of one resolve and one taa
      call (device busy, kernels a call, the top ops).
+ 22. the TAA kernel (taa_phases): ops/taa.py taa_resolve_fused against
+     its twin, the eager chain run on the card (passes/taa.py
+     taa_fused_reference), word for word on every launch of the north
+     star's 1080p frames 0-8 (TAA jitter, moving instances; frame 0
+     launches nothing, each later frame once), of frames 0-2 of the
+     northstar.fly cell's camera (fly_camera), and of taa_edge_inputs at
+     161x97 (a moving and a turning camera, a history with -0.0, NaN and
+     infinite texels); timed over 50 calls on frame 8's inputs by call
+     and on the device beside its bound (TAA_PX_BYTES a pixel).
 Phases 5-8, 10-17 and 19-21 print the median ms/frame of frames 3-12 (CUDA
 events) and the peak device memory of the 12 frames. Every path run sets
 the launch counts to 0 just before it and checks them just after: the
@@ -216,7 +225,10 @@ passes/resolve.py takes_dense_kernel is on, never elsewhere (the import
 scenes' emissive map, the masked scene, slim_rec and the other record
 options); wherever a phase holds K1 and the fused LTC kernel
 against their twins on a frame's inputs, the dense resolve kernel is held
-against its twin there too where that frame calls it. Prints
+against its twin there too where that frame calls it; the TAA kernel
+once a frame after a Renderer's first (taa_launches) wherever the frame
+runs TAA unsharded with the default history fetch, never elsewhere (TAA
+off, the sharded frame, taa_quad_history and taa_inwindow). Prints
 the kernel table as one JSON line (each row also with device_ms, K3's with
 its 1-table shape under one_table, the fused ring kernel's with the ring
 frame's ms/frame and differing words,
@@ -226,7 +238,8 @@ kernel's and the dense resolve kernel's with each preset's, the import
 scenes', the App's and each phase 20 and 21 set's inputs under paths
 (the resolve kernel's also with config 5's), the fused kernel's also on
 area_light_scale 2's; their launches count phase 16's App frames and
-phases 17's and 19-21's runs too),
+phases 17's and 19-21's runs too; the TAA kernel's count every
+Renderer run of phases 3-22 that launches it),
 then the card line, then the
 result line {"ok": true,
 "device": {...}}. A device time whose profiler trace lost its kernel
@@ -498,6 +511,7 @@ def launch_counters():
     from voidin_tpu_torch.ops import resolve as rs
     from voidin_tpu_torch.ops import shadow_trace as st
     from voidin_tpu_torch.ops import skin as sk
+    from voidin_tpu_torch.ops import taa as ta
 
     return dict(k1=(fr, "LAUNCHES"), k1_track2=(fr, "LAUNCHES_TRACK2"),
                 k1_payload=(fr, "LAUNCHES_PAYLOAD"),
@@ -513,7 +527,8 @@ def launch_counters():
                 closest_hit=(ch, "LAUNCHES"),
                 resolve_dense=(rs, "LAUNCHES"),
                 skin_pose=(sk, "LAUNCHES"), blas_refit=(sk, "LAUNCHES_BLAS"),
-                tlas_refit=(sk, "LAUNCHES_TLAS"))
+                tlas_refit=(sk, "LAUNCHES_TLAS"),
+                taa_fused=(ta, "LAUNCHES"))
 
 
 def skin_launches(scene, frames):
@@ -527,6 +542,20 @@ def skin_launches(scene, frames):
                 blas_refit=frames * any(s.refit_order is not None
                                         for s in scene.skins),
                 tlas_refit=frames * (scene.tlas is not None))
+
+
+def taa_launches(r, frames):
+    """The TAA kernel's launches in the last `frames` frames of Renderer
+    `r` (frames a window that ends at its newest frame): one a frame that
+    reads a valid history, which is every frame but the Renderer's first,
+    where the frame runs TAA unsharded on the card with the default
+    history fetch; none with TAA off, on the sharded frame, or with the
+    quad-block or in-window fetch."""
+    c = r.config
+    if not r.enable_taa or r.mesh is not None or r.device.type != "cuda" \
+            or c.taa_quad_history or c.taa_inwindow:
+        return {}
+    return dict(taa_fused=frames - (r.frame_count == frames))
 
 
 def reset_launches():
@@ -2239,7 +2268,8 @@ def preset_phases(dev, card):
         reset_launches()
         out, times, mem = run_frames(r, p.camera, label, joint_mats, keep)
         want = dict(k1=FRAMES, **{k: FRAMES for k in extra},
-                    **skin_launches(scene, FRAMES))
+                    **skin_launches(scene, FRAMES),
+                    **taa_launches(r, FRAMES))
         got = expect_launches(label, want)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
@@ -2321,7 +2351,8 @@ def import_phases(dev, card):
     out, times, mem = run_frames(r, cam, "import",
                                  lambda i: import_joint_mats(animator, i))
     got = expect_launches("import", dict(k1=FRAMES, ltc_rect=FRAMES,
-                                         **skin_launches(scene, FRAMES)))
+                                         **skin_launches(scene, FRAMES),
+                                         **taa_launches(r, FRAMES)))
     ms = float(np.median(times[2:]))
     print(f"import scene {WIDTH}x{HEIGHT}: median {ms:.3f} ms/frame over "
           f"frames 3-{FRAMES} ({card}); {mem}; image mean {out.mean():.4f} "
@@ -2443,8 +2474,9 @@ def app_run_pair(app, label, card):
             _, times, _ = run_frames(_CameraPath(r), cam, name,
                                      shape=(h, w, 3))
             r_ms = float(np.median(times[2:]))
-        got = expect_launches(name, dict(k1=FRAMES, ltc_rect=FRAMES,
-                                         resolve_dense=FRAMES))
+        got = expect_launches(name, dict(
+            k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES,
+            **taa_launches(app.renderer if run == "App" else r, FRAMES)))
         if run == "App":
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
@@ -2500,7 +2532,8 @@ def record_phase(app, card, path, step_ms):
     wall = (time.perf_counter() - t0) * 1e3
     got = expect_launches("App.run with recording",
                           dict(k1=FRAMES, ltc_rect=FRAMES,
-                               resolve_dense=FRAMES))
+                               resolve_dense=FRAMES,
+                               **taa_launches(app.renderer, FRAMES)))
     out = app.recorder.out_path
     route = "MJPEG-AVI (no ffmpeg)" if out.endswith(".avi") else "ffmpeg"
     size = os.path.getsize(out)
@@ -2593,7 +2626,8 @@ def web_phase(app, card):
         fail("the web viewer did not stop on Esc")
     n = result["frames"]
     got = expect_launches("web viewer", dict(k1=n, ltc_rect=n,
-                                             resolve_dense=n))
+                                             resolve_dense=n,
+                                             **taa_launches(app.renderer, n)))
     moved = float(np.linalg.norm(np.asarray(app.state.camera.position)
                                  - pos0))
     h, w = app.config.height, app.config.width
@@ -2814,7 +2848,8 @@ def main():
                      f"{where}")
         if where == "card":
             small_block_launches = expect_launches(
-                "small masked block path", dict(k2_track2=3, ltc_rect=3))
+                "small masked block path", dict(k2_track2=3, ltc_rect=3,
+                                                **taa_launches(r, 3)))
         imgs[where] = img.cpu().numpy()
     small_diff = float(np.abs(imgs["card"] - imgs["cpu"]).mean())
     print(f"masked scene 320x184 on the block path (K "
@@ -2831,7 +2866,8 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "north-star")
     ns_launches = expect_launches("north-star", dict(
-        k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES))
+        k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES,
+        **taa_launches(r, FRAMES)))
     ns_ms = float(np.median(times[2:]))
     print(f"north-star frame {WIDTH}x{HEIGHT}: median {ns_ms:.3f} ms/frame "
           f"over frames 3-{FRAMES} ({card}); {mem}; image mean "
@@ -2862,7 +2898,8 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "block-path")
     block_launches = expect_launches("block-path", dict(
-        k2=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES))
+        k2=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES,
+        **taa_launches(r, FRAMES)))
     block_ms = float(np.median(times[2:]))
     print(f"block-path north-star frame {WIDTH}x{HEIGHT} (backend xla, K "
           f"{ns_k}): median {block_ms:.3f} ms/frame over frames 3-{FRAMES} "
@@ -2881,7 +2918,8 @@ def main():
             r, north_star_camera(pt), label)
         got = expect_launches(label, dict(
             k1_payload=FRAMES if payload else 0,
-            k1=0 if payload else FRAMES, ltc_rect=FRAMES))
+            k1=0 if payload else FRAMES, ltc_rect=FRAMES,
+            **taa_launches(r, FRAMES)))
         if payload:
             payload_launches = got
         slim_ms[payload] = float(np.median(times[2:]))
@@ -2907,7 +2945,7 @@ def main():
     reset_launches()
     out, times, mem = run_frames(r, north_star_camera(pt), "masked")
     masked_launches = expect_launches("masked", dict(
-        k1_track2=FRAMES, ltc_rect=FRAMES))
+        k1_track2=FRAMES, ltc_rect=FRAMES, **taa_launches(r, FRAMES)))
     masked_ms = float(np.median(times[2:]))
     print(f"masked frame {WIDTH}x{HEIGHT} (north star + {N_FOLIAGE} foliage "
           f"cards): "
@@ -2988,6 +3026,8 @@ def main():
     stamp("phase 20 (record layouts and coherent resolves)")
     sampler_launches, sampler_paths = sampler_phases(dev, card)
     stamp("phase 21 (the TAA history samplers)")
+    rows["taa_fused"], taa_frame_launches = taa_phases(dev, card)
+    stamp("phase 22 (the TAA kernel)")
     for name in ("fine_raster_pairs", "ltc_rect", "resolve_dense"):
         rows[name]["paths"] = {**rows[name].get("paths", {}),
                                **preset_paths.get(name, {}),
@@ -3040,6 +3080,17 @@ def main():
                        + shard_launches["resolve_dense"]
                        + record_launches["resolve_dense"]
                        + sampler_launches["resolve_dense"]),
+        taa_fused=(ns_launches["taa_fused"]
+                   + small_block_launches["taa_fused"]
+                   + block_launches["taa_fused"]
+                   + masked_launches["taa_fused"]
+                   + preset_launches["taa_fused"]
+                   + import_launches["taa_fused"]
+                   + app_launches["taa_fused"]
+                   + shard_launches["taa_fused"]
+                   + jpeg_launches["taa_fused"]
+                   + record_launches["taa_fused"]
+                   + sampler_launches["taa_fused"] + taa_frame_launches),
     )
     meta = dict(
         fine_raster_pairs=("voidin_tpu_torch/csrc/fine_raster.cu",
@@ -3082,6 +3133,9 @@ def main():
                     "voidin_tpu/scene/skin.py:123"),
         tlas_refit=("voidin_tpu_torch/csrc/skin.cu",
                     "voidin_tpu/scene/skin.py:162"),
+        # no TPU kernel: the JAX package's TAA in plain jnp
+        taa_fused=("voidin_tpu_torch/csrc/taa.cu",
+                   "voidin_tpu/passes/taa.py:428"),
     )
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3195,7 +3249,8 @@ def shard_phases(dev, card, cards_only=False):
         out, times, mem = run_frames(r, cam, f"sharded north star, {label}",
                                      keep=keep, shape=shape)
         add(expect_launches(f"sharded north star, {label}", dict(
-            k1=n * FRAMES, ltc_rect=n * FRAMES, resolve_dense=n * FRAMES)))
+            k1=n * FRAMES, ltc_rect=n * FRAMES, resolve_dense=n * FRAMES,
+            **taa_launches(r, FRAMES))))
         ms[label] = float(np.median(times[2:]))
         line = (f"sharded north star {WIDTH}x{H}, {label}: median "
                 f"{ms[label]:.3f} ms/frame over frames 3-{FRAMES} ({card}); "
@@ -3325,7 +3380,8 @@ def shard_phases(dev, card, cards_only=False):
     reset_launches()
     out, times, mem = run_frames(r, cam, "area_light_scale 2", shape=shape)
     add(expect_launches("area_light_scale 2", dict(
-        k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES)))
+        k1=FRAMES, ltc_rect=FRAMES, resolve_dense=FRAMES,
+        **taa_launches(r, FRAMES))))
     print(f"area_light_scale 2 north star {WIDTH}x{H}: median "
           f"{float(np.median(times[2:])):.3f} ms/frame over frames "
           f"3-{FRAMES} ({card}) vs {ms['unsharded']:.3f} at full "
@@ -3615,7 +3671,8 @@ def image_import_phases(dev, card):
         out, times, mem = run_frames(r, cam, label,
                                      lambda i: import_joint_mats(animator, i))
         got_launches = expect_launches(label, dict(
-            k1=FRAMES, ltc_rect=FRAMES, **skin_launches(scene, FRAMES)))
+            k1=FRAMES, ltc_rect=FRAMES, **skin_launches(scene, FRAMES),
+            **taa_launches(r, FRAMES)))
         for k, n in got_launches.items():
             launches[k] = launches.get(k, 0) + n
         print(f"phase 19, {label} ({name}, {got.shape[1]}x{got.shape[0]}, "
@@ -3844,7 +3901,8 @@ def record_phases(dev, card, masked_world, ns_k):
         with ResolveProbe() as probe:
             out, times, mem = run_frames(r, north_star_camera(pt), label)
         got = expect_launches(label, {raster: FRAMES, "ltc_rect": FRAMES,
-                                      "resolve_dense": FRAMES * dense})
+                                      "resolve_dense": FRAMES * dense,
+                                      **taa_launches(r, FRAMES)})
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         ms = float(np.median(times[2:]))
@@ -3918,7 +3976,8 @@ def record_phases(dev, card, masked_world, ns_k):
     reset_launches()
     got = r.render(north_star_camera(pt))
     launches_slim = expect_launches("masked slim_rec fallback frame",
-                                    dict(k1_track2=1, ltc_rect=1))
+                                    dict(k1_track2=1, ltc_rect=1,
+                                         **taa_launches(r, 1)))
     for k, n in launches_slim.items():
         launches[k] = launches.get(k, 0) + n
     want = Renderer(scene, dataclasses.replace(
@@ -4125,7 +4184,8 @@ def sampler_scene_run(label, make, cam, card, n_ops=6):
                 StageProbe(taa, "taa", keep=1) as tp:
             out, times, mem = run_frames(r, cam, set_label, keep=keep)
         got = expect_launches(set_label, dict(k1=FRAMES, ltc_rect=FRAMES,
-                                              resolve_dense=FRAMES))
+                                              resolve_dense=FRAMES,
+                                              **taa_launches(r, FRAMES)))
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         if base is None:
@@ -4207,6 +4267,180 @@ def sampler_phases(dev, card):
     del world, p, hosts
     torch.cuda.empty_cache()
     return launches, paths
+
+
+# --- phase 22: the TAA kernel ---------------------------------------------
+TAA_PX_BYTES = 4 + 12 + 12 + 12  # depth, colour, history in; colour out
+
+
+def fly_camera(pt, frame, aspect=WIDTH / HEIGHT):
+    """The northstar.fly cell's camera of `frame`, posed as the benchmark
+    poses it: portbench/pb/traffic.py CameraPath over the cell's traffic
+    file (traffic/fly.json) and its configuration's camera
+    (configs/northstar.json)."""
+    import importlib.util
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "portbench")
+    spec = importlib.util.spec_from_file_location(
+        "portbench_traffic", os.path.join(bench, "pb", "traffic.py"))
+    traffic = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(traffic)
+    with open(os.path.join(bench, "configs", "northstar.json")) as f:
+        config = json.load(f)
+    pos, yaw, pitch = traffic.CameraPath(traffic.load("fly"),
+                                         config).pose(frame)
+    return pt.Camera(position=pos, yaw=yaw, pitch=pitch, aspect=aspect)
+
+
+def taa_edge_camera(pt, kind, h, w):
+    """A jittered camera pair (CameraUniform) for an h x w TAA: `moving`
+    steps a little sideways, `turning` turns 25 degrees (much of the
+    history uv lands outside [0, 1])."""
+    prev = pt.Camera(position=[0.0, 2.0, 0.0], pitch=-18.0, aspect=w / h)
+    prev.jitter = np.array([0.3 / w, -0.2 / h], np.float32)
+    cam = pt.Camera(position=[0.05, 2.0, 0.0], pitch=-18.0, aspect=w / h,
+                    yaw=25.0 if kind == "turning" else 0.0)
+    cam.jitter = np.array([-0.4 / w, 0.1 / h], np.float32)
+    return cam.uniform(previous=prev.uniform())
+
+
+def taa_edge_inputs(kind, h, w, seed=3):
+    """(color, depth, history) numpy images of an h x w TAA (h >= 4, w >=
+    9): HDR noise with signed zeros over a ground plane's reverse-Z ramp
+    with boxes nearer the camera and a sky (depth 0) above; the history
+    noise, or with `kind` "adversarial" -0.0, NaN, +inf and -inf texels,
+    a NaN row, an infinite column and a -0.0 last row."""
+    rng = np.random.default_rng(seed)
+    color = rng.uniform(0.0, 4.0, (h, w, 3)).astype(np.float32)
+    color[rng.random((h, w)) < 0.05] *= -0.0
+    ramp = np.linspace(0.0, 0.08, h, dtype=np.float32)[:, None]
+    depth = np.broadcast_to(ramp, (h, w)).copy()
+    depth[: h // 4] = 0.0
+    for _ in range(12):
+        y, x = rng.integers(0, max(h - 8, 1)), rng.integers(0, w - 8)
+        depth[y:y + 8, x:x + 8] = rng.uniform(0.1, 0.9)
+    history = rng.uniform(0.0, 1.5, (h, w, 3)).astype(np.float32)
+    if kind == "adversarial":
+        bad = rng.random((h, w, 3))
+        history[bad < 0.04] = -0.0
+        history[(bad >= 0.04) & (bad < 0.06)] = np.nan
+        history[(bad >= 0.06) & (bad < 0.07)] = np.inf
+        history[(bad >= 0.07) & (bad < 0.08)] = -np.inf
+        history[h // 2] = np.nan
+        history[:, w // 3] = np.inf
+        history[h - 1] = -0.0
+    return color, depth, history
+
+
+def taa_calls(render, frames):
+    """Every launch of the TAA kernel (ops/taa.py taa_resolve_fused) while
+    `render(i)` draws frames i = 0 .. frames - 1: [(frame, args with a
+    copy of the history it read, kwargs)]."""
+    from voidin_tpu_torch.ops import taa as ta
+
+    real = ta.taa_resolve_fused
+    seen, at = [], [0]
+
+    def keep(color, depth, history, camera, **kw):
+        seen.append((at[0], (color, depth, history.clone(), camera), kw))
+        return real(color, depth, history, camera, **kw)
+
+    ta.taa_resolve_fused = keep
+    try:
+        for i in range(frames):
+            at[0] = i
+            render(i)
+    finally:
+        ta.taa_resolve_fused = real
+    return seen
+
+
+def hold_taa_call(label, args, kw, card, reps=0):
+    """One recorded TAA launch (its arguments `args`, `kw`, the twin among
+    them) against its twin, the eager chain run on the card: every word
+    equal. With `reps`, timed by call and on the device beside its bound
+    (TAA_PX_BYTES a pixel), and its row returned."""
+    import torch
+
+    from voidin_tpu_torch.ops import taa as ta
+
+    got = ta.taa_resolve_fused(*args, **kw)
+    ref = kw["twin"](*args)
+    torch.cuda.synchronize()
+    differ = words_differ(got, ref)
+    n_px = got.shape[0] * got.shape[1]
+    print(f"{label}, TAA kernel on its own {tuple(got.shape)} inputs "
+          f"({int(torch.isfinite(got).all(dim=-1).sum())} of {n_px} pixels "
+          f"finite): differing words {differ}", flush=True)
+    if differ:
+        bad = (got.view(torch.int32) != ref.view(torch.int32)).nonzero()
+        print(f"  first differences at {bad[:6].tolist()}: kernel "
+              f"{[float(got[tuple(i)]) for i in bad[:6]]}, twin "
+              f"{[float(ref[tuple(i)]) for i in bad[:6]]}", flush=True)
+        fail(f"{label}: the TAA kernel disagrees with its twin")
+    if not reps:
+        return None
+    err = float(torch.nan_to_num((got - ref).abs(), nan=0.0).max())
+    r = timed_row(lambda: ta.taa_resolve_fused(*args, **kw),
+                  "taa_fused_kernel", reps, lambda: kw["twin"](*args), 3,
+                  bound_ms(n_px * TAA_PX_BYTES, 0), err)
+    r.update(pixels=n_px, differing_words=differ)
+    print(f"{label}, TAA kernel: {timing(r)} ({card})", flush=True)
+    return r
+
+
+def taa_phases(dev, card):
+    """Phase 22: the TAA kernel against its twin (hold_taa_call) on every
+    launch of the north star's 1080p frames 0-8 (frame 0 launches
+    nothing, every later frame once), of frames 0-2 of the northstar.fly
+    loop, and of taa_edge_inputs at 161x97 (moving, turning,
+    adversarial); the kernel timed over 50 calls on frame 8's inputs.
+    Returns (its row, with the fly and edge runs under paths; the
+    launches of the Renderer frames)."""
+    import torch
+
+    import voidin_tpu_torch as pt
+    from voidin_tpu_torch.framework.renderer import Renderer, build_world
+    from voidin_tpu_torch.passes import taa as t_taa
+    from voidin_tpu_torch.passes.raster import RasterConfig
+
+    cfg = RasterConfig(width=WIDTH, height=HEIGHT, tri_capacity=CAP,
+                       pair_capacity=1 << 20)
+    world, moving = build_world(10_000, seed=0)
+    launches, row, paths = 0, None, {}
+    for label, cam_of, frames in (
+            ("north star", lambda i: north_star_camera(pt), 9),
+            ("northstar.fly", lambda i: fly_camera(pt, i), 3)):
+        r = Renderer(world.device(dev), cfg, moving_ids=moving)
+        reset_launches()
+        calls = taa_calls(lambda i: r.render(cam_of(i)), frames)
+        torch.cuda.synchronize()
+        launches += expect_launches(f"phase 22, {label}", dict(
+            k1=frames, ltc_rect=frames, resolve_dense=frames,
+            **taa_launches(r, frames)))["taa_fused"]
+        if [f for f, _, _ in calls] != list(range(1, frames)):
+            fail(f"{label}: TAA kernel launches in frames "
+                 f"{[f for f, _, _ in calls]}, expected one in each of "
+                 f"frames 1-{frames - 1}")
+        for f, args, kw in calls:
+            last = f == frames - 1 and label == "north star"
+            got = hold_taa_call(f"{label} frame {f}", args, kw, card,
+                                reps=50 if last else 0)
+            row = got or row
+    for kind in ("moving", "turning", "adversarial"):
+        color, depth, history = (torch.from_numpy(a).to(dev) for a in
+                                 taa_edge_inputs(kind, 97, 161))
+        cam = taa_edge_camera(pt, "turning" if kind == "turning"
+                              else "moving", 97, 161)
+        paths[f"161x97 {kind}"] = hold_taa_call(
+            f"161x97 {kind}", (color, depth, history, cam),
+            dict(weights=t_taa.NEIGHBOURHOOD,
+                 twin=t_taa.taa_fused_reference), card, reps=10)
+    print(f"phase 22, the TAA kernel: every launch equal to its twin; "
+          f"{launches} launches in {9 + 3} Renderer frames ({card})",
+          flush=True)
+    return dict(row, paths=paths), launches
 
 
 def avi_frames(data):

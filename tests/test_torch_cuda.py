@@ -20,7 +20,10 @@ coherent resolves against the default path on the card; the quad-block
 samplers' 1080p north-star frames against the default frames; the dense
 resolve kernel against the eager chain it replaces, word for word (the
 benchmark scenes' first 1080p frames, a normal-mapped scene, edge images,
-degenerate triangles, row windows). Marked
+degenerate triangles, row windows); the TAA kernel against the eager
+chain it replaces, word for word (the north star's 1080p frames 0-8 and
+a northstar.fly camera step, odd sizes, a history leaving [0, 1] and one
+with -0.0, NaN and infinite texels). Marked
 `cuda`; they skip where torch sees no CUDA device. On the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -1118,3 +1121,96 @@ def test_resolve_dense_kernel_on_a_row_window(cuda, a, b):
     win = VisBuffer(tri_id=vis.tri_id[a:b], depth=vis.depth[a:b],
                     resolve_rec=vis.resolve_rec, overflow=vis.overflow)
     _assert_dense_kernel_equals_twin(scene, win, row0=a, height=H)
+
+
+# ---------------------------------------------------------------------------
+# The TAA kernel (ops/taa.py taa_resolve_fused) against its twin, the eager
+# chain run on the card
+# ---------------------------------------------------------------------------
+
+
+def _assert_taa_kernel_equals_twin(args, kw):
+    """One launch on `args` (color, depth, history, camera): every word of
+    the twin's image, the launch counted (its cudaGetLastError checked by
+    the wrapper)."""
+    from voidin_tpu_torch.ops import taa as t_taa_op
+
+    n = t_taa_op.LAUNCHES
+    got = t_taa_op.taa_resolve_fused(*args, **kw)
+    want = kw["twin"](*args)
+    torch.cuda.synchronize()
+    assert t_taa_op.LAUNCHES == n + 1
+    g, w = got.view(torch.int32), want.view(torch.int32)
+    assert g.shape == w.shape
+    bad = (g != w).nonzero()
+    assert bad.shape[0] == 0, (
+        f"{bad.shape[0]} words differ, first at {bad[:4].tolist()}: kernel "
+        f"{[float(got[tuple(i)]) for i in bad[:4]]} twin "
+        f"{[float(want[tuple(i)]) for i in bad[:4]]}")
+    return got
+
+
+@pytest.mark.parametrize("path", ["northstar", "northstar.fly"])
+def test_taa_kernel_matches_twin_on_the_frames(cuda, path):
+    """The north star at 1080p (moving instances, TAA jitter) on frames
+    0-8 of the bench camera, or frames 0-2 of the northstar.fly loop:
+    frame 0 launches nothing, every later frame's launch gives the eager
+    chain's words on its own inputs."""
+    from chip_smoke import fly_camera, north_star_camera, taa_calls
+    from voidin_tpu_torch.ops import taa as t_taa_op
+
+    world, moving = build_world(10_000, seed=0)
+    r = Renderer(world.device(cuda), RasterConfig(
+        tri_capacity=1 << 19, pair_capacity=1 << 20, **RESOLVE_1080),
+        moving_ids=moving)
+    frames = 9 if path == "northstar" else 3
+    n = t_taa_op.LAUNCHES
+    calls = taa_calls(lambda i: r.render(
+        north_star_camera(pt) if path == "northstar" else fly_camera(pt, i)),
+        frames)
+    assert [f for f, _, _ in calls] == list(range(1, frames))
+    assert t_taa_op.LAUNCHES == n + frames - 1
+    for _, args, kw in calls:
+        got = _assert_taa_kernel_equals_twin(args, kw)
+        assert torch.isfinite(got).all()
+        assert not torch.equal(got, args[0])  # the history was blended in
+
+
+@pytest.mark.parametrize("kind", ["moving", "turning", "adversarial"])
+@pytest.mark.parametrize("h,w", [(97, 161), (1080, 1920), (4, 9)])
+def test_taa_kernel_on_odd_sizes_and_bad_histories(cuda, kind, h, w):
+    """chip_smoke.taa_edge_inputs at an odd size, at 1080p and at a size
+    under one block: a history whose uv leaves [0, 1] (turning), and
+    one with -0.0, NaN and infinite texels (adversarial)."""
+    from chip_smoke import taa_edge_camera, taa_edge_inputs
+    from voidin_tpu_torch.passes import taa as t_taa
+
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in taa_edge_inputs(kind, h, w))
+    cam = taa_edge_camera(pt, "turning" if kind == "turning" else "moving",
+                          h, w)
+    got = _assert_taa_kernel_equals_twin(
+        (*args, cam), dict(weights=t_taa.NEIGHBOURHOOD,
+                           twin=t_taa.taa_fused_reference))
+    if kind == "adversarial":
+        assert not torch.isfinite(got).all()
+
+
+def test_taa_kernel_refuses_what_it_does_not_read(cuda):
+    from voidin_tpu_torch.ops import taa as t_taa_op
+    from voidin_tpu_torch.passes import taa as t_taa
+
+    color = torch.zeros(8, 16, 3, device=cuda)
+    kw = dict(weights=t_taa.NEIGHBOURHOOD, twin=t_taa.taa_fused_reference)
+    cam = pt.Camera(position=[0.0, 2.0, 0.0], aspect=2.0).uniform()
+    for bad in (dict(depth=torch.zeros(8, 15, device=cuda)),
+                dict(history=color.double()),
+                dict(history=color.cpu()),
+                dict(history=torch.zeros(8, 3, 16,
+                                         device=cuda).transpose(1, 2))):
+        a = dict(color=color, depth=torch.zeros(8, 16, device=cuda),
+                 history=color)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            t_taa_op.taa_resolve_fused(a["color"], a["depth"], a["history"],
+                                       cam, **kw)

@@ -45,8 +45,9 @@ TREE = [("frame", None), ("frame.begin", "frame"), ("update", "frame"),
         ("resolve.fetch", "resolve.kernel"),
         ("resolve.fields", "resolve.kernel"), ("shade", "frame"),
         ("shade.point", "shade"), ("shade.rect", "shade"),
-        ("taa", "frame"), ("taa.reproject", "taa"),
-        ("taa.history", "taa"), ("taa.resolve", "taa"), ("post", "frame"),
+        ("taa", "frame"), ("taa.kernel", "taa"),
+        ("taa.reproject", "taa.kernel"), ("taa.history", "taa.kernel"),
+        ("taa.resolve", "taa.kernel"), ("post", "frame"),
         ("post.tonemap", "post"), ("post.srgb", "post"),
         ("frame.end", "frame")]
 
@@ -117,7 +118,7 @@ def test_on_dispatches_the_operators_of_off():
             profiler.disable()
         ops.append(mode.ops)
     recs = profiler.collect()
-    assert len(recs) > 2 * len(TREE) - 3
+    assert len(recs) > 2 * len(TREE) - 5  # frame 0 has no taa.kernel tree
     assert ops[0] == ops[1]
     assert len(ops[0]) > 100
 
@@ -134,9 +135,10 @@ def test_frame_tree_names_parents_and_frames(scopes_on):
     per_frame = {}
     for d, t in zip(recs, _tree(recs)):
         per_frame.setdefault(d["frame"], []).append(t)
-    # the first frame seeds the history: its TAA reads none
-    assert per_frame[0] == [t for t in TREE
-                            if t[0] not in ("taa.history", "taa.resolve")]
+    # the first frame seeds the history: its TAA reads none and launches
+    # nothing
+    assert per_frame[0] == [t for t in TREE if t[0] not in (
+        "taa.kernel", "taa.reproject", "taa.history", "taa.resolve")]
     assert per_frame[1] == per_frame[2] == TREE
     cuda = torch.cuda.is_available()
     assert all((d["device_ms"] is None) != cuda for d in recs)
@@ -184,7 +186,7 @@ def test_counters_only_when_on():
     recs = profiler.collect()
     assert sorted({k for d in recs for k in d["counters"]}) == sorted([
         "draws", "overflow.setup", "pairs", "tile_max", "overflow.bin",
-        "overflow.taa", "covered_px", "resolve.kernel_px"])
+        "overflow.taa", "covered_px", "resolve.kernel_px", "taa.kernel_px"])
     assert all(type(v) is int for d in recs for v in d["counters"].values())
     last = {}
     for d in recs:
@@ -278,7 +280,7 @@ def test_frames_bit_identical_with_scopes_on_and_off():
         finally:
             profiler.disable()
         outs.append((imgs, r.state.history.clone()))
-    assert len(profiler.collect()) > 3 * len(TREE) - 3
+    assert len(profiler.collect()) > 3 * len(TREE) - 5
     (a, ha), (b, hb) = outs
     for x, y in zip(a, b):
         assert torch.equal(x, y)

@@ -170,7 +170,8 @@ def print_table(rows: List[Tuple[str, float]]):
 #           raster (raster.setup, raster.bin, raster.k1, raster.untile),
 #           resolve (resolve.fetch, resolve.fields, resolve.fallback),
 #           shade (shade.point, shade.rect, shade.rays, shade.ring),
-#           taa (taa.reproject, taa.history, taa.resolve),
+#           taa (taa.kernel, or the chain's taa.reproject, taa.history,
+#           taa.resolve; on the CPU they open inside taa.kernel),
 #           post (post.tonemap, post.srgb), frame.end
 #
 # Off (the default) scope() reads ON and returns one shared null context: no

@@ -373,6 +373,8 @@ def _render_frame_sharded(scene, camera, globals_, state, moving_ids, config,
                         color_w, hist[dev], motion, row0=bounds[d][0] - top,
                         quads=quads[dev])
                     outs.append(out[top:top + hdrs[d].shape[0]])
+                    profiler.count("taa.eager_px",
+                                   outs[-1].shape[0] * outs[-1].shape[1])
                 hdrs = outs
             # the history after every slab has read it
             for (r0, r1), out in zip(bounds, hdrs):

@@ -159,6 +159,8 @@ def load() -> ctypes.CDLL:
         lib.voidin_closest_hit_attrs.argtypes = [p]
         lib.voidin_resolve_dense.restype = i
         lib.voidin_resolve_dense.argtypes = [p, p, i, p]
+        lib.voidin_taa.restype = i
+        lib.voidin_taa.argtypes = [p, p, i, i, p]
         for fn in (lib.voidin_skin_pose, lib.voidin_blas_refit,
                    lib.voidin_tlas_refit):
             fn.restype = i

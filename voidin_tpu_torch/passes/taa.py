@@ -19,6 +19,11 @@ and non-finite texels), or from each pixel's 5x5 window (taa_inwindow,
 fast movers per 8x8 block through a compacted batch). Each gives the
 default fetch's words while its batch holds (the einsum select aside).
 
+The default fetch on the whole image (takes_taa_kernel) runs as one
+launch of ops/taa.py taa_resolve_fused on the card, with the chain's
+words; its twin on the CPU is this module's chain (taa_fused_reference).
+The quad-block and in-window fetches keep the eager chain.
+
 The port writes the resolved image into the history buffer IN PLACE
 (FrameState.history.copy_): one full-resolution buffer carried across
 frames instead of a new one per frame. ``reproject`` and ``taa_resolve``
@@ -34,6 +39,8 @@ import torch
 from ..core import fastmath
 from ..core.color import rgb_to_ycbcr, ycbcr_to_rgb
 from ..framework import profiler
+from ..ops import taa as taa_op
+from .gbuffer import GBuffer
 from .shading import _pixel_ndc, pixel_rows, world_position_from_depth
 
 
@@ -68,6 +75,14 @@ def _mitchell_weight_np(x: float) -> float:
             + (8 * B + 24 * C)
         ) / 6.0
     return 0.0
+
+
+# the 3x3 neighbourhood of taa_resolve in its order (rows, then columns):
+# (dy, dx, Gaussian weight, Mitchell-Netravali weight), Python floats
+NEIGHBOURHOOD = tuple(
+    (dy, dx, float(np.exp(-3.0 * (dx * dx + dy * dy) / 4.0)),
+     _mitchell_weight_np(np.sqrt(dx * dx + dy * dy)))
+    for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
 
 def history_quads(img):
@@ -341,17 +356,14 @@ def taa_resolve(color, history, motion, row0: int = 0, quads=None,
         wsum = 0.0
         mn_sum = torch.zeros_like(color)
         mn_wsum = 0.0
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                shifted = _shift(color, dy, dx)
-                neigh = rgb_to_ycbcr(shifted)
-                w = float(np.exp(-3.0 * (dx * dx + dy * dy) / 4.0))
-                vsum = vsum + neigh * w
-                vsum2 = vsum2 + neigh * neigh * w
-                wsum += w
-                wt = _mitchell_weight_np(np.sqrt(dx * dx + dy * dy))
-                mn_sum = mn_sum + shifted * wt
-                mn_wsum += wt
+        for dy, dx, w, wt in NEIGHBOURHOOD:
+            shifted = _shift(color, dy, dx)
+            neigh = rgb_to_ycbcr(shifted)
+            vsum = vsum + neigh * w
+            vsum2 = vsum2 + neigh * neigh * w
+            wsum += w
+            mn_sum = mn_sum + shifted * wt
+            mn_wsum += wt
 
         ex = vsum / wsum
         ex2 = vsum2 / wsum
@@ -388,23 +400,54 @@ def taa_resolve(color, history, motion, row0: int = 0, quads=None,
         return ycbcr_to_rgb(result), overflow
 
 
+def taa_fused_reference(color, depth, history, camera):
+    """The plain twin of ops/taa.py taa_resolve_fused: reproject ->
+    taa_resolve with the per-pixel fetch, the chain itself."""
+    with profiler.scope("taa.reproject"):
+        motion = reproject(GBuffer(normal_uv=None, material=None,
+                                   depth=depth), camera)
+    return taa_resolve(color, history, motion)[0]
+
+
+def takes_taa_kernel(quad_history: bool, inwindow: bool) -> bool:
+    """Whether taa() resolves through the one-launch TAA (ops/taa.py
+    taa_resolve_fused): a static test of the fetch options. The
+    quad-block and in-window fetches keep the eager chain, whose
+    compacted batches and overflow counts are their own."""
+    return not (quad_history or inwindow)
+
+
 @profiler.scoped("taa")
 def taa(color, gbuffer, camera, state, quad_history=False, edge_capacity=0,
         inwindow=False, block_capacity=0, quad_select="einsum"):
     """Full TAA pass; returns (resolved color, state, the history fetch's
     overflow). The resolved image is written into state.history in place.
     The fetch options are taa_resolve's. The first frame reads no history
-    (it seeds it), so its overflow is 0."""
-    with profiler.scope("taa.reproject"):
-        motion = reproject(gbuffer, camera)
+    (it seeds it with the frame): it launches nothing, and its overflow
+    is 0.
+
+    The default fetch (takes_taa_kernel) resolves in one launch of
+    ops/taa.py taa_resolve_fused (the profiler's scope taa.kernel), with
+    the chain's words; the profiler's counters taa.kernel_px and
+    taa.eager_px count the pixels each way resolved."""
+    H, W = color.shape[:2]
     overflow = torch.zeros((), dtype=torch.int64, device=color.device)
-    if state.history_valid:
+    if not state.history_valid:
+        out = color
+    elif takes_taa_kernel(quad_history, inwindow):
+        profiler.count("taa.kernel_px", H * W)
+        with profiler.scope("taa.kernel"):
+            out = taa_op.taa_resolve_fused(
+                color, gbuffer.depth, state.history, camera,
+                weights=NEIGHBOURHOOD, twin=taa_fused_reference)
+    else:
+        with profiler.scope("taa.reproject"):
+            motion = reproject(gbuffer, camera)
+        profiler.count("taa.eager_px", H * W)
         out, overflow = taa_resolve(
             color, state.history, motion, quad_history=quad_history,
             edge_capacity=edge_capacity, inwindow=inwindow,
             block_capacity=block_capacity, quad_select=quad_select)
-    else:
-        out = color
     state.history.copy_(out)
     state.history_valid = True
     profiler.count("overflow.taa", overflow)
